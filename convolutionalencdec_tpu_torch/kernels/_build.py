@@ -1,0 +1,102 @@
+"""Build and load the package's CUDA kernels.
+
+At first use, `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into
+one shared library with a plain C interface under
+`convolutionalencdec_tpu_torch/build/` (git-ignored), and loaded with
+`ctypes`.  A library newer than every source is reused.  Importing this
+module builds and loads nothing, so the package imports on a machine with
+no CUDA toolkit.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+LIBRARY = BUILD_DIR / "libconvenc_kernels.so"
+BUILD_LOG = BUILD_DIR / "build.log"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# name -> argtypes, in the order of the C signatures in csrc/.
+SIGNATURES = {
+    # seg, cb, init, decs, final_metrics, B, T, NS, n, init_value, stream
+    "acs_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # decs, out, B, T_stride, t_actual, NS, S, message_bits, emit_bytes, stream
+    "traceback_k1": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: under torch's CUDA_HOME, else on PATH."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        candidate = Path(CUDA_HOME) / "bin" / "nvcc"
+        if candidate.is_file():
+            return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (neither under torch's CUDA_HOME nor on PATH): "
+            "the CUDA kernels of convolutionalencdec_tpu_torch cannot be built")
+    return found
+
+
+def build() -> float:
+    """Compile csrc/*.cu into LIBRARY unless it is newer than every source.
+    Returns the seconds spent compiling (0.0 when the library was reused).
+    The compiler's output (with `-Xptxas -v` register and spill counts) is
+    kept in BUILD_LOG."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    newest = max(p.stat().st_mtime for p in sources)
+    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build under a private name and rename, so that concurrent builders
+    # never load a half-written library.
+    tmp = BUILD_DIR / f".{LIBRARY.name}.{os.getpid()}"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, with argtypes and restype set."""
+    build()
+    lib = ctypes.CDLL(str(LIBRARY))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        text = library().cuda_error_string(code).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {code} ({text})")

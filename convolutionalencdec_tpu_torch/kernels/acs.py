@@ -1,0 +1,213 @@
+"""Forward ACS and traceback of the hard-decision k=1 block decode.
+
+Two wrappers, each with its plain PyTorch version beside it:
+
+  * `acs_forward_batch` launches `csrc/acs_k1.cu` (replaces the TPU kernel
+    `acs_forward_batch_swar`, convolutionalencdec_tpu/kernels/acs_swar.py);
+  * `traceback_batch` launches `csrc/traceback_k1.cu` (replaces
+    `traceback_batch_swar`, same file).
+
+A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
+tensor it launches its kernel or raises: nothing falls back.  `LAUNCHES`
+counts the launches of each kernel.
+
+Decision words: int32 [B, T, W] with W = NS/32.  The decision of state
+s = 2b + p (butterfly b, parity p) is bit i % 32 of word i / 32, with
+i = p * NS/2 + b: the even states' decisions fill the first W/2 words, the
+odd states' the rest, each in butterfly order.  Both the kernel and the
+plain version produce the same words.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..ops.trellis import butterfly_coded_bits
+from ..ops.viterbi import (init_metric_value, pad_and_pack,
+                           traceback_terminated, viterbi_forward_butterfly)
+from ..params import CodeSpec
+
+#: Launches of each kernel since the count was last set to 0.
+LAUNCHES = {"acs_k1_forward": 0, "traceback_k1": 0}
+
+#: Bit weights of one decision word: bit 31 weighs -2^31 in int32, so the
+#: int32 sum of a word's bits is exact and equals the word's two's
+#: complement value.
+_WORD_WEIGHTS = [1 << j for j in range(31)] + [-(1 << 31)]
+
+
+def kernel_supports(spec: CodeSpec) -> bool:
+    """Whether the two kernels decode this spec: k = 1 with poly symmetry,
+    64 <= NS <= 256 and n <= 8 (a segment is one byte)."""
+    return (spec.k == 1 and spec.has_poly_symmetry
+            and spec.num_states in (64, 128, 256) and spec.n <= 8)
+
+
+def pack_decisions(spec: CodeSpec, decisions: torch.Tensor) -> torch.Tensor:
+    """uint8 [B, T, NS] decisions in state order -> int32 [B, T, NS/32]
+    decision words (the layout in the module docstring)."""
+    B, T, NS = decisions.shape
+    by_index = torch.cat([decisions[..., 0::2], decisions[..., 1::2]], dim=-1)
+    bits = by_index.reshape(B, T, NS // 32, 32).to(torch.int32)
+    weights = torch.tensor(_WORD_WEIGHTS, dtype=torch.int32,
+                           device=decisions.device)
+    return (bits * weights).sum(dim=-1, dtype=torch.int32)
+
+
+def unpack_decisions(spec: CodeSpec, words: torch.Tensor) -> torch.Tensor:
+    """int32 [B, T, NS/32] decision words -> uint8 [B, T, NS] decisions in
+    state order."""
+    B, T, W = words.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    by_index = ((words[..., None] >> shifts) & 1).reshape(B, T, W * 32)
+    half = W * 16
+    return torch.stack([by_index[..., :half], by_index[..., half:]],
+                       dim=-1).reshape(B, T, W * 32).to(torch.uint8)
+
+
+def _check_kernel_spec(spec: CodeSpec) -> None:
+    if not kernel_supports(spec):
+        raise NotImplementedError(
+            f"no CUDA kernel decodes {spec}: the hard k=1 kernels take "
+            "poly-symmetric codes with 64 <= NS <= 256; other codes wait for "
+            "the generic-k kernel (ROADMAP.md queue 1 item 12, TPU kernel K9)"
+            " or the NS < 64 instantiation (queue 2, K12)")
+
+
+def _check_device(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"tensors on {t.device} are not supported")
+
+
+@functools.lru_cache(maxsize=None)
+def _butterfly_table(spec: CodeSpec, device: torch.device) -> torch.Tensor:
+    """int32 [NS/2] butterfly coded segments, resident on `device`."""
+    return torch.as_tensor(butterfly_coded_bits(spec), dtype=torch.int32,
+                           device=device)
+
+
+def acs_forward_batch_plain(spec: CodeSpec, segments: torch.Tensor,
+                            initial_metrics: torch.Tensor | None = None):
+    """Plain version of `acs_forward_batch`: the reference butterfly scan,
+    its decisions packed into words."""
+    decisions, final_metrics = viterbi_forward_butterfly(
+        spec, segments, initial_metrics)
+    return pack_decisions(spec, decisions), final_metrics
+
+
+def acs_forward_batch(spec: CodeSpec, segments: torch.Tensor,
+                      initial_metrics: torch.Tensor | None = None):
+    """Forward butterfly ACS of a batch of hard-decision packets.
+
+    Replaces the TPU kernel `acs_forward_batch_swar`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:815, pallas_call :847).
+
+    Args:
+      segments: uint8 [B, T] hard n-bit segments, contiguous.
+      initial_metrics: optional int32 [B, NS] starting metrics (default 0 at
+        state 0 and `init_metric_value(spec)` elsewhere).
+
+    Returns:
+      (decisions int32 [B, T, NS/32] words, final_metrics int32 [B, NS] in
+      natural state order).
+    """
+    if segments.dtype != torch.uint8 or segments.dim() != 2:
+        raise ValueError("segments must be uint8 [B, T]")
+    _check_kernel_spec(spec)
+    if not _check_device(segments):
+        return acs_forward_batch_plain(spec, segments, initial_metrics)
+    B, T = segments.shape
+    NS = spec.num_states
+    if T * spec.n >= 2 ** 31:
+        raise ValueError(f"T = {T} overflows int32 path metrics")
+    segments = segments.contiguous()
+    if initial_metrics is not None:
+        if (initial_metrics.shape != (B, NS)
+                or initial_metrics.dtype != torch.int32
+                or initial_metrics.device != segments.device):
+            raise ValueError("initial_metrics must be int32 [B, NS] on the "
+                             "segments' device")
+        initial_metrics = initial_metrics.contiguous()
+    decisions = torch.empty((B, T, NS // 32), dtype=torch.int32,
+                            device=segments.device)
+    final_metrics = torch.empty((B, NS), dtype=torch.int32,
+                                device=segments.device)
+    if B == 0:
+        return decisions, final_metrics
+    from . import _build
+    lib = _build.library()
+    cb = _butterfly_table(spec, segments.device)
+    code = lib.acs_k1_forward(
+        segments.data_ptr(), cb.data_ptr(),
+        None if initial_metrics is None else initial_metrics.data_ptr(),
+        decisions.data_ptr(), final_metrics.data_ptr(),
+        B, T, NS, spec.n, init_metric_value(spec),
+        torch.cuda.current_stream(segments.device).cuda_stream)
+    LAUNCHES["acs_k1_forward"] += 1
+    _build.check("acs_k1_forward", code)
+    return decisions, final_metrics
+
+
+def traceback_batch_plain(spec: CodeSpec, decisions: torch.Tensor,
+                          t_actual: int, message_bits: int,
+                          out: str = "bytes") -> torch.Tensor:
+    """Plain version of `traceback_batch`: unpack the words and run the
+    reference traceback."""
+    dec = unpack_decisions(spec, decisions[:, :t_actual])
+    bits = traceback_terminated(spec, dec)[:, :message_bits]
+    return pad_and_pack(bits) if out == "bytes" else bits
+
+
+def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
+                    message_bits: int, out: str = "bytes") -> torch.Tensor:
+    """Traceback from terminal state 0 over decision words.
+
+    Replaces the TPU kernel `traceback_batch_swar`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:863, pallas_call :877;
+    `msb_first=True` for bytes).
+
+    Args:
+      decisions: int32 [B, T, NS/32] words from `acs_forward_batch`.
+      t_actual: steps of the packet (<= T); the walk starts at t_actual - 1.
+      message_bits: decoded bits to keep, at most t_actual - S.
+      out: "bytes" for uint8 [B, ceil(message_bits/8)] (MSb-first, trailing
+        byte zero-padded) or "bits" for uint8 [B, message_bits].
+    """
+    if out not in ("bytes", "bits"):
+        raise ValueError(f"out must be 'bytes' or 'bits', got {out!r}")
+    if decisions.dtype != torch.int32 or decisions.dim() != 3:
+        raise ValueError("decisions must be int32 [B, T, W]")
+    B, T, W = decisions.shape
+    if W * 32 != spec.num_states:
+        raise ValueError(f"{W} decision words per step do not match "
+                         f"NS = {spec.num_states}")
+    if not 0 <= t_actual <= T:
+        raise ValueError(f"t_actual = {t_actual} outside [0, {T}]")
+    if not 0 <= message_bits <= t_actual - spec.S:
+        raise ValueError(f"message_bits = {message_bits} outside "
+                         f"[0, t_actual - S = {t_actual - spec.S}]")
+    _check_kernel_spec(spec)
+    if not _check_device(decisions):
+        return traceback_batch_plain(spec, decisions, t_actual, message_bits,
+                                     out)
+    decisions = decisions.contiguous()
+    width = (message_bits + 7) // 8 if out == "bytes" else message_bits
+    result = torch.empty((B, width), dtype=torch.uint8,
+                         device=decisions.device)
+    if B == 0:
+        return result
+    from . import _build
+    lib = _build.library()
+    code = lib.traceback_k1(
+        decisions.data_ptr(), result.data_ptr(), B, T, t_actual,
+        spec.num_states, spec.S, message_bits, int(out == "bytes"),
+        torch.cuda.current_stream(decisions.device).cuda_stream)
+    LAUNCHES["traceback_k1"] += 1
+    _build.check("traceback_k1", code)
+    return result

@@ -1,0 +1,206 @@
+"""Plain reference Viterbi decoders, batched over a leading B dimension.
+
+Port of `convolutionalencdec_tpu/ops/viterbi.py` (block decoders).  These
+are the port's ground truth and the plain versions of the two kernels in
+`kernels/acs.py`: a Python loop over time steps, tensor ops over the batch
+and the states.  They run on whatever device their inputs live on.
+
+Metric conventions match the JAX package exactly: initial metrics are 0 for
+state 0 and `init_metric_value(spec)` for the rest, ties keep the lowest
+decision index (the butterfly decides 1 only when strictly a0 > a1), and
+int32 metrics are never renormalized (exact for any T below 2^31 / n).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..params import CodeSpec
+from .bits import pack_bits
+from .trellis import butterfly_coded_bits, edge_coded_bits, prev_state_table
+
+
+def init_metric_value(spec: CodeSpec) -> int:
+    """Initial path metric for states other than starting_state.  The same
+    value as the JAX package's, so that early decisions agree."""
+    return min(spec.num_states + 1, max(64, spec.n * spec.S + 2))
+
+
+def _initial_metrics(spec: CodeSpec, B: int, initial_metrics, device):
+    """int32 [B, NS] starting metrics: the known-start default, or the
+    caller's [NS] or [B, NS] metrics."""
+    NS = spec.num_states
+    if initial_metrics is None:
+        init = torch.full((B, NS), init_metric_value(spec), dtype=torch.int32,
+                          device=device)
+        init[:, spec.starting_state] = 0
+        return init
+    init = torch.as_tensor(initial_metrics, dtype=torch.int32, device=device)
+    return init.expand(B, NS).clone()
+
+
+def _hamming_table(spec: CodeSpec, coded: np.ndarray) -> np.ndarray:
+    """int32 [2^n, *coded.shape]: Hamming distance between every possible
+    received segment and each coded segment."""
+    c = np.arange(1 << spec.n, dtype=np.uint8).reshape((-1,) + (1,) * coded.ndim)
+    x = np.bitwise_xor(c, coded[None])
+    table = np.zeros(x.shape, dtype=np.int32)
+    for j in range(spec.n):
+        table += (x >> j) & 1
+    return table
+
+
+def hard_step_metrics(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
+    """Branch metrics of hard n-bit segments [..., T]: int32
+    [..., T, 2^k, NS], entry [t, u, s] the Hamming distance between segment t
+    and the coded bits of edge (src=s, input=u)."""
+    segments = torch.as_tensor(segments)
+    table = torch.as_tensor(_hamming_table(spec, edge_coded_bits(spec)),
+                            device=segments.device)
+    return table[segments.long()]
+
+
+def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor):
+    """Generic any-k ACS recurrence over branch metrics.
+
+    Args:
+      step_metrics: int32 [B, T, 2^k, NS]; entry [b, t, u, s] is the cost of
+        leaving state s on the input-u edge at step t.
+
+    Returns:
+      (decisions uint8 [B, T, NS], final_metrics int32 [B, NS]):
+      decisions[b, t, d] is the chosen decision index e (the k shifted-out
+      bits of the chosen source); the lowest e wins ties.
+    """
+    step_metrics = torch.as_tensor(step_metrics, dtype=torch.int32)
+    B, T = step_metrics.shape[:2]
+    NS, E = spec.num_states, spec.num_edges_per_state
+    dev = step_metrics.device
+    prev = torch.as_tensor(prev_state_table(spec), dtype=torch.long,
+                           device=dev)                                # [E, NS]
+    u_of_dst = torch.arange(NS, device=dev) & (E - 1)
+    bm_idx = u_of_dst[None, :] * NS + prev                            # [E, NS]
+
+    m = _initial_metrics(spec, B, None, dev)
+    decisions = torch.empty((B, T, NS), dtype=torch.uint8, device=dev)
+    for t in range(T):
+        pm = m[:, prev] + step_metrics[:, t].reshape(B, E * NS)[:, bm_idx]
+        best = pm[:, 0]
+        dec = torch.zeros((B, NS), dtype=torch.uint8, device=dev)
+        for e in range(1, E):
+            better = pm[:, e] < best
+            best = torch.where(better, pm[:, e], best)
+            dec = torch.where(better, e, dec)
+        decisions[:, t] = dec
+        m = best
+    return decisions, m
+
+
+def viterbi_forward_butterfly(spec: CodeSpec, segments: torch.Tensor,
+                              initial_metrics=None):
+    """k=1 butterfly ACS with the poly-symmetry single-edge-metric trick.
+
+    Butterfly b has sources {b, b + NS/2} and destinations {2b, 2b+1}.  With
+    every generator tapping both the newest and the oldest bit, the four
+    edge metrics are one Hamming distance m and its complement n - m:
+
+        dst 2b   (u=0):  src b costs m,      src b+NS/2 costs n-m
+        dst 2b+1 (u=1):  src b costs n-m,    src b+NS/2 costs m
+
+    Args:
+      segments: uint8 [B, T] hard segments.
+      initial_metrics: optional int32 [NS] or [B, NS] starting metrics.
+
+    Returns (decisions uint8 [B, T, NS], final_metrics int32 [B, NS]),
+    decisions bit-identical to `viterbi_forward`.
+    """
+    spec.validate_for_butterfly()
+    segments = torch.as_tensor(segments, dtype=torch.uint8)
+    B, T = segments.shape
+    NS, half = spec.num_states, spec.num_states // 2
+    dev = segments.device
+    em_table = torch.as_tensor(
+        _hamming_table(spec, butterfly_coded_bits(spec)), device=dev)  # [2^n, half]
+    seg = segments.long()
+
+    m = _initial_metrics(spec, B, initial_metrics, dev)
+    decisions = torch.empty((B, T, NS), dtype=torch.uint8, device=dev)
+    for t in range(T):
+        em = em_table[seg[:, t]]                                       # [B, half]
+        emc = spec.n - em
+        m_lo, m_hi = m[:, :half], m[:, half:]
+        a0, a1 = m_lo + em, m_hi + emc
+        b0, b1 = m_lo + emc, m_hi + em
+        decisions[:, t] = torch.stack([a0 > a1, b0 > b1], dim=2).reshape(B, NS)
+        m = torch.stack([torch.minimum(a0, a1), torch.minimum(b0, b1)],
+                        dim=2).reshape(B, NS)
+    return decisions, m
+
+
+def traceback_terminated(spec: CodeSpec,
+                         decisions: torch.Tensor) -> torch.Tensor:
+    """Block traceback over terminated packets.
+
+    Walks backward from the known terminal state 0, reconstructing sources
+    via ``src = (dst >> k) | (decision << (S-1)*k)`` and emitting the k
+    input bits ``dst & (2^k - 1)`` per step; the last S steps are
+    termination padding and emit nothing.
+
+    Args:
+      decisions: uint8 [B, T, NS] decision indices.
+
+    Returns uint8 [B, (T - S) * k] decoded bits, MSb of each k-bit symbol
+    first.
+    """
+    decisions = torch.as_tensor(decisions, dtype=torch.uint8)
+    B, T, _ = decisions.shape
+    E = spec.num_edges_per_state
+    shift = (spec.S - 1) * spec.k
+    dev = decisions.device
+    rows = torch.arange(B, device=dev)
+    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    us = torch.empty((B, T), dtype=torch.long, device=dev)
+    for t in range(T - 1, -1, -1):
+        e = decisions[rows, t, cur].long()
+        us[:, t] = cur & (E - 1)
+        cur = (cur >> spec.k) | (e << shift)
+    us = us[:, : T - spec.S]
+    bit_idx = torch.arange(spec.k - 1, -1, -1, device=dev)
+    return ((us[..., None] >> bit_idx) & 1).to(torch.uint8).reshape(B, -1)
+
+
+def viterbi_decode(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
+    """Hard-decision block decode of terminated packets.
+
+    Takes the butterfly formulation when k == 1 and the generators have
+    poly symmetry, else the generic decoder.
+
+    Args:
+      segments: uint8 [B, T] hard n-bit segments (T = L/k + S).
+    Returns uint8 [B, (T - S) * k] decoded bits.
+    """
+    if spec.has_poly_symmetry:
+        decisions, _ = viterbi_forward_butterfly(spec, segments)
+    else:
+        decisions, _ = viterbi_forward(spec, hard_step_metrics(spec, segments))
+    return traceback_terminated(spec, decisions)
+
+
+def pad_and_pack(bits: torch.Tensor) -> torch.Tensor:
+    """uint8 bits [B, L] -> uint8 bytes [B, ceil(L/8)], MSb-first with a
+    zero-padded trailing byte."""
+    pad = (-bits.shape[-1]) % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    return pack_bits(bits)
+
+
+def viterbi_decode_bytes(spec: CodeSpec, segments: torch.Tensor,
+                         message_bits: int | None = None) -> torch.Tensor:
+    """Hard-decision block decode to packed bytes: the first `message_bits`
+    decoded bits (default all (T - S) * k) fill bytes MSb-first; a trailing
+    partial byte is zero-padded.  Returns uint8 [B, ceil(L / 8)]."""
+    bits = viterbi_decode(spec, segments)
+    L = message_bits if message_bits is not None else bits.shape[-1]
+    return pad_and_pack(bits[:, :L])

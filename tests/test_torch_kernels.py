@@ -1,0 +1,237 @@
+"""The port's kernel wrappers and batch entry points on the CPU.
+
+A CPU tensor takes each wrapper's plain version; the CUDA kernels
+themselves run only on the card (chip_smoke.py compares them with these
+plain versions there).  Here the plain route is held against the JAX
+package: its Pallas kernels in interpret mode (two calls, they are slow on
+a CPU) and its scan decoders for the other presets.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import convolutionalencdec_tpu as ref
+from convolutionalencdec_tpu import kernels as ref_kernels
+from convolutionalencdec_tpu.ops import viterbi as ref_viterbi
+
+import convolutionalencdec_tpu_torch as port
+from convolutionalencdec_tpu_torch import kernels
+from convolutionalencdec_tpu_torch.kernels import _build, acs
+
+KERNEL_PRESETS = ["NASA_K7", "REF_K7", "NASA_K7_R13", "LTE_TBCC_K7",
+                  "K9_561_753"]
+K3K2 = dict(K=3, k=2, g=(0o17, 0o06, 0o13))
+
+
+def _specs(name):
+    if name == "K3k2":
+        return ref.CodeSpec(**K3K2), port.CodeSpec(**K3K2)
+    return getattr(ref, name), port.PRESETS[name]
+
+
+def _noisy(spec, B, L, p, seed):
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
+    coded = port.encode_bits(spec, torch.from_numpy(msgs))[0].numpy().copy()
+    flip = rng.random(coded.shape) < p
+    coded ^= (flip * rng.integers(1, 1 << spec.n, coded.shape)).astype(np.uint8)
+    return msgs, coded
+
+
+@pytest.mark.parametrize("name", ["NASA_K7", "NASA_K7_R13"])
+def test_batch_decode_matches_interpreted_pallas_kernels(name):
+    """One interpret-mode call of the JAX kernels K1/K2 per spec."""
+    ref_spec, spec = _specs(name)
+    B, L = 8, 100
+    _, coded = _noisy(spec, B, L, 0.05, 17)
+    want = np.asarray(ref_kernels.viterbi_decode_batch_bytes(
+        ref_spec, coded, interpret=True))
+    seg = torch.from_numpy(coded)
+    got = kernels.viterbi_decode_batch_bytes(spec, seg)
+    np.testing.assert_array_equal(got.numpy(), want)
+    bits = kernels.viterbi_decode_batch(spec, seg)
+    np.testing.assert_array_equal(bits.numpy(),
+                                  np.unpackbits(want, axis=1)[:, :L])
+
+
+@pytest.mark.parametrize("p", [0.03, 0.25])
+@pytest.mark.parametrize("name", ["REF_K7", "LTE_TBCC_K7", "K9_561_753",
+                                  "TOY_K3", "K5_23_35", "K3k2"])
+def test_batch_decode_matches_scan(name, p):
+    ref_spec, spec = _specs(name)
+    B, L = 5, 58
+    _, coded = _noisy(spec, B, L, p, 23)
+    seg = torch.from_numpy(coded)
+    want_bits = np.asarray(
+        jax.vmap(lambda c: ref.viterbi_decode(ref_spec, c))(coded))
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch(spec, seg).numpy(), want_bits)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch(spec, seg, 40).numpy(), want_bits[:, :40])
+    for mb in (L, 48):
+        want = np.asarray(jax.vmap(
+            lambda c: ref.viterbi_decode_bytes(ref_spec, c, mb))(coded))
+        np.testing.assert_array_equal(
+            kernels.viterbi_decode_batch_bytes(spec, seg, mb).numpy(), want)
+
+
+@pytest.mark.parametrize("p", [0.03, 0.25])
+@pytest.mark.parametrize("name", KERNEL_PRESETS)
+def test_kernel_wrappers_plain_route_match_reference(name, p):
+    """acs_forward_batch / traceback_batch on CPU tensors: decisions, final
+    metrics, bits and bytes equal to the JAX scans."""
+    ref_spec, spec = _specs(name)
+    B, L = 3, 61
+    _, coded = _noisy(spec, B, L, p, 29)
+    seg = torch.from_numpy(coded)
+    T = coded.shape[1]
+    want_d, want_m = jax.vmap(
+        lambda c: ref_viterbi.viterbi_forward_butterfly(ref_spec, c))(coded)
+    words, fm = acs.acs_forward_batch(spec, seg)
+    assert words.dtype == torch.int32 and words.shape == (B, T,
+                                                          spec.num_states // 32)
+    np.testing.assert_array_equal(acs.unpack_decisions(spec, words).numpy(),
+                                  np.asarray(want_d))
+    np.testing.assert_array_equal(fm.numpy(), np.asarray(want_m))
+    assert torch.equal(acs.pack_decisions(spec, torch.from_numpy(
+        np.array(want_d))), words)
+
+    want_bits = np.asarray(jax.vmap(
+        lambda d: ref_viterbi.traceback_terminated(ref_spec, d))(want_d))
+    for mb in (L, 56, 13):
+        bits = acs.traceback_batch(spec, words, T, mb, out="bits")
+        np.testing.assert_array_equal(bits.numpy(), want_bits[:, :mb])
+        data = acs.traceback_batch(spec, words, T, mb, out="bytes")
+        padded = np.zeros((B, 8 * ((mb + 7) // 8)), np.uint8)
+        padded[:, :mb] = want_bits[:, :mb]
+        np.testing.assert_array_equal(data.numpy(), np.packbits(padded, axis=1))
+
+    # The carried-metrics seam.
+    start = np.random.default_rng(2).integers(
+        0, 20, (B, spec.num_states)).astype(np.int32)
+    want_d, want_m = jax.vmap(lambda c, i: ref_viterbi.viterbi_forward_butterfly(
+        ref_spec, c, i))(coded, start)
+    words, fm = acs.acs_forward_batch(spec, seg, torch.from_numpy(start))
+    np.testing.assert_array_equal(acs.unpack_decisions(spec, words).numpy(),
+                                  np.asarray(want_d))
+    np.testing.assert_array_equal(fm.numpy(), np.asarray(want_m))
+
+
+@pytest.mark.parametrize("name", KERNEL_PRESETS)
+def test_decision_word_layout(name):
+    """State s = 2b + p sits at bit i % 32 of word i // 32,
+    i = p * NS/2 + b; bit 31 makes the int32 word negative."""
+    spec = port.PRESETS[name]
+    NS = spec.num_states
+    one_hot = torch.eye(NS, dtype=torch.uint8).reshape(1, NS, NS)
+    words = acs.pack_decisions(spec, one_hot)[0]          # [NS steps, W]
+    for s in range(NS):
+        i = (s >> 1) + (s & 1) * NS // 2
+        expect = torch.zeros(NS // 32, dtype=torch.int64)
+        expect[i // 32] = 1 << (i % 32)
+        got = words[s].to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(got, expect), s
+    assert torch.equal(acs.unpack_decisions(spec, words[None]), one_hot)
+
+
+def test_select_kernel_routes():
+    expected = {"NASA_K7": kernels.BUTTERFLY, "REF_K7": kernels.BUTTERFLY,
+                "NASA_K7_R13": kernels.BUTTERFLY,
+                "LTE_TBCC_K7": kernels.BUTTERFLY,
+                "K9_561_753": kernels.BUTTERFLY, "TOY_K3": kernels.GENERIC,
+                "K5_23_35": kernels.GENERIC}
+    assert set(expected) == set(port.PRESETS)
+    for name, route in expected.items():
+        assert kernels.select_kernel(port.PRESETS[name]) == route, name
+    assert kernels.select_kernel(port.CodeSpec(**K3K2)) == kernels.GENERIC
+    # K=8 (128 states) rides the kernels; an asymmetric K=7 code does not.
+    assert kernels.select_kernel(
+        port.CodeSpec(K=8, g=(0o247, 0o371))) == kernels.BUTTERFLY
+    assert kernels.select_kernel(
+        port.CodeSpec(K=7, g=(0o134, 0o171))) == kernels.GENERIC
+    with pytest.raises(NotImplementedError, match="soft"):
+        kernels.select_kernel(port.NASA_K7, mode="soft")
+
+
+def test_cpu_tensors_launch_no_kernel():
+    for key in acs.LAUNCHES:
+        acs.LAUNCHES[key] = 0
+    _, coded = _noisy(port.NASA_K7, 2, 40, 0.03, 31)
+    seg = torch.from_numpy(coded)
+    kernels.viterbi_decode_batch_bytes(port.NASA_K7, seg)
+    kernels.viterbi_decode_batch(port.NASA_K7, seg)
+    words, _ = acs.acs_forward_batch(port.NASA_K7, seg)
+    acs.traceback_batch(port.NASA_K7, words, seg.shape[1], 40)
+    assert acs.LAUNCHES == {"acs_k1_forward": 0, "traceback_k1": 0}
+
+
+def test_no_fallback_off_the_cpu():
+    """A tensor off the CPU goes to a kernel or raises; it is never decoded
+    by the plain version or moved to the CPU."""
+    meta = torch.empty((2, 40), dtype=torch.uint8, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.viterbi_decode_batch(port.TOY_K3, meta)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.viterbi_decode_batch_bytes(port.CodeSpec(**K3K2), meta)
+    with pytest.raises(ValueError, match="not supported"):
+        kernels.viterbi_decode_batch_bytes(port.NASA_K7, meta)
+    with pytest.raises(NotImplementedError):
+        acs.acs_forward_batch(port.TOY_K3,
+                              torch.zeros((2, 40), dtype=torch.uint8))
+
+
+def test_wrappers_reject_bad_arguments():
+    spec = port.NASA_K7
+    seg = torch.zeros((2, 40), dtype=torch.uint8)
+    words, _ = acs.acs_forward_batch(spec, seg)
+    with pytest.raises(ValueError):
+        acs.acs_forward_batch(spec, seg.to(torch.int32))
+    with pytest.raises(ValueError):
+        acs.traceback_batch(spec, words, 40, 40 - spec.S + 1)
+    with pytest.raises(ValueError):
+        acs.traceback_batch(spec, words, 41, 8)
+    with pytest.raises(ValueError):
+        acs.traceback_batch(spec, words, 40, 8, out="words")
+    with pytest.raises(ValueError):
+        acs.traceback_batch(port.K9_561_753, words, 40, 8)
+    with pytest.raises(ValueError):
+        kernels.viterbi_decode_batch(spec, seg, message_bits=40)
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    import torch.utils.cpp_extension as cpp_extension
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_kernel_modules_import_without_cuda_toolkit():
+    """Importing and using the CPU route builds nothing and imports no
+    triton, with no nvcc on PATH and no CUDA_HOME."""
+    root = Path(__file__).resolve().parent.parent
+    code = (
+        "import sys, torch\n"
+        "from convolutionalencdec_tpu_torch import kernels, NASA_K7\n"
+        "from convolutionalencdec_tpu_torch.kernels import _build\n"
+        "seg = torch.zeros((2, 30), dtype=torch.uint8)\n"
+        "out = kernels.viterbi_decode_batch_bytes(NASA_K7, seg)\n"
+        "assert out.shape == (2, 3) and not out.any()\n"
+        "assert _build.library.cache_info().currsize == 0\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME",
+                                                             "CUDA_PATH")}
+    env.update(PYTHONPATH=str(root), PATH=os.path.dirname(sys.executable))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=root, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
