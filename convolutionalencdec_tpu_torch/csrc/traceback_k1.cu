@@ -1,11 +1,18 @@
 // Block traceback of terminated packets over packed decision words.
 //
-// Replaces the TPU kernel `traceback_batch_swar` in
-// convolutionalencdec_tpu/kernels/acs_swar.py (its pallas_call at :877,
-// kernel body `_tb_kernel_swar` -> `_tb_chunk_body_swar`, as called with
-// msb_first=True for bytes).  It computes what that kernel computes, not
-// how: no one-hot select network, no group masks, no padded steps; the walk
-// starts at the real last step.
+// Two entry points, one kernel template:
+//   traceback_k1         replaces the TPU kernel `traceback_batch_swar` in
+//                        convolutionalencdec_tpu/kernels/acs_swar.py (its
+//                        pallas_call at :877, kernel body `_tb_kernel_swar`
+//                        -> `_tb_chunk_body_swar`, as called with
+//                        msb_first=True for bytes);
+//   traceback_k1_ragged  replaces `traceback_batch_swar_ragged` (pallas_call
+//                        at :975, the same body with per-channel group
+//                        masks) and the per-channel byte mask of its
+//                        epilogue `_bytes_epilogue_ragged` (:1113).
+// They compute what those kernels compute, not how: no one-hot select
+// network, no group masks, no padded steps; the walk starts at the real
+// last step of each channel.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -14,10 +21,19 @@
 // to cur = (cur >> 1) | (d << (S - 1)).  Bytes are filled MSb-first, with
 // the bits past message_bits of the trailing byte left zero.
 //
+// Ragged: channel b's length t_b is clamped to [0, T]; its walk starts at
+// state 0 at step t_b - 1 and it emits t < min(t_b - S, message_bits).  The
+// TPU kernel instead masks the decisions at steps >= t_b to 0 and walks
+// from step T - 1: decision 0 keeps state 0 in place (every state is a
+// shift register), so both walks reach step t_b - 1 in state 0 and agree
+// (ops/viterbi.viterbi_decode_ragged).  The kernel writes the whole row:
+// the bytes (or bits) past the channel's message are zeros.
+//
 // Layouts:
 //   decs  int32 [B, T_stride, W]  as written by acs_k1_forward (W = NS/32;
 //                                 the decision of state s = 2b + p is bit
 //                                 i % 32 of word i / 32, i = p*NS/2 + b)
+//   lengths int32 [B]             ragged only
 //   out   uint8 [B, ceil(message_bits / 8)] bytes, or [B, message_bits] bits
 //
 // What bounds it on this card: the walk is a chain of dependent reads, one
@@ -39,9 +55,10 @@ namespace {
 
 constexpr int kThreads = 32;
 
-template <int W>  // decision words per step = NS / 32
+template <int W, bool RAGGED>  // decision words per step = NS / 32
 __global__ void __launch_bounds__(kThreads)
 traceback_k1_kernel(const int32_t* __restrict__ decs,
+                    const int32_t* __restrict__ lengths,
                     uint8_t* __restrict__ out,
                     int B, int T_stride, int t_actual, int S,
                     int message_bits, int emit_bytes) {
@@ -52,11 +69,21 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   const int32_t* row = decs + (size_t)ch * T_stride * W;
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
   uint8_t* out_row = out + (size_t)ch * row_len;
+  int t_start = t_actual;
+  int msg = message_bits;
+  if (RAGGED) {
+    t_start = min(max(lengths[ch], 0), T_stride);
+    msg = min(max(t_start - S, 0), message_bits);
+    // The walk writes every byte (bit) below msg; zero the rest of the row.
+    for (int i = emit_bytes ? (msg + 7) / 8 : msg; i < row_len; ++i) {
+      out_row[i] = 0;
+    }
+  }
   const int top = S - 1;
   unsigned cur = 0;
   unsigned acc = 0;
 
-  for (int t_hi = t_actual - 1; t_hi >= 0; t_hi -= C) {
+  for (int t_hi = t_start - 1; t_hi >= 0; t_hi -= C) {
     int32_t r[C][W];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
@@ -74,7 +101,7 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
 #pragma unroll
       for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
       const unsigned d = (word >> (i & 31u)) & 1u;
-      if (t < message_bits) {
+      if (t < msg) {
         const unsigned bit = cur & 1u;
         if (emit_bytes) {
           acc |= bit << (7 - (t & 7));
@@ -91,31 +118,51 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   }
 }
 
-}  // namespace
-
-extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
-                            int t_actual, int NS, int S, int message_bits,
-                            int emit_bytes, void* stream) {
+template <bool RAGGED>
+int launch(const int32_t* d, const int32_t* lengths, uint8_t* o, int B,
+           int T_stride, int t_actual, int NS, int S, int message_bits,
+           int emit_bytes, cudaStream_t s) {
   const dim3 block(kThreads);
   const dim3 grid((B + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* d = static_cast<const int32_t*>(decs);
-  auto* o = static_cast<uint8_t*>(out);
   switch (NS) {
     case 64:
-      traceback_k1_kernel<2><<<grid, block, 0, s>>>(
-          d, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
+      traceback_k1_kernel<2, RAGGED><<<grid, block, 0, s>>>(
+          d, lengths, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
       break;
     case 128:
-      traceback_k1_kernel<4><<<grid, block, 0, s>>>(
-          d, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
+      traceback_k1_kernel<4, RAGGED><<<grid, block, 0, s>>>(
+          d, lengths, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
       break;
     case 256:
-      traceback_k1_kernel<8><<<grid, block, 0, s>>>(
-          d, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
+      traceback_k1_kernel<8, RAGGED><<<grid, block, 0, s>>>(
+          d, lengths, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
+                            int t_actual, int NS, int S, int message_bits,
+                            int emit_bytes, void* stream) {
+  return launch<false>(static_cast<const int32_t*>(decs), nullptr,
+                       static_cast<uint8_t*>(out), B, T_stride, t_actual, NS,
+                       S, message_bits, emit_bytes,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Row width message_bits_max (<= T - S) bits, or ceil(message_bits_max / 8)
+// bytes; channel b keeps its first min(max(t_b - S, 0), message_bits_max).
+extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
+                                   void* out, int B, int T, int NS, int S,
+                                   int message_bits_max, int emit_bytes,
+                                   void* stream) {
+  return launch<true>(static_cast<const int32_t*>(decs),
+                      static_cast<const int32_t*>(lengths),
+                      static_cast<uint8_t*>(out), B, T, T, NS, S,
+                      message_bits_max, emit_bytes,
+                      static_cast<cudaStream_t>(stream));
 }

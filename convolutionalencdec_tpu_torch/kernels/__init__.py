@@ -5,14 +5,32 @@ kernels are compiled by `nvcc` at their first launch (see `_build`).
 """
 
 from .acs import (LAUNCHES, acs_forward_batch, acs_forward_batch_plain,
-                  kernel_supports, pack_decisions, traceback_batch,
-                  traceback_batch_plain, unpack_decisions)
-from .decode import (BUTTERFLY, GENERIC, select_kernel, viterbi_decode_batch,
-                     viterbi_decode_batch_bytes)
+                  acs_forward_batch_soft, acs_forward_batch_soft_plain,
+                  condition_qllrs, kernel_supports, pack_decisions,
+                  traceback_batch, traceback_batch_plain,
+                  traceback_batch_ragged, traceback_batch_ragged_plain,
+                  unpack_decisions)
+from .decode import (BUTTERFLY, GENERIC, SOFT, SOFT8, select_kernel,
+                     soft_qclip, swar8_soft_supported, swar_layout_supported,
+                     viterbi_decode_batch, viterbi_decode_batch_bytes,
+                     viterbi_decode_batch_bytes_ragged,
+                     viterbi_decode_batch_punctured,
+                     viterbi_decode_batch_punctured_soft,
+                     viterbi_decode_batch_ragged, viterbi_decode_batch_soft,
+                     viterbi_decode_batch_soft_bytes,
+                     viterbi_decode_batch_soft_bytes_ragged)
 
 __all__ = [
     "LAUNCHES", "acs_forward_batch", "acs_forward_batch_plain",
-    "kernel_supports", "pack_decisions", "traceback_batch",
-    "traceback_batch_plain", "unpack_decisions", "BUTTERFLY", "GENERIC",
-    "select_kernel", "viterbi_decode_batch", "viterbi_decode_batch_bytes",
+    "acs_forward_batch_soft", "acs_forward_batch_soft_plain",
+    "condition_qllrs", "kernel_supports", "pack_decisions", "traceback_batch",
+    "traceback_batch_plain", "traceback_batch_ragged",
+    "traceback_batch_ragged_plain", "unpack_decisions", "BUTTERFLY",
+    "GENERIC", "SOFT", "SOFT8", "select_kernel", "soft_qclip",
+    "swar8_soft_supported", "swar_layout_supported", "viterbi_decode_batch",
+    "viterbi_decode_batch_bytes", "viterbi_decode_batch_bytes_ragged",
+    "viterbi_decode_batch_punctured", "viterbi_decode_batch_punctured_soft",
+    "viterbi_decode_batch_ragged", "viterbi_decode_batch_soft",
+    "viterbi_decode_batch_soft_bytes",
+    "viterbi_decode_batch_soft_bytes_ragged",
 ]

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-At first use, `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into
-one shared library with a plain C interface under
-`convolutionalencdec_tpu_torch/build/` (git-ignored), and loaded with
+At first use, each `csrc/*.cu` is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all of them at once, and the objects are linked into one
+shared library with a plain C interface under
+`convolutionalencdec_tpu_torch/build/` (git-ignored), loaded with
 `ctypes`.  A library newer than every source is reused.  Importing this
 module builds and loads nothing, so the package imports on a machine with
 no CUDA toolkit.
@@ -28,7 +29,7 @@ LIBRARY = BUILD_DIR / "libconvenc_kernels.so"
 BUILD_LOG = BUILD_DIR / "build.log"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes, in the order of the C signatures in csrc/.
@@ -37,6 +38,11 @@ SIGNATURES = {
     "acs_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # decs, out, B, T_stride, t_actual, NS, S, message_bits, emit_bytes, stream
     "traceback_k1": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qllrs, cb, init, decs, final_metrics, B, T, NS, n, qclip, init_value,
+    # stream
+    "acs_soft_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # decs, lengths, out, B, T, NS, S, message_bits_max, emit_bytes, stream
+    "traceback_k1_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -56,27 +62,46 @@ def find_nvcc() -> str:
 
 
 def build() -> float:
-    """Compile csrc/*.cu into LIBRARY unless it is newer than every source.
-    Returns the seconds spent compiling (0.0 when the library was reused).
-    The compiler's output (with `-Xptxas -v` register and spill counts) is
-    kept in BUILD_LOG."""
+    """Compile csrc/*.cu into LIBRARY unless it is newer than every source:
+    one nvcc per source, all started together, then one link.  Returns the
+    seconds spent (0.0 when the library was reused).  The compilers' output
+    (with `-Xptxas -v` register and spill counts) is kept in BUILD_LOG."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     newest = max(p.stat().st_mtime for p in sources)
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a private name and rename, so that concurrent builders
+    nvcc = find_nvcc()
+    # Build under private names and rename, so that concurrent builders
     # never load a half-written library.
-    tmp = BUILD_DIR / f".{LIBRARY.name}.{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = os.getpid()
+    objects = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources, objects))]
+    log, failed = [], []
+    for cmd, proc in jobs:
+        output = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{output}")
+    tmp = BUILD_DIR / f".{LIBRARY.name}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
     seconds = time.perf_counter() - t0
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    BUILD_LOG.write_text("".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIBRARY)
     return seconds
 

@@ -1,11 +1,17 @@
-"""Forward ACS and traceback of the hard-decision k=1 block decode.
+"""Forward ACS and traceback of the k=1 butterfly block decodes.
 
-Two wrappers, each with its plain PyTorch version beside it:
+Four wrappers, each with its plain PyTorch version beside it (TPU kernels
+named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
 
-  * `acs_forward_batch` launches `csrc/acs_k1.cu` (replaces the TPU kernel
-    `acs_forward_batch_swar`, convolutionalencdec_tpu/kernels/acs_swar.py);
-  * `traceback_batch` launches `csrc/traceback_k1.cu` (replaces
-    `traceback_batch_swar`, same file).
+  * `acs_forward_batch` launches `csrc/acs_k1.cu` (hard decisions; replaces
+    `acs_forward_batch_swar`);
+  * `acs_forward_batch_soft` launches `csrc/acs_soft_k1.cu` (int8 quantized
+    LLRs; replaces both `acs_forward_batch_swar_soft8` and
+    `acs_forward_batch_swar_soft`);
+  * `traceback_batch` launches `traceback_k1` in `csrc/traceback_k1.cu`
+    (replaces `traceback_batch_swar`);
+  * `traceback_batch_ragged` launches `traceback_k1_ragged`, same file
+    (per-channel lengths; replaces `traceback_batch_swar_ragged`).
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises: nothing falls back.  `LAUNCHES`
@@ -24,13 +30,15 @@ import functools
 
 import torch
 
+from ..ops.metrics import viterbi_forward_butterfly_soft
 from ..ops.trellis import butterfly_coded_bits
-from ..ops.viterbi import (init_metric_value, pad_and_pack,
+from ..ops.viterbi import (init_metric_value, pad_and_pack, ragged_epilogue,
                            traceback_terminated, viterbi_forward_butterfly)
 from ..params import CodeSpec
 
 #: Launches of each kernel since the count was last set to 0.
-LAUNCHES = {"acs_k1_forward": 0, "traceback_k1": 0}
+LAUNCHES = {"acs_k1_forward": 0, "traceback_k1": 0, "acs_soft_k1_forward": 0,
+            "traceback_k1_ragged": 0}
 
 #: Bit weights of one decision word: bit 31 weighs -2^31 in int32, so the
 #: int32 sum of a word's bits is exact and equals the word's two's
@@ -39,8 +47,8 @@ _WORD_WEIGHTS = [1 << j for j in range(31)] + [-(1 << 31)]
 
 
 def kernel_supports(spec: CodeSpec) -> bool:
-    """Whether the two kernels decode this spec: k = 1 with poly symmetry,
-    64 <= NS <= 256 and n <= 8 (a segment is one byte)."""
+    """Whether the kernels decode this spec: k = 1 with poly symmetry,
+    64 <= NS <= 256 and n <= 8 (a hard segment is one byte)."""
     return (spec.k == 1 and spec.has_poly_symmetry
             and spec.num_states in (64, 128, 256) and spec.n <= 8)
 
@@ -70,7 +78,7 @@ def unpack_decisions(spec: CodeSpec, words: torch.Tensor) -> torch.Tensor:
 def _check_kernel_spec(spec: CodeSpec) -> None:
     if not kernel_supports(spec):
         raise NotImplementedError(
-            f"no CUDA kernel decodes {spec}: the hard k=1 kernels take "
+            f"no CUDA kernel decodes {spec}: the k=1 butterfly kernels take "
             "poly-symmetric codes with 64 <= NS <= 256; other codes wait for "
             "the generic-k kernel (ROADMAP.md queue 1 item 12, TPU kernel K9)"
             " or the NS < 64 instantiation (queue 2, K12)")
@@ -85,11 +93,38 @@ def _check_device(t: torch.Tensor) -> bool:
     raise ValueError(f"tensors on {t.device} are not supported")
 
 
+def _checked_initial_metrics(initial_metrics, B: int, NS: int, device):
+    """None, or contiguous int32 [B, NS] metrics on `device`; raise
+    otherwise."""
+    if initial_metrics is None:
+        return None
+    if (initial_metrics.shape != (B, NS)
+            or initial_metrics.dtype != torch.int32
+            or initial_metrics.device != device):
+        raise ValueError("initial_metrics must be int32 [B, NS] on the "
+                         "inputs' device")
+    return initial_metrics.contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _butterfly_table(spec: CodeSpec, device: torch.device) -> torch.Tensor:
     """int32 [NS/2] butterfly coded segments, resident on `device`."""
     return torch.as_tensor(butterfly_coded_bits(spec), dtype=torch.int32,
                            device=device)
+
+
+def _check_words(spec: CodeSpec, decisions: torch.Tensor, out: str):
+    """Validate a traceback's decision words and output format; returns
+    (B, T)."""
+    if out not in ("bytes", "bits"):
+        raise ValueError(f"out must be 'bytes' or 'bits', got {out!r}")
+    if decisions.dtype != torch.int32 or decisions.dim() != 3:
+        raise ValueError("decisions must be int32 [B, T, W]")
+    B, T, W = decisions.shape
+    if W * 32 != spec.num_states:
+        raise ValueError(f"{W} decision words per step do not match "
+                         f"NS = {spec.num_states}")
+    return B, T
 
 
 def acs_forward_batch_plain(spec: CodeSpec, segments: torch.Tensor,
@@ -127,13 +162,8 @@ def acs_forward_batch(spec: CodeSpec, segments: torch.Tensor,
     if T * spec.n >= 2 ** 31:
         raise ValueError(f"T = {T} overflows int32 path metrics")
     segments = segments.contiguous()
-    if initial_metrics is not None:
-        if (initial_metrics.shape != (B, NS)
-                or initial_metrics.dtype != torch.int32
-                or initial_metrics.device != segments.device):
-            raise ValueError("initial_metrics must be int32 [B, NS] on the "
-                             "segments' device")
-        initial_metrics = initial_metrics.contiguous()
+    initial_metrics = _checked_initial_metrics(initial_metrics, B, NS,
+                                               segments.device)
     decisions = torch.empty((B, T, NS // 32), dtype=torch.int32,
                             device=segments.device)
     final_metrics = torch.empty((B, NS), dtype=torch.int32,
@@ -179,14 +209,7 @@ def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
       out: "bytes" for uint8 [B, ceil(message_bits/8)] (MSb-first, trailing
         byte zero-padded) or "bits" for uint8 [B, message_bits].
     """
-    if out not in ("bytes", "bits"):
-        raise ValueError(f"out must be 'bytes' or 'bits', got {out!r}")
-    if decisions.dtype != torch.int32 or decisions.dim() != 3:
-        raise ValueError("decisions must be int32 [B, T, W]")
-    B, T, W = decisions.shape
-    if W * 32 != spec.num_states:
-        raise ValueError(f"{W} decision words per step do not match "
-                         f"NS = {spec.num_states}")
+    B, T = _check_words(spec, decisions, out)
     if not 0 <= t_actual <= T:
         raise ValueError(f"t_actual = {t_actual} outside [0, {T}]")
     if not 0 <= message_bits <= t_actual - spec.S:
@@ -210,4 +233,140 @@ def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
         torch.cuda.current_stream(decisions.device).cuda_stream)
     LAUNCHES["traceback_k1"] += 1
     _build.check("traceback_k1", code)
+    return result
+
+
+def condition_qllrs(qllrs: torch.Tensor, qclip: int) -> torch.Tensor:
+    """int8 quantized LLRs -> int32 clamp(max(q, -127), -qclip, qclip): the
+    floor keeps -q within int8, the clip is the route's (see
+    `kernels.decode.soft_qclip`)."""
+    q = qllrs.to(torch.int32).clamp_min(-127)
+    return torch.clamp(q, -qclip, qclip)
+
+
+def acs_forward_batch_soft_plain(spec: CodeSpec, qllrs: torch.Tensor,
+                                 qclip: int,
+                                 initial_metrics: torch.Tensor | None = None):
+    """Plain version of `acs_forward_batch_soft`: the reference soft
+    butterfly scan on the conditioned LLRs, its decisions packed into
+    words."""
+    decisions, final_metrics = viterbi_forward_butterfly_soft(
+        spec, condition_qllrs(qllrs, qclip), initial_metrics)
+    return pack_decisions(spec, decisions), final_metrics
+
+
+def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
+                           initial_metrics: torch.Tensor | None = None):
+    """Forward butterfly ACS of a batch of soft-decision packets.
+
+    Replaces the TPU kernels `acs_forward_batch_swar_soft8`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:1352, pallas_call :1381)
+    and `acs_forward_batch_swar_soft` (:1231, pallas_call :1262): int32
+    metrics make both of their field widths unnecessary.
+
+    Args:
+      qllrs: int8 [B, T, n] quantized LLRs, contiguous.  Each is used as
+        clamp(max(q, -127), -qclip, qclip).
+      qclip: the clip, 1..127 (qmax on the route of the 8-bit TPU kernel,
+        127 elsewhere).
+      initial_metrics: optional int32 [B, NS] starting metrics (default 0 at
+        state 0 and `init_metric_value(spec)` elsewhere; all zeros give the
+        uniform start of tail-biting and interior time blocks).
+
+    Returns:
+      (decisions int32 [B, T, NS/32] words, the layout of
+      `acs_forward_batch`; final_metrics int32 [B, NS], never renormalised).
+    """
+    if qllrs.dtype != torch.int8 or qllrs.dim() != 3 or qllrs.shape[2] != spec.n:
+        raise ValueError(f"qllrs must be int8 [B, T, n = {spec.n}]")
+    if not 1 <= qclip <= 127:
+        raise ValueError(f"qclip = {qclip} outside [1, 127]")
+    _check_kernel_spec(spec)
+    B, T, n = qllrs.shape
+    if T * n * 127 + init_metric_value(spec) >= 2 ** 31:
+        raise ValueError(f"T = {T} overflows int32 path metrics")
+    if not _check_device(qllrs):
+        return acs_forward_batch_soft_plain(spec, qllrs, qclip,
+                                            initial_metrics)
+    NS = spec.num_states
+    qllrs = qllrs.contiguous()
+    initial_metrics = _checked_initial_metrics(initial_metrics, B, NS,
+                                               qllrs.device)
+    decisions = torch.empty((B, T, NS // 32), dtype=torch.int32,
+                            device=qllrs.device)
+    final_metrics = torch.empty((B, NS), dtype=torch.int32,
+                                device=qllrs.device)
+    if B == 0:
+        return decisions, final_metrics
+    from . import _build
+    lib = _build.library()
+    cb = _butterfly_table(spec, qllrs.device)
+    code = lib.acs_soft_k1_forward(
+        qllrs.data_ptr(), cb.data_ptr(),
+        None if initial_metrics is None else initial_metrics.data_ptr(),
+        decisions.data_ptr(), final_metrics.data_ptr(),
+        B, T, NS, n, qclip, init_metric_value(spec),
+        torch.cuda.current_stream(qllrs.device).cuda_stream)
+    LAUNCHES["acs_soft_k1_forward"] += 1
+    _build.check("acs_soft_k1_forward", code)
+    return decisions, final_metrics
+
+
+def traceback_batch_ragged_plain(spec: CodeSpec, decisions: torch.Tensor,
+                                 lengths: torch.Tensor, message_bits_max: int,
+                                 out: str = "bytes") -> torch.Tensor:
+    """Plain version of `traceback_batch_ragged`: unpack the words and run
+    the reference ragged epilogue."""
+    T = decisions.shape[1]
+    bits = ragged_epilogue(spec, unpack_decisions(spec, decisions), lengths,
+                           T)[:, :message_bits_max]
+    return pad_and_pack(bits) if out == "bytes" else bits
+
+
+def traceback_batch_ragged(spec: CodeSpec, decisions: torch.Tensor,
+                           lengths: torch.Tensor, message_bits_max: int,
+                           out: str = "bytes") -> torch.Tensor:
+    """Traceback of a batch of packets with per-channel lengths.
+
+    Replaces the TPU kernel `traceback_batch_swar_ragged`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:954, pallas_call :975)
+    and the per-channel byte mask of its epilogue (`_bytes_epilogue_ragged`,
+    :1113).  Channel b (length t_b clamped to [0, T]) walks from state 0 at
+    step t_b - 1: decision 0 keeps state 0 in place, so this is the walk
+    the TPU kernel makes over the masked tail from step T - 1.
+
+    Args:
+      decisions: int32 [B, T, NS/32] words.
+      lengths: int32 [B] valid steps t_b of each channel.
+      message_bits_max: row width L in bits, at most T - S; channel b keeps
+        its first min(max(t_b - S, 0), L) bits and the rest of its row is 0.
+      out: "bytes" for uint8 [B, ceil(L/8)] (MSb-first) or "bits" for uint8
+        [B, L].
+    """
+    B, T = _check_words(spec, decisions, out)
+    if (lengths.dtype != torch.int32 or lengths.shape != (B,)
+            or lengths.device != decisions.device):
+        raise ValueError("lengths must be int32 [B] on the decisions' device")
+    if not 0 <= message_bits_max <= T - spec.S:
+        raise ValueError(f"message_bits_max = {message_bits_max} outside "
+                         f"[0, T - S = {T - spec.S}]")
+    _check_kernel_spec(spec)
+    if not _check_device(decisions):
+        return traceback_batch_ragged_plain(spec, decisions, lengths,
+                                            message_bits_max, out)
+    decisions = decisions.contiguous()
+    lengths = lengths.contiguous()
+    width = (message_bits_max + 7) // 8 if out == "bytes" else message_bits_max
+    result = torch.empty((B, width), dtype=torch.uint8,
+                         device=decisions.device)
+    if B == 0:
+        return result
+    from . import _build
+    lib = _build.library()
+    code = lib.traceback_k1_ragged(
+        decisions.data_ptr(), lengths.data_ptr(), result.data_ptr(), B, T,
+        spec.num_states, spec.S, message_bits_max, int(out == "bytes"),
+        torch.cuda.current_stream(decisions.device).cuda_stream)
+    LAUNCHES["traceback_k1_ragged"] += 1
+    _build.check("traceback_k1_ragged", code)
     return result

@@ -1,38 +1,96 @@
 """Batched decode entry points and the one place that chooses a kernel.
 
-Port of `viterbi_decode_batch` and `viterbi_decode_batch_bytes`
-(convolutionalencdec_tpu/kernels/acs_pallas.py:329-384, :1556-1582).  The
-JAX package re-derives its kernel choice in several places; here
-`select_kernel` is the only rule, and every entry point asks it.
+Ports of the JAX package's batch entry points
+(convolutionalencdec_tpu/kernels/acs_pallas.py): the hard block decodes
+(`viterbi_decode_batch`, `viterbi_decode_batch_bytes`), the soft ones
+(`viterbi_decode_batch_soft`, `viterbi_decode_batch_soft_bytes`), the
+one-call punctured decoders and the ragged decoders with per-channel
+lengths.  The JAX package re-derives its kernel choice in several places;
+here `select_kernel` is the only rule, and every entry point asks it.
+
+Every entry point takes `device=None`: a tensor input keeps its own device,
+any other input goes to `device` (default: the CUDA card).  On the card an
+entry point runs the CUDA kernels or raises; on a CPU tensor it runs their
+plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.viterbi import pad_and_pack, viterbi_decode
+from .._device import as_tensor
+from ..ops.metrics import (DEFAULT_QMAX, hard_bits_to_qllrs,
+                           viterbi_decode_ragged_soft, viterbi_decode_soft)
+from ..ops.puncture import check_pattern_rows, depuncture_llrs
+from ..ops.viterbi import (init_metric_value, pad_and_pack, viterbi_decode,
+                           viterbi_decode_ragged)
 from ..params import CodeSpec
-from .acs import acs_forward_batch, kernel_supports, traceback_batch
+from .acs import (acs_forward_batch, acs_forward_batch_soft, condition_qllrs,
+                  kernel_supports, traceback_batch, traceback_batch_ragged)
 
 #: Route names of `select_kernel`.
-BUTTERFLY = "butterfly"  # csrc/acs_k1.cu + csrc/traceback_k1.cu
+BUTTERFLY = "butterfly"  # hard: csrc/acs_k1.cu + csrc/traceback_k1.cu
+SOFT8 = "soft8"          # soft, LLRs clipped to +-qmax: csrc/acs_soft_k1.cu
+SOFT = "soft"            # soft, any int8 LLR: csrc/acs_soft_k1.cu
 GENERIC = "generic"      # no CUDA kernel yet: plain decoder on a CPU tensor
 
 
-def select_kernel(spec: CodeSpec, mode: str = "hard") -> str:
-    """The route that decodes `spec` in `mode`.
+def swar_layout_supported(spec: CodeSpec) -> bool:
+    """The JAX package's rule for its SWAR kernels' layout
+    (acs_swar.swar_layout_supported): k = 1 poly-symmetric butterfly with
+    NS >= 64 and n <= 4."""
+    return (spec.k == 1 and spec.num_states >= 64 and spec.n <= 4
+            and spec.has_poly_symmetry)
 
-    BUTTERFLY: k = 1 poly-symmetric codes with 64 <= NS <= 256 (NASA_K7,
-    REF_K7, NASA_K7_R13, LTE_TBCC_K7, K9_561_753) run the hand-written
-    forward ACS and traceback kernels.  GENERIC: every other code decodes
-    through the plain generic decoder on a CPU tensor and raises on a CUDA
-    tensor until its kernel is ported.
+
+def swar8_soft_supported(spec: CodeSpec, qmax: int) -> bool:
+    """The JAX package's rule for its 8-bit soft kernel
+    (acs_swar.swar8_soft_supported): soft metrics fit 8-bit fields with a
+    renorm every 3 steps, max(init_hi, S n qmax) + 3 n qmax <= 127.  Where
+    it holds, that kernel's pack clips every LLR to +-qmax."""
+    growth = 3 * spec.n * qmax
+    spread = max(init_metric_value(spec), spec.S * spec.n * qmax)
+    return (swar_layout_supported(spec) and qmax <= 31
+            and spread + growth <= 127)
+
+
+def soft_qclip(spec: CodeSpec, qmax: int) -> int:
+    """The clip the JAX package applies to int8 LLRs on its soft route:
+    qmax on the 8-bit kernel's route, else none (127, the floored int8
+    range)."""
+    return qmax if swar8_soft_supported(spec, qmax) else 127
+
+
+def select_kernel(spec: CodeSpec, mode: str = "hard",
+                  qmax: int | None = None) -> str:
+    """The route that decodes `spec` in `mode` ("hard" or "soft").
+
+    BUTTERFLY (hard) and SOFT8 / SOFT (soft): k = 1 poly-symmetric codes
+    with 64 <= NS <= 256 and n <= 8 (NASA_K7, REF_K7, NASA_K7_R13,
+    LTE_TBCC_K7, K9_561_753) run the hand-written forward ACS and traceback
+    kernels.  SOFT8 is the route of the JAX package's 8-bit soft kernel
+    (`swar8_soft_supported(spec, qmax)`, qmax default DEFAULT_QMAX), whose
+    LLRs are clipped to +-qmax; SOFT takes any int8 LLR.  GENERIC: every
+    other code decodes through the plain decoder on a CPU tensor and raises
+    on a CUDA tensor until its kernel is ported.
     """
-    if mode != "hard":
+    if mode not in ("hard", "soft"):
+        raise ValueError(f"mode must be 'hard' or 'soft', got {mode!r}")
+    if not kernel_supports(spec):
+        return GENERIC
+    if mode == "hard":
+        return BUTTERFLY
+    qmax = DEFAULT_QMAX if qmax is None else qmax
+    return SOFT8 if swar8_soft_supported(spec, qmax) else SOFT
+
+
+def _no_kernel(spec: CodeSpec, t: torch.Tensor) -> None:
+    """The GENERIC route: raise unless `t` lies on the CPU."""
+    if t.device.type != "cpu":
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP.md queue 1 item 6, "
-            "soft decode)")
-    return BUTTERFLY if kernel_supports(spec) else GENERIC
+            f"no CUDA kernel decodes {spec} yet: it waits for the generic-k "
+            "kernel (ROADMAP.md queue 1 item 12, TPU kernel K9) or the "
+            "NS < 64 butterfly instantiation (queue 2, K12)")
 
 
 def _message_bits(spec: CodeSpec, T: int, message_bits: int | None) -> int:
@@ -45,43 +103,216 @@ def _message_bits(spec: CodeSpec, T: int, message_bits: int | None) -> int:
     return L
 
 
-def _decode(spec: CodeSpec, segments: torch.Tensor,
-            message_bits: int | None, out: str) -> torch.Tensor:
-    segments = torch.as_tensor(segments, dtype=torch.uint8)
-    if segments.dim() != 2:
-        raise ValueError("segments must be uint8 [B, T]")
-    B, T = segments.shape
-    if select_kernel(spec) == BUTTERFLY:
-        L = _message_bits(spec, T, message_bits)
-        decisions, _ = acs_forward_batch(spec, segments)
-        return traceback_batch(spec, decisions, T, L, out=out)
-    if segments.device.type != "cpu":
-        raise NotImplementedError(
-            f"no CUDA kernel decodes {spec} yet: it waits for the generic-k "
-            "kernel (ROADMAP.md queue 1 item 12, TPU kernel K9) or the "
-            "NS < 64 butterfly instantiation (queue 2, K12)")
-    L = _message_bits(spec, T, message_bits)
-    bits = viterbi_decode(spec, segments)[:, :L]
+def _emit(bits: torch.Tensor, out: str) -> torch.Tensor:
     return pad_and_pack(bits) if out == "bytes" else bits
 
 
-def viterbi_decode_batch(spec: CodeSpec, segments: torch.Tensor,
-                         message_bits: int | None = None) -> torch.Tensor:
+def _decode(spec: CodeSpec, segments, message_bits: int | None, out: str,
+            device) -> torch.Tensor:
+    segments = as_tensor(segments, torch.uint8, device)
+    if segments.dim() != 2:
+        raise ValueError("segments must be uint8 [B, T]")
+    B, T = segments.shape
+    L = _message_bits(spec, T, message_bits)
+    if select_kernel(spec) == BUTTERFLY:
+        decisions, _ = acs_forward_batch(spec, segments)
+        return traceback_batch(spec, decisions, T, L, out=out)
+    _no_kernel(spec, segments)
+    return _emit(viterbi_decode(spec, segments)[:, :L], out)
+
+
+def viterbi_decode_batch(spec: CodeSpec, segments,
+                         message_bits: int | None = None,
+                         device=None) -> torch.Tensor:
     """Hard-decision block decode of a batch of terminated packets.
 
     Args:
       segments: uint8 [B, T] hard segments, T = L/k + S.
       message_bits: decoded bit count L; defaults to (T - S) * k.
+      device: where a non-tensor `segments` goes (default the CUDA card).
     Returns uint8 [B, L] decoded message bits, bit-identical to the
     reference decoder `ops.viterbi.viterbi_decode`.
     """
-    return _decode(spec, segments, message_bits, "bits")
+    return _decode(spec, segments, message_bits, "bits", device)
 
 
-def viterbi_decode_batch_bytes(spec: CodeSpec, segments: torch.Tensor,
-                               message_bits: int | None = None
-                               ) -> torch.Tensor:
+def viterbi_decode_batch_bytes(spec: CodeSpec, segments,
+                               message_bits: int | None = None,
+                               device=None) -> torch.Tensor:
     """Byte twin of `viterbi_decode_batch`: uint8 [B, ceil(L/8)], filled
     MSb-first with a zero-padded trailing byte.  On the BUTTERFLY route the
     traceback kernel emits the bytes itself."""
-    return _decode(spec, segments, message_bits, "bytes")
+    return _decode(spec, segments, message_bits, "bytes", device)
+
+
+def _as_qllrs(spec: CodeSpec, qllrs, device) -> torch.Tensor:
+    """The int8 cast of every soft entry point (the -127 floor and the
+    route's clip follow in the kernel or in `condition_qllrs`)."""
+    qllrs = as_tensor(qllrs, device=device).to(torch.int8)
+    if qllrs.dim() != 3 or qllrs.shape[2] != spec.n:
+        raise ValueError(f"qllrs must be [B, T, n = {spec.n}]")
+    return qllrs
+
+
+def _decode_soft(spec: CodeSpec, qllrs, message_bits: int | None,
+                 qmax: int | None, out: str, device) -> torch.Tensor:
+    spec.validate_for_butterfly()
+    qllrs = _as_qllrs(spec, qllrs, device)
+    B, T, _ = qllrs.shape
+    L = _message_bits(spec, T, message_bits)
+    qmax = DEFAULT_QMAX if qmax is None else qmax
+    qclip = soft_qclip(spec, qmax)
+    if select_kernel(spec, "soft", qmax) != GENERIC:
+        decisions, _ = acs_forward_batch_soft(spec, qllrs, qclip)
+        return traceback_batch(spec, decisions, T, L, out=out)
+    _no_kernel(spec, qllrs)
+    bits = viterbi_decode_soft(spec, condition_qllrs(qllrs, qclip))
+    return _emit(bits[:, :L], out)
+
+
+def viterbi_decode_batch_soft(spec: CodeSpec, qllrs,
+                              message_bits: int | None = None,
+                              qmax: int | None = None,
+                              device=None) -> torch.Tensor:
+    """Soft-decision block decode of a batch of terminated packets.
+
+    Port of acs_pallas.viterbi_decode_batch_soft (:505).  Bit-identical to
+    `ops.metrics.viterbi_forward_butterfly_soft` plus the terminated
+    traceback on the conditioned LLRs: each input is cast to int8 and
+    floored at -127, and on the SOFT8 route (NASA_K7 at the default
+    qmax = 7, say) clipped to +-qmax; on the SOFT route it is not clipped.
+
+    Args:
+      qllrs: int [B, T, n] quantized LLRs (see ops.metrics.quantize_llrs).
+      message_bits: decoded bit count L; defaults to T - S.
+      qmax: the quantizer's bound (default DEFAULT_QMAX); it picks the route
+        and so the clip (`select_kernel`).
+    Returns uint8 [B, L] decoded message bits.
+    """
+    return _decode_soft(spec, qllrs, message_bits, qmax, "bits", device)
+
+
+def viterbi_decode_batch_soft_bytes(spec: CodeSpec, qllrs,
+                                    message_bits: int | None = None,
+                                    qmax: int | None = None,
+                                    device=None) -> torch.Tensor:
+    """Byte twin of `viterbi_decode_batch_soft` (acs_pallas.py:1585):
+    uint8 [B, ceil(L/8)], MSb-first with a zero-padded trailing byte."""
+    return _decode_soft(spec, qllrs, message_bits, qmax, "bytes", device)
+
+
+def viterbi_decode_batch_punctured(spec: CodeSpec, rx_bits, pattern, T: int,
+                                   message_bits: int | None = None,
+                                   device=None) -> torch.Tensor:
+    """One-call batched decode of hard punctured streams
+    (acs_pallas.py:1624).
+
+    Received bits become +-1 pseudo-LLRs, punctured positions zero-LLR
+    erasures, and the soft decode runs with qmax = 1.
+
+    Args:
+      rx_bits: uint8 [B, kept] received coded bits in transmission order
+        (the order of `ops.puncture.puncture_bits`).
+      pattern: (n, period) 0/1 puncture pattern.
+      T: mother-code trellis steps (kept = puncture_mask(pattern, T).sum()).
+    Returns uint8 [B, L] decoded message bits.
+    """
+    check_pattern_rows(spec, pattern)
+    rx_bits = as_tensor(rx_bits, device=device)
+    q = depuncture_llrs(hard_bits_to_qllrs(rx_bits), pattern, T)
+    return viterbi_decode_batch_soft(
+        spec, q.reshape(rx_bits.shape[0], T, spec.n), message_bits, qmax=1)
+
+
+def viterbi_decode_batch_punctured_soft(spec: CodeSpec, qllrs, pattern,
+                                        T: int,
+                                        message_bits: int | None = None,
+                                        qmax: int | None = None,
+                                        device=None) -> torch.Tensor:
+    """One-call batched soft decode of punctured streams
+    (acs_pallas.py:1659).
+
+    Args:
+      qllrs: int [B, kept] quantized LLRs of the sent bits, in transmission
+        order; cast to int8, then the punctured positions are put back as
+        zero-LLR erasures.
+      pattern, T: as `viterbi_decode_batch_punctured`.
+    Returns uint8 [B, L] decoded message bits.
+    """
+    check_pattern_rows(spec, pattern)
+    qllrs = as_tensor(qllrs, device=device).to(torch.int8)
+    full = depuncture_llrs(qllrs, pattern, T)
+    return viterbi_decode_batch_soft(
+        spec, full.reshape(qllrs.shape[0], T, spec.n), message_bits, qmax)
+
+
+def _lengths(seg_lengths, B: int, device: torch.device) -> torch.Tensor:
+    """int32 [B] lengths on the decoded inputs' device."""
+    lens = torch.as_tensor(seg_lengths, dtype=torch.int32, device=device)
+    if lens.shape != (B,):
+        raise ValueError(f"seg_lengths must have shape [B = {B}]")
+    return lens
+
+
+def _check_ragged_T(spec: CodeSpec, T: int) -> None:
+    if T < spec.S:
+        raise ValueError(f"Tmax = {T} below the S = {spec.S} termination "
+                         "steps")
+
+
+def _decode_ragged(spec: CodeSpec, segments, seg_lengths, out: str,
+                   device) -> torch.Tensor:
+    segments = as_tensor(segments, torch.uint8, device)
+    if segments.dim() != 2:
+        raise ValueError("segments must be uint8 [B, Tmax]")
+    B, T = segments.shape
+    _check_ragged_T(spec, T)
+    lens = _lengths(seg_lengths, B, segments.device)
+    if select_kernel(spec) == BUTTERFLY:
+        decisions, _ = acs_forward_batch(spec, segments)
+        return traceback_batch_ragged(spec, decisions, lens, T - spec.S, out)
+    _no_kernel(spec, segments)
+    return _emit(viterbi_decode_ragged(spec, segments, lens), out)
+
+
+def viterbi_decode_batch_ragged(spec: CodeSpec, segments, seg_lengths,
+                                device=None) -> torch.Tensor:
+    """Ragged-batch hard decode, per-channel packet lengths in one call
+    (acs_pallas.py:1685).
+
+    Args:
+      segments: uint8 [B, Tmax]; rows may hold anything past t_b.
+      seg_lengths: int32 [B] valid segment counts, t_b = l_b / k + S.
+    Returns uint8 [B, (Tmax - S) * k]; positions >= (t_b - S) * k are zero.
+    """
+    return _decode_ragged(spec, segments, seg_lengths, "bits", device)
+
+
+def viterbi_decode_batch_bytes_ragged(spec: CodeSpec, segments, seg_lengths,
+                                      device=None) -> torch.Tensor:
+    """Ragged-batch hard decode to packed bytes (acs_pallas.py:1725):
+    MSb-first, each row zero past its channel's message.  Returns uint8
+    [B, ceil((Tmax - S) * k / 8)]."""
+    return _decode_ragged(spec, segments, seg_lengths, "bytes", device)
+
+
+def viterbi_decode_batch_soft_bytes_ragged(spec: CodeSpec, qllrs, seg_lengths,
+                                           qmax: int | None = None,
+                                           device=None) -> torch.Tensor:
+    """Soft-decision ragged-batch byte decode (acs_pallas.py:1753): the
+    byte twin of `viterbi_decode_batch_bytes_ragged` over quantized LLRs,
+    conditioned as in `viterbi_decode_batch_soft`.  Returns uint8
+    [B, ceil((Tmax - S) * k / 8)]."""
+    qllrs = _as_qllrs(spec, qllrs, device)
+    B, T, _ = qllrs.shape
+    _check_ragged_T(spec, T)
+    lens = _lengths(seg_lengths, B, qllrs.device)
+    qmax = DEFAULT_QMAX if qmax is None else qmax
+    qclip = soft_qclip(spec, qmax)
+    if select_kernel(spec, "soft", qmax) != GENERIC:
+        decisions, _ = acs_forward_batch_soft(spec, qllrs, qclip)
+        return traceback_batch_ragged(spec, decisions, lens, T - spec.S,
+                                      "bytes")
+    _no_kernel(spec, qllrs)
+    return pad_and_pack(viterbi_decode_ragged_soft(
+        spec, condition_qllrs(qllrs, qclip), lens))

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import as_tensor
 from ..params import CodeSpec
 from .bits import unpack_bits
 
@@ -32,7 +33,7 @@ def _state_prefix_bits(spec: CodeSpec, state: torch.Tensor) -> torch.Tensor:
 
 
 def encode_bits(spec: CodeSpec, bits: torch.Tensor, terminate: bool = True,
-                initial_state: torch.Tensor | None = None):
+                initial_state: torch.Tensor | None = None, device=None):
     """Encode 0/1 bits into n-bit coded segments.
 
     Args:
@@ -42,13 +43,15 @@ def encode_bits(spec: CodeSpec, bits: torch.Tensor, terminate: bool = True,
         to state 0.
       initial_state: optional int32 tensor [...] of starting states (default
         spec.starting_state), for chunked use.
+      device: where a non-tensor `bits` goes (default the CUDA card); a
+        tensor keeps its own device.
 
     Returns:
       (segments uint8 [..., T], final_state int32 [...]) with
       T = L/k + S if terminated, else L/k.  final_state is 0 after
       termination.
     """
-    bits = torch.as_tensor(bits, dtype=torch.uint8)
+    bits = as_tensor(bits, torch.uint8, device)
     L = bits.shape[-1]
     if L % spec.k != 0:
         raise ValueError(f"bit count {L} not a multiple of k={spec.k}")
@@ -85,8 +88,9 @@ def encode_bits(spec: CodeSpec, bits: torch.Tensor, terminate: bool = True,
     return segment, final_state
 
 
-def encode_bytes(spec: CodeSpec, data: torch.Tensor):
+def encode_bytes(spec: CodeSpec, data: torch.Tensor, device=None):
     """Encode uint8 bytes [..., N] (MSb-first per byte) into terminated
-    coded segments uint8 [..., T]."""
-    segments, _ = encode_bits(spec, unpack_bits(data))
+    coded segments uint8 [..., T]; `device` as in `encode_bits`."""
+    segments, _ = encode_bits(spec,
+                              unpack_bits(as_tensor(data, torch.uint8, device)))
     return segments

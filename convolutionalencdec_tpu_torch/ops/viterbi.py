@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import as_tensor
 from ..params import CodeSpec
 from .bits import pack_bits
 from .trellis import butterfly_coded_bits, edge_coded_bits, prev_state_table
@@ -138,21 +139,23 @@ def viterbi_forward_butterfly(spec: CodeSpec, segments: torch.Tensor,
     return decisions, m
 
 
-def traceback_terminated(spec: CodeSpec,
-                         decisions: torch.Tensor) -> torch.Tensor:
+def traceback_terminated(spec: CodeSpec, decisions: torch.Tensor,
+                         num_pad: int = -1) -> torch.Tensor:
     """Block traceback over terminated packets.
 
     Walks backward from the known terminal state 0, reconstructing sources
     via ``src = (dst >> k) | (decision << (S-1)*k)`` and emitting the k
-    input bits ``dst & (2^k - 1)`` per step; the last S steps are
-    termination padding and emit nothing.
+    input bits ``dst & (2^k - 1)`` per step; the last `num_pad` steps
+    (default S, the termination padding) emit nothing.
 
     Args:
       decisions: uint8 [B, T, NS] decision indices.
 
-    Returns uint8 [B, (T - S) * k] decoded bits, MSb of each k-bit symbol
-    first.
+    Returns uint8 [B, (T - num_pad) * k] decoded bits, MSb of each k-bit
+    symbol first.
     """
+    if num_pad < 0:
+        num_pad = spec.S
     decisions = torch.as_tensor(decisions, dtype=torch.uint8)
     B, T, _ = decisions.shape
     E = spec.num_edges_per_state
@@ -165,7 +168,7 @@ def traceback_terminated(spec: CodeSpec,
         e = decisions[rows, t, cur].long()
         us[:, t] = cur & (E - 1)
         cur = (cur >> spec.k) | (e << shift)
-    us = us[:, : T - spec.S]
+    us = us[:, : T - num_pad]
     bit_idx = torch.arange(spec.k - 1, -1, -1, device=dev)
     return ((us[..., None] >> bit_idx) & 1).to(torch.uint8).reshape(B, -1)
 
@@ -204,3 +207,49 @@ def viterbi_decode_bytes(spec: CodeSpec, segments: torch.Tensor,
     bits = viterbi_decode(spec, segments)
     L = message_bits if message_bits is not None else bits.shape[-1]
     return pad_and_pack(bits[:, :L])
+
+
+def viterbi_decode_ragged(spec: CodeSpec, segments, seg_lengths,
+                          device=None) -> torch.Tensor:
+    """Batched decode of terminated packets with per-channel lengths.
+
+    Decisions at steps >= t_b are masked to decision 0; every trellis state
+    is a shift register, so state 0 is a fixed point of decision 0, and the
+    backward walk parked at state 0 over the masked tail arrives at step
+    t_b - 1 still in the channel's true terminal state.
+
+    Args:
+      segments: uint8 [B, Tmax] hard segments; rows may hold anything past
+        t_b.
+      seg_lengths: int32 [B] valid segment counts, t_b = l_b / k + S for an
+        l_b-bit message.
+      device: where non-tensor inputs go (default the CUDA card); tensors
+        keep their own device.
+    Returns uint8 [B, (Tmax - S) * k] decoded bits; positions >= (t_b - S) *
+    k of each row are zero.
+    """
+    segments = as_tensor(segments, torch.uint8, device)
+    lens = as_tensor(seg_lengths, torch.int32, segments.device)
+    if spec.k == 1 and spec.has_poly_symmetry:
+        decisions, _ = viterbi_forward_butterfly(spec, segments)
+    else:
+        decisions, _ = viterbi_forward(spec, hard_step_metrics(spec, segments))
+    return ragged_epilogue(spec, decisions, lens, segments.shape[1])
+
+
+def ragged_epilogue(spec: CodeSpec, decisions: torch.Tensor,
+                    lens: torch.Tensor, T: int) -> torch.Tensor:
+    """Shared tail of the ragged decoders (hard here, soft in
+    ops/metrics.py): zero the decisions past each row's length, run the
+    terminated traceback from state 0 at step T - 1 with no padding
+    dropped, then zero the termination symbols and everything beyond: only
+    the first (t_b - S) * k positions are message bits."""
+    dev = decisions.device
+    lens = lens.to(device=dev, dtype=torch.int32)
+    live = torch.arange(T, dtype=torch.int32, device=dev)[None, :] < lens[:, None]
+    decisions = decisions * live[:, :, None].to(torch.uint8)
+    bits = traceback_terminated(spec, decisions, num_pad=0)
+    pos = torch.arange(T * spec.k, dtype=torch.int32, device=dev)
+    msg_live = pos[None, :] < (lens[:, None] - spec.S) * spec.k
+    bits = bits * msg_live.to(torch.uint8)
+    return bits[:, : (T - spec.S) * spec.k]

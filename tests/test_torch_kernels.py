@@ -157,8 +157,15 @@ def test_select_kernel_routes():
         port.CodeSpec(K=8, g=(0o247, 0o371))) == kernels.BUTTERFLY
     assert kernels.select_kernel(
         port.CodeSpec(K=7, g=(0o134, 0o171))) == kernels.GENERIC
-    with pytest.raises(NotImplementedError, match="soft"):
-        kernels.select_kernel(port.NASA_K7, mode="soft")
+    # Soft: NASA_K7 at the default qmax 7 is on the route of the JAX 8-bit
+    # soft kernel (LLRs clipped to +-qmax); at qmax 31, and NASA_K7_R13 at
+    # any qmax, on the any-int8 route; codes off the kernels stay GENERIC.
+    assert kernels.select_kernel(port.NASA_K7, mode="soft") == kernels.SOFT8
+    assert kernels.select_kernel(port.NASA_K7, "soft", 31) == kernels.SOFT
+    assert kernels.select_kernel(port.NASA_K7_R13, "soft", 7) == kernels.SOFT
+    assert kernels.select_kernel(port.K5_23_35, "soft") == kernels.GENERIC
+    with pytest.raises(ValueError, match="mode"):
+        kernels.select_kernel(port.NASA_K7, mode="list")
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -170,7 +177,9 @@ def test_cpu_tensors_launch_no_kernel():
     kernels.viterbi_decode_batch(port.NASA_K7, seg)
     words, _ = acs.acs_forward_batch(port.NASA_K7, seg)
     acs.traceback_batch(port.NASA_K7, words, seg.shape[1], 40)
-    assert acs.LAUNCHES == {"acs_k1_forward": 0, "traceback_k1": 0}
+    assert set(acs.LAUNCHES) == {"acs_k1_forward", "traceback_k1",
+                                 "acs_soft_k1_forward", "traceback_k1_ragged"}
+    assert not any(acs.LAUNCHES.values())
 
 
 def test_no_fallback_off_the_cpu():
@@ -225,6 +234,12 @@ def test_kernel_modules_import_without_cuda_toolkit():
         "seg = torch.zeros((2, 30), dtype=torch.uint8)\n"
         "out = kernels.viterbi_decode_batch_bytes(NASA_K7, seg)\n"
         "assert out.shape == (2, 3) and not out.any()\n"
+        "q = torch.ones((2, 30, 2), dtype=torch.int8)\n"
+        "out = kernels.viterbi_decode_batch_soft_bytes(NASA_K7, q)\n"
+        "assert out.shape == (2, 3) and not out.any()\n"
+        "out = kernels.viterbi_decode_batch_soft_bytes_ragged(\n"
+        "    NASA_K7, q, torch.tensor([30, 9], dtype=torch.int32))\n"
+        "assert out.shape == (2, 3) and not out.any()\n"
         "assert _build.library.cache_info().currsize == 0\n"
         "assert 'triton' not in sys.modules\n"
         "print('ok')\n")
@@ -235,3 +250,79 @@ def test_kernel_modules_import_without_cuda_toolkit():
                           text=True, env=env, cwd=root, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _entry_points():
+    """(id, call(x, **kw)) of every public entry point that takes an array,
+    with the numpy input it is given."""
+    rng = np.random.default_rng(41)
+    spec = port.NASA_K7
+    msgs = rng.integers(0, 2, (3, 40), dtype=np.uint8)
+    seg = port.encode_bits(spec, torch.from_numpy(msgs))[0].numpy()
+    q = rng.integers(-9, 10, (3, 46, 2)).astype(np.int8)
+    lens = np.array([46, 20, 0], np.int32)
+    T, pattern = 46, port.PUNCTURE_3_4
+    kept = int(port.puncture_mask(pattern, T).sum())
+    rx = rng.integers(0, 2, (3, kept), dtype=np.uint8)
+    llr = rng.normal(0, 4, (3, 92)).astype(np.float32)
+    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    return [
+        ("encode_bits", msgs, lambda x, **kw: port.encode_bits(spec, x, **kw)[0]),
+        ("encode_bytes", msgs[:, :5] * 7,
+         lambda x, **kw: port.encode_bytes(spec, x, **kw)),
+        ("bsc_segments", seg,
+         lambda x, **kw: port.bsc_segments(x, 2, 0.1, gen(), **kw)),
+        ("bsc", msgs, lambda x, **kw: port.bsc(x, 0.1, gen(), **kw)),
+        ("awgn", llr, lambda x, **kw: port.awgn(x, 3.0, 0.5, generator=gen(),
+                                                **kw)),
+        ("bpsk_llr", llr, lambda x, **kw: port.bpsk_llr(x, 3.0, 0.5, **kw)),
+        ("quantize_llrs", llr, lambda x, **kw: port.quantize_llrs(x, **kw)),
+        ("segments_to_bits", seg,
+         lambda x, **kw: port.segments_to_bits(x, 2, **kw)),
+        ("viterbi_decode_batch", seg,
+         lambda x, **kw: port.viterbi_decode_batch(spec, x, **kw)),
+        ("viterbi_decode_batch_bytes", seg,
+         lambda x, **kw: port.viterbi_decode_batch_bytes(spec, x, **kw)),
+        ("viterbi_decode_batch_soft", q,
+         lambda x, **kw: port.viterbi_decode_batch_soft(spec, x, **kw)),
+        ("viterbi_decode_batch_soft_bytes", q,
+         lambda x, **kw: port.viterbi_decode_batch_soft_bytes(spec, x, **kw)),
+        ("viterbi_decode_batch_punctured", rx,
+         lambda x, **kw: port.viterbi_decode_batch_punctured(
+             spec, x, pattern, T, **kw)),
+        ("viterbi_decode_batch_punctured_soft", rx.astype(np.int8) * 5 - 2,
+         lambda x, **kw: port.viterbi_decode_batch_punctured_soft(
+             spec, x, pattern, T, **kw)),
+        ("viterbi_decode_batch_ragged", seg,
+         lambda x, **kw: port.viterbi_decode_batch_ragged(spec, x, lens,
+                                                          **kw)),
+        ("viterbi_decode_batch_bytes_ragged", seg,
+         lambda x, **kw: port.viterbi_decode_batch_bytes_ragged(
+             spec, x, lens, **kw)),
+        ("viterbi_decode_batch_soft_bytes_ragged", q,
+         lambda x, **kw: port.viterbi_decode_batch_soft_bytes_ragged(
+             spec, x, lens, **kw)),
+    ]
+
+
+ENTRY_IDS = [name for name, _, _ in _entry_points()]
+
+
+@pytest.mark.parametrize("name", ENTRY_IDS)
+def test_numpy_input_with_device_cpu_decodes_as_a_cpu_tensor(name):
+    """A numpy input with device="cpu" gives what the same data as a CPU
+    tensor gives."""
+    _, x, call = _entry_points()[ENTRY_IDS.index(name)]
+    got = call(x, device="cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(got, call(torch.from_numpy(x)))
+
+
+@pytest.mark.parametrize("name", ENTRY_IDS)
+def test_numpy_input_without_device_needs_cuda(name, monkeypatch):
+    """With no CUDA device, a numpy input and no device raises: it is never
+    decoded on the CPU silently."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, x, call = _entry_points()[ENTRY_IDS.index(name)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(x)

@@ -102,7 +102,12 @@ def test_port_imports_no_jax():
     """In a fresh interpreter (this one imported jax for the tests)."""
     root = Path(__file__).resolve().parent.parent
     code = ("import sys, convolutionalencdec_tpu_torch, "
-            "convolutionalencdec_tpu_torch.kernels.decode; "
+            "convolutionalencdec_tpu_torch.kernels.decode, "
+            "convolutionalencdec_tpu_torch.kernels.acs, "
+            "convolutionalencdec_tpu_torch.ops.channel, "
+            "convolutionalencdec_tpu_torch.ops.metrics, "
+            "convolutionalencdec_tpu_torch.ops.puncture, "
+            "convolutionalencdec_tpu_torch.ops.viterbi; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'convolutionalencdec_tpu.', 'triton'))"
