@@ -32,9 +32,23 @@ Phases (any failure exits non-zero and prints no result line):
      `viterbi_decode_batch_bytes_ragged`, and PUNCTURE_3_4 through
      `viterbi_decode_batch_punctured_soft`; each equal to its plain route
      on the card, launches > 0, BER printed;
-  7. times: median and minimum of 20 calls on distinct inputs, CUDA events,
-     for each kernel and the whole hard and soft byte decodes, beside the
-     plain version's time and the kernel's bound.
+  7. streaming kernels against plain versions on the card, small sizes:
+     `stream_k1_decode` (hard at 3% and 25%, soft on +-7, full int8 with
+     -128 and 20% erasures; W = 7, 32, 33, 35, 64; fresh and carried
+     state; T = 1, T off every multiple of 8, B = 1) on NASA_K7,
+     NASA_K7_R13, K9_561_753 and a K=8 code, and `traceback_k1_masked`
+     with random start states and live steps 0, S, T - 1, T;
+  8. streaming main path at full width: NASA_K7, B = 2048 packets of
+     L = 2048 bits (T = 2054), W = 35, fed in 9 calls (8 x 256 steps, then
+     6, the last holding the termination), hard (the segments of phase 4)
+     and soft (the LLRs of phase 5), through `StreamingDecoderBatch` and
+     `BlockStreamingDecoderBatch`; each equal to its plain route on the
+     card, within the BER gates, launches of both new kernels > 0;
+  9. times: median and minimum of 20 calls on distinct inputs, CUDA events,
+     for each kernel, the whole hard and soft byte decodes and the whole
+     9-call packet through each streaming class (also its wall time to the
+     card's finish and the host's time to enqueue it), beside the plain
+     version's time and the kernel's bound.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -67,8 +81,12 @@ EBN0_DB, QMAX = 3.0, 7
 SOFT_BER_WINDOW = (3e-4, 1.3e-3)
 HARD_OVER_SOFT = 10.0
 TIMED_CALLS = 20
+# 0.1 s at 1.98 GHz: longer than the host takes to queue TIMED_CALLS calls
+# of any function timed here (a streaming class's 9-call packet takes it
+# about 3 ms), so that device times hold no gaps left by the host.
+QUEUE_SLEEP_CYCLES = 200_000_000
 KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
-           "traceback_k1_ragged")
+           "traceback_k1_ragged", "stream_k1_decode", "traceback_k1_masked")
 SOURCES = {
     "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
@@ -80,7 +98,19 @@ SOURCES = {
     "traceback_k1_ragged": (
         "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:975"),
+    "stream_k1_decode": (
+        "convolutionalencdec_tpu_torch/csrc/stream_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:1457 and :1524"),
+    "traceback_k1_masked": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_swar.py:920"),
 }
+# Streaming: the comparison phase's presets and windows, the main path's
+# window and feed (8 calls of 256 steps, then the 6 termination steps).
+STREAM_PRESETS = ["NASA_K7", "NASA_K7_R13", "K9_561_753"]
+STREAM_WINDOWS = (7, 32, 33, 35, 64)
+MAIN_W = 35
+STREAM_FEED = (256,) * 8 + (6,)
 # The card's peaks for the bound (H100 SXM; NVIDIA's data sheet and Hopper
 # white paper): 3.35 TB/s of HBM, and int32 at 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost = 16.7 T operations/s.
@@ -88,6 +118,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 ACS_OPS = 6        # per butterfly and step: 4 adds, 2 compare-selects
 TRACEBACK_OPS = 4  # per step: bit select, shift, or, emit
+# Stream decode, per butterfly and step beyond the ACS: two 64-bit register
+# selects and two 64-bit shift-ins, as int32 operations; per state and
+# step: a compare and a select of the argmin.
+EXCHANGE_OPS = 8
+ARGMIN_OPS = 2
 
 
 def require(cond: bool, what: str) -> None:
@@ -134,13 +169,17 @@ def max_abs_diff(a, b) -> int:
 
 def device_times(fn, inputs) -> list[float]:
     """Per-call device milliseconds: calls enqueued back to back with an
-    event between each, one synchronise at the end."""
+    event between each, one synchronise at the end.  The card first spins
+    for QUEUE_SLEEP_CYCLES, so that the host has queued the calls before
+    the card reaches them: a call shorter than its host work is then timed
+    without the gaps the host would leave."""
     import torch
     for x in inputs[:3]:
         fn(x)
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(inputs) + 1)]
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     events[0].record()
     for i, x in enumerate(inputs):
         fn(x)
@@ -549,6 +588,270 @@ def phase_ragged_punctured(fec, acs, dev, err):
     return q, lens, launches, plain_ms
 
 
+def stream_draws(rng, spec, B, T):
+    """The inputs the stream kernel is held to: (label, soft, tensor)."""
+    import numpy as np
+    import torch
+    msgs = rng.integers(0, 2, (B, max(T - spec.S, 0)), dtype=np.uint8)
+    coded = encode_reference_np(spec, msgs)[:, :T]
+    out = [(f"hard {p:.2f}", False,
+            torch.from_numpy(corrupt(rng, coded, p, spec.n))) for p in NOISE]
+    for label, draw in soft_draws(rng, (B, T, spec.n)).items():
+        if label != "+-1":
+            out.append((f"soft {label}", True,
+                        torch.from_numpy(draw.astype(np.int8))))
+    return out
+
+
+def check_stream(err, what, got, want):
+    """`stream_k1_decode`'s (symbols, state) equal to its plain
+    version's."""
+    (sym, st), (sym_p, st_p) = got, want
+    require(sym.shape == sym_p.shape, f"{what}: stream symbols' shape")
+    diffs = [max_abs_diff(sym, sym_p), max_abs_diff(st.metrics, st_p.metrics),
+             max_abs_diff(st.registers, st_p.registers)]
+    require(not any(diffs), f"{what}: stream symbols and state")
+    err["stream_k1_decode"] = max(err["stream_k1_decode"], *diffs)
+
+
+def compare_stream(stream, spec, x, soft, W, err, cut):
+    """`stream_k1_decode` against its plain version: one call from the
+    fresh state, then the same input in two calls split at `cut` (the
+    second from the carried state)."""
+    dec, plain = ((stream.stream_decode_batch_soft,
+                   stream.stream_decode_batch_soft_plain) if soft else
+                  (stream.stream_decode_batch, stream.stream_decode_batch_plain))
+    st = st_p = stream.stream_state_init(spec, x.shape[0], x.device)
+    for part in [x] if cut is None else [x[:, :cut], x[:, cut:]]:
+        got, want = dec(spec, part, st, W), plain(spec, part, st_p, W)
+        check_stream(err, f"{spec} W={W} soft={soft} T={part.shape[1]}",
+                     got, want)
+        st, st_p = got[1], want[1]
+
+
+def compare_masked(acs, spec, words, err, rng):
+    """`traceback_k1_masked` against its plain version: random start states,
+    live steps 0, S, T - 1 and T, bits and bytes."""
+    import numpy as np
+    import torch
+    B, T, _ = words.shape
+    starts = torch.from_numpy(rng.integers(0, spec.num_states, B).astype(
+        np.int32)).to(words.device)
+    for live in sorted({0, min(spec.S, T), max(T - 1, 0), T}):
+        for out_steps in sorted({T, max(T - 13, 0)}):
+            for out in ("bits", "bytes"):
+                got = acs.traceback_batch_masked(spec, words, starts, live,
+                                                 out_steps, out)
+                want = acs.traceback_batch_masked_plain(
+                    spec, words, starts, live, out_steps, out)
+                require(torch.equal(got, want),
+                        f"{spec} masked live={live} out={out_steps} {out}")
+                err["traceback_k1_masked"] = max(
+                    err["traceback_k1_masked"], max_abs_diff(got, want))
+
+
+def phase_compare_stream(fec, acs, stream, dev, err):
+    """The streaming kernels against their plain versions on the card."""
+    import numpy as np
+    rng = np.random.default_rng(2027)
+    T = SMALL_L + 6
+    cases = [(name, fec.PRESETS[name]) for name in STREAM_PRESETS]
+    cases.append(("K8_247_371", fec.CodeSpec(K=8, g=(0o247, 0o371))))
+    for name, spec in cases:
+        draws = stream_draws(rng, spec, SMALL_B, T)
+        for i, (label, soft, x) in enumerate(draws):
+            x = x.to(dev)
+            windows = (STREAM_WINDOWS if name == "NASA_K7"
+                       else (STREAM_WINDOWS[i % len(STREAM_WINDOWS)],))
+            for W in windows:
+                require(stream.stream_kernel_supports(spec, W),
+                        f"{name} W={W} on the stream kernel")
+                compare_stream(stream, spec, x, soft, W, err, None)
+                compare_stream(stream, spec, x, soft, W, err, 77)
+            if not soft:
+                words, _ = acs.acs_forward_batch(spec, x)
+                compare_masked(acs, spec, words, err, rng)
+            print(f"[compare] {name:12s} stream {label:15s} B={SMALL_B} "
+                  f"T={T} W={','.join(map(str, windows))}: symbols and "
+                  "states equal (fresh, and carried across a cut at 77)"
+                  + ("; masked traceback equal" if not soft else ""))
+    spec = fec.NASA_K7
+    for B, T, cut in ((SMALL_B, 1, None), (SMALL_B, 13, 5), (1, 209, 100),
+                      (3, 0, None)):
+        for label, soft, x in stream_draws(rng, spec, B, T):
+            compare_stream(stream, spec, x.to(dev), soft, MAIN_W, err, cut)
+        words, _ = acs.acs_forward_batch(spec, stream_draws(
+            rng, spec, B, T)[0][2].to(dev))
+        compare_masked(acs, spec, words, err, rng)
+        print(f"[compare] NASA_K7      stream edge B={B} T={T}: hard and "
+              "soft symbols and states, masked traceback equal")
+
+
+def feed(dec, x):
+    """The main path's stream: `x` [B, T, ...] in the calls of STREAM_FEED,
+    the last one with last=True; returns the calls' bits concatenated."""
+    import torch
+    out, at = [], 0
+    for i, t in enumerate(STREAM_FEED):
+        out.append(dec.decode(x[:, at:at + t], last=i == len(STREAM_FEED) - 1))
+        at += t
+    return torch.cat(out, dim=1)
+
+
+class plain_block_stream:
+    """Within this block, `BlockStreamingDecoderBatch` runs the plain
+    versions of its kernels (its plain route on the card)."""
+
+    NAMES = ("acs_forward_batch", "acs_forward_batch_soft", "traceback_batch",
+             "traceback_batch_masked")
+
+    def __init__(self, streaming, acs):
+        self.streaming, self.acs = streaming, acs
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.streaming, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(self.streaming, n, getattr(self.acs, n + "_plain"))
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.streaming, n, fn)
+
+
+def phase_stream(fec, acs, dev, err, msgs, seg, q):
+    """The streaming main path at full width: both classes, hard and soft.
+    Returns (launches by path, plain ms by path)."""
+    import torch
+    from convolutionalencdec_tpu_torch.ops import streaming
+    spec = fec.NASA_K7
+    B, T = seg.shape
+    require(sum(STREAM_FEED) == T, "the feed covers the packet")
+    block_hard = fec.viterbi_decode_batch(spec, seg)
+    block_soft = fec.viterbi_decode_batch_soft(spec, q, qmax=QMAX)
+    launches, plain_ms = {}, {}
+    for soft, x, block in ((False, seg, block_hard), (True, q, block_soft)):
+        kind = "soft" if soft else "hard"
+        block_ber = float((block.cpu().numpy() != msgs).mean())
+        dec = fec.StreamingDecoderBatch(spec, B, MAIN_W, soft=soft,
+                                        device=dev)
+        require(dec.use_kernel, "NASA_K7 streams on the kernel route")
+        out, launches[f"stream {kind}"] = drive(acs, lambda: feed(dec, x))
+        require(tuple(out.shape) == (B, MAIN_L), f"stream {kind} shape")
+        plain_dec = fec.StreamingDecoderBatch(
+            spec, B, MAIN_W, use_kernel=False, soft=soft, device=dev)
+        want, plain_ms[f"stream {kind}"] = time_once(
+            lambda: feed(plain_dec, x))
+        require(torch.equal(out, want),
+                f"stream {kind} bits equal to the plain scan on the card")
+        ber = float((out.cpu().numpy() != msgs).mean())
+        require(ber < BER_LIMIT if not soft else ber <= SOFT_BER_WINDOW[1],
+                f"stream {kind} BER {ber}")
+        print(f"[stream] StreamingDecoderBatch {kind} B={B} L={MAIN_L} "
+              f"W={MAIN_W}, calls {list(STREAM_FEED)}: BER {ber:.4e} (block "
+              f"decode on the same data {block_ber:.4e}), equal to the plain "
+              f"scan on the card, launches {launches[f'stream {kind}']}")
+
+        bdec = fec.BlockStreamingDecoderBatch(spec, B, soft=soft, qmax=QMAX,
+                                              device=dev)
+        out, launches[f"block stream {kind}"] = drive(acs, lambda: feed(bdec,
+                                                                        x))
+        require(tuple(out.shape) == (B, MAIN_L), f"block stream {kind} shape")
+        with plain_block_stream(streaming, acs):
+            pdec = fec.BlockStreamingDecoderBatch(spec, B, soft=soft,
+                                                  qmax=QMAX, device=dev)
+            want, plain_ms[f"block stream {kind}"] = time_once(
+                lambda: feed(pdec, x))
+        require(torch.equal(out, want), f"block stream {kind} bits equal to "
+                "its plain route on the card")
+        ber = float((out.cpu().numpy() != msgs).mean())
+        require(ber < BER_LIMIT if not soft else ber <= SOFT_BER_WINDOW[1],
+                f"block stream {kind} BER {ber}")
+        differ = int((out != block).sum())
+        print(f"[stream] BlockStreamingDecoderBatch {kind} B={B} "
+              f"L={MAIN_L}: BER {ber:.4e}, {differ} bits differ from the "
+              f"one-shot block decode, equal to its plain route on the card,"
+              f" launches {launches[f'block stream {kind}']}")
+    for path in ("stream hard", "stream soft"):
+        require(launches[path]["stream_k1_decode"] > 0,
+                f"{path}: stream_k1_decode launched")
+    for path in ("block stream hard", "block stream soft"):
+        require(launches[path]["traceback_k1_masked"] > 0
+                and launches[path]["traceback_k1"] > 0,
+                f"{path}: traceback_k1_masked and traceback_k1 launched")
+    return launches, plain_ms
+
+
+def interior_buffer(acs, spec, seg):
+    """A pending buffer of an interior block-stream call at the main path's
+    feed (48 kept + 240 new steps) and its start states."""
+    import torch
+    words, m = acs.acs_forward_batch(spec, seg[:, :288])
+    return words, torch.argmin(m, dim=1).to(torch.int32)
+
+
+def stream_plain_kernel_ms(fec, acs, stream, seg, q, err):
+    """The streaming kernels against their plain versions at the main-path
+    size, one 2054-step call (hard and soft) and one interior pending
+    buffer; returns the plain versions' ms."""
+    import torch
+    spec = fec.NASA_K7
+    fresh = stream.stream_state_init(spec, seg.shape[0], seg.device)
+    plain_ms = {}
+    for key, x, dec, plain in (
+            ("stream_k1_decode", seg, stream.stream_decode_batch,
+             stream.stream_decode_batch_plain),
+            ("stream_k1_decode soft", q, stream.stream_decode_batch_soft,
+             stream.stream_decode_batch_soft_plain)):
+        got = dec(spec, x, fresh, MAIN_W)
+        want, plain_ms[key] = time_once(lambda: plain(spec, x, fresh, MAIN_W))
+        check_stream(err, f"{key} at the main-path size", got, want)
+    words, starts = interior_buffer(acs, spec, seg)
+    got = acs.traceback_batch_masked(spec, words, starts, 288, 240)
+    want, plain_ms["traceback_k1_masked"] = time_once(
+        lambda: acs.traceback_batch_masked_plain(spec, words, starts, 288,
+                                                 240))
+    require(torch.equal(got, want), "masked traceback at the main-path size "
+            "equal to its plain version")
+    err["traceback_k1_masked"] = max(err["traceback_k1_masked"],
+                                     max_abs_diff(got, want))
+    print(f"[stream] main-path size B={seg.shape[0]} T={seg.shape[1]} "
+          f"W={MAIN_W}: stream_k1_decode hard and soft and "
+          "traceback_k1_masked (288 steps, 240 out) equal to their plain "
+          "versions")
+    return plain_ms
+
+
+def wall_times(fn, inputs) -> list[float]:
+    """Per-call host milliseconds from the call to the card's finishing it
+    (one synchronise per call): what a caller that waits for each packet
+    sees, host work included."""
+    import torch
+    for x in inputs[:3]:
+        fn(x)
+    torch.cuda.synchronize()
+    out = []
+    for x in inputs:
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def host_times(fn, inputs) -> list[float]:
+    """Per-call host milliseconds to enqueue `fn` (no synchronise inside):
+    the host's own work per call, whether or not the card waits for it."""
+    import torch
+    torch.cuda.synchronize()
+    out = []
+    for x in inputs:
+        t0 = time.perf_counter()
+        fn(x)
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_times(fec, acs, seg, q, q_ragged, lens):
     """Device ms of TIMED_CALLS calls on distinct inputs (row rotations of
     the main-path inputs)."""
@@ -581,6 +884,40 @@ def phase_times(fec, acs, seg, q, q_ragged, lens):
         lambda p: acs.traceback_batch_ragged(spec, p[0], p[1], MAIN_L,
                                              "bytes"), pairs)
     del decs, pairs
+    from convolutionalencdec_tpu_torch.kernels import stream
+    B = seg.shape[0]
+    fresh = stream.stream_state_init(spec, B, seg.device)
+    bufs = [torch.roll(seg, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["stream_k1_decode"] = device_times(
+        lambda s: stream.stream_decode_batch(spec, s, fresh, MAIN_W), bufs)
+    # One call of the main path's feed: 256 steps.
+    runs["stream_k1_decode 256"] = device_times(
+        lambda s: stream.stream_decode_batch(spec, s, fresh, MAIN_W),
+        [s[:, :STREAM_FEED[0]].contiguous() for s in bufs])
+    pend =[interior_buffer(acs, spec, s) for s in bufs]
+    runs["traceback_k1_masked"] = device_times(
+        lambda p: acs.traceback_batch_masked(spec, p[0], p[1], 288, 240), pend)
+    del pend
+    qbufs = [torch.roll(q, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["stream_k1_decode soft"] = device_times(
+        lambda x: stream.stream_decode_batch_soft(spec, x, fresh, MAIN_W),
+        qbufs)
+    # The whole 9-call packet through each class, a new decoder per packet:
+    # device time between events, and the host's wall time to the finish.
+    for kind, xs in (("hard", bufs), ("soft", qbufs)):
+        soft = kind == "soft"
+        for path, make in (
+                ("stream", lambda: fec.StreamingDecoderBatch(
+                    spec, B, MAIN_W, soft=soft, device=seg.device)),
+                ("block stream", lambda: fec.BlockStreamingDecoderBatch(
+                    spec, B, soft=soft, qmax=QMAX, device=seg.device))):
+            runs[f"{path} {kind}"] = device_times(
+                lambda x: feed(make(), x), xs)
+            runs[f"{path} {kind} wall"] = wall_times(
+                lambda x: feed(make(), x), xs)
+            runs[f"{path} {kind} host"] = host_times(
+                lambda x: feed(make(), x), xs)
+    del bufs, qbufs
     print(f"[time] after timing: clocks.sm, power.draw, power.limit, "
           f"temperature: {nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     return runs
@@ -603,6 +940,15 @@ def bounds(lens_sum: int):
         # Only the steps below each channel's length are needed.
         "traceback_k1_ragged": (lens_sum * NS // 8 + 4 * B + B * L // 8,
                                 lens_sum * TRACEBACK_OPS),
+        # Hard segments in, one symbol byte per step out, the carried state
+        # (int32 metric + int64 register per state) in and out.
+        "stream_k1_decode": (
+            2 * B * T + 2 * B * NS * 12,
+            B * T * (NS // 2 * (ACS_OPS + EXCHANGE_OPS) + NS * ARGMIN_OPS)),
+        # One interior call's pending buffer: 288 steps of words and the
+        # start states in, the bits of 240 steps out.
+        "traceback_k1_masked": (B * 288 * NS // 8 + 4 * B + B * 240,
+                                B * 288 * TRACEBACK_OPS),
     }
     out = {}
     for name, (nbytes, ops) in work.items():
@@ -626,7 +972,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing: {exc}",
               file=sys.stderr)
         return 1
-    from convolutionalencdec_tpu_torch.kernels import _build, acs
+    from convolutionalencdec_tpu_torch.kernels import _build, acs, stream
     dev = torch.device("cuda", 0)
 
     card = phase_environment(_build)
@@ -640,17 +986,27 @@ def main() -> int:
     q_ragged, lens, rp_launches, rp_plain = phase_ragged_punctured(
         fec, acs, dev, err)
     plain_ms.update(soft_plain, **rp_plain)
+    t0 = time.perf_counter()
+    phase_compare_stream(fec, acs, stream, dev, err)
+    print(f"[compare] streaming kernels {time.perf_counter() - t0:.1f} s")
+    stream_launches, stream_plain = phase_stream(fec, acs, dev, err, msgs,
+                                                 seg, q)
+    plain_ms.update(stream_plain)
+    plain_ms.update(stream_plain_kernel_ms(fec, acs, stream, seg, q, err))
     runs = phase_times(fec, acs, seg, q, q_ragged, lens)
 
     # Launch counts: the sum over the main-path runs, each read just after.
-    by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches}
+    by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
+               **stream_launches}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     bits_per_call = MAIN_B * MAIN_L
     med = {key: statistics.median(ms) for key, ms in runs.items()}
     for key, ms in med.items():
-        print(f"[time] {key:20s} median {ms:.4f} ms, min {min(runs[key]):.4f}"
+        plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
+        print(f"[time] {key:22s} median {ms:.4f} ms, min {min(runs[key]):.4f}"
               f" ms of {TIMED_CALLS} = {bits_per_call / (ms * 1e3):.1f} "
-              f"decoded Mbit/s; plain {plain_ms[key]:.1f} ms [{card}]")
+              f"decoded Mbit/s; plain "
+              f"{'-' if plain is None else f'{plain:.1f}'} ms [{card}]")
     bound = bounds(int(lens.clamp(0, seg.shape[1]).sum()))
     kernels = []
     for name in KERNELS:
@@ -665,6 +1021,20 @@ def main() -> int:
             "library_ms": None})
         require(launches[name] > 0, f"{name} launched on the main paths")
         require(err[name] == 0, f"{name} equal to its plain version")
+    soft_stream = "stream_k1_decode soft"
+    kernels[KERNELS.index("stream_k1_decode")].update(
+        soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
+        soft_plain_ms=plain_ms[soft_stream],
+        ms_256_steps=med["stream_k1_decode 256"])
+    streams = {}
+    for path in ("stream hard", "stream soft", "block stream hard",
+                 "block stream soft"):
+        streams[path] = {
+            "ms": med[path], "min_ms": min(runs[path]),
+            "wall_ms": med[f"{path} wall"], "host_ms": med[f"{path} host"],
+            "plain_ms": plain_ms[path],
+            "mbps": bits_per_call / (med[path] * 1e3),
+            "wall_mbps": bits_per_call / (med[f"{path} wall"] * 1e3)}
     print(json.dumps({
         "kernels": kernels, "decode_ms": med["decode"],
         "decode_min_ms": min(runs["decode"]),
@@ -673,7 +1043,8 @@ def main() -> int:
         "soft_decode_ms": med["soft_decode"],
         "soft_decode_min_ms": min(runs["soft_decode"]),
         "soft_decode_plain_ms": plain_ms["soft_decode"],
-        "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3)}))
+        "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
+        "streams": streams}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

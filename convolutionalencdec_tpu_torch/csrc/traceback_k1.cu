@@ -1,6 +1,6 @@
 // Block traceback of terminated packets over packed decision words.
 //
-// Two entry points, one kernel template:
+// Three entry points, one kernel template:
 //   traceback_k1         replaces the TPU kernel `traceback_batch_swar` in
 //                        convolutionalencdec_tpu/kernels/acs_swar.py (its
 //                        pallas_call at :877, kernel body `_tb_kernel_swar`
@@ -9,7 +9,10 @@
 //   traceback_k1_ragged  replaces `traceback_batch_swar_ragged` (pallas_call
 //                        at :975, the same body with per-channel group
 //                        masks) and the per-channel byte mask of its
-//                        epilogue `_bytes_epilogue_ragged` (:1113).
+//                        epilogue `_bytes_epilogue_ragged` (:1113);
+//   traceback_k1_masked  replaces `traceback_batch_swar_masked` (pallas_call
+//                        at :920, the same body with a one-hot walk start,
+//                        `with_hinit`, and a byte mask per 8-step group).
 // They compute what those kernels compute, not how: no one-hot select
 // network, no group masks, no padded steps; the walk starts at the real
 // last step of each channel.
@@ -29,11 +32,19 @@
 // (ops/viterbi.viterbi_decode_ragged).  The kernel writes the whole row:
 // the bytes (or bits) past the channel's message are zeros.
 //
+// Masked: channel b walks from state starts[b] at step T - 1; a step at or
+// beyond `live` counts as decision 0 (which shifts any state to 0 within S
+// steps, so it cannot be skipped); it emits the bits of steps < out_steps.
+// Every caller of the TPU kernel builds its group mask as a prefix of live
+// groups (ops/streaming.py:460, parallel/sharding.py:389-392,
+// kernels/tailbiting.py:60), so one step count is the same function.
+//
 // Layouts:
 //   decs  int32 [B, T_stride, W]  as written by acs_k1_forward (W = NS/32;
 //                                 the decision of state s = 2b + p is bit
 //                                 i % 32 of word i / 32, i = p*NS/2 + b)
 //   lengths int32 [B]             ragged only
+//   starts  int32 [B]             masked only, states in [0, NS)
 //   out   uint8 [B, ceil(message_bits / 8)] bytes, or [B, message_bits] bits
 //
 // What bounds it on this card: the walk is a chain of dependent reads, one
@@ -55,13 +66,16 @@ namespace {
 
 constexpr int kThreads = 32;
 
-template <int W, bool RAGGED>  // decision words per step = NS / 32
+enum class Walk { kTerminated, kRagged, kMasked };
+
+template <int W, Walk MODE>  // W: decision words per step = NS / 32
 __global__ void __launch_bounds__(kThreads)
 traceback_k1_kernel(const int32_t* __restrict__ decs,
                     const int32_t* __restrict__ lengths,
+                    const int32_t* __restrict__ starts,
                     uint8_t* __restrict__ out,
                     int B, int T_stride, int t_actual, int S,
-                    int message_bits, int emit_bytes) {
+                    int message_bits, int emit_bytes, int live) {
   constexpr int C = 32 / W;  // steps per register chunk
   const int ch = blockIdx.x * kThreads + threadIdx.x;
   if (ch >= B) return;
@@ -71,7 +85,7 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   uint8_t* out_row = out + (size_t)ch * row_len;
   int t_start = t_actual;
   int msg = message_bits;
-  if (RAGGED) {
+  if (MODE == Walk::kRagged) {
     t_start = min(max(lengths[ch], 0), T_stride);
     msg = min(max(t_start - S, 0), message_bits);
     // The walk writes every byte (bit) below msg; zero the rest of the row.
@@ -80,7 +94,7 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
     }
   }
   const int top = S - 1;
-  unsigned cur = 0;
+  unsigned cur = (MODE == Walk::kMasked) ? (unsigned)starts[ch] : 0u;
   unsigned acc = 0;
 
   for (int t_hi = t_start - 1; t_hi >= 0; t_hi -= C) {
@@ -100,7 +114,8 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
       unsigned word = (unsigned)r[k][0];
 #pragma unroll
       for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
-      const unsigned d = (word >> (i & 31u)) & 1u;
+      unsigned d = (word >> (i & 31u)) & 1u;
+      if (MODE == Walk::kMasked && t >= live) d = 0u;
       if (t < msg) {
         const unsigned bit = cur & 1u;
         if (emit_bytes) {
@@ -118,24 +133,27 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   }
 }
 
-template <bool RAGGED>
-int launch(const int32_t* d, const int32_t* lengths, uint8_t* o, int B,
-           int T_stride, int t_actual, int NS, int S, int message_bits,
-           int emit_bytes, cudaStream_t s) {
+template <Walk MODE>
+int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
+           uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
+           int message_bits, int emit_bytes, int live, cudaStream_t s) {
   const dim3 block(kThreads);
   const dim3 grid((B + kThreads - 1) / kThreads);
   switch (NS) {
     case 64:
-      traceback_k1_kernel<2, RAGGED><<<grid, block, 0, s>>>(
-          d, lengths, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
+      traceback_k1_kernel<2, MODE><<<grid, block, 0, s>>>(
+          d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
+          emit_bytes, live);
       break;
     case 128:
-      traceback_k1_kernel<4, RAGGED><<<grid, block, 0, s>>>(
-          d, lengths, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
+      traceback_k1_kernel<4, MODE><<<grid, block, 0, s>>>(
+          d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
+          emit_bytes, live);
       break;
     case 256:
-      traceback_k1_kernel<8, RAGGED><<<grid, block, 0, s>>>(
-          d, lengths, o, B, T_stride, t_actual, S, message_bits, emit_bytes);
+      traceback_k1_kernel<8, MODE><<<grid, block, 0, s>>>(
+          d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
+          emit_bytes, live);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -148,10 +166,10 @@ int launch(const int32_t* d, const int32_t* lengths, uint8_t* o, int B,
 extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
                             int t_actual, int NS, int S, int message_bits,
                             int emit_bytes, void* stream) {
-  return launch<false>(static_cast<const int32_t*>(decs), nullptr,
-                       static_cast<uint8_t*>(out), B, T_stride, t_actual, NS,
-                       S, message_bits, emit_bytes,
-                       static_cast<cudaStream_t>(stream));
+  return launch<Walk::kTerminated>(
+      static_cast<const int32_t*>(decs), nullptr, nullptr,
+      static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
+      emit_bytes, 0, static_cast<cudaStream_t>(stream));
 }
 
 // Row width message_bits_max (<= T - S) bits, or ceil(message_bits_max / 8)
@@ -160,9 +178,21 @@ extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
                                    void* out, int B, int T, int NS, int S,
                                    int message_bits_max, int emit_bytes,
                                    void* stream) {
-  return launch<true>(static_cast<const int32_t*>(decs),
-                      static_cast<const int32_t*>(lengths),
-                      static_cast<uint8_t*>(out), B, T, T, NS, S,
-                      message_bits_max, emit_bytes,
-                      static_cast<cudaStream_t>(stream));
+  return launch<Walk::kRagged>(
+      static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
+      nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
+      emit_bytes, 0, static_cast<cudaStream_t>(stream));
+}
+
+// Walk from starts[b] at step T - 1, decision 0 at steps >= live; row width
+// out_steps bits, or ceil(out_steps / 8) bytes.
+extern "C" int traceback_k1_masked(const void* decs, const void* starts,
+                                   void* out, int B, int T, int NS, int S,
+                                   int live, int out_steps, int emit_bytes,
+                                   void* stream) {
+  return launch<Walk::kMasked>(
+      static_cast<const int32_t*>(decs), nullptr,
+      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
+      T, NS, S, out_steps, emit_bytes, live,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 """Forward ACS and traceback of the k=1 butterfly block decodes.
 
-Four wrappers, each with its plain PyTorch version beside it (TPU kernels
+Five wrappers, each with its plain PyTorch version beside it (TPU kernels
 named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
 
   * `acs_forward_batch` launches `csrc/acs_k1.cu` (hard decisions; replaces
@@ -11,7 +11,13 @@ named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
   * `traceback_batch` launches `traceback_k1` in `csrc/traceback_k1.cu`
     (replaces `traceback_batch_swar`);
   * `traceback_batch_ragged` launches `traceback_k1_ragged`, same file
-    (per-channel lengths; replaces `traceback_batch_swar_ragged`).
+    (per-channel lengths; replaces `traceback_batch_swar_ragged`);
+  * `traceback_batch_masked` launches `traceback_k1_masked`, same file
+    (per-channel start states, a live prefix; replaces
+    `traceback_batch_swar_masked`).
+
+`kernels/stream.py` holds the streaming kernel's wrappers; their launches
+are counted here too.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises: nothing falls back.  `LAUNCHES`
@@ -38,7 +44,8 @@ from ..params import CodeSpec
 
 #: Launches of each kernel since the count was last set to 0.
 LAUNCHES = {"acs_k1_forward": 0, "traceback_k1": 0, "acs_soft_k1_forward": 0,
-            "traceback_k1_ragged": 0}
+            "traceback_k1_ragged": 0, "stream_k1_decode": 0,
+            "traceback_k1_masked": 0}
 
 #: Bit weights of one decision word: bit 31 weighs -2^31 in int32, so the
 #: int32 sum of a word's bits is exact and equals the word's two's
@@ -369,4 +376,74 @@ def traceback_batch_ragged(spec: CodeSpec, decisions: torch.Tensor,
         torch.cuda.current_stream(decisions.device).cuda_stream)
     LAUNCHES["traceback_k1_ragged"] += 1
     _build.check("traceback_k1_ragged", code)
+    return result
+
+
+def traceback_batch_masked_plain(spec: CodeSpec, decisions: torch.Tensor,
+                                 start_states: torch.Tensor, live_steps: int,
+                                 out_steps: int,
+                                 out: str = "bits") -> torch.Tensor:
+    """Plain version of `traceback_batch_masked`: unpack the words, zero the
+    decisions from `live_steps` on, and run the reference traceback from
+    the start states with no padding dropped."""
+    dec = unpack_decisions(spec, decisions)
+    dec[:, live_steps:] = 0
+    bits = traceback_terminated(spec, dec, num_pad=0,
+                                start_states=start_states)[:, :out_steps]
+    return pad_and_pack(bits) if out == "bytes" else bits
+
+
+def traceback_batch_masked(spec: CodeSpec, decisions: torch.Tensor,
+                           start_states: torch.Tensor, live_steps: int,
+                           out_steps: int, out: str = "bits") -> torch.Tensor:
+    """Traceback from given start states over a live prefix of the steps.
+
+    Replaces the TPU kernel `traceback_batch_swar_masked`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:897, pallas_call :920;
+    body `_tb_kernel_swar` with `with_hinit`).  That kernel takes a one-hot
+    start and a byte mask per 8-step group; every caller builds the mask as
+    a prefix of live groups, so one `live_steps` gives the same function.
+    Channel b walks from `start_states[b]` at step T - 1; a step at or
+    beyond `live_steps` counts as decision 0.  Used by the block-speed
+    stream (`ops.streaming.BlockStreamingDecoderBatch`), and the traceback
+    of the tail-biting and time-block decodes in the JAX package.
+
+    Args:
+      decisions: int32 [B, T, NS/32] words.
+      start_states: int32 [B] states in [0, NS), on the decisions' device.
+      live_steps: steps [0, live_steps) read their decisions; 0..T.
+      out_steps: the bits of steps [0, out_steps) are returned; 0..T.  No
+        termination steps are dropped: the caller chooses.
+      out: "bits" for uint8 [B, out_steps] (one bit per step, the step's
+        input bit) or "bytes" for uint8 [B, ceil(out_steps/8)] (MSb-first).
+    """
+    B, T = _check_words(spec, decisions, out)
+    if (start_states.dtype != torch.int32 or start_states.shape != (B,)
+            or start_states.device != decisions.device):
+        raise ValueError("start_states must be int32 [B] on the decisions' "
+                         "device")
+    if not 0 <= live_steps <= T:
+        raise ValueError(f"live_steps = {live_steps} outside [0, {T}]")
+    if not 0 <= out_steps <= T:
+        raise ValueError(f"out_steps = {out_steps} outside [0, {T}]")
+    _check_kernel_spec(spec)
+    if not _check_device(decisions):
+        return traceback_batch_masked_plain(spec, decisions, start_states,
+                                            live_steps, out_steps, out)
+    decisions = decisions.contiguous()
+    start_states = start_states.contiguous()
+    width = (out_steps + 7) // 8 if out == "bytes" else out_steps
+    result = torch.empty((B, width), dtype=torch.uint8,
+                         device=decisions.device)
+    if B == 0:
+        return result
+    from . import _build
+    lib = _build.library()
+    code = lib.traceback_k1_masked(
+        decisions.data_ptr(), start_states.data_ptr(), result.data_ptr(), B,
+        T, spec.num_states, spec.S, live_steps, out_steps,
+        int(out == "bytes"),
+        torch.cuda.current_stream(decisions.device).cuda_stream)
+    LAUNCHES["traceback_k1_masked"] += 1
+    _build.check("traceback_k1_masked", code)
     return result

@@ -43,6 +43,17 @@ def swar_layout_supported(spec: CodeSpec) -> bool:
             and spec.has_poly_symmetry)
 
 
+def swar_supported(spec: CodeSpec) -> bool:
+    """The JAX package's rule for its hard SWAR kernels
+    (acs_swar.swar_supported): the layout, and 8-bit metric fields under
+    one of its two renorm cadences (every 24 steps: init + 25 n <= 127;
+    every 3 steps: max(init, S n) + 3 n <= 127)."""
+    init = init_metric_value(spec)
+    sparse = init + 25 * spec.n <= 127
+    dense = max(init, spec.S * spec.n) + 3 * spec.n <= 127
+    return swar_layout_supported(spec) and (sparse or dense)
+
+
 def swar8_soft_supported(spec: CodeSpec, qmax: int) -> bool:
     """The JAX package's rule for its 8-bit soft kernel
     (acs_swar.swar8_soft_supported): soft metrics fit 8-bit fields with a

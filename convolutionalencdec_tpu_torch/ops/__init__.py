@@ -1,5 +1,8 @@
 """Plain tensor operations: bits, encoder, channel, trellis, soft metrics,
-puncturing, reference decoders."""
+puncturing, reference decoders.
+
+`ops.streaming` (the streaming classes) runs on the kernels' wrappers, so
+the package imports it after `kernels`, not here."""
 
 from .bits import pack_bits, unpack_bits
 from .channel import (awgn, bits_to_segments, bpsk_llr, bpsk_modulate, bsc,
@@ -15,8 +18,9 @@ from .puncture import (PUNCTURE_2_3, PUNCTURE_3_4, PUNCTURE_5_6,
 from .trellis import (butterfly_coded_bits, edge_coded_bits,
                       next_state_table, prev_state_table)
 from .viterbi import (hard_step_metrics, init_metric_value, ragged_epilogue,
-                      traceback_terminated, viterbi_decode,
+                      stream_scan, traceback_terminated, viterbi_decode,
                       viterbi_decode_bytes, viterbi_decode_ragged,
+                      viterbi_decode_stream, viterbi_decode_stream_soft,
                       viterbi_forward, viterbi_forward_butterfly)
 
 __all__ = [
@@ -30,6 +34,8 @@ __all__ = [
     "puncture_mask", "punctured_rate", "butterfly_coded_bits",
     "edge_coded_bits", "next_state_table", "prev_state_table",
     "hard_step_metrics", "init_metric_value", "ragged_epilogue",
-    "traceback_terminated", "viterbi_decode", "viterbi_decode_bytes",
-    "viterbi_decode_ragged", "viterbi_forward", "viterbi_forward_butterfly",
+    "stream_scan", "traceback_terminated", "viterbi_decode",
+    "viterbi_decode_bytes", "viterbi_decode_ragged", "viterbi_decode_stream",
+    "viterbi_decode_stream_soft", "viterbi_forward",
+    "viterbi_forward_butterfly",
 ]

@@ -1,9 +1,10 @@
 """Plain reference Viterbi decoders, batched over a leading B dimension.
 
-Port of `convolutionalencdec_tpu/ops/viterbi.py` (block decoders).  These
-are the port's ground truth and the plain versions of the two kernels in
-`kernels/acs.py`: a Python loop over time steps, tensor ops over the batch
-and the states.  They run on whatever device their inputs live on.
+Port of `convolutionalencdec_tpu/ops/viterbi.py` (block, ragged and
+streaming decoders).  These are the port's ground truth and the plain
+versions of the kernels in `kernels/acs.py` and `kernels/stream.py`: a
+Python loop over time steps, tensor ops over the batch and the states.
+They run on whatever device their inputs live on.
 
 Metric conventions match the JAX package exactly: initial metrics are 0 for
 state 0 and `init_metric_value(spec)` for the rest, ties keep the lowest
@@ -52,14 +53,19 @@ def _hamming_table(spec: CodeSpec, coded: np.ndarray) -> np.ndarray:
     return table
 
 
+def hard_metric_table(spec: CodeSpec, device) -> torch.Tensor:
+    """int32 [2^n, 2^k, NS]: entry [c, u, s] is the Hamming distance between
+    received segment c and the coded bits of edge (src=s, input=u)."""
+    return torch.as_tensor(_hamming_table(spec, edge_coded_bits(spec)),
+                           device=device)
+
+
 def hard_step_metrics(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
     """Branch metrics of hard n-bit segments [..., T]: int32
     [..., T, 2^k, NS], entry [t, u, s] the Hamming distance between segment t
     and the coded bits of edge (src=s, input=u)."""
     segments = torch.as_tensor(segments)
-    table = torch.as_tensor(_hamming_table(spec, edge_coded_bits(spec)),
-                            device=segments.device)
-    return table[segments.long()]
+    return hard_metric_table(spec, segments.device)[segments.long()]
 
 
 def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor):
@@ -139,14 +145,25 @@ def viterbi_forward_butterfly(spec: CodeSpec, segments: torch.Tensor,
     return decisions, m
 
 
+def symbols_to_bits(spec: CodeSpec, symbols: torch.Tensor) -> torch.Tensor:
+    """k-bit symbols [B, T] -> uint8 bits [B, T * k], MSb of each symbol
+    first."""
+    bit_idx = torch.arange(spec.k - 1, -1, -1, device=symbols.device)
+    bits = (symbols.long()[..., None] >> bit_idx) & 1
+    return bits.to(torch.uint8).reshape(symbols.shape[0], -1)
+
+
 def traceback_terminated(spec: CodeSpec, decisions: torch.Tensor,
-                         num_pad: int = -1) -> torch.Tensor:
+                         num_pad: int = -1,
+                         start_states: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Block traceback over terminated packets.
 
-    Walks backward from the known terminal state 0, reconstructing sources
-    via ``src = (dst >> k) | (decision << (S-1)*k)`` and emitting the k
-    input bits ``dst & (2^k - 1)`` per step; the last `num_pad` steps
-    (default S, the termination padding) emit nothing.
+    Walks backward from the known terminal state 0 (or from `start_states`,
+    int [B], at step T - 1), reconstructing sources via
+    ``src = (dst >> k) | (decision << (S-1)*k)`` and emitting the k input
+    bits ``dst & (2^k - 1)`` per step; the last `num_pad` steps (default S,
+    the termination padding) emit nothing.
 
     Args:
       decisions: uint8 [B, T, NS] decision indices.
@@ -162,15 +179,14 @@ def traceback_terminated(spec: CodeSpec, decisions: torch.Tensor,
     shift = (spec.S - 1) * spec.k
     dev = decisions.device
     rows = torch.arange(B, device=dev)
-    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    cur = (torch.zeros(B, dtype=torch.long, device=dev) if start_states is None
+           else start_states.to(device=dev, dtype=torch.long))
     us = torch.empty((B, T), dtype=torch.long, device=dev)
     for t in range(T - 1, -1, -1):
         e = decisions[rows, t, cur].long()
         us[:, t] = cur & (E - 1)
         cur = (cur >> spec.k) | (e << shift)
-    us = us[:, : T - num_pad]
-    bit_idx = torch.arange(spec.k - 1, -1, -1, device=dev)
-    return ((us[..., None] >> bit_idx) & 1).to(torch.uint8).reshape(B, -1)
+    return symbols_to_bits(spec, us[:, : T - num_pad])
 
 
 def viterbi_decode(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
@@ -253,3 +269,115 @@ def ragged_epilogue(spec: CodeSpec, decisions: torch.Tensor,
     msg_live = pos[None, :] < (lens[:, None] - spec.S) * spec.k
     bits = bits * msg_live.to(torch.uint8)
     return bits[:, : (T - spec.S) * spec.k]
+
+
+def stream_scan(spec: CodeSpec, step_metrics, T: int, metrics: torch.Tensor,
+                registers: torch.Tensor):
+    """Sliding-window register-exchange recurrence from a carried state: the
+    plain core of every streaming decoder of the port.
+
+    Each state carries the last W decoded symbols of its survivor path.  At
+    each step the ACS picks every destination's source (the lowest decision
+    index wins ties), the destination's register becomes its source's
+    register shifted by one symbol with the destination's input symbol
+    (dst & (2^k - 1)) entering as the newest, and the step emits the oldest
+    symbol (column W - 1) of the lowest-numbered state with the least new
+    metric.  Metrics are int32 and not renormalised.
+
+    Args:
+      step_metrics: callable t -> int32 [B, 2^k, NS] branch costs of step t
+        (entry [b, u, s]: leaving state s on input u).
+      T: steps to run.
+      metrics: int32 [B, NS] carried path metrics.
+      registers: uint8 [B, NS, W] carried survivor symbols, the newest in
+        column 0.
+
+    Returns (metrics int32 [B, NS], registers uint8 [B, NS, W], symbols
+    uint8 [B, T]).
+    """
+    B, NS, W = registers.shape
+    E = spec.num_edges_per_state
+    dev = metrics.device
+    prev = torch.as_tensor(prev_state_table(spec), dtype=torch.long,
+                           device=dev)                                # [E, NS]
+    u_of_dst = torch.arange(NS, device=dev) & (E - 1)
+    bm_idx = u_of_dst[None, :] * NS + prev                            # [E, NS]
+    cols = torch.arange(NS, device=dev)
+    rows = torch.arange(B, device=dev)
+    newest = u_of_dst.to(torch.uint8)[None, :, None].expand(B, NS, 1)
+    symbols = torch.empty((B, T), dtype=torch.uint8, device=dev)
+    m, reg = metrics, registers
+    for t in range(T):
+        pm = m[:, prev] + step_metrics(t).reshape(B, E * NS)[:, bm_idx]
+        best = pm[:, 0]
+        dec = torch.zeros((B, NS), dtype=torch.long, device=dev)
+        for e in range(1, E):
+            better = pm[:, e] < best
+            best = torch.where(better, pm[:, e], best)
+            dec = torch.where(better, e, dec)
+        src = prev[dec, cols]                                         # [B, NS]
+        kept = torch.gather(reg[:, :, :W - 1], 1,
+                            src[:, :, None].expand(B, NS, W - 1))
+        reg = torch.cat([newest, kept], dim=2)
+        m = best
+        symbols[:, t] = reg[rows, torch.argmin(m, dim=1), W - 1]
+    return m, reg, symbols
+
+
+def _decode_stream(spec: CodeSpec, step_metrics, B: int, T: int,
+                   traceback_len: int, device) -> torch.Tensor:
+    """Shared streaming decode of whole packets: the register-exchange scan
+    from the known start, the streamed symbols of steps 0 .. T - W, then
+    the flush of state 0's register minus the S termination steps."""
+    W = traceback_len or spec.traceback_len
+    if T < W:
+        raise ValueError(f"packet of {T} segments shorter than traceback {W}")
+    if W <= spec.S:
+        raise ValueError(f"traceback_len {W} must exceed S = {spec.S} "
+                         "(the flush drops the S termination steps from "
+                         "the register window)")
+    m = _initial_metrics(spec, B, None, device)
+    reg = torch.zeros((B, spec.num_states, W), dtype=torch.uint8,
+                      device=device)
+    _, reg, emitted = stream_scan(spec, step_metrics, T, m, reg)
+    flush = reg[:, 0, spec.S:W - 1].flip(1)
+    return symbols_to_bits(spec, torch.cat([emitted[:, W - 1:], flush], 1))
+
+
+def viterbi_decode_stream(spec: CodeSpec, segments, traceback_len: int = 0,
+                          device=None) -> torch.Tensor:
+    """Streaming sliding-window decode (decode delay = traceback_len W,
+    default 5K) of terminated packets.
+
+    Register-exchange formulation: once warmed up, each step emits the
+    oldest symbol of the current best state's register; at packet end the
+    rest is flushed from state 0's register, minus the S termination steps.
+
+    Args:
+      segments: uint8 [B, T] hard segments, T >= W.
+      device: where a non-tensor `segments` goes (default the CUDA card).
+    Returns uint8 [B, (T - S) * k] decoded bits.
+    """
+    segments = as_tensor(segments, torch.uint8, device)
+    B, T = segments.shape
+    table = hard_metric_table(spec, segments.device)
+    seg = segments.long()
+    return _decode_stream(spec, lambda t: table[seg[:, t]], B, T,
+                          traceback_len, segments.device)
+
+
+def viterbi_decode_stream_soft(spec: CodeSpec, qllrs, traceback_len: int = 0,
+                               device=None) -> torch.Tensor:
+    """Soft-decision `viterbi_decode_stream`: quantized-LLR branch costs
+    (`ops.metrics.soft_step_metrics`, the LLRs used as they are) with the
+    same per-step emit and state-0 flush.
+
+    Args:
+      qllrs: int [B, T, n] quantized LLRs.
+    Returns uint8 [B, (T - S) * k] decoded bits.
+    """
+    from .metrics import soft_step_metrics
+    qllrs = as_tensor(qllrs, torch.int32, device)
+    B, T, _ = qllrs.shape
+    return _decode_stream(spec, lambda t: soft_step_metrics(spec, qllrs[:, t]),
+                          B, T, traceback_len, qllrs.device)

@@ -24,7 +24,7 @@ from convolutionalencdec_tpu.ops import viterbi as ref_viterbi
 
 import convolutionalencdec_tpu_torch as port
 from convolutionalencdec_tpu_torch import kernels
-from convolutionalencdec_tpu_torch.kernels import _build, acs
+from convolutionalencdec_tpu_torch.kernels import _build, acs, stream
 
 KERNEL_PRESETS = ["NASA_K7", "REF_K7", "NASA_K7_R13", "LTE_TBCC_K7",
                   "K9_561_753"]
@@ -177,8 +177,13 @@ def test_cpu_tensors_launch_no_kernel():
     kernels.viterbi_decode_batch(port.NASA_K7, seg)
     words, _ = acs.acs_forward_batch(port.NASA_K7, seg)
     acs.traceback_batch(port.NASA_K7, words, seg.shape[1], 40)
+    acs.traceback_batch_masked(port.NASA_K7, words,
+                               torch.zeros(2, dtype=torch.int32), 40, 40)
+    state = stream.stream_state_init(port.NASA_K7, 2, "cpu")
+    stream.stream_decode_batch(port.NASA_K7, seg, state)
     assert set(acs.LAUNCHES) == {"acs_k1_forward", "traceback_k1",
-                                 "acs_soft_k1_forward", "traceback_k1_ragged"}
+                                 "acs_soft_k1_forward", "traceback_k1_ragged",
+                                 "stream_k1_decode", "traceback_k1_masked"}
     assert not any(acs.LAUNCHES.values())
 
 
@@ -240,6 +245,10 @@ def test_kernel_modules_import_without_cuda_toolkit():
         "out = kernels.viterbi_decode_batch_soft_bytes_ragged(\n"
         "    NASA_K7, q, torch.tensor([30, 9], dtype=torch.int32))\n"
         "assert out.shape == (2, 3) and not out.any()\n"
+        "from convolutionalencdec_tpu_torch import StreamingDecoderBatch\n"
+        "out = StreamingDecoderBatch(NASA_K7, 2, device='cpu').decode(\n"
+        "    seg, last=True)\n"
+        "assert out.shape == (2, 24) and not out.any()\n"
         "assert _build.library.cache_info().currsize == 0\n"
         "assert 'triton' not in sys.modules\n"
         "print('ok')\n")

@@ -104,9 +104,11 @@ def test_port_imports_no_jax():
     code = ("import sys, convolutionalencdec_tpu_torch, "
             "convolutionalencdec_tpu_torch.kernels.decode, "
             "convolutionalencdec_tpu_torch.kernels.acs, "
+            "convolutionalencdec_tpu_torch.kernels.stream, "
             "convolutionalencdec_tpu_torch.ops.channel, "
             "convolutionalencdec_tpu_torch.ops.metrics, "
             "convolutionalencdec_tpu_torch.ops.puncture, "
+            "convolutionalencdec_tpu_torch.ops.streaming, "
             "convolutionalencdec_tpu_torch.ops.viterbi; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
