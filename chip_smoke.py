@@ -48,7 +48,25 @@ Phases (any failure exits non-zero and prints no result line):
      for each kernel, the whole hard and soft byte decodes and the whole
      9-call packet through each streaming class (also its wall time to the
      card's finish and the host's time to enqueue it), beside the plain
-     version's time and the kernel's bound.
+     version's time and the kernel's bound;
+ 10. tail-biting kernels against plain versions on the card, small sizes:
+     `traceback_k1_multi` on NASA_K7, LTE_TBCC_K7, K9_561_753 and a K=8
+     code (NW = 1, 2, 8, NS; live steps 0, S, T - 1, T; windows from step 0
+     and from step 48; T = 1, B = 1, B = 0), the soft forward without the
+     -128 floor, and every tail-biting entry (wrap, bytes, soft, list,
+     CRC, rate-matched) against its plain route at L = 20 (below the wrap),
+     131 (L % 8 != 0) and 203;
+ 11. tail-biting main path at full size: (a) LTE_TBCC_K7 DCI-sized blocks
+     (40-bit payload + CRC16, B = 16384) over AWGN at Eb/N0 = 2 dB through
+     the soft CRC-list chain (list 8) and, rate-matched to E = 288 channel
+     bits, the rate-matched chain; equal to the plain route on the card,
+     no block the wrap decode got right lost, CRC-list BLER <= the wrap
+     decode's, the wrap decode's in [0.016, 0.030], false accepts <= 1e-3;
+     (b) the tail-biting hard byte decode at bench.py's size (BER < 2e-3)
+     and (c) its soft twin over AWGN at 3 dB (BER <= 1.3e-3), each equal to
+     its plain route on the card; launches of K1, K4, K2m and K6 > 0; times
+     of K6 and K2m at (a)'s size, of each whole call, and (a)'s wall and
+     host-enqueue times.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -86,7 +104,8 @@ TIMED_CALLS = 20
 # about 3 ms), so that device times hold no gaps left by the host.
 QUEUE_SLEEP_CYCLES = 200_000_000
 KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
-           "traceback_k1_ragged", "stream_k1_decode", "traceback_k1_masked")
+           "traceback_k1_ragged", "stream_k1_decode", "traceback_k1_masked",
+           "traceback_k1_multi")
 SOURCES = {
     "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
@@ -104,6 +123,9 @@ SOURCES = {
     "traceback_k1_masked": (
         "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:920"),
+    "traceback_k1_multi": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_swar.py:655"),
 }
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
@@ -111,6 +133,23 @@ STREAM_PRESETS = ["NASA_K7", "NASA_K7_R13", "K9_561_753"]
 STREAM_WINDOWS = (7, 32, 33, 35, 64)
 MAIN_W = 35
 STREAM_FEED = (256,) * 8 + (6,)
+# Tail-biting: the comparison phase's presets and lengths (below the wrap,
+# L % 8 != 0, the comparison size); the main path's DCI-sized blocks (LTE
+# PDCCH: 40-bit payload + CRC16 on LTE_TBCC_K7, rate-matched to aggregation
+# level 4 = 4 CCEs x 72 bits), list size, Eb/N0 and gates.
+TB_PRESETS = ["NASA_K7", "LTE_TBCC_K7", "K9_561_753"]
+TB_LENGTHS = (20, 131, SMALL_L)
+TB_WINDOW = 48
+DCI_PAYLOAD, DCI_B, DCI_LIST, DCI_E, DCI_EBN0 = 40, 16384, 8, 288, 2.0
+# RESULTS_r03.md:64 measured a plain soft wrap BLER of 0.0226 and a CRC-list
+# BLER of 0.0214 over 8192 such blocks at 2 dB: properties of the algorithm.
+PLAIN_BLER_WINDOW = (0.016, 0.030)
+FALSE_ACCEPT_LIMIT = 1e-3
+# The wrappers the tail-biting entries call, and the block stream's.
+TB_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
+               "traceback_batch_masked", "traceback_batch_multi")
+BLOCK_STREAM_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
+                         "traceback_batch", "traceback_batch_masked")
 # The card's peaks for the bound (H100 SXM; NVIDIA's data sheet and Hopper
 # white paper): 3.35 TB/s of HBM, and int32 at 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost = 16.7 T operations/s.
@@ -698,24 +737,21 @@ def feed(dec, x):
     return torch.cat(out, dim=1)
 
 
-class plain_block_stream:
-    """Within this block, `BlockStreamingDecoderBatch` runs the plain
-    versions of its kernels (its plain route on the card)."""
+class plain_routes:
+    """Within this block, `module` calls the plain versions of the kernel
+    wrappers `names` (its plain route on the card)."""
 
-    NAMES = ("acs_forward_batch", "acs_forward_batch_soft", "traceback_batch",
-             "traceback_batch_masked")
-
-    def __init__(self, streaming, acs):
-        self.streaming, self.acs = streaming, acs
+    def __init__(self, module, acs, names):
+        self.module, self.acs, self.names = module, acs, names
 
     def __enter__(self):
-        self.saved = {n: getattr(self.streaming, n) for n in self.NAMES}
-        for n in self.NAMES:
-            setattr(self.streaming, n, getattr(self.acs, n + "_plain"))
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            setattr(self.module, n, getattr(self.acs, n + "_plain"))
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
-            setattr(self.streaming, n, fn)
+            setattr(self.module, n, fn)
 
 
 def phase_stream(fec, acs, dev, err, msgs, seg, q):
@@ -756,7 +792,7 @@ def phase_stream(fec, acs, dev, err, msgs, seg, q):
         out, launches[f"block stream {kind}"] = drive(acs, lambda: feed(bdec,
                                                                         x))
         require(tuple(out.shape) == (B, MAIN_L), f"block stream {kind} shape")
-        with plain_block_stream(streaming, acs):
+        with plain_routes(streaming, acs, BLOCK_STREAM_WRAPPERS):
             pdec = fec.BlockStreamingDecoderBatch(spec, B, soft=soft,
                                                   qmax=QMAX, device=dev)
             want, plain_ms[f"block stream {kind}"] = time_once(
@@ -923,6 +959,346 @@ def phase_times(fec, acs, seg, q, q_ragged, lens):
     return runs
 
 
+def compare_multi(acs, spec, words, err, rng):
+    """`traceback_k1_multi` against its plain version on one batch of words:
+    NW = 1, 2, 8 and NS random start states per channel, live steps 0, S,
+    T - 1 and T, windows from step 0 and from step TB_WINDOW to the end,
+    bits and bytes."""
+    import numpy as np
+    import torch
+    B, T, _ = words.shape
+    NS = spec.num_states
+    for nw in sorted({1, 2, 8, NS}):
+        starts = torch.from_numpy(rng.integers(0, NS, (B, nw)).astype(
+            np.int32)).to(words.device)
+        for live in sorted({0, min(spec.S, T), max(T - 1, 0), T}):
+            for start in sorted({0, min(TB_WINDOW, T)}):
+                for out in ("bits", "bytes"):
+                    args = (spec, words, starts, live, start, T - start, out)
+                    got = acs.traceback_batch_multi(*args)
+                    want = acs.traceback_batch_multi_plain(*args)
+                    require(torch.equal(got, want),
+                            f"{spec} multi NW={nw} live={live} "
+                            f"start={start} {out}")
+                    err["traceback_k1_multi"] = max(
+                        err["traceback_k1_multi"], max_abs_diff(got, want))
+
+
+def tb_inputs(fec, rng, spec, B, L, dev):
+    """CRC16-attached tail-biting blocks of L bits (L >= 16): (blocks,
+    segments hit at 3% by nonzero XOR masks, int8 LLRs of the clean coded
+    bits with magnitudes 1..7, 8% sign flips, 2% of them -128, 127 or -127,
+    and int LLRs of the coded bits rate-matched to n L + 37)."""
+    import numpy as np
+    import torch
+    payload = rng.integers(0, 2, (B, L - 16), dtype=np.uint8)
+    blocks = fec.crc_append(fec.CRC16_CCITT, torch.from_numpy(payload).to(
+        dev))
+    clean = fec.encode_tailbiting(spec, blocks)
+    seg = torch.from_numpy(corrupt(rng, clean.cpu().numpy(), 0.03,
+                                   spec.n)).to(dev)
+    cbits = fec.segments_to_bits(clean, spec.n).cpu().numpy().astype(np.int32)
+    q = (1 - 2 * cbits) * rng.integers(1, 8, cbits.shape)
+    q = np.where(rng.random(q.shape) < 0.08, -q, q)
+    strong = rng.random(q.shape) < 0.02
+    q = np.where(strong, rng.choice(np.array([-128, 127, -127]), q.shape), q)
+    q = torch.from_numpy(q.astype(np.int8)).to(dev)
+    rx = fec.rate_match(q.to(torch.int32), spec, L, spec.n * L + 37)
+    return blocks, seg, q.reshape(B, L, spec.n), rx
+
+
+def phase_compare_tailbiting(fec, acs, dev, err):
+    """The multi-walk traceback against its plain version, and every
+    tail-biting entry against its plain route, on the card."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
+    rng = np.random.default_rng(2028)
+    cases = [(name, fec.PRESETS[name]) for name in TB_PRESETS]
+    cases.append(("K8_247_371", fec.CodeSpec(K=8, g=(0o247, 0o371))))
+    for name, spec in cases:
+        zeros = torch.zeros((SMALL_B, spec.num_states), dtype=torch.int32,
+                            device=dev)
+        for p in NOISE:
+            msgs = rng.integers(0, 2, (SMALL_B, SMALL_L), dtype=np.uint8)
+            seg = torch.from_numpy(corrupt(
+                rng, encode_reference_np(spec, msgs), p, spec.n)).to(dev)
+            words, _ = acs.acs_forward_batch(spec, seg, zeros)
+            compare_multi(acs, spec, words, err, rng)
+        print(f"[compare] {name:12s} multi B={SMALL_B} T={seg.shape[1]}: "
+              "NW 1/2/8/NS, live 0/S/T-1/T, windows at 0 and "
+              f"{TB_WINDOW}, bits and bytes equal to the plain version")
+    spec = fec.NASA_K7
+    for B, T in ((1, 5), (3, 1), (0, 40), (SMALL_B, 1)):
+        seg = torch.from_numpy(rng.integers(0, 4, (B, T)).astype(
+            np.uint8)).to(dev)
+        words, _ = acs.acs_forward_batch(spec, seg)
+        compare_multi(acs, spec, words, err, rng)
+        print(f"[compare] NASA_K7      multi edge B={B} T={T}: equal")
+
+    crc = fec.CRC16_CCITT
+    for name, spec in cases:
+        for L in TB_LENGTHS:
+            blocks, seg, q, rx = tb_inputs(fec, rng, spec, SMALL_B, L, dev)
+            if fec.kernels.swar_layout_supported(spec):
+                # The 16-bit route's forward keeps -128 (floor=False).
+                zeros = torch.zeros((SMALL_B, spec.num_states),
+                                    dtype=torch.int32, device=dev)
+                got = acs.acs_forward_batch_soft(spec, q, 127, zeros, False)
+                want = acs.acs_forward_batch_soft_plain(spec, q, 127, zeros,
+                                                        False)
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"{name} L={L} soft forward without the floor")
+                err["acs_soft_k1_forward"] = max(
+                    err["acs_soft_k1_forward"],
+                    *(max_abs_diff(a, b) for a, b in zip(got, want)))
+            calls = {
+                "wrap": lambda: ktb.viterbi_decode_batch_tailbiting(spec, seg),
+                "wrap bytes": lambda: ktb.viterbi_decode_batch_tailbiting_bytes(
+                    spec, seg),
+                "soft": lambda: ktb.viterbi_decode_batch_tailbiting_soft(
+                    spec, q),
+                "soft bytes":
+                    lambda: ktb.viterbi_decode_batch_tailbiting_soft_bytes(
+                        spec, q),
+                "list": lambda: ktb.viterbi_decode_batch_tailbiting_list(
+                    spec, seg, 8),
+                "soft list":
+                    lambda: ktb.viterbi_decode_batch_tailbiting_list_soft(
+                        spec, q, 8),
+                "crc": lambda: ktb.viterbi_decode_batch_tailbiting_crc(
+                    spec, crc, seg, 8),
+                "crc soft": lambda: ktb.viterbi_decode_batch_tailbiting_crc_soft(
+                    spec, crc, q, 8),
+                "rate-matched":
+                    lambda: ktb.viterbi_decode_batch_tailbiting_ratematched_crc(
+                        spec, crc, rx, L, 8),
+            }
+            for what, fn in calls.items():
+                got = fn()
+                with plain_routes(ktb, acs, TB_WRAPPERS):
+                    want = fn()
+                pairs = (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)])
+                require(all(torch.equal(a, b) for a, b in pairs),
+                        f"{name} L={L} tail-biting {what} equal to its "
+                        "plain route")
+            right = (ktb.viterbi_decode_batch_tailbiting_crc_soft(
+                spec, crc, q, 8)[0] == blocks).all(1).float().mean()
+            print(f"[compare] {name:12s} tail-biting B={SMALL_B} L={L}: "
+                  f"{', '.join(calls)} equal to their plain routes "
+                  f"(soft CRC-list blocks right {float(right):.3f})")
+
+
+def tb_kernel_inputs(fec, ktb, acs, spec, q):
+    """The inputs of K2m in the soft wrap decode and of K6 in the soft list
+    decode of int8 LLRs `q`: ((words, starts, live, out_steps),
+    (words, starts [B, DCI_LIST], live, out_start, out_steps))."""
+    import torch
+    B, T = q.shape[:2]
+    extend = fec.ops.tailbiting.circular_extend
+    zeros = torch.zeros((B, spec.num_states), dtype=torch.int32,
+                        device=q.device)
+    qclip, floor = ktb._soft_route(spec, QMAX)
+    wl, wr = ktb.kernel_wraps(spec, T)
+    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, wr, dim=1),
+                                           qclip, zeros, floor)
+    start = torch.argmin(fm, dim=1).to(torch.int32)
+    masked = (words, start, words.shape[1], wl + T)
+    wl = ktb.list_wrap(spec, T)
+    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, 0, dim=1),
+                                           qclip, zeros, floor)
+    states, _ = fec.ops.tailbiting.list_candidates(fm, DCI_LIST)
+    return masked, (words, states, words.shape[1], wl, T)
+
+
+def dci_channel(fec, spec, blocks, dev):
+    """DCI-sized blocks over BPSK/AWGN at DCI_EBN0, quantized at QMAX: the
+    rate-1/3 LLRs int8 [B, D, n] and the LLRs of the blocks rate-matched to
+    DCI_E channel bits, int32 [B, DCI_E]."""
+    import torch
+    B, D = blocks.shape
+    cbits = fec.segments_to_bits(fec.encode_tailbiting(spec, blocks), spec.n)
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED + 3)
+    rx = fec.awgn(fec.bpsk_modulate(cbits), DCI_EBN0, spec.rate,
+                  generator=gen)
+    q = fec.quantize_llrs(fec.bpsk_llr(rx, DCI_EBN0, spec.rate), qmax=QMAX)
+    rate = D / DCI_E
+    tx = fec.rate_match(cbits, spec, D, DCI_E)
+    rx = fec.awgn(fec.bpsk_modulate(tx), DCI_EBN0, rate, generator=gen)
+    qr = fec.quantize_llrs(fec.bpsk_llr(rx, DCI_EBN0, rate), qmax=QMAX)
+    return q.reshape(B, D, spec.n).to(torch.int8), qr
+
+
+def phase_tailbiting(fec, acs, dev, err):
+    """The tail-biting main path at full size: (a) the DCI-sized soft
+    CRC-list chain and its rate-matched twin, (b) the hard and (c) the soft
+    tail-biting byte decodes at bench.py's size.  Returns (inputs for the
+    timing phase, launches by path, plain ms, a summary)."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
+    spec, crc = fec.LTE_TBCC_K7, fec.CRC16_CCITT
+    require(fec.select_kernel(spec, "soft", QMAX) == fec.kernels.SOFT,
+            "LTE_TBCC_K7 at qmax 7 on the 16-bit soft route")
+    rng = np.random.default_rng(MAIN_SEED)
+    payload = rng.integers(0, 2, (DCI_B, DCI_PAYLOAD), dtype=np.uint8)
+    blocks = fec.crc_append(crc, torch.from_numpy(payload).to(dev))
+    D = blocks.shape[1]
+    q, qr = dci_channel(fec, spec, blocks, dev)
+    launches, plain_ms, summary = {}, {}, {}
+
+    def crc_soft(x):
+        return ktb.viterbi_decode_batch_tailbiting_crc_soft(spec, crc, x,
+                                                            DCI_LIST)
+
+    got, launches["tailbiting crc soft"] = drive(acs, lambda: crc_soft(q))
+    with plain_routes(ktb, acs, TB_WRAPPERS):
+        want, plain_ms["tailbiting crc soft"] = time_once(lambda: crc_soft(q))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "CRC-list chain: bits, ok and chosen equal to the plain route "
+            "on the card")
+    bits, ok, chosen = got
+    require(tuple(bits.shape) == (DCI_B, D), "CRC-list chain shape")
+    plain = ktb.viterbi_decode_batch_tailbiting_soft(spec, q)
+    plain_right = (plain == blocks).all(1)
+    right = (bits == blocks).all(1)
+    plain_bler = 1 - float(plain_right.float().mean())
+    list_bler = 1 - float(right.float().mean())
+    false_accepts = float((ok & ~right).float().mean())
+    lost = int((plain_right & ~right).sum())
+    lo, hi = PLAIN_BLER_WINDOW
+    require(lost == 0, f"{lost} blocks the wrap decode got right are lost")
+    require(list_bler <= plain_bler, f"CRC-list BLER {list_bler} <= wrap "
+            f"decode BLER {plain_bler}")
+    require(lo <= plain_bler <= hi, f"wrap decode BLER {plain_bler} in "
+            f"[{lo}, {hi}]")
+    require(false_accepts <= FALSE_ACCEPT_LIMIT,
+            f"false accepts {false_accepts} <= {FALSE_ACCEPT_LIMIT}")
+    summary.update(plain_bler=plain_bler, crc_list_bler=list_bler,
+                   false_accepts=false_accepts,
+                   rescued=int((right & ~plain_right).sum()),
+                   chosen_from_list=int((chosen > 0).sum()))
+
+    got, launches["tailbiting rate-matched"] = drive(
+        acs, lambda: ktb.viterbi_decode_batch_tailbiting_ratematched_crc(
+            spec, crc, qr, D, DCI_LIST))
+    want = crc_soft(fec.derate_match(qr, spec, D, qmax=QMAX))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "rate-matched chain equal to derate_match + the CRC-list chain")
+    summary["ratematched_bler"] = 1 - float(
+        (got[0] == blocks).all(1).float().mean())
+    print(f"[tailbiting] LTE_TBCC_K7 + CRC16, B={DCI_B} blocks of D={D} "
+          f"bits, list {DCI_LIST}, AWGN Eb/N0 {DCI_EBN0} dB, qmax {QMAX}: "
+          f"wrap decode BLER {plain_bler:.4e} (in [{lo}, {hi}]), CRC-list "
+          f"BLER {list_bler:.4e}, {summary['rescued']} rescued, 0 lost, "
+          f"false accepts {false_accepts:.2e}; rate-matched to E={DCI_E}: "
+          f"BLER {summary['ratematched_bler']:.4e}; equal to the plain "
+          f"route and to derate_match + the chain; launches "
+          f"{launches['tailbiting crc soft']}")
+
+    masked, multi = tb_kernel_inputs(fec, ktb, acs, spec, q)
+    got = acs.traceback_batch_multi(spec, *multi)
+    want, plain_ms["traceback_k1_multi"] = time_once(
+        lambda: acs.traceback_batch_multi_plain(spec, *multi))
+    require(torch.equal(got, want), "multi-walk traceback at (a)'s size")
+    err["traceback_k1_multi"] = max(err["traceback_k1_multi"],
+                                    max_abs_diff(got, want))
+    got = acs.traceback_batch_masked(spec, *masked)
+    want, plain_ms["traceback_k1_masked tailbiting"] = time_once(
+        lambda: acs.traceback_batch_masked_plain(spec, *masked))
+    require(torch.equal(got, want), "masked traceback at (a)'s size")
+    err["traceback_k1_masked"] = max(err["traceback_k1_masked"],
+                                     max_abs_diff(got, want))
+
+    # (b) and (c): bench.py's messages, tail-biting encoded.
+    spec = fec.NASA_K7
+    rng = np.random.default_rng(MAIN_SEED)
+    msgs = rng.integers(0, 2, (MAIN_B, MAIN_L), dtype=np.uint8)
+    clean = fec.encode_tailbiting(spec, torch.from_numpy(msgs).to(dev))
+    seg = torch.from_numpy(corrupt(rng, clean.cpu().numpy(), MAIN_NOISE,
+                                   spec.n)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED + 5)
+    rx = fec.awgn(fec.bpsk_modulate(fec.segments_to_bits(clean, spec.n)),
+                  EBN0_DB, spec.rate, generator=gen)
+    qb = fec.quantize_llrs(fec.bpsk_llr(rx, EBN0_DB, spec.rate), qmax=QMAX)
+    qb = qb.reshape(MAIN_B, MAIN_L, spec.n).to(torch.int8)
+    for path, fn, x, limit in (
+            ("tailbiting hard bytes",
+             ktb.viterbi_decode_batch_tailbiting_bytes, seg, BER_LIMIT),
+            ("tailbiting soft bytes",
+             ktb.viterbi_decode_batch_tailbiting_soft_bytes, qb,
+             SOFT_BER_WINDOW[1])):
+        out, launches[path] = drive(acs, lambda: fn(spec, x))
+        with plain_routes(ktb, acs, TB_WRAPPERS):
+            want, plain_ms[path] = time_once(lambda: fn(spec, x))
+        require(torch.equal(out, want), f"{path} equal to the plain route "
+                "on the card")
+        require(tuple(out.shape) == (MAIN_B, MAIN_L // 8), f"{path} shape")
+        ber = ber_of_bytes(out, msgs)
+        require(ber < limit if "hard" in path else ber <= limit,
+                f"{path} BER {ber} within {limit}")
+        summary[f"{path.split()[1]}_bytes_ber"] = ber
+        print(f"[tailbiting] NASA_K7 B={MAIN_B} L={MAIN_L} {path}: BER "
+              f"{ber:.4e} (limit {limit}), equal to the plain route on the "
+              f"card, launches {launches[path]}")
+    used = {"tailbiting crc soft": ("acs_soft_k1_forward",
+                                    "traceback_k1_masked",
+                                    "traceback_k1_multi"),
+            "tailbiting rate-matched": ("acs_soft_k1_forward",
+                                        "traceback_k1_masked",
+                                        "traceback_k1_multi"),
+            "tailbiting hard bytes": ("acs_k1_forward",
+                                      "traceback_k1_masked"),
+            "tailbiting soft bytes": ("acs_soft_k1_forward",
+                                      "traceback_k1_masked")}
+    for path, kernels in used.items():
+        require(all(launches[path][k] > 0 for k in kernels),
+                f"{path}: kernels {kernels} launched: {launches[path]}")
+    return (q, qr, seg, qb), launches, plain_ms, summary
+
+
+def tailbiting_times(fec, acs, inputs):
+    """Device ms of TIMED_CALLS calls on distinct inputs (row rotations)
+    of K6 and K2m at (a)'s size and of each whole tail-biting call; (a)'s
+    wall and host-enqueue ms too."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
+    q, qr, seg, qb = inputs
+    spec, crc = fec.LTE_TBCC_K7, fec.CRC16_CCITT
+    D = q.shape[1]
+    runs = {}
+    pend = [tb_kernel_inputs(fec, ktb, acs, spec, torch.roll(q, r + 1, 0))
+            for r in range(TIMED_CALLS)]
+    runs["traceback_k1_multi"] = device_times(
+        lambda p: acs.traceback_batch_multi(spec, *p[1]), pend)
+    runs["traceback_k1_masked tailbiting"] = device_times(
+        lambda p: acs.traceback_batch_masked(spec, *p[0]), pend)
+    del pend
+    qbufs = [torch.roll(q, r + 1, 0) for r in range(TIMED_CALLS)]
+
+    def chain(x):
+        return ktb.viterbi_decode_batch_tailbiting_crc_soft(spec, crc, x,
+                                                            DCI_LIST)
+
+    runs["tailbiting crc soft"] = device_times(chain, qbufs)
+    runs["tailbiting crc soft wall"] = wall_times(chain, qbufs)
+    runs["tailbiting crc soft host"] = host_times(chain, qbufs)
+    runs["tailbiting rate-matched"] = device_times(
+        lambda x: ktb.viterbi_decode_batch_tailbiting_ratematched_crc(
+            spec, crc, x, D, DCI_LIST),
+        [torch.roll(qr, r + 1, 0) for r in range(TIMED_CALLS)])
+    del qbufs
+    spec = fec.NASA_K7
+    runs["tailbiting hard bytes"] = device_times(
+        lambda s: ktb.viterbi_decode_batch_tailbiting_bytes(spec, s),
+        [torch.roll(seg, r + 1, 0) for r in range(TIMED_CALLS)])
+    runs["tailbiting soft bytes"] = device_times(
+        lambda x: ktb.viterbi_decode_batch_tailbiting_soft_bytes(spec, x),
+        [torch.roll(qb, r + 1, 0) for r in range(TIMED_CALLS)])
+    return runs
+
+
 def bounds(lens_sum: int):
     """(bound ms, what bounds it) of each kernel on this run's main-path
     inputs: the larger of the bytes it must move (each input read once,
@@ -950,6 +1326,20 @@ def bounds(lens_sum: int):
         "traceback_k1_masked": (B * 288 * NS // 8 + 4 * B + B * 240,
                                 B * 288 * TRACEBACK_OPS),
     }
+    # Tail-biting at (a)'s size (LTE_TBCC_K7, NS = 64): K6 walks the list
+    # trellis's last D steps (the message window) for each of DCI_LIST
+    # starts, one output byte per bit; K2m walks the whole two-sided wrap
+    # trellis and emits the bits of its first wl + D steps.
+    from convolutionalencdec_tpu_torch import LTE_TBCC_K7
+    from convolutionalencdec_tpu_torch.kernels.tailbiting import kernel_wraps
+    B, D, walks = DCI_B, DCI_PAYLOAD + 16, DCI_LIST
+    wl, wr = kernel_wraps(LTE_TBCC_K7, D)
+    Te = wl + D + wr
+    work["traceback_k1_multi"] = (
+        B * D * NS // 8 + 4 * B * walks + B * walks * D,
+        B * walks * D * TRACEBACK_OPS)
+    work["traceback_k1_masked tailbiting"] = (
+        B * Te * NS // 8 + 4 * B + B * (wl + D), B * Te * TRACEBACK_OPS)
     out = {}
     for name, (nbytes, ops) in work.items():
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -993,18 +1383,29 @@ def main() -> int:
                                                  seg, q)
     plain_ms.update(stream_plain)
     plain_ms.update(stream_plain_kernel_ms(fec, acs, stream, seg, q, err))
+    t0 = time.perf_counter()
+    phase_compare_tailbiting(fec, acs, dev, err)
+    print(f"[compare] tail-biting {time.perf_counter() - t0:.1f} s")
+    tb_in, tb_launches, tb_plain, tb_summary = phase_tailbiting(fec, acs, dev,
+                                                                err)
+    plain_ms.update(tb_plain)
     runs = phase_times(fec, acs, seg, q, q_ragged, lens)
+    runs.update(tailbiting_times(fec, acs, tb_in))
 
     # Launch counts: the sum over the main-path runs, each read just after.
     by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
-               **stream_launches}
+               **stream_launches, **tb_launches}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     bits_per_call = MAIN_B * MAIN_L
+    dci_bits = DCI_B * (DCI_PAYLOAD + 16)
     med = {key: statistics.median(ms) for key, ms in runs.items()}
     for key, ms in med.items():
         plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
+        bits = (dci_bits if "tailbiting c" in key or "rate-matched" in key
+                or key.endswith(("multi", "masked tailbiting"))
+                else bits_per_call)
         print(f"[time] {key:22s} median {ms:.4f} ms, min {min(runs[key]):.4f}"
-              f" ms of {TIMED_CALLS} = {bits_per_call / (ms * 1e3):.1f} "
+              f" ms of {TIMED_CALLS} = {bits / (ms * 1e3):.1f} "
               f"decoded Mbit/s; plain "
               f"{'-' if plain is None else f'{plain:.1f}'} ms [{card}]")
     bound = bounds(int(lens.clamp(0, seg.shape[1]).sum()))
@@ -1026,6 +1427,24 @@ def main() -> int:
         soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
         soft_plain_ms=plain_ms[soft_stream],
         ms_256_steps=med["stream_k1_decode 256"])
+    tb_masked = "traceback_k1_masked tailbiting"
+    kernels[KERNELS.index("traceback_k1_masked")].update(
+        tailbiting_ms=med[tb_masked], tailbiting_min_ms=min(runs[tb_masked]),
+        tailbiting_plain_ms=plain_ms[tb_masked],
+        tailbiting_bound_ms=bound[tb_masked][0],
+        tailbiting_bound_by=bound[tb_masked][1])
+    tailbiting = dict(tb_summary)
+    for path in ("tailbiting crc soft", "tailbiting rate-matched",
+                 "tailbiting hard bytes", "tailbiting soft bytes"):
+        bits = dci_bits if "bytes" not in path else bits_per_call
+        tailbiting[path] = {
+            "ms": med[path], "min_ms": min(runs[path]),
+            "plain_ms": plain_ms.get(path),
+            "mbps": bits / (med[path] * 1e3)}
+    tailbiting["tailbiting crc soft"].update(
+        wall_ms=med["tailbiting crc soft wall"],
+        host_ms=med["tailbiting crc soft host"],
+        blocks_per_s=DCI_B / (med["tailbiting crc soft"] * 1e-3))
     streams = {}
     for path in ("stream hard", "stream soft", "block stream hard",
                  "block stream soft"):
@@ -1044,7 +1463,7 @@ def main() -> int:
         "soft_decode_min_ms": min(runs["soft_decode"]),
         "soft_decode_plain_ms": plain_ms["soft_decode"],
         "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
-        "streams": streams}))
+        "streams": streams, "tailbiting": tailbiting}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

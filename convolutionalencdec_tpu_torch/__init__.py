@@ -1,9 +1,11 @@
 """convolutionalencdec_tpu_torch: the PyTorch + CUDA port.
 
 Batched convolutional encoding and hard- and soft-decision Viterbi block
-decoding (punctured and ragged too) and streaming decoding on an NVIDIA
-Hopper GPU, with the forward ACS, the tracebacks and the register-exchange
-stream decode as CUDA C++ kernels written for `sm_90a` (`csrc/`).  The JAX
+decoding (punctured and ragged too), streaming decoding and the tail-biting
+receive chain (wrap and list decodes, CRC, LTE rate matching) on an NVIDIA
+Hopper GPU, with the forward ACS, the tracebacks (one walk or a list of
+walks per channel) and the register-exchange stream decode as CUDA C++
+kernels written for `sm_90a` (`csrc/`).  The JAX
 package `convolutionalencdec_tpu` is its reference; this package imports
 torch and numpy, never jax.
 
@@ -14,23 +16,37 @@ torch and numpy, never jax.
     out = fec.viterbi_decode_batch_soft_bytes(fec.NASA_K7, q.reshape(B, T, 2))
     dec = fec.StreamingDecoderBatch(fec.NASA_K7, B)       # decode delay 5K
     bits = dec.decode(segs[:, :256])                      # ... last=True
+    blocks = fec.crc_append(fec.CRC16_CCITT, payload)     # [B, 40 + 16]
+    tx = fec.rate_match(fec.segments_to_bits(
+        fec.encode_tailbiting(fec.LTE_TBCC_K7, blocks), 3), fec.LTE_TBCC_K7,
+        56, 288)                                          # 288 channel bits
+    bits, ok, chosen = fec.viterbi_decode_batch_tailbiting_ratematched_crc(
+        fec.LTE_TBCC_K7, fec.CRC16_CCITT, q_rx, 56)       # q_rx [B, 288]
 
 A tensor input keeps its own device; any other input goes to the card
 unless the call passes `device="cpu"`.
 """
 
 from . import kernels, ops
-from .ops import (DEFAULT_QMAX, PUNCTURE_2_3, PUNCTURE_3_4, PUNCTURE_5_6,
-                  awgn, bits_to_segments, bpsk_llr, bpsk_modulate, bsc,
-                  bsc_segments, check_pattern_rows, depuncture_llrs,
-                  encode_bits, encode_bytes, hard_bits_to_qllrs,
-                  hard_decision, pack_bits, puncture_bits, puncture_mask,
-                  punctured_rate, quantize_llrs, segments_to_bits,
-                  soft_step_metrics, traceback_terminated, uncoded_ber_bpsk,
-                  unpack_bits, viterbi_decode, viterbi_decode_bytes,
+from .ops import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
+                  DEFAULT_QMAX, PUNCTURE_2_3, PUNCTURE_3_4, PUNCTURE_5_6,
+                  CrcSpec, awgn, bits_to_segments, bpsk_llr, bpsk_modulate,
+                  bsc, bsc_segments, check_pattern_rows, crc_append,
+                  crc_bits, crc_check, depuncture_llrs, derate_match,
+                  encode_bits, encode_bytes, encode_tailbiting,
+                  hard_bits_to_qllrs, hard_decision, pack_bits,
+                  puncture_bits, puncture_mask, punctured_rate,
+                  quantize_llrs, rate_match, rate_match_segments,
+                  segments_to_bits, soft_step_metrics, tail_state,
+                  traceback_terminated, uncoded_ber_bpsk, unpack_bits,
+                  viterbi_decode, viterbi_decode_bytes,
                   viterbi_decode_ragged, viterbi_decode_ragged_soft,
                   viterbi_decode_soft, viterbi_decode_stream,
-                  viterbi_decode_stream_soft, viterbi_forward,
+                  viterbi_decode_stream_soft, viterbi_decode_tailbiting,
+                  viterbi_decode_tailbiting_exact,
+                  viterbi_decode_tailbiting_list,
+                  viterbi_decode_tailbiting_list_soft,
+                  viterbi_decode_tailbiting_soft, viterbi_forward,
                   viterbi_forward_butterfly, viterbi_forward_butterfly_soft)
 from .kernels import (select_kernel, viterbi_decode_batch,
                       viterbi_decode_batch_bytes,
@@ -39,7 +55,17 @@ from .kernels import (select_kernel, viterbi_decode_batch,
                       viterbi_decode_batch_punctured_soft,
                       viterbi_decode_batch_ragged, viterbi_decode_batch_soft,
                       viterbi_decode_batch_soft_bytes,
-                      viterbi_decode_batch_soft_bytes_ragged)
+                      viterbi_decode_batch_soft_bytes_ragged,
+                      viterbi_decode_batch_tailbiting,
+                      viterbi_decode_batch_tailbiting_bytes,
+                      viterbi_decode_batch_tailbiting_crc,
+                      viterbi_decode_batch_tailbiting_crc_soft,
+                      viterbi_decode_batch_tailbiting_list,
+                      viterbi_decode_batch_tailbiting_list_soft,
+                      viterbi_decode_batch_tailbiting_punctured_crc,
+                      viterbi_decode_batch_tailbiting_ratematched_crc,
+                      viterbi_decode_batch_tailbiting_soft,
+                      viterbi_decode_batch_tailbiting_soft_bytes)
 from .ops import streaming
 from .ops.streaming import (BlockStreamingDecoderBatch, StreamingDecoder,
                             StreamingDecoderBatch, StreamingEncoder)
@@ -47,7 +73,22 @@ from .params import (K5_23_35, K9_561_753, LTE_TBCC_K7, NASA_K7, NASA_K7_R13,
                      PRESETS, REF_K7, TOY_K3, CodeSpec, from_reference)
 
 __all__ = [
-    "kernels", "ops", "DEFAULT_QMAX", "PUNCTURE_2_3", "PUNCTURE_3_4",
+    "kernels", "ops", "CRC6_NR", "CRC8_LTE", "CRC11_NR", "CRC16_CCITT",
+    "CRC24A", "CRC24B", "CrcSpec", "crc_append", "crc_bits", "crc_check",
+    "derate_match", "encode_tailbiting", "rate_match", "rate_match_segments",
+    "tail_state", "viterbi_decode_tailbiting",
+    "viterbi_decode_tailbiting_exact", "viterbi_decode_tailbiting_list",
+    "viterbi_decode_tailbiting_list_soft", "viterbi_decode_tailbiting_soft",
+    "viterbi_decode_batch_tailbiting",
+    "viterbi_decode_batch_tailbiting_bytes",
+    "viterbi_decode_batch_tailbiting_crc",
+    "viterbi_decode_batch_tailbiting_crc_soft",
+    "viterbi_decode_batch_tailbiting_list",
+    "viterbi_decode_batch_tailbiting_list_soft",
+    "viterbi_decode_batch_tailbiting_punctured_crc",
+    "viterbi_decode_batch_tailbiting_ratematched_crc",
+    "viterbi_decode_batch_tailbiting_soft",
+    "viterbi_decode_batch_tailbiting_soft_bytes", "DEFAULT_QMAX", "PUNCTURE_2_3", "PUNCTURE_3_4",
     "PUNCTURE_5_6", "awgn", "bits_to_segments", "bpsk_llr", "bpsk_modulate",
     "bsc", "bsc_segments", "check_pattern_rows", "depuncture_llrs",
     "encode_bits", "encode_bytes", "hard_bits_to_qllrs", "hard_decision",

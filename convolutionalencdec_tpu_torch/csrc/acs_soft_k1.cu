@@ -7,11 +7,14 @@
 // per lane in 16-bit fields, any int8 LLR).  Both compute one function;
 // int32 metrics in registers make both field widths, the renorm and the
 // guard-bit compare unnecessary, and the caller's `qclip` (qmax on the
-// 8-bit route, 127 elsewhere) carries the one difference that shows.
+// 8-bit route, 127 elsewhere) carries the one difference that shows.  The
+// caller's `qlo` is the lower clip: -qclip on the block routes (whose floor
+// at -127 it implies), -128 on the JAX package's tail-biting 16-bit route,
+// which uses every int8 LLR as it is (kernels/tailbiting.py:99-102).
 //
 // Semantics (bit for bit those of ops/metrics.viterbi_forward_butterfly_soft
 // on conditioned LLRs):
-//   each LLR is used as q = clamp(max(q, -127), -qclip, qclip);
+//   each LLR is used as q = clamp(q, qlo, qclip), qlo = -qclip or -128;
 //   cost-if-1 of coded bit j is relu(q_j), cost-if-0 is relu(-q_j);
 //   em[b] sums butterfly b's costs over its n coded bits, Q = sum_j |q_j|,
 //   emc = Q - em (the complement edge), then as the hard kernel:
@@ -19,7 +22,7 @@
 //   dst 2b+1 : b0 = m[b] + emc, b1 = m[b + NS/2] + em
 //   the decision is 1 only when strictly a0 > a1 (ties keep the low source),
 //   the new metric is the minimum.  Metrics are int32 and never
-//   renormalised: exact while T * n * 127 + init_value < 2^31 (the wrapper
+//   renormalised: exact while T * n * 128 + init_value < 2^31 (the wrapper
 //   checks it).
 //
 // Layouts:
@@ -63,7 +66,8 @@ acs_soft_k1_forward_kernel(const int8_t* __restrict__ qllrs,
                            const int32_t* __restrict__ init,
                            int32_t* __restrict__ decs,
                            int32_t* __restrict__ final_metrics,
-                           int B, int T, int qclip, int init_value) {
+                           int B, int T, int qlo, int qclip,
+                           int init_value) {
   constexpr int NS = 64 * BPL;
   constexpr int HALF = NS / 2;
   constexpr int W = NS / 32;
@@ -107,7 +111,7 @@ acs_soft_k1_forward_kernel(const int8_t* __restrict__ qllrs,
       const int8_t* src = q_row + (size_t)(t0 + lane) * N;
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        const int q = min(max(max((int)src[i], -127), -qclip), qclip);
+        const int q = min(max((int)src[i], qlo), qclip);
         mine[i >> 2] |= ((unsigned)q & 0xffu) << (8 * (i & 3));
       }
     }
@@ -181,7 +185,7 @@ struct Args {
   const int32_t* init;
   int32_t* decs;
   int32_t* final_metrics;
-  int B, T, qclip, init_value;
+  int B, T, qlo, qclip, init_value;
 };
 
 template <int BPL, int N>
@@ -189,8 +193,8 @@ void launch(const Args& a, cudaStream_t s) {
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((a.B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   acs_soft_k1_forward_kernel<BPL, N><<<grid, block, 0, s>>>(
-      a.qllrs, a.cb, a.init, a.decs, a.final_metrics, a.B, a.T, a.qclip,
-      a.init_value);
+      a.qllrs, a.cb, a.init, a.decs, a.final_metrics, a.B, a.T, a.qlo,
+      a.qclip, a.init_value);
 }
 
 template <int BPL>
@@ -213,14 +217,14 @@ bool launch_n(int n, const Args& a, cudaStream_t s) {
 extern "C" int acs_soft_k1_forward(const void* qllrs, const void* cb,
                                    const void* init, void* decs,
                                    void* final_metrics, int B, int T, int NS,
-                                   int n, int qclip, int init_value,
-                                   void* stream) {
+                                   int n, int qlo, int qclip,
+                                   int init_value, void* stream) {
   const Args a{static_cast<const int8_t*>(qllrs),
                static_cast<const int32_t*>(cb),
                static_cast<const int32_t*>(init),
                static_cast<int32_t*>(decs),
                static_cast<int32_t*>(final_metrics),
-               B, T, qclip, init_value};
+               B, T, qlo, qclip, init_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (NS) {

@@ -1,6 +1,6 @@
 // Block traceback of terminated packets over packed decision words.
 //
-// Three entry points, one kernel template:
+// Four entry points, one kernel template:
 //   traceback_k1         replaces the TPU kernel `traceback_batch_swar` in
 //                        convolutionalencdec_tpu/kernels/acs_swar.py (its
 //                        pallas_call at :877, kernel body `_tb_kernel_swar`
@@ -12,7 +12,12 @@
 //                        epilogue `_bytes_epilogue_ragged` (:1113);
 //   traceback_k1_masked  replaces `traceback_batch_swar_masked` (pallas_call
 //                        at :920, the same body with a one-hot walk start,
-//                        `with_hinit`, and a byte mask per 8-step group).
+//                        `with_hinit`, and a byte mask per 8-step group);
+//   traceback_k1_multi   replaces `traceback_batch_swar_masked_multi`
+//                        (pallas_call at :655, body `_tb_kernel_swar_multi`:
+//                        NW one-hot walk starts per channel over one
+//                        decision matrix, the tail-biting list decode's
+//                        candidates).
 // They compute what those kernels compute, not how: no one-hot select
 // network, no group masks, no padded steps; the walk starts at the real
 // last step of each channel.
@@ -39,13 +44,20 @@
 // groups (ops/streaming.py:460, parallel/sharding.py:389-392,
 // kernels/tailbiting.py:60), so one step count is the same function.
 //
+// Multi: NW walks per channel, walk w of channel b from state starts[b, w]
+// at step T - 1, decisions masked as in Masked; each emits only the window
+// of steps [out_start, out_start + out_steps) (the message, not the
+// warm-up) and stops at step out_start, below which nothing is emitted.
+//
 // Layouts:
 //   decs  int32 [B, T_stride, W]  as written by acs_k1_forward (W = NS/32;
 //                                 the decision of state s = 2b + p is bit
 //                                 i % 32 of word i / 32, i = p*NS/2 + b)
 //   lengths int32 [B]             ragged only
 //   starts  int32 [B]             masked only, states in [0, NS)
+//           int32 [B, NW]         multi
 //   out   uint8 [B, ceil(message_bits / 8)] bytes, or [B, message_bits] bits
+//         (multi: [B, NW, ...], message_bits = out_steps)
 //
 // What bounds it on this card: the walk is a chain of dependent reads, one
 // decision bit per step, through NS/8 bytes of decisions per step per
@@ -57,7 +69,12 @@
 // step needs depends on the state, but which steps come next does not, so
 // the thread loads the next 32 / W steps' words (128 contiguous bytes) into
 // registers with independent loads, then walks them in registers; the word
-// is picked by a select chain, never by a dynamic register index.
+// is picked by a select chain, never by a dynamic register index.  Multi
+// runs one thread per (channel, walk) with the NW walks of a channel in
+// adjacent lanes: their loads of the channel's 128-byte word runs are the
+// same addresses, served by one transaction per warp, so the decisions are
+// read from memory once for all walks (the TPU kernel's "decisions DMA'd
+// once"), and each walk's start and window are its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +83,7 @@ namespace {
 
 constexpr int kThreads = 32;
 
-enum class Walk { kTerminated, kRagged, kMasked };
+enum class Walk { kTerminated, kRagged, kMasked, kMulti };
 
 template <int W, Walk MODE>  // W: decision words per step = NS / 32
 __global__ void __launch_bounds__(kThreads)
@@ -75,14 +92,20 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
                     const int32_t* __restrict__ starts,
                     uint8_t* __restrict__ out,
                     int B, int T_stride, int t_actual, int S,
-                    int message_bits, int emit_bytes, int live) {
+                    int message_bits, int emit_bytes, int live, int nw,
+                    int out_start) {
   constexpr int C = 32 / W;  // steps per register chunk
-  const int ch = blockIdx.x * kThreads + threadIdx.x;
-  if (ch >= B) return;
+  // One thread per channel, or (Multi) per (channel, walk): walk index g,
+  // channel g / nw, output row g.
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= B * nw) return;
+  const int ch = (MODE == Walk::kMulti) ? g / nw : g;
+  // Multi: the walk stops at out_start and emits step t as bit t - t_lo.
+  const int t_lo = (MODE == Walk::kMulti) ? out_start : 0;
 
   const int32_t* row = decs + (size_t)ch * T_stride * W;
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
-  uint8_t* out_row = out + (size_t)ch * row_len;
+  uint8_t* out_row = out + (size_t)g * row_len;
   int t_start = t_actual;
   int msg = message_bits;
   if (MODE == Walk::kRagged) {
@@ -94,38 +117,40 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
     }
   }
   const int top = S - 1;
-  unsigned cur = (MODE == Walk::kMasked) ? (unsigned)starts[ch] : 0u;
+  unsigned cur = (MODE == Walk::kMasked || MODE == Walk::kMulti)
+                     ? (unsigned)starts[g] : 0u;
   unsigned acc = 0;
 
-  for (int t_hi = t_start - 1; t_hi >= 0; t_hi -= C) {
+  for (int t_hi = t_start - 1; t_hi >= t_lo; t_hi -= C) {
     int32_t r[C][W];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int t = t_hi - k;
 #pragma unroll
-      for (int w = 0; w < W; ++w) r[k][w] = (t >= 0) ? row[(size_t)t * W + w] : 0;
+      for (int w = 0; w < W; ++w) r[k][w] = (t >= t_lo) ? row[(size_t)t * W + w] : 0;
     }
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int t = t_hi - k;
-      if (t < 0) break;
+      if (t < t_lo) break;
       const unsigned i = (cur >> 1) | ((cur & 1u) << top);
       const unsigned wi = i >> 5;
       unsigned word = (unsigned)r[k][0];
 #pragma unroll
       for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
       unsigned d = (word >> (i & 31u)) & 1u;
-      if (MODE == Walk::kMasked && t >= live) d = 0u;
-      if (t < msg) {
+      if ((MODE == Walk::kMasked || MODE == Walk::kMulti) && t >= live) d = 0u;
+      const int e = t - t_lo;  // the step's place in the row
+      if (e < msg) {
         const unsigned bit = cur & 1u;
         if (emit_bytes) {
-          acc |= bit << (7 - (t & 7));
-          if ((t & 7) == 0) {
-            out_row[t >> 3] = (uint8_t)acc;
+          acc |= bit << (7 - (e & 7));
+          if ((e & 7) == 0) {
+            out_row[e >> 3] = (uint8_t)acc;
             acc = 0;
           }
         } else {
-          out_row[t] = (uint8_t)bit;
+          out_row[e] = (uint8_t)bit;
         }
       }
       cur = (cur >> 1) | (d << top);
@@ -136,24 +161,25 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
 template <Walk MODE>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
-           int message_bits, int emit_bytes, int live, cudaStream_t s) {
+           int message_bits, int emit_bytes, int live, int nw, int out_start,
+           cudaStream_t s) {
   const dim3 block(kThreads);
-  const dim3 grid((B + kThreads - 1) / kThreads);
+  const dim3 grid((B * nw + kThreads - 1) / kThreads);
   switch (NS) {
     case 64:
       traceback_k1_kernel<2, MODE><<<grid, block, 0, s>>>(
           d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-          emit_bytes, live);
+          emit_bytes, live, nw, out_start);
       break;
     case 128:
       traceback_k1_kernel<4, MODE><<<grid, block, 0, s>>>(
           d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-          emit_bytes, live);
+          emit_bytes, live, nw, out_start);
       break;
     case 256:
       traceback_k1_kernel<8, MODE><<<grid, block, 0, s>>>(
           d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-          emit_bytes, live);
+          emit_bytes, live, nw, out_start);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -169,7 +195,7 @@ extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
   return launch<Walk::kTerminated>(
       static_cast<const int32_t*>(decs), nullptr, nullptr,
       static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
-      emit_bytes, 0, static_cast<cudaStream_t>(stream));
+      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
 }
 
 // Row width message_bits_max (<= T - S) bits, or ceil(message_bits_max / 8)
@@ -181,7 +207,7 @@ extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
   return launch<Walk::kRagged>(
       static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
       nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
-      emit_bytes, 0, static_cast<cudaStream_t>(stream));
+      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
 }
 
 // Walk from starts[b] at step T - 1, decision 0 at steps >= live; row width
@@ -193,6 +219,21 @@ extern "C" int traceback_k1_masked(const void* decs, const void* starts,
   return launch<Walk::kMasked>(
       static_cast<const int32_t*>(decs), nullptr,
       static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live,
+      T, NS, S, out_steps, emit_bytes, live, 1, 0,
+      static_cast<cudaStream_t>(stream));
+}
+
+// NW walks per channel, walk (b, w) from starts[b, w] at step T - 1,
+// decision 0 at steps >= live; row (b, w) holds the window [out_start,
+// out_start + out_steps): out_steps bits, or ceil(out_steps / 8) bytes.
+extern "C" int traceback_k1_multi(const void* decs, const void* starts,
+                                  void* out, int B, int T, int NS, int S,
+                                  int NW, int live, int out_start,
+                                  int out_steps, int emit_bytes,
+                                  void* stream) {
+  return launch<Walk::kMulti>(
+      static_cast<const int32_t*>(decs), nullptr,
+      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
+      T, NS, S, out_steps, emit_bytes, live, NW, out_start,
       static_cast<cudaStream_t>(stream));
 }

@@ -38,13 +38,18 @@ SIGNATURES = {
     "acs_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # decs, out, B, T_stride, t_actual, NS, S, message_bits, emit_bytes, stream
     "traceback_k1": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # qllrs, cb, init, decs, final_metrics, B, T, NS, n, qclip, init_value,
-    # stream
-    "acs_soft_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # qllrs, cb, init, decs, final_metrics, B, T, NS, n, qlo, qclip,
+    # init_value, stream
+    "acs_soft_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     # decs, lengths, out, B, T, NS, S, message_bits_max, emit_bytes, stream
     "traceback_k1_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes, stream
     "traceback_k1_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # decs, starts, out, B, T, NS, S, NW, live, out_start, out_steps,
+    # emit_bytes, stream
+    "traceback_k1_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # input, soft, cb, m_in, r_in, sym, m_out, r_out, B, T, NS, n, W, stream
     "stream_k1_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],

@@ -1,6 +1,6 @@
 """Forward ACS and traceback of the k=1 butterfly block decodes.
 
-Five wrappers, each with its plain PyTorch version beside it (TPU kernels
+Six wrappers, each with its plain PyTorch version beside it (TPU kernels
 named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
 
   * `acs_forward_batch` launches `csrc/acs_k1.cu` (hard decisions; replaces
@@ -14,7 +14,10 @@ named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
     (per-channel lengths; replaces `traceback_batch_swar_ragged`);
   * `traceback_batch_masked` launches `traceback_k1_masked`, same file
     (per-channel start states, a live prefix; replaces
-    `traceback_batch_swar_masked`).
+    `traceback_batch_swar_masked`);
+  * `traceback_batch_multi` launches `traceback_k1_multi`, same file
+    (NW walks per channel, a window of steps out; replaces
+    `traceback_batch_swar_masked_multi`).
 
 `kernels/stream.py` holds the streaming kernel's wrappers; their launches
 are counted here too.
@@ -45,7 +48,7 @@ from ..params import CodeSpec
 #: Launches of each kernel since the count was last set to 0.
 LAUNCHES = {"acs_k1_forward": 0, "traceback_k1": 0, "acs_soft_k1_forward": 0,
             "traceback_k1_ragged": 0, "stream_k1_decode": 0,
-            "traceback_k1_masked": 0}
+            "traceback_k1_masked": 0, "traceback_k1_multi": 0}
 
 #: Bit weights of one decision word: bit 31 weighs -2^31 in int32, so the
 #: int32 sum of a word's bits is exact and equals the word's two's
@@ -243,27 +246,38 @@ def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
     return result
 
 
-def condition_qllrs(qllrs: torch.Tensor, qclip: int) -> torch.Tensor:
-    """int8 quantized LLRs -> int32 clamp(max(q, -127), -qclip, qclip): the
-    floor keeps -q within int8, the clip is the route's (see
-    `kernels.decode.soft_qclip`)."""
-    q = qllrs.to(torch.int32).clamp_min(-127)
-    return torch.clamp(q, -qclip, qclip)
+def condition_qllrs(qllrs: torch.Tensor, qclip: int,
+                    floor: bool = True) -> torch.Tensor:
+    """int8 quantized LLRs -> int32 clamp(q, -qclip, qclip): the clip is
+    the route's (see `kernels.decode.soft_qclip`) and, as qclip <= 127,
+    floors -128 at -127.  `floor=False` (only with qclip = 127) leaves -128
+    as it is, as the JAX package's tail-biting 16-bit route does."""
+    return torch.clamp(qllrs.to(torch.int32), _qlo(qclip, floor), qclip)
+
+
+def _qlo(qclip: int, floor: bool) -> int:
+    """The lower clip of `condition_qllrs`."""
+    if not floor and qclip != 127:
+        raise ValueError("floor=False takes the LLRs as they are: only with "
+                         f"qclip = 127, got {qclip}")
+    return -qclip if floor else -128
 
 
 def acs_forward_batch_soft_plain(spec: CodeSpec, qllrs: torch.Tensor,
                                  qclip: int,
-                                 initial_metrics: torch.Tensor | None = None):
+                                 initial_metrics: torch.Tensor | None = None,
+                                 floor: bool = True):
     """Plain version of `acs_forward_batch_soft`: the reference soft
     butterfly scan on the conditioned LLRs, its decisions packed into
     words."""
     decisions, final_metrics = viterbi_forward_butterfly_soft(
-        spec, condition_qllrs(qllrs, qclip), initial_metrics)
+        spec, condition_qllrs(qllrs, qclip, floor), initial_metrics)
     return pack_decisions(spec, decisions), final_metrics
 
 
 def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
-                           initial_metrics: torch.Tensor | None = None):
+                           initial_metrics: torch.Tensor | None = None,
+                           floor: bool = True):
     """Forward butterfly ACS of a batch of soft-decision packets.
 
     Replaces the TPU kernels `acs_forward_batch_swar_soft8`
@@ -273,12 +287,14 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
 
     Args:
       qllrs: int8 [B, T, n] quantized LLRs, contiguous.  Each is used as
-        clamp(max(q, -127), -qclip, qclip).
+        clamp(q, -qclip, qclip), which floors -128 at -127.
       qclip: the clip, 1..127 (qmax on the route of the 8-bit TPU kernel,
         127 elsewhere).
       initial_metrics: optional int32 [B, NS] starting metrics (default 0 at
         state 0 and `init_metric_value(spec)` elsewhere; all zeros give the
         uniform start of tail-biting and interior time blocks).
+      floor: False keeps -128 (only with qclip = 127): the tail-biting
+        decodes on the JAX package's 16-bit route.
 
     Returns:
       (decisions int32 [B, T, NS/32] words, the layout of
@@ -288,13 +304,14 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
         raise ValueError(f"qllrs must be int8 [B, T, n = {spec.n}]")
     if not 1 <= qclip <= 127:
         raise ValueError(f"qclip = {qclip} outside [1, 127]")
+    qlo = _qlo(qclip, floor)
     _check_kernel_spec(spec)
     B, T, n = qllrs.shape
-    if T * n * 127 + init_metric_value(spec) >= 2 ** 31:
+    if T * n * 128 + init_metric_value(spec) >= 2 ** 31:
         raise ValueError(f"T = {T} overflows int32 path metrics")
     if not _check_device(qllrs):
         return acs_forward_batch_soft_plain(spec, qllrs, qclip,
-                                            initial_metrics)
+                                            initial_metrics, floor)
     NS = spec.num_states
     qllrs = qllrs.contiguous()
     initial_metrics = _checked_initial_metrics(initial_metrics, B, NS,
@@ -312,7 +329,7 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
         qllrs.data_ptr(), cb.data_ptr(),
         None if initial_metrics is None else initial_metrics.data_ptr(),
         decisions.data_ptr(), final_metrics.data_ptr(),
-        B, T, NS, n, qclip, init_metric_value(spec),
+        B, T, NS, n, qlo, qclip, init_metric_value(spec),
         torch.cuda.current_stream(qllrs.device).cuda_stream)
     LAUNCHES["acs_soft_k1_forward"] += 1
     _build.check("acs_soft_k1_forward", code)
@@ -446,4 +463,89 @@ def traceback_batch_masked(spec: CodeSpec, decisions: torch.Tensor,
         torch.cuda.current_stream(decisions.device).cuda_stream)
     LAUNCHES["traceback_k1_masked"] += 1
     _build.check("traceback_k1_masked", code)
+    return result
+
+
+def traceback_batch_multi_plain(spec: CodeSpec, decisions: torch.Tensor,
+                                start_states: torch.Tensor, live_steps: int,
+                                out_start: int, out_steps: int,
+                                out: str = "bits") -> torch.Tensor:
+    """Plain version of `traceback_batch_multi`: unpack the words, zero the
+    decisions from `live_steps` on, and walk every (channel, walk) pair at
+    once from step T - 1 down to `out_start`."""
+    dec = unpack_decisions(spec, decisions)
+    dec[:, live_steps:] = 0
+    B, T, _ = dec.shape
+    cur = start_states.to(torch.long)                        # [B, NW]
+    bits = torch.zeros(cur.shape + (out_steps,), dtype=torch.uint8,
+                       device=dec.device)
+    for t in range(T - 1, out_start - 1, -1):
+        if t < out_start + out_steps:
+            bits[:, :, t - out_start] = cur & 1
+        d = torch.gather(dec[:, t], 1, cur).to(torch.long)
+        cur = (cur >> 1) | (d << (spec.S - 1))
+    return pad_and_pack(bits) if out == "bytes" else bits
+
+
+def traceback_batch_multi(spec: CodeSpec, decisions: torch.Tensor,
+                          start_states: torch.Tensor, live_steps: int,
+                          out_start: int, out_steps: int,
+                          out: str = "bits") -> torch.Tensor:
+    """NW tracebacks per channel over one decision matrix, in one launch.
+
+    Replaces the TPU kernel `traceback_batch_swar_masked_multi`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:631, pallas_call :655,
+    body `_tb_kernel_swar_multi`), the tail-biting list decode's candidate
+    walks: walk w of channel b starts in state `start_states[b, w]` at step
+    T - 1; a step at or beyond `live_steps` counts as decision 0 (the TPU
+    kernel's group masks are such a prefix at every call site).  Only the
+    window of steps [out_start, out_start + out_steps) is returned: the
+    message, not the warm-up.
+
+    Args:
+      decisions: int32 [B, T, NS/32] words.
+      start_states: int32 [B, NW] states in [0, NS), 1 <= NW <= NS, on the
+        decisions' device.
+      live_steps: steps [0, live_steps) read their decisions; 0..T.
+      out_start, out_steps: the window, within [0, T].
+      out: "bits" for uint8 [B, NW, out_steps] or "bytes" for uint8
+        [B, NW, ceil(out_steps/8)] (MSb-first).
+    """
+    B, T = _check_words(spec, decisions, out)
+    if (start_states.dtype != torch.int32 or start_states.dim() != 2
+            or start_states.shape[0] != B
+            or start_states.device != decisions.device):
+        raise ValueError("start_states must be int32 [B, NW] on the "
+                         "decisions' device")
+    NW = start_states.shape[1]
+    if not 1 <= NW <= spec.num_states:
+        raise ValueError(f"NW = {NW} walks outside [1, NS = "
+                         f"{spec.num_states}]")
+    if not 0 <= live_steps <= T:
+        raise ValueError(f"live_steps = {live_steps} outside [0, {T}]")
+    if not (0 <= out_start and 0 <= out_steps
+            and out_start + out_steps <= T):
+        raise ValueError(f"window [{out_start}, {out_start + out_steps}) "
+                         f"outside [0, {T}]")
+    _check_kernel_spec(spec)
+    if not _check_device(decisions):
+        return traceback_batch_multi_plain(spec, decisions, start_states,
+                                           live_steps, out_start, out_steps,
+                                           out)
+    decisions = decisions.contiguous()
+    start_states = start_states.contiguous()
+    width = (out_steps + 7) // 8 if out == "bytes" else out_steps
+    result = torch.empty((B, NW, width), dtype=torch.uint8,
+                         device=decisions.device)
+    if B == 0:
+        return result
+    from . import _build
+    lib = _build.library()
+    code = lib.traceback_k1_multi(
+        decisions.data_ptr(), start_states.data_ptr(), result.data_ptr(), B,
+        T, spec.num_states, spec.S, NW, live_steps, out_start, out_steps,
+        int(out == "bytes"),
+        torch.cuda.current_stream(decisions.device).cuda_stream)
+    LAUNCHES["traceback_k1_multi"] += 1
+    _build.check("traceback_k1_multi", code)
     return result

@@ -1,10 +1,13 @@
 """Plain tensor operations: bits, encoder, channel, trellis, soft metrics,
-puncturing, reference decoders.
+puncturing, CRC, rate matching, reference decoders (block, streaming and
+tail-biting).
 
 `ops.streaming` (the streaming classes) runs on the kernels' wrappers, so
 the package imports it after `kernels`, not here."""
 
 from .bits import pack_bits, unpack_bits
+from .crc import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
+                  CrcSpec, crc_append, crc_bits, crc_check, crc_remainder_np)
 from .channel import (awgn, bits_to_segments, bpsk_llr, bpsk_modulate, bsc,
                       bsc_segments, hard_decision, segments_to_bits,
                       uncoded_ber_bpsk)
@@ -15,6 +18,15 @@ from .metrics import (DEFAULT_QMAX, hard_bits_to_qllrs, quantize_llrs,
 from .puncture import (PUNCTURE_2_3, PUNCTURE_3_4, PUNCTURE_5_6,
                        check_pattern_rows, depuncture_llrs, puncture_bits,
                        puncture_mask, punctured_rate)
+from .ratematch import (circular_buffer_map, derate_match, rate_match,
+                        rate_match_segments, ratematch_indices,
+                        subblock_interleave_map)
+from .tailbiting import (circular_extend, default_wrap, encode_tailbiting,
+                         tail_state, viterbi_decode_tailbiting,
+                         viterbi_decode_tailbiting_exact,
+                         viterbi_decode_tailbiting_list,
+                         viterbi_decode_tailbiting_list_soft,
+                         viterbi_decode_tailbiting_soft)
 from .trellis import (butterfly_coded_bits, edge_coded_bits,
                       next_state_table, prev_state_table)
 from .viterbi import (hard_step_metrics, init_metric_value, ragged_epilogue,
@@ -37,5 +49,12 @@ __all__ = [
     "stream_scan", "traceback_terminated", "viterbi_decode",
     "viterbi_decode_bytes", "viterbi_decode_ragged", "viterbi_decode_stream",
     "viterbi_decode_stream_soft", "viterbi_forward",
-    "viterbi_forward_butterfly",
+    "viterbi_forward_butterfly", "CRC6_NR", "CRC8_LTE", "CRC11_NR",
+    "CRC16_CCITT", "CRC24A", "CRC24B", "CrcSpec", "crc_append", "crc_bits",
+    "crc_check", "crc_remainder_np", "circular_buffer_map", "derate_match",
+    "rate_match", "rate_match_segments", "ratematch_indices",
+    "subblock_interleave_map", "circular_extend", "default_wrap",
+    "encode_tailbiting", "tail_state", "viterbi_decode_tailbiting",
+    "viterbi_decode_tailbiting_exact", "viterbi_decode_tailbiting_list",
+    "viterbi_decode_tailbiting_list_soft", "viterbi_decode_tailbiting_soft",
 ]

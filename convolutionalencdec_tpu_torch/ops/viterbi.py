@@ -68,12 +68,16 @@ def hard_step_metrics(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
     return hard_metric_table(spec, segments.device)[segments.long()]
 
 
-def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor):
+def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor,
+                    initial_metrics=None):
     """Generic any-k ACS recurrence over branch metrics.
 
     Args:
       step_metrics: int32 [B, T, 2^k, NS]; entry [b, t, u, s] is the cost of
         leaving state s on the input-u edge at step t.
+      initial_metrics: optional int32 [NS] or [B, NS] starting metrics
+        (default 0 at state 0 and `init_metric_value(spec)` elsewhere; all
+        zeros give the uniform start of the tail-biting decoders).
 
     Returns:
       (decisions uint8 [B, T, NS], final_metrics int32 [B, NS]):
@@ -89,7 +93,7 @@ def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor):
     u_of_dst = torch.arange(NS, device=dev) & (E - 1)
     bm_idx = u_of_dst[None, :] * NS + prev                            # [E, NS]
 
-    m = _initial_metrics(spec, B, None, dev)
+    m = _initial_metrics(spec, B, initial_metrics, dev)
     decisions = torch.empty((B, T, NS), dtype=torch.uint8, device=dev)
     for t in range(T):
         pm = m[:, prev] + step_metrics[:, t].reshape(B, E * NS)[:, bm_idx]

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's hard and soft byte decodes on one GPU.
+"""Where the time goes in the port's block and tail-biting decodes on one GPU.
 
     python3 scripts/torch_profile.py [--calls 20]
 
 At bench.py's size (NASA_K7, B = 2048 x L = 2048, numpy seed 9865; hard:
 a BSC flipping 1.5% of the coded bits; soft: BPSK over AWGN at Eb/N0 =
-3 dB, 3-bit LLRs), for each of `viterbi_decode_batch_bytes` and
-`viterbi_decode_batch_soft_bytes` it prints:
+3 dB, 3-bit LLRs), for each of `viterbi_decode_batch_bytes`,
+`viterbi_decode_batch_soft_bytes` and the tail-biting hard byte decode
+`viterbi_decode_batch_tailbiting_bytes` (the same messages tail-biting
+encoded), and for the CRC-aided list chain
+`viterbi_decode_batch_tailbiting_crc_soft` on DCI-sized blocks (LTE_TBCC_K7,
+40-bit payload + CRC16, B = 16384, list 8, AWGN at Eb/N0 = 2 dB), it
+prints:
   - the device time per call from CUDA events, and the host time per call
     of the same back-to-back run (host clock, one synchronise at the end);
   - under torch.profiler, each CUDA kernel's summed device time per call
@@ -27,6 +32,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 B, L, SEED, EBN0_DB = 2048, 2048, 9865, 3.0
+DCI_B, DCI_PAYLOAD, DCI_LIST, DCI_EBN0 = 16384, 40, 8, 2.0
 
 
 def card() -> str:
@@ -111,6 +117,17 @@ def main() -> int:
                  generator=torch.Generator(device=dev).manual_seed(SEED))
     q = fec.quantize_llrs(fec.bpsk_llr(y, EBN0_DB, spec.rate)).reshape(
         B, -1, spec.n).to(torch.int8)
+    tb_hard = fec.bsc_segments(fec.encode_tailbiting(spec, msgs), spec.n,
+                               0.03 / spec.n,
+                               torch.Generator(device=dev).manual_seed(SEED))
+    lte, crc = fec.LTE_TBCC_K7, fec.CRC16_CCITT
+    blocks = fec.crc_append(crc, torch.from_numpy(rng.integers(
+        0, 2, (DCI_B, DCI_PAYLOAD), dtype=np.uint8)).to(dev))
+    y = fec.awgn(fec.bpsk_modulate(fec.segments_to_bits(
+        fec.encode_tailbiting(lte, blocks), lte.n)), DCI_EBN0, lte.rate,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    q_dci = fec.quantize_llrs(fec.bpsk_llr(y, DCI_EBN0, lte.rate)).reshape(
+        DCI_B, -1, lte.n).to(torch.int8)
     fec.viterbi_decode_batch_bytes(spec, hard)  # build and load the kernels
     torch.cuda.synchronize()
 
@@ -121,6 +138,12 @@ def main() -> int:
             lambda s: fec.viterbi_decode_batch_bytes(spec, s), hard),
         "soft viterbi_decode_batch_soft_bytes": (
             lambda x: fec.viterbi_decode_batch_soft_bytes(spec, x), q),
+        "tail-biting hard viterbi_decode_batch_tailbiting_bytes": (
+            lambda s: fec.viterbi_decode_batch_tailbiting_bytes(spec, s),
+            tb_hard),
+        "DCI viterbi_decode_batch_tailbiting_crc_soft": (
+            lambda x: fec.viterbi_decode_batch_tailbiting_crc_soft(
+                lte, crc, x, DCI_LIST), q_dci),
     }
     for label, (fn, x) in paths.items():
         inputs = [torch.roll(x, r + 1, dims=0) for r in range(calls)]

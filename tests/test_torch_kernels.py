@@ -179,11 +179,15 @@ def test_cpu_tensors_launch_no_kernel():
     acs.traceback_batch(port.NASA_K7, words, seg.shape[1], 40)
     acs.traceback_batch_masked(port.NASA_K7, words,
                                torch.zeros(2, dtype=torch.int32), 40, 40)
+    acs.traceback_batch_multi(port.NASA_K7, words,
+                              torch.zeros((2, 3), dtype=torch.int32), 40, 8,
+                              32)
     state = stream.stream_state_init(port.NASA_K7, 2, "cpu")
     stream.stream_decode_batch(port.NASA_K7, seg, state)
     assert set(acs.LAUNCHES) == {"acs_k1_forward", "traceback_k1",
                                  "acs_soft_k1_forward", "traceback_k1_ragged",
-                                 "stream_k1_decode", "traceback_k1_masked"}
+                                 "stream_k1_decode", "traceback_k1_masked",
+                                 "traceback_k1_multi"}
     assert not any(acs.LAUNCHES.values())
 
 
