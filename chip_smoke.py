@@ -66,6 +66,26 @@ Phases (any failure exits non-zero and prints no result line):
      and (c) its soft twin over AWGN at 3 dB (BER <= 1.3e-3), each equal to
      its plain route on the card; launches of K1, K4, K2m and K6 > 0; times
      of K6 and K2m at (a)'s size, of each whole call, and (a)'s wall and
+     host-enqueue times;
+ 12. max-log-MAP and turbo kernels against plain versions on the card,
+     small sizes: `maxlogmap_k1` on NASA_K7, NASA_K7_R13, K9_561_753 and a
+     K=8 code (T = S + 1, 32, 48, 203; +-7, int8 with -128, 20% erasures;
+     terminated and not; B = 1), `turbo_rsc_map` at L = 40, 47, 61, 104,
+     1024, 6144 (a-priori +-31 and +-4000), the LA_CLAMP contract case and
+     B = 1, and every new public entry (the turbo decodes fixed and early,
+     `lte_turbo_decode(_early)`, `maxlogmap_llrs_batch_kernel` at L = 40
+     and 104, `lte_dlsch_decode` of a two-block transport block) against
+     its plain route;
+ 13. soft-output main paths at full size: (h) `maxlogmap_llrs_batch_kernel`
+     on phase 5's LLRs (equal to the plain version on the card, sign BER in
+     the soft window, share of bits off the soft Viterbi decode < 2.6e-3);
+     (i) bench.py --turbo's serving point (2048 blocks of 1000 bits +
+     CRC24B, E = 2056, AWGN at 2.0 dB, qmax 31) through
+     `lte_turbo_decode_early` + `pack_bits`: bytes, bits, lapp, ok and the
+     iteration count equal to the plain route on the card, no false
+     accept, accept rate > 0.99, 3..8 iterations; a fixed 6-iteration
+     `lte_turbo_decode` equal to its plain route; launches of both kernels
+     > 0; times of both kernels, of (h), and of (i) with its wall and
      host-enqueue times.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
@@ -105,7 +125,7 @@ TIMED_CALLS = 20
 QUEUE_SLEEP_CYCLES = 200_000_000
 KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
            "traceback_k1_ragged", "stream_k1_decode", "traceback_k1_masked",
-           "traceback_k1_multi")
+           "traceback_k1_multi", "maxlogmap_k1", "turbo_rsc_map")
 SOURCES = {
     "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
@@ -126,6 +146,12 @@ SOURCES = {
     "traceback_k1_multi": (
         "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:655"),
+    "maxlogmap_k1": (
+        "convolutionalencdec_tpu_torch/csrc/maxlogmap_k1.cu",
+        "convolutionalencdec_tpu/kernels/maxlogmap_pallas.py:328 and :347"),
+    "turbo_rsc_map": (
+        "convolutionalencdec_tpu_torch/csrc/turbo_rsc.cu",
+        "convolutionalencdec_tpu/kernels/turbo_pallas.py:283 and :300"),
 }
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
@@ -150,6 +176,27 @@ TB_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
                "traceback_batch_masked", "traceback_batch_multi")
 BLOCK_STREAM_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
                          "traceback_batch", "traceback_batch_masked")
+# Max-log-MAP: the comparison phase's presets and lengths (T = S + 1, a
+# chunk's 32 steps and two off a multiple of 32), and the main path's BER
+# gate on the sign decisions (the soft window) and on the share of bits
+# that differ from the soft Viterbi decode of the same LLRs: bitwise MAP
+# and sequence ML err on the same bursts, not always on the same bits.
+MAP_PRESETS = ["NASA_K7", "NASA_K7_R13", "K9_561_753"]
+MAP_LENGTHS = (32, 48, 203)
+MAP_VITERBI_DIFFER_LIMIT = 2.6e-3
+# Turbo: the comparison phase's block lengths (every L mod 3, the largest
+# LTE block), the serving point of bench.py --turbo (B code blocks of 1000
+# payload bits + CRC24B = L, rate-matched to E = 2 (L + 4), BPSK over AWGN
+# at 2.0 dB, qmax 31, CRC-gated early exit within 8 iterations) and its
+# gates.  CURVES_EARLYTERM_r05.json records 6 iterations and accept rate
+# 1.0 at this point: properties of the algorithm and the draw.
+TURBO_LENGTHS = (40, 47, 61, 104, 1024, 6144)
+TURBO_B, TURBO_L, TURBO_EBN0, TURBO_QMAX, TURBO_MAX_ITERS = (
+    2048, 1024, 2.0, 31, 8)
+TURBO_E = 2 * (TURBO_L + 4)
+TURBO_ACCEPT_MIN = 0.99
+TURBO_ITERS_WINDOW = (3, 8)
+TURBO_FIXED_ITERS = 6
 # The card's peaks for the bound (H100 SXM; NVIDIA's data sheet and Hopper
 # white paper): 3.35 TB/s of HBM, and int32 at 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost = 16.7 T operations/s.
@@ -162,6 +209,12 @@ TRACEBACK_OPS = 4  # per step: bit select, shift, or, emit
 # step: a compare and a select of the argmin.
 EXCHANGE_OPS = 8
 ARGMIN_OPS = 2
+# Max-log-MAP: three butterfly passes (forward, replay, beta) of ACS_OPS
+# each, and per state and step an add and a min of the emit.  The RSC MAP:
+# about 20 per state and step over its forward, replay and beta.
+MAP_PASSES = 3
+EMIT_OPS = 2
+RSC_OPS = 20
 
 
 def require(cond: bool, what: str) -> None:
@@ -239,16 +292,24 @@ def time_once(fn):
     return result, start.elapsed_time(end)
 
 
+def launch_counters(acs):
+    """Every kernel wrapper module's launch counts."""
+    from convolutionalencdec_tpu_torch.kernels import maxlogmap, turbo
+    return (acs.LAUNCHES, maxlogmap.LAUNCHES, turbo.LAUNCHES)
+
+
 def drive(acs, fn):
     """Run `fn` with every launch count set to 0 just before and read just
     after: (result, launches of that run)."""
     import torch
     torch.cuda.synchronize()
-    for key in acs.LAUNCHES:
-        acs.LAUNCHES[key] = 0
+    counters = launch_counters(acs)
+    for counts in counters:
+        for key in counts:
+            counts[key] = 0
     result = fn()
     torch.cuda.synchronize()
-    return result, dict(acs.LAUNCHES)
+    return result, {k: v for counts in counters for k, v in counts.items()}
 
 
 def ber_of_bytes(out, msgs, lengths=None) -> float:
@@ -1299,6 +1360,323 @@ def tailbiting_times(fec, acs, inputs):
     return runs
 
 
+def map_draws(rng, shape):
+    """The LLR distributions the max-log-MAP kernel is held to."""
+    import numpy as np
+    pm7 = rng.integers(-7, 8, shape)
+    return {"+-7": pm7, "int8": rng.integers(-128, 128, shape),
+            "+-7, 20% zeros": np.where(rng.random(shape) < 0.2, 0, pm7)}
+
+
+def compare_map(km, spec, q, terminated, err):
+    """`maxlogmap_k1` against its plain version on one batch of LLRs."""
+    import torch
+    got = km.maxlogmap_llrs_batch_kernel(spec, q, terminated)
+    want = km.maxlogmap_llrs_batch_plain(spec, q, terminated)
+    require(torch.equal(got, want), f"{spec} max-log-MAP T={q.shape[1]} "
+            f"terminated={terminated}")
+    err["maxlogmap_k1"] = max(err["maxlogmap_k1"], max_abs_diff(got, want))
+
+
+def turbo_fields(rng, B, L, S, apriori, dev):
+    """Random int32 RSC MAP inputs at qmax 31: (l_sys, l_par, l_apriori,
+    l_sys_tail, l_par_tail); the a-priori drawn from +-apriori."""
+    import numpy as np
+    import torch
+
+    def draw(mag, shape):
+        return torch.from_numpy(rng.integers(-mag, mag + 1, shape).astype(
+            np.int32)).to(dev)
+    return (draw(TURBO_QMAX, (B, L)), draw(TURBO_QMAX, (B, L)),
+            draw(apriori, (B, L)), draw(TURBO_QMAX, (B, S)),
+            draw(TURBO_QMAX, (B, S)))
+
+
+def compare_rsc(kt, rsc, fields, err, what):
+    """`turbo_rsc_map` against its plain version on one batch."""
+    import torch
+    got = kt.rsc_maxlogmap_batch_kernel(rsc, *fields)
+    want = kt.rsc_maxlogmap_batch_plain(rsc, *fields)
+    require(torch.equal(got, want), f"RSC MAP {what}")
+    err["turbo_rsc_map"] = max(err["turbo_rsc_map"], max_abs_diff(got, want))
+
+
+def equal_outputs(got, want) -> bool:
+    """Tensors (or ints) of two routes' tuples all equal."""
+    import torch
+    return all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(got, want))
+
+
+def turbo_channel(fec, msgs, E, ebn0, generator, qmax=TURBO_QMAX):
+    """LTE-turbo encode [B, L] blocks to E bits, BPSK over AWGN at `ebn0`
+    from `generator`, quantized channel LLRs: int32 [B, E]."""
+    L = msgs.shape[1]
+    tx = fec.lte_turbo_encode_batch(msgs, E)
+    rate = L / E
+    rx = fec.awgn(fec.bpsk_modulate(tx), ebn0, rate, generator=generator)
+    return fec.quantize_llrs(fec.bpsk_llr(rx, ebn0, rate), qmax=qmax)
+
+
+def phase_compare_soft_output(fec, dev, err):
+    """The max-log-MAP and RSC MAP kernels against their plain versions,
+    and every new public entry against its plain route, on the card."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import maxlogmap as km
+    from convolutionalencdec_tpu_torch.kernels import turbo as kt
+    from convolutionalencdec_tpu_torch.ops import turbo as ot
+    rng = np.random.default_rng(2029)
+    cases = [(name, fec.PRESETS[name]) for name in MAP_PRESETS]
+    cases.append(("K8_247_371", fec.CodeSpec(K=8, g=(0o247, 0o371))))
+    for name, spec in cases:
+        require(km.maxlogmap_supported(spec), f"{name} on the MAP kernel")
+        for T in (spec.S + 1,) + MAP_LENGTHS:
+            for label, draw in map_draws(rng, (SMALL_B, T, spec.n)).items():
+                q = torch.from_numpy(draw.astype(np.int8)).to(dev)
+                for terminated in (True, False):
+                    compare_map(km, spec, q, terminated, err)
+        print(f"[compare] {name:12s} max-log-MAP B={SMALL_B} T=S+1,"
+              f"{','.join(map(str, MAP_LENGTHS))}: +-7, int8 with -128, 20% "
+              "erasures, terminated and not, equal to the plain version")
+    for T in (1, 7, 40):
+        q = torch.from_numpy(rng.integers(-128, 128, (1, T, 2)).astype(
+            np.int8)).to(dev)
+        compare_map(km, fec.NASA_K7, q, True, err)
+    print("[compare] NASA_K7      max-log-MAP edge B=1 T=1,7,40: equal")
+
+    rsc = fec.RscSpec()
+    for L in TURBO_LENGTHS:
+        for apriori in (TURBO_QMAX, 4000):
+            compare_rsc(kt, rsc, turbo_fields(rng, 5, L, rsc.S, apriori, dev),
+                        err, f"L={L} a-priori +-{apriori}")
+    # The LA_CLAMP contract case (tests/test_turbo_kernel.py:57-77's shape):
+    # a-priori at the full clamp, channel LLRs to +-8192.
+    B, L = 3, 104
+    big = turbo_fields(rng, B, L, rsc.S, ot.LA_CLAMP, dev)
+    big = [x * (8192 // TURBO_QMAX) if i != 2 else x
+           for i, x in enumerate(big)]
+    big[2][:, ::7] = ot.LA_CLAMP
+    big[2][:, 3::7] = -ot.LA_CLAMP
+    compare_rsc(kt, rsc, big, err, "LA_CLAMP contract")
+    for L in (40, 6144):
+        compare_rsc(kt, rsc, turbo_fields(rng, 1, L, rsc.S, 4000, dev), err,
+                    f"B=1 L={L}")
+    print(f"[compare] RSC MAP L={','.join(map(str, TURBO_LENGTHS))} (B=5, "
+          "a-priori +-31 and +-4000), the LA_CLAMP contract case, B=1: "
+          "equal to the plain version")
+
+    crc = fec.CRC24B
+    for L in (40, 104):
+        payload = rng.integers(0, 2, (8, L - 24), dtype=np.uint8)
+        msgs = fec.crc_append(crc, torch.from_numpy(payload).to(dev))
+        gen = torch.Generator(device=dev).manual_seed(L)
+        q = turbo_channel(fec, msgs, 3 * (L + 4), 0.5, gen, qmax=15)
+        q_maps = torch.from_numpy(rng.integers(-128, 128, (8, L + 6, 2))
+                                  .astype(np.int8)).to(dev)
+        fields, perm, _ = fec.ops.lte._receive_fields(q, L, 0, None, 15, 0,
+                                                      None)
+        calls = {
+            "turbo_decode_batch_kernel": (
+                lambda: fec.turbo_decode_batch_kernel(rsc, *fields, perm,
+                                                      n_iters=3),
+                lambda: fec.turbo_decode_batch(rsc, *fields, perm,
+                                               n_iters=3)),
+            "turbo_decode_batch_kernel_early": (
+                lambda: fec.turbo_decode_batch_kernel_early(
+                    rsc, *fields, perm, crc=crc, max_iters=4),
+                lambda: ot.decode_early(ot.rsc_maxlogmap, rsc, fields, perm,
+                                        crc, 4)),
+            "lte_turbo_decode": (
+                lambda: fec.lte_turbo_decode(q, L, n_iters=3, qmax=15),
+                lambda: fec.lte_turbo_decode(q, L, n_iters=3, qmax=15,
+                                             use_kernel=False)),
+            "lte_turbo_decode_early": (
+                lambda: fec.lte_turbo_decode_early(q, L, max_iters=4,
+                                                   qmax=15),
+                lambda: fec.lte_turbo_decode_early(q, L, max_iters=4,
+                                                   qmax=15,
+                                                   use_kernel=False)),
+            "maxlogmap_llrs_batch_kernel": (
+                lambda: (fec.maxlogmap_llrs_batch_kernel(fec.NASA_K7,
+                                                         q_maps),),
+                lambda: (km.maxlogmap_llrs_batch_plain(fec.NASA_K7,
+                                                       q_maps),)),
+        }
+        for what, (fn, plain) in calls.items():
+            require(equal_outputs(fn(), plain()), f"L={L} {what} equal to "
+                    "its plain route")
+        print(f"[compare] turbo entries B=8 L={L} at 0.5 dB: "
+              f"{', '.join(calls)} equal to their plain routes")
+    # A two-block transport block (A = 6180: two blocks of 3136, 20
+    # fillers in the first), three iterations.
+    A, G = 6180, 2 * 3 * (3136 + 4)
+    payload = rng.integers(0, 2, A, dtype=np.uint8)
+    tx = fec.lte_dlsch_encode(payload, G, device=dev)
+    q = (1 - 2 * tx.to(torch.int32)) * 6
+    q = torch.where(torch.from_numpy(rng.random(G) < 0.1).to(dev), -q, q)
+    got = fec.lte_dlsch_decode(q, A, n_iters=3)
+    want = fec.lte_dlsch_decode(q, A, n_iters=3, use_kernel=False)
+    require(equal_outputs(got, want), "lte_dlsch_decode equal to its plain "
+            "route")
+    require(bool(got[1]) and np.array_equal(got[0].cpu().numpy(), payload),
+            "the two-block transport block decodes")
+    print(f"[compare] lte_dlsch_decode A={A} (2 blocks, 20 fillers), 10% "
+          "flipped: equal to its plain route, TB CRC passes")
+
+
+def phase_maxlogmap(fec, acs, dev, err, msgs, q):
+    """(h): max-log-MAP LLRs of phase 5's LLRs at full size.  Returns
+    (launches, plain ms, a summary)."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import maxlogmap as km
+    spec = fec.NASA_K7
+    llrs, launches = drive(acs, lambda: fec.maxlogmap_llrs_batch_kernel(spec,
+                                                                        q))
+    require(launches["maxlogmap_k1"] > 0, f"maxlogmap_k1 launched: "
+            f"{launches}")
+    B, T = q.shape[:2]
+    require(tuple(llrs.shape) == (B, T) and llrs.dtype == torch.int32,
+            "max-log-MAP output shape")
+    want, plain_ms = time_once(lambda: km.maxlogmap_llrs_batch_plain(spec, q))
+    require(torch.equal(llrs, want), "max-log-MAP LLRs equal to the plain "
+            "version on the card")
+    err["maxlogmap_k1"] = max(err["maxlogmap_k1"], max_abs_diff(llrs, want))
+    L = T - spec.S
+    bits = (llrs[:, :L] < 0).to(torch.uint8)
+    ber = float((bits.cpu().numpy() != msgs).mean())
+    viterbi = fec.viterbi_decode_batch_soft(spec, q, qmax=QMAX)
+    differ = float((bits != viterbi).float().mean())
+    lo, hi = SOFT_BER_WINDOW
+    require(lo <= ber <= hi, f"max-log-MAP BER {ber} in [{lo}, {hi}]")
+    require(differ < MAP_VITERBI_DIFFER_LIMIT, f"max-log-MAP and soft "
+            f"Viterbi differ on {differ} of the bits")
+    require(bool((llrs[:, L:] > 0).all()), "termination steps favour 0")
+    print(f"[maxlogmap] NASA_K7 B={B} T={T} AWGN Eb/N0 {EBN0_DB} dB, qmax "
+          f"{QMAX}: sign BER {ber:.4e} (in [{lo}, {hi}]), {differ:.4e} of "
+          f"the bits differ from the soft Viterbi decode (< "
+          f"{MAP_VITERBI_DIFFER_LIMIT}), LLRs equal to the plain version on "
+          f"the card, launches {launches}")
+    return launches, {"maxlogmap_k1": plain_ms, "maxlogmap": plain_ms}, {
+        "ber": ber, "differ_from_viterbi": differ}
+
+
+def serve_turbo(fec, q, use_kernel=None):
+    """bench.py --turbo's serving call: the early-exit receive chain and
+    the packed message bytes."""
+    bits, lapp, ok, iters = fec.lte_turbo_decode_early(
+        q, TURBO_L, max_iters=TURBO_MAX_ITERS, use_kernel=use_kernel)
+    return fec.pack_bits(bits), bits, lapp, ok, iters
+
+
+def phase_turbo(fec, acs, dev, err):
+    """(i): the turbo serving point at full size.  Returns (the received
+    LLRs, launches by path, plain ms, a summary)."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import turbo as kt
+    rng = np.random.default_rng(MAIN_SEED)
+    payload = rng.integers(0, 2, (TURBO_B, TURBO_L - 24), dtype=np.uint8)
+    msgs = fec.crc_append(fec.CRC24B, torch.from_numpy(payload).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED + 6)
+    q = turbo_channel(fec, msgs, TURBO_E, TURBO_EBN0, gen)
+    require(tuple(q.shape) == (TURBO_B, TURBO_E), "turbo channel shape")
+    launches, plain_ms = {}, {}
+
+    got, launches["turbo serving"] = drive(acs, lambda: serve_turbo(fec, q))
+    packed, bits, lapp, ok, iters = got
+    want, plain_ms["turbo serving"] = time_once(
+        lambda: serve_turbo(fec, q, use_kernel=False))
+    require(equal_outputs(got, want), "turbo serving: bytes, bits, lapp, ok "
+            "and iterations equal to the plain route on the card")
+    require(tuple(packed.shape) == (TURBO_B, TURBO_L // 8), "packed shape")
+    wrong = (bits != msgs).any(1)
+    false_accepts = int((ok & wrong).sum())
+    accept = float(ok.float().mean())
+    block_errors = int(wrong.sum())
+    require(false_accepts == 0, f"{false_accepts} false accepts")
+    require(accept > TURBO_ACCEPT_MIN, f"accept rate {accept} > "
+            f"{TURBO_ACCEPT_MIN}")
+    lo, hi = TURBO_ITERS_WINDOW
+    require(lo <= iters <= hi, f"iterations {iters} in [{lo}, {hi}]")
+    print(f"[turbo] LTE turbo B={TURBO_B} L={TURBO_L} ({TURBO_L - 24} + CRC24B) E="
+          f"{TURBO_E}, AWGN Eb/N0 {TURBO_EBN0} dB, qmax {TURBO_QMAX}: "
+          f"{iters} iterations, accept rate {accept:.4f}, {block_errors} "
+          f"blocks wrong, {false_accepts} false accepts; equal to the plain "
+          f"route on the card, launches {launches['turbo serving']}")
+
+    got, launches["turbo fixed"] = drive(acs, lambda: fec.lte_turbo_decode(
+        q, TURBO_L, n_iters=TURBO_FIXED_ITERS))
+    want, plain_ms["turbo fixed"] = time_once(lambda: fec.lte_turbo_decode(
+        q, TURBO_L, n_iters=TURBO_FIXED_ITERS, use_kernel=False))
+    require(equal_outputs(got, want), "fixed-iteration turbo decode equal "
+            "to the plain route on the card")
+    fixed_wrong = int((got[0] != msgs).any(1).sum())
+    print(f"[turbo] lte_turbo_decode {TURBO_FIXED_ITERS} iterations: "
+          f"{fixed_wrong} blocks wrong, equal to the plain route on the "
+          f"card, launches {launches['turbo fixed']}")
+    for path, counts in launches.items():
+        require(counts["turbo_rsc_map"] > 0, f"{path}: turbo_rsc_map "
+                f"launched: {counts}")
+
+    # One MAP call of the first iteration at this size, against the plain.
+    fields, _, _ = fec.ops.lte._receive_fields(q, TURBO_L, 0, None,
+                                               TURBO_QMAX, 0, None)
+    args = map_call_args(fields)
+    got = kt.rsc_maxlogmap_batch_kernel(fec.RscSpec(), *args)
+    want, plain_ms["turbo_rsc_map"] = time_once(
+        lambda: kt.rsc_maxlogmap_batch_plain(fec.RscSpec(), *args))
+    require(torch.equal(got, want), "RSC MAP at the serving size")
+    err["turbo_rsc_map"] = max(err["turbo_rsc_map"], max_abs_diff(got, want))
+    summary = {"iters_used": iters, "accept_rate": accept,
+               "false_accepts": false_accepts, "block_errors": block_errors,
+               "fixed_block_errors": fixed_wrong}
+    return q, launches, plain_ms, summary
+
+
+def map_call_args(fields):
+    """DEC1's inputs in the first iteration (a-priori 0) from the decoder's
+    seven fields."""
+    import torch
+    l_sys, l_par1, _, st1, pt1, _, _ = fields
+    return (l_sys, l_par1, torch.zeros_like(l_sys), st1, pt1)
+
+
+def soft_output_times(fec, q_map, q_turbo):
+    """Device ms of TIMED_CALLS calls on distinct inputs (row rotations) of
+    K7 and K8 at their main-path sizes, (h) whole, and (i) whole with its
+    wall and host-enqueue ms, and the fixed-iteration decode."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import turbo as kt
+    spec = fec.NASA_K7
+    L = q_map.shape[1] - spec.S
+    runs = {}
+    qbufs = [torch.roll(q_map, r + 1, 0) for r in range(TIMED_CALLS)]
+    runs["maxlogmap_k1"] = device_times(
+        lambda x: fec.maxlogmap_llrs_batch_kernel(spec, x), qbufs)
+    runs["maxlogmap"] = device_times(
+        lambda x: (fec.maxlogmap_llrs_batch_kernel(spec, x)[:, :L] < 0).to(
+            torch.uint8), qbufs)
+    del qbufs
+    tbufs = [torch.roll(q_turbo, r + 1, 0) for r in range(TIMED_CALLS)]
+    fields = [fec.ops.lte._receive_fields(x, TURBO_L, 0, None, TURBO_QMAX,
+                                          0, None)[0] for x in tbufs]
+    rsc = fec.RscSpec()
+    runs["turbo_rsc_map"] = device_times(
+        lambda f: kt.rsc_maxlogmap_batch_kernel(rsc, *map_call_args(f)),
+        fields)
+    del fields
+    runs["turbo serving"] = device_times(lambda x: serve_turbo(fec, x), tbufs)
+    runs["turbo serving wall"] = wall_times(lambda x: serve_turbo(fec, x),
+                                            tbufs)
+    runs["turbo serving host"] = host_times(lambda x: serve_turbo(fec, x),
+                                            tbufs)
+    runs["turbo fixed"] = device_times(
+        lambda x: fec.lte_turbo_decode(x, TURBO_L, n_iters=TURBO_FIXED_ITERS),
+        tbufs)
+    return runs
+
+
 def bounds(lens_sum: int):
     """(bound ms, what bounds it) of each kernel on this run's main-path
     inputs: the larger of the bytes it must move (each input read once,
@@ -1325,7 +1703,16 @@ def bounds(lens_sum: int):
         # start states in, the bits of 240 steps out.
         "traceback_k1_masked": (B * 288 * NS // 8 + 4 * B + B * 240,
                                 B * 288 * TRACEBACK_OPS),
+        # (h): the int8 LLRs read twice (forward and replay), the int32
+        # LLRs written once.
+        "maxlogmap_k1": (2 * B * T * n + 4 * B * T,
+                         B * T * (NS // 2 * ACS_OPS * MAP_PASSES
+                                  + NS * EMIT_OPS)),
     }
+    # (i): one MAP call, three int32 fields and two tails in, lapp out.
+    Bt, Lt, NSt, St = TURBO_B, TURBO_L, 8, 3
+    work["turbo_rsc_map"] = (4 * Bt * (4 * Lt + 2 * St),
+                             RSC_OPS * NSt * Bt * Lt)
     # Tail-biting at (a)'s size (LTE_TBCC_K7, NS = 64): K6 walks the list
     # trellis's last D steps (the message window) for each of DCI_LIST
     # starts, one output byte per bit; K2m walks the whole two-sided wrap
@@ -1389,20 +1776,33 @@ def main() -> int:
     tb_in, tb_launches, tb_plain, tb_summary = phase_tailbiting(fec, acs, dev,
                                                                 err)
     plain_ms.update(tb_plain)
+    t0 = time.perf_counter()
+    phase_compare_soft_output(fec, dev, err)
+    print(f"[compare] soft-output {time.perf_counter() - t0:.1f} s")
+    map_launches, map_plain, map_summary = phase_maxlogmap(fec, acs, dev, err,
+                                                           msgs, q)
+    plain_ms.update(map_plain)
+    q_turbo, turbo_launches, turbo_plain, turbo_summary = phase_turbo(
+        fec, acs, dev, err)
+    plain_ms.update(turbo_plain)
     runs = phase_times(fec, acs, seg, q, q_ragged, lens)
     runs.update(tailbiting_times(fec, acs, tb_in))
+    runs.update(soft_output_times(fec, q, q_turbo))
 
     # Launch counts: the sum over the main-path runs, each read just after.
     by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
-               **stream_launches, **tb_launches}
+               **stream_launches, **tb_launches, "maxlogmap": map_launches,
+               **turbo_launches}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     bits_per_call = MAIN_B * MAIN_L
     dci_bits = DCI_B * (DCI_PAYLOAD + 16)
+    turbo_bits = TURBO_B * TURBO_L
     med = {key: statistics.median(ms) for key, ms in runs.items()}
     for key, ms in med.items():
         plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
         bits = (dci_bits if "tailbiting c" in key or "rate-matched" in key
                 or key.endswith(("multi", "masked tailbiting"))
+                else turbo_bits if key.startswith("turbo")
                 else bits_per_call)
         print(f"[time] {key:22s} median {ms:.4f} ms, min {min(runs[key]):.4f}"
               f" ms of {TIMED_CALLS} = {bits / (ms * 1e3):.1f} "
@@ -1454,6 +1854,18 @@ def main() -> int:
             "plain_ms": plain_ms[path],
             "mbps": bits_per_call / (med[path] * 1e3),
             "wall_mbps": bits_per_call / (med[f"{path} wall"] * 1e3)}
+    maxlogmap = dict(map_summary, ms=med["maxlogmap"],
+                     min_ms=min(runs["maxlogmap"]),
+                     plain_ms=plain_ms["maxlogmap"],
+                     mbps=bits_per_call / (med["maxlogmap"] * 1e3))
+    turbo = dict(turbo_summary)
+    for path in ("turbo serving", "turbo fixed"):
+        turbo[path] = {"ms": med[path], "min_ms": min(runs[path]),
+                       "plain_ms": plain_ms[path],
+                       "mbps": turbo_bits / (med[path] * 1e3)}
+    turbo["turbo serving"].update(
+        wall_ms=med["turbo serving wall"], host_ms=med["turbo serving host"],
+        wall_mbps=turbo_bits / (med["turbo serving wall"] * 1e3))
     print(json.dumps({
         "kernels": kernels, "decode_ms": med["decode"],
         "decode_min_ms": min(runs["decode"]),
@@ -1463,7 +1875,8 @@ def main() -> int:
         "soft_decode_min_ms": min(runs["soft_decode"]),
         "soft_decode_plain_ms": plain_ms["soft_decode"],
         "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
-        "streams": streams, "tailbiting": tailbiting}))
+        "streams": streams, "tailbiting": tailbiting,
+        "maxlogmap": maxlogmap, "turbo": turbo}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

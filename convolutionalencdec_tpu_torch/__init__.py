@@ -2,12 +2,13 @@
 
 Batched convolutional encoding and hard- and soft-decision Viterbi block
 decoding (punctured and ragged too), streaming decoding and the tail-biting
-receive chain (wrap and list decodes, CRC, LTE rate matching) on an NVIDIA
+receive chain (wrap and list decodes, CRC, LTE rate matching),
+max-log-MAP soft output and the LTE turbo receive chain on an NVIDIA
 Hopper GPU, with the forward ACS, the tracebacks (one walk or a list of
-walks per channel) and the register-exchange stream decode as CUDA C++
-kernels written for `sm_90a` (`csrc/`).  The JAX
-package `convolutionalencdec_tpu` is its reference; this package imports
-torch and numpy, never jax.
+walks per channel), the register-exchange stream decode, the max-log-MAP
+and the turbo constituent MAP as CUDA C++ kernels written for `sm_90a`
+(`csrc/`).  The JAX package `convolutionalencdec_tpu` is its reference;
+this package imports torch and numpy, never jax.
 
     import convolutionalencdec_tpu_torch as fec
     segs, _ = fec.encode_bits(fec.NASA_K7, bits)          # uint8 [B, T]
@@ -22,6 +23,10 @@ torch and numpy, never jax.
         56, 288)                                          # 288 channel bits
     bits, ok, chosen = fec.viterbi_decode_batch_tailbiting_ratematched_crc(
         fec.LTE_TBCC_K7, fec.CRC16_CCITT, q_rx, 56)       # q_rx [B, 288]
+    llrs = fec.maxlogmap_llrs_batch_kernel(fec.NASA_K7, q8)  # int32 [B, T]
+    tx = fec.lte_turbo_encode_batch(fec.crc_append(fec.CRC24B, payload),
+                                    2056)                 # [B, 2056] bits
+    bits, lapp, ok, iters = fec.lte_turbo_decode_early(q, 1024)
 
 A tensor input keeps its own device; any other input goes to the card
 unless the call passes `device="cpu"`.
@@ -29,15 +34,21 @@ unless the call passes `device="cpu"`.
 
 from . import kernels, ops
 from .ops import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
-                  DEFAULT_QMAX, PUNCTURE_2_3, PUNCTURE_3_4, PUNCTURE_5_6,
-                  CrcSpec, awgn, bits_to_segments, bpsk_llr, bpsk_modulate,
+                  DEFAULT_QMAX, LA_CLAMP, LTE_BLOCK_SIZES, PUNCTURE_2_3,
+                  PUNCTURE_3_4, PUNCTURE_5_6, CrcSpec, RscSpec, awgn,
+                  bits_to_segments, bpsk_llr, bpsk_modulate,
                   bsc, bsc_segments, check_pattern_rows, crc_append,
                   crc_bits, crc_check, depuncture_llrs, derate_match,
                   encode_bits, encode_bytes, encode_tailbiting,
-                  hard_bits_to_qllrs, hard_decision, pack_bits,
+                  hard_bits_to_qllrs, hard_decision, lte_dlsch_decode,
+                  lte_dlsch_encode, lte_qpp, lte_turbo_decode,
+                  lte_turbo_decode_early, lte_turbo_encode,
+                  lte_turbo_encode_batch, maxlogmap_decode, maxlogmap_llrs,
+                  maxlogmap_llrs_batch, pack_bits, qpp_interleaver,
                   puncture_bits, puncture_mask, punctured_rate,
                   quantize_llrs, rate_match, rate_match_segments,
                   segments_to_bits, soft_step_metrics, tail_state,
+                  turbo_decode, turbo_decode_batch, turbo_encode_batch,
                   traceback_terminated, uncoded_ber_bpsk, unpack_bits,
                   viterbi_decode, viterbi_decode_bytes,
                   viterbi_decode_ragged, viterbi_decode_ragged_soft,
@@ -48,7 +59,10 @@ from .ops import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
                   viterbi_decode_tailbiting_list_soft,
                   viterbi_decode_tailbiting_soft, viterbi_forward,
                   viterbi_forward_butterfly, viterbi_forward_butterfly_soft)
-from .kernels import (select_kernel, viterbi_decode_batch,
+from .kernels import (maxlogmap_llrs_batch_kernel, rsc_maxlogmap_batch_kernel,
+                      select_kernel, turbo_decode_batch_kernel,
+                      turbo_decode_batch_kernel_early,
+                      viterbi_decode_batch,
                       viterbi_decode_batch_bytes,
                       viterbi_decode_batch_bytes_ragged,
                       viterbi_decode_batch_punctured,
@@ -107,4 +121,12 @@ __all__ = [
     "BlockStreamingDecoderBatch", "StreamingDecoder", "StreamingDecoderBatch",
     "StreamingEncoder", "K5_23_35", "K9_561_753", "LTE_TBCC_K7", "NASA_K7",
     "NASA_K7_R13", "PRESETS", "REF_K7", "TOY_K3", "CodeSpec", "from_reference",
+    "LA_CLAMP", "LTE_BLOCK_SIZES", "RscSpec", "lte_dlsch_decode",
+    "lte_dlsch_encode", "lte_qpp", "lte_turbo_decode",
+    "lte_turbo_decode_early", "lte_turbo_encode", "lte_turbo_encode_batch",
+    "maxlogmap_decode", "maxlogmap_llrs", "maxlogmap_llrs_batch",
+    "qpp_interleaver", "turbo_decode", "turbo_decode_batch",
+    "turbo_encode_batch", "maxlogmap_llrs_batch_kernel",
+    "rsc_maxlogmap_batch_kernel", "turbo_decode_batch_kernel",
+    "turbo_decode_batch_kernel_early",
 ]

@@ -53,6 +53,11 @@ SIGNATURES = {
     # input, soft, cb, m_in, r_in, sym, m_out, r_out, B, T, NS, n, W, stream
     "stream_k1_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],
+    # qllrs, cb, ckpt, llrs, B, T, NS, n, start, terminated, stream
+    "maxlogmap_k1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # l_sys, l_par, l_apriori, l_sys_tail, l_par_tail, tab, ckpt, lapp, B,
+    # L, NS, S, stream
+    "turbo_rsc_map": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -8,9 +8,12 @@ a BSC flipping 1.5% of the coded bits; soft: BPSK over AWGN at Eb/N0 =
 3 dB, 3-bit LLRs), for each of `viterbi_decode_batch_bytes`,
 `viterbi_decode_batch_soft_bytes` and the tail-biting hard byte decode
 `viterbi_decode_batch_tailbiting_bytes` (the same messages tail-biting
-encoded), and for the CRC-aided list chain
+encoded), for the CRC-aided list chain
 `viterbi_decode_batch_tailbiting_crc_soft` on DCI-sized blocks (LTE_TBCC_K7,
-40-bit payload + CRC16, B = 16384, list 8, AWGN at Eb/N0 = 2 dB), it
+40-bit payload + CRC16, B = 16384, list 8, AWGN at Eb/N0 = 2 dB), for the
+max-log-MAP LLRs `maxlogmap_llrs_batch_kernel` of the soft input, and for
+the turbo serving call (`lte_turbo_decode_early` + `pack_bits` on 2048 LTE
+code blocks of 1000 bits + CRC24B, E = 2056, AWGN at 2.0 dB, qmax 31), it
 prints:
   - the device time per call from CUDA events, and the host time per call
     of the same back-to-back run (host clock, one synchronise at the end);
@@ -18,6 +21,10 @@ prints:
     and the device's busy share of the window (first kernel start to last
     kernel end);
   - the peak device memory of one call above its inputs;
+  - for the turbo call, its device time split into the MAP kernels, the
+    CRC's matrix product, the rest of the exchange glue, and the idle
+    share of the window (the host refilling the queue after each
+    iteration's `ok.all()` synchronisation), per iteration;
 and once, the time of `encode_bits` (input set-up, not in the decode).
 Needs a CUDA device; uses torch and numpy only.
 """
@@ -33,6 +40,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 B, L, SEED, EBN0_DB = 2048, 2048, 9865, 3.0
 DCI_B, DCI_PAYLOAD, DCI_LIST, DCI_EBN0 = 16384, 40, 8, 2.0
+TURBO_B, TURBO_L, TURBO_EBN0, TURBO_QMAX = 2048, 1024, 2.0, 31
 
 
 def card() -> str:
@@ -128,6 +136,19 @@ def main() -> int:
         generator=torch.Generator(device=dev).manual_seed(SEED))
     q_dci = fec.quantize_llrs(fec.bpsk_llr(y, DCI_EBN0, lte.rate)).reshape(
         DCI_B, -1, lte.n).to(torch.int8)
+    payload = torch.from_numpy(rng.integers(
+        0, 2, (TURBO_B, TURBO_L - 24), dtype=np.uint8)).to(dev)
+    E = 2 * (TURBO_L + 4)
+    y = fec.awgn(fec.bpsk_modulate(fec.lte_turbo_encode_batch(
+        fec.crc_append(fec.CRC24B, payload), E)), TURBO_EBN0, TURBO_L / E,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    q_turbo = fec.quantize_llrs(fec.bpsk_llr(y, TURBO_EBN0, TURBO_L / E),
+                                qmax=TURBO_QMAX)
+
+    def serve(x):
+        bits, _, ok, iters = fec.lte_turbo_decode_early(x, TURBO_L)
+        return fec.pack_bits(bits), ok, iters
+
     fec.viterbi_decode_batch_bytes(spec, hard)  # build and load the kernels
     torch.cuda.synchronize()
 
@@ -144,6 +165,9 @@ def main() -> int:
         "DCI viterbi_decode_batch_tailbiting_crc_soft": (
             lambda x: fec.viterbi_decode_batch_tailbiting_crc_soft(
                 lte, crc, x, DCI_LIST), q_dci),
+        "max-log-MAP maxlogmap_llrs_batch_kernel": (
+            lambda x: fec.maxlogmap_llrs_batch_kernel(spec, x), q),
+        "turbo lte_turbo_decode_early + pack_bits": (serve, q_turbo),
     }
     for label, (fn, x) in paths.items():
         inputs = [torch.roll(x, r + 1, dims=0) for r in range(calls)]
@@ -162,6 +186,17 @@ def main() -> int:
                      "the inputs")
         for k, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
             lines.append(f"    {ms:.4f} ms  {k[:100]}")
+        if label.startswith("turbo"):
+            iters = serve(x)[2]
+            maps = sum(v for k, v in per_kernel.items() if "turbo_rsc" in k)
+            crc_ms = sum(v for k, v in per_kernel.items() if "gemm" in k)
+            glue = sum(per_kernel.values()) - maps - crc_ms
+            idle = window * (1 - busy)
+            lines.append(
+                f"    {iters} iterations; per iteration: MAP kernels "
+                f"{maps / iters:.4f} ms, CRC product {crc_ms / iters:.4f} "
+                f"ms, other glue kernels {glue / iters:.4f} ms, idle "
+                f"{idle / iters:.4f} ms of the profiled window")
     for line in lines:
         print(line)
     return 0

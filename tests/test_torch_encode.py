@@ -73,6 +73,27 @@ def test_pack_unpack_match_reference(shape):
         port_bits.pack_bits(torch.zeros((2, 7), dtype=torch.uint8))
 
 
+def test_pack_unpack_place_inputs_by_the_device_rule(monkeypatch):
+    """A tensor keeps its device; a numpy input goes to the card, and with
+    no CUDA device raises unless device='cpu'.  The parity of 32-bit words
+    equals the JAX package's numpy parity."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.arange(6, dtype=np.uint8).reshape(2, 3)
+    bits = np.unpackbits(data, axis=1)
+    for fn, x in ((port_bits.unpack_bits, data), (port_bits.pack_bits, bits)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(x)
+        assert fn(x, device="cpu").device.type == "cpu"
+        assert fn(torch.from_numpy(x)).device.type == "cpu"
+    np.testing.assert_array_equal(
+        port_bits.pack_bits(bits, device="cpu").numpy(), data)
+    words = np.random.default_rng(4).integers(0, 1 << 32, 64,
+                                               dtype=np.uint64)
+    words = words.astype(np.uint32)
+    np.testing.assert_array_equal(port_bits.parity32_np(words),
+                                  ref_bits.parity32_np(words))
+
+
 def test_bsc_segments_statistics_match_reference():
     """Different random streams, so the gate is statistical: each coded bit
     flips with probability p in both, within 5 standard deviations."""

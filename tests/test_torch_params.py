@@ -101,15 +101,17 @@ def test_validation_matches_reference(kwargs):
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one imported jax for the tests)."""
     root = Path(__file__).resolve().parent.parent
-    code = ("import sys, convolutionalencdec_tpu_torch, "
-            "convolutionalencdec_tpu_torch.kernels.decode, "
-            "convolutionalencdec_tpu_torch.kernels.acs, "
-            "convolutionalencdec_tpu_torch.kernels.stream, "
-            "convolutionalencdec_tpu_torch.ops.channel, "
-            "convolutionalencdec_tpu_torch.ops.metrics, "
-            "convolutionalencdec_tpu_torch.ops.puncture, "
-            "convolutionalencdec_tpu_torch.ops.streaming, "
-            "convolutionalencdec_tpu_torch.ops.viterbi; "
+    package = root / "convolutionalencdec_tpu_torch"
+    modules = sorted(
+        ".".join(("convolutionalencdec_tpu_torch",)
+                 + p.relative_to(package).with_suffix("").parts)
+        for p in package.rglob("*.py") if p.name != "__init__.py")
+    assert {"convolutionalencdec_tpu_torch.kernels.maxlogmap",
+            "convolutionalencdec_tpu_torch.kernels.turbo",
+            "convolutionalencdec_tpu_torch.kernels.tailbiting",
+            "convolutionalencdec_tpu_torch.ops.lte",
+            "convolutionalencdec_tpu_torch.ops.crc"} <= set(modules)
+    code = (f"import sys, convolutionalencdec_tpu_torch, {', '.join(modules)}; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'convolutionalencdec_tpu.', 'triton'))"
