@@ -86,7 +86,28 @@ Phases (any failure exits non-zero and prints no result line):
      accept, accept rate > 0.99, 3..8 iterations; a fixed 6-iteration
      `lte_turbo_decode` equal to its plain route; launches of both kernels
      > 0; times of both kernels, of (h), and of (i) with its wall and
-     host-enqueue times.
+     host-enqueue times;
+ 14. generic-k kernels against plain versions on the card, small sizes:
+     `acs_generic_forward` and `traceback_generic` (and, on the k = 2,
+     NS = 64 codes, their k2 instantiations) on TOY_K3, a K=3 k=2 code
+     (NS = 16), an asymmetric K=7 code, the main-path codes below and the
+     three codes of scripts/generic_k_pricing.py,
+     at B = 37 with 3% and 25% segment corruption and on uniform garbage
+     (tie-heavy), and at B = 1, at T = S + 1, and at a message length below
+     the full one and not a multiple of 8: decision planes, final metrics,
+     bits and bytes, and the public entries against the plain decode; the
+     BER of each code's plain decode at 3%;
+ 15. generic-k main path at full width (B = 2048): the IEEE 802.11a
+     rate-2/3 code as a k = 2 trellis (NS = 64, the k2 route, L = 2048),
+     the K=9 (561, 753) code punctured to rate 2/3 as a k = 2 trellis
+     (NS = 256) and the 802.11a rate-3/4 code as a k = 3 trellis (NS = 64;
+     T = 512 each: the shapes of scripts/generic_k_pricing.py:45-51) and
+     TOY_K3 (L = 2048), encoded on
+     the card, 3% of the segments hit, through `viterbi_decode_batch_bytes`
+     and `viterbi_decode_batch`; each equal to the plain decode on the card,
+     BER < 0.1, launches of the route's kernels > 0; times of each kernel
+     and each whole decode, and of the runtime-k kernels on the k2 code's
+     input beside its instantiation.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -125,7 +146,9 @@ TIMED_CALLS = 20
 QUEUE_SLEEP_CYCLES = 200_000_000
 KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
            "traceback_k1_ragged", "stream_k1_decode", "traceback_k1_masked",
-           "traceback_k1_multi", "maxlogmap_k1", "turbo_rsc_map")
+           "traceback_k1_multi", "maxlogmap_k1", "turbo_rsc_map",
+           "acs_generic_forward", "traceback_generic",
+           "acs_generic_k2_forward", "traceback_generic_k2")
 SOURCES = {
     "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
@@ -152,6 +175,18 @@ SOURCES = {
     "turbo_rsc_map": (
         "convolutionalencdec_tpu_torch/csrc/turbo_rsc.cu",
         "convolutionalencdec_tpu/kernels/turbo_pallas.py:283 and :300"),
+    "acs_generic_forward": (
+        "convolutionalencdec_tpu_torch/csrc/acs_generic.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:2004"),
+    "traceback_generic": (
+        "convolutionalencdec_tpu_torch/csrc/acs_generic.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:2039"),
+    "acs_generic_k2_forward": (
+        "convolutionalencdec_tpu_torch/csrc/acs_generic.cu",
+        "convolutionalencdec_tpu/kernels/acs_k2.py:345"),
+    "traceback_generic_k2": (
+        "convolutionalencdec_tpu_torch/csrc/acs_generic.cu",
+        "convolutionalencdec_tpu/kernels/acs_k2.py:531"),
 }
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
@@ -197,6 +232,47 @@ TURBO_E = 2 * (TURBO_L + 4)
 TURBO_ACCEPT_MIN = 0.99
 TURBO_ITERS_WINDOW = (3, 8)
 TURBO_FIXED_ITERS = 6
+# Generic-k: the comparison phase's codes and message length in symbols,
+# and the main path's codes with their message bits.  The main path takes
+# the shapes that scripts/generic_k_pricing.py:45-51 priced (k = 2 with
+# NS = 64 and 256, k = 3 with NS = 64; T = 512, the k = 2, NS = 64 one at
+# L = 2048 instead, T = 1027) and TOY_K3 at L = 2048 (T = 2050).  The
+# pricing script's generators are no codes to decode (the k = 3 one has
+# n = k = 3, rate 1; the comparison phase prints their BER), so the main
+# path decodes standard codes of the same K and k: a rate-1/2 mother code
+# punctured with period k is a rate-k/n code whose register holds k new
+# bits and the mother's K - 1 old ones.  Step p of the period (message bit
+# p of the symbol) taps the mother's generator shifted left by p (CodeSpec's
+# newest-first order), and the kept bits go out in the pattern's order
+# (tests/test_torch_generic.py holds each code's encoder to the mother's,
+# punctured):
+#   k2_NS64:  NASA_K7 (133, 171) with PUNCTURE_2_3, the rate-2/3 mode of
+#             IEEE 802.11a-1999 17.3.5.6 (sent A0 B0 A1);
+#   k2_NS256: K9_561_753 (3GPP TS 25.212 4.2.3.1) with PUNCTURE_2_3;
+#   k3_NS64:  NASA_K7 with PUNCTURE_3_4, 802.11a's rate 3/4 (A0 B0 A1 B2).
+# The comparison phase holds the kernels to their plain versions on both
+# sets.  The first code runs on the k2 route (its kernels count as K10),
+# the others on the runtime-k kernels (K9); the kernels line reports K9 at
+# GENERIC_K9_CODE.
+GENERIC_SMALL_CODES = (
+    ("TOY_K3", "TOY_K3"),
+    ("K3k2", dict(K=3, k=2, g=(0o17, 0o06, 0o13))),
+    ("K7_134_171", dict(K=7, g=(0o134, 0o171))),
+    ("k2_NS64_pricing", dict(K=4, k=2, g=(0o64, 0o52, 0o71))),
+    ("k2_NS256_pricing", dict(K=5, k=2, g=(0o1633, 0o1255, 0o1117))),
+    ("k3_NS64_pricing", dict(K=3, k=3, g=(0o715, 0o663, 0o557))),
+)
+GENERIC_SMALL_SYMBOLS = 67
+GENERIC_MAIN = (
+    ("k2_NS64", dict(K=4, k=2, g=(0o133, 0o171, 0o266)), 2048),
+    ("k2_NS256", dict(K=5, k=2, g=(0o561, 0o753, 0o1342)), (512 - 4) * 2),
+    ("k3_NS64", dict(K=3, k=3, g=(0o133, 0o171, 0o266, 0o744)),
+     (512 - 2) * 3),
+    ("TOY_K3", "TOY_K3", 2048),
+)
+GENERIC_K9_CODE = "k2_NS256"
+# tests/test_kernels.py:166's gate on these codes at 3% segment corruption.
+GENERIC_BER_LIMIT = 0.1
 # The card's peaks for the bound (H100 SXM; NVIDIA's data sheet and Hopper
 # white paper): 3.35 TB/s of HBM, and int32 at 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost = 16.7 T operations/s.
@@ -294,8 +370,9 @@ def time_once(fn):
 
 def launch_counters(acs):
     """Every kernel wrapper module's launch counts."""
-    from convolutionalencdec_tpu_torch.kernels import maxlogmap, turbo
-    return (acs.LAUNCHES, maxlogmap.LAUNCHES, turbo.LAUNCHES)
+    from convolutionalencdec_tpu_torch.kernels import generic, maxlogmap, turbo
+    return (acs.LAUNCHES, maxlogmap.LAUNCHES, turbo.LAUNCHES,
+            generic.LAUNCHES)
 
 
 def drive(acs, fn):
@@ -1162,12 +1239,12 @@ def tb_kernel_inputs(fec, ktb, acs, spec, q):
                         device=q.device)
     qclip, floor = ktb._soft_route(spec, QMAX)
     wl, wr = ktb.kernel_wraps(spec, T)
-    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, wr, dim=1),
+    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, wr, axis=1),
                                            qclip, zeros, floor)
     start = torch.argmin(fm, dim=1).to(torch.int32)
     masked = (words, start, words.shape[1], wl + T)
     wl = ktb.list_wrap(spec, T)
-    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, 0, dim=1),
+    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, 0, axis=1),
                                            qclip, zeros, floor)
     states, _ = fec.ops.tailbiting.list_candidates(fm, DCI_LIST)
     return masked, (words, states, words.shape[1], wl, T)
@@ -1677,17 +1754,214 @@ def soft_output_times(fec, q_map, q_turbo):
     return runs
 
 
-def bounds(lens_sum: int):
+def generic_spec(fec, code):
+    """A CodeSpec from a preset name or CodeSpec arguments."""
+    return fec.PRESETS[code] if isinstance(code, str) else fec.CodeSpec(**code)
+
+
+def generic_pairs(gk, spec):
+    """(forward name, traceback name, forward, its plain version, traceback,
+    its plain version) of the runtime-k kernels and, for a k = 2, NS = 64
+    code, of their k2 instantiation."""
+    pairs = [("acs_generic_forward", "traceback_generic",
+              gk.acs_forward_batch_generic, gk.acs_forward_batch_generic_plain,
+              gk.traceback_batch_generic, gk.traceback_batch_generic_plain)]
+    if gk.k2_supported(spec):
+        pairs.append(("acs_generic_k2_forward", "traceback_generic_k2",
+                      gk.acs_forward_batch_k2, gk.acs_forward_batch_k2_plain,
+                      gk.traceback_batch_k2, gk.traceback_batch_k2_plain))
+    return pairs
+
+
+def cut_bits(full: int) -> int:
+    """A message length below `full` and not a multiple of 8 (0 when
+    `full` leaves no such length)."""
+    cut = max(full - 13, 0)
+    return cut - 1 if cut % 8 == 0 and cut > 0 else cut
+
+
+def compare_generic(fec, gk, spec, seg, err):
+    """The generic-k kernels against their plain versions on one batch of
+    segments on the card: decision planes, final metrics, and the
+    traceback's bits and bytes at the full message and at `cut_bits`; and
+    the public entries' bits and bytes against the plain decode.  Returns
+    the plain decode's bits."""
+    import torch
+    T = seg.shape[1]
+    full = (T - spec.S) * spec.k
+    for fname, tname, fwd, fwd_p, tb, tb_p in generic_pairs(gk, spec):
+        planes, fm = fwd(spec, seg)
+        planes_p, fm_p = fwd_p(spec, seg)
+        require(torch.equal(planes, planes_p) and torch.equal(fm, fm_p),
+                f"{spec} {fname} planes and final metrics")
+        err[fname] = max(err[fname], max_abs_diff(planes, planes_p),
+                         max_abs_diff(fm, fm_p))
+        for L in sorted({full, cut_bits(full)}):
+            for out in ("bytes", "bits"):
+                got = tb(spec, planes, T, L, out)
+                want = tb_p(spec, planes_p, T, L, out)
+                require(torch.equal(got, want),
+                        f"{spec} {tname} L={L} {out}")
+                err[tname] = max(err[tname], max_abs_diff(got, want))
+    want = fec.viterbi_decode(spec, seg)
+    entries = {"viterbi_decode_batch": fec.viterbi_decode_batch,
+               "viterbi_decode_batch_generic":
+                   fec.viterbi_decode_batch_generic}
+    if gk.k2_supported(spec):
+        entries["viterbi_decode_batch_k2"] = fec.viterbi_decode_batch_k2
+    for what, fn in entries.items():
+        require(torch.equal(fn(spec, seg), want),
+                f"{spec} {what} equal to the plain decode")
+    cut = cut_bits(full)
+    require(torch.equal(fec.viterbi_decode_batch_bytes(spec, seg, cut),
+                        fec.ops.viterbi.pad_and_pack(want[:, :cut])),
+            f"{spec} viterbi_decode_batch_bytes at {cut} bits")
+    return want
+
+
+def phase_compare_generic(fec, gk, dev, err):
+    """The generic-k kernels against their plain versions on the card, on
+    every code of the slice, noisy and garbage inputs and the edges."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2030)
+    cases = [(name, generic_spec(fec, code)) for name, code in (
+        GENERIC_SMALL_CODES + tuple(c[:2] for c in GENERIC_MAIN[:3]))]
+
+    def encoded(spec, B, symbols):
+        msgs = rng.integers(0, 2, (B, symbols * spec.k), dtype=np.uint8)
+        seg, _ = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))
+        return msgs, seg.cpu().numpy()
+
+    for name, spec in cases:
+        route = fec.select_kernel(spec)
+        require(route == (fec.kernels.K2 if gk.k2_supported(spec)
+                          else fec.kernels.GENERIC_K),
+                f"{name} on the generic-k routes ({route})")
+        msgs, clean = encoded(spec, SMALL_B, GENERIC_SMALL_SYMBOLS)
+        draws = {f"p={p:.2f}": corrupt(rng, clean, p, spec.n) for p in NOISE}
+        draws["garbage"] = rng.integers(0, 1 << spec.n, clean.shape).astype(
+            np.uint8)
+        draws["B=1"] = corrupt(
+            rng, encoded(spec, 1, GENERIC_SMALL_SYMBOLS)[1], 0.25, spec.n)
+        draws["T=S+1"] = corrupt(rng, encoded(spec, SMALL_B, 1)[1], 0.25,
+                                 spec.n)
+        bits = {label: compare_generic(fec, gk, spec,
+                                       torch.from_numpy(seg).to(dev), err)
+                for label, seg in draws.items()}
+        ber = float((bits[f"p={NOISE[0]:.2f}"].cpu().numpy() != msgs).mean())
+        print(f"[compare] {name:16s} generic-k route {route}, B={SMALL_B} "
+              f"T={clean.shape[1]}: {', '.join(draws)}: planes, final "
+              "metrics, bits and bytes equal to the plain versions, entries "
+              f"equal to the plain decode; BER at p={NOISE[0]} {ber:.4f}")
+
+
+def phase_generic(fec, acs, gk, dev, err):
+    """The generic-k main path at full width.  Returns (inputs for the
+    timing phase, launches by path, plain ms, a summary)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(MAIN_SEED)
+    inputs, launches, plain_ms, summary = [], {}, {}, {}
+    for name, code, L in GENERIC_MAIN:
+        spec = generic_spec(fec, code)
+        msgs = rng.integers(0, 2, (MAIN_B, L), dtype=np.uint8)
+        seg, _ = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))
+        seg = torch.from_numpy(corrupt(rng, seg.cpu().numpy(), MAIN_NOISE,
+                                       spec.n)).to(dev)
+        T = seg.shape[1]
+        route = fec.select_kernel(spec)
+        fname, tname, fwd, fwd_p, tb, tb_p = generic_pairs(gk, spec)[-1]
+        out, launches[f"generic {name} bytes"] = drive(
+            acs, lambda: fec.viterbi_decode_batch_bytes(spec, seg))
+        bits, launches[f"generic {name} bits"] = drive(
+            acs, lambda: fec.viterbi_decode_batch(spec, seg))
+        for path in (f"generic {name} bytes", f"generic {name} bits"):
+            require(launches[path][fname] > 0 and launches[path][tname] > 0,
+                    f"{path}: {fname} and {tname} launched: {launches[path]}")
+        want, plain_ms[f"generic {name}"] = time_once(
+            lambda: fec.viterbi_decode(spec, seg))
+        require(tuple(bits.shape) == (MAIN_B, L) and torch.equal(bits, want),
+                f"{name}: bits equal to the plain decode on the card")
+        require(torch.equal(out, fec.ops.viterbi.pad_and_pack(want)),
+                f"{name}: bytes equal to the plain decode on the card")
+        del want
+        planes, fm = fwd(spec, seg)
+        (planes_p, fm_p), plain_ms[f"{fname} {name}"] = time_once(
+            lambda: fwd_p(spec, seg))
+        require(torch.equal(planes, planes_p) and torch.equal(fm, fm_p),
+                f"{name}: {fname} planes and final metrics at full size")
+        got_p, plain_ms[f"{tname} {name}"] = time_once(
+            lambda: tb_p(spec, planes_p, T, L, "bytes"))
+        require(torch.equal(got_p, out), f"{name}: plain {tname} bytes")
+        err[fname] = max(err[fname], max_abs_diff(planes, planes_p),
+                         max_abs_diff(fm, fm_p))
+        err[tname] = max(err[tname], max_abs_diff(out, got_p))
+        del planes_p, fm_p, got_p
+        ber = ber_of_bytes(out, msgs)
+        require(ber < GENERIC_BER_LIMIT, f"{name}: BER {ber} < "
+                f"{GENERIC_BER_LIMIT}")
+        summary[name] = {"spec": str(spec), "route": route, "T": T, "L": L,
+                         "ber": ber}
+        inputs.append((name, spec, seg, L))
+        print(f"[generic] {name} ({spec}) route {route}, B={MAIN_B} T={T} "
+              f"L={L} p={MAIN_NOISE}: BER {ber:.4e} (< {GENERIC_BER_LIMIT}),"
+              f" bits and bytes equal to the plain decode on the card, "
+              f"launches {launches[f'generic {name} bytes']}")
+    return inputs, launches, plain_ms, summary
+
+
+def generic_times(fec, gk, inputs):
+    """Device ms of TIMED_CALLS calls on distinct inputs (row rotations) of
+    each generic-k kernel and each whole byte decode at the main path's
+    sizes, and of the runtime-k kernels on the k2 code's inputs."""
+    import torch
+    runs = {}
+    for name, spec, seg, L in inputs:
+        T = seg.shape[1]
+        bufs = [torch.roll(seg, r + 1, dims=0) for r in range(TIMED_CALLS)]
+        for fname, tname, fwd, _, tb, _ in generic_pairs(gk, spec):
+            runs[f"{fname} {name}"] = device_times(
+                lambda s: fwd(spec, s), bufs)
+            planes = [fwd(spec, s)[0] for s in bufs]
+            runs[f"{tname} {name}"] = device_times(
+                lambda p: tb(spec, p, T, L, "bytes"), planes)
+            del planes
+        runs[f"generic {name}"] = device_times(
+            lambda s: fec.viterbi_decode_batch_bytes(spec, s), bufs)
+        del bufs
+    return runs
+
+
+def bounds(lens_sum: int, generic_shapes):
     """(bound ms, what bounds it) of each kernel on this run's main-path
     inputs: the larger of the bytes it must move (each input read once,
     each output written once) over HBM_BYTES_PER_S and its int32 operations
-    over INT32_OPS_PER_S."""
+    over INT32_OPS_PER_S.  `generic_shapes`: (name, spec, T, L) of each
+    generic-k main-path code; its kernels' keys end in the name."""
+    work = {}
+    for name, spec, T, L in generic_shapes:
+        # Segments in, one decision bit per state, step and input bit and
+        # the final metrics out (the kernels' int32 words hold 32 - NS
+        # zeros per step when NS < 32: padding, not counted); per state and
+        # step 2^k adds and 2^k - 1 compare-selects.  The traceback reads
+        # the decision bits and writes the bytes, TRACEBACK_OPS per decoded
+        # bit.
+        NS, k = spec.num_states, spec.k
+        planes = -(-MAIN_B * T * k * NS // 8)
+        fwd = (MAIN_B * T + planes + MAIN_B * NS * 4,
+               MAIN_B * T * NS * (2 * (1 << k) - 1))
+        tb = (planes + MAIN_B * ((L + 7) // 8), MAIN_B * L * TRACEBACK_OPS)
+        for family in ("acs_generic_forward", "acs_generic_k2_forward"):
+            work[f"{family} {name}"] = fwd
+        for family in ("traceback_generic", "traceback_generic_k2"):
+            work[f"{family} {name}"] = tb
     B, L, NS, n = MAIN_B, MAIN_L, 64, 2
     T = L + 6
     dec_bytes = B * T * NS // 8
     fm_bytes = B * NS * 4
     acs_ops = B * T * NS // 2 * ACS_OPS
-    work = {
+    work.update({
         "acs_k1_forward": (B * T + dec_bytes + fm_bytes, acs_ops),
         "acs_soft_k1_forward": (B * T * n + dec_bytes + fm_bytes, acs_ops),
         "traceback_k1": (dec_bytes + B * L // 8, B * T * TRACEBACK_OPS),
@@ -1708,7 +1982,7 @@ def bounds(lens_sum: int):
         "maxlogmap_k1": (2 * B * T * n + 4 * B * T,
                          B * T * (NS // 2 * ACS_OPS * MAP_PASSES
                                   + NS * EMIT_OPS)),
-    }
+    })
     # (i): one MAP call, three int32 fields and two tails in, lapp out.
     Bt, Lt, NSt, St = TURBO_B, TURBO_L, 8, 3
     work["turbo_rsc_map"] = (4 * Bt * (4 * Lt + 2 * St),
@@ -1750,6 +2024,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from convolutionalencdec_tpu_torch.kernels import _build, acs, stream
+    from convolutionalencdec_tpu_torch.kernels import generic as gk
     dev = torch.device("cuda", 0)
 
     card = phase_environment(_build)
@@ -1785,22 +2060,34 @@ def main() -> int:
     q_turbo, turbo_launches, turbo_plain, turbo_summary = phase_turbo(
         fec, acs, dev, err)
     plain_ms.update(turbo_plain)
+    t0 = time.perf_counter()
+    phase_compare_generic(fec, gk, dev, err)
+    print(f"[compare] generic-k {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gen_in, gen_launches, gen_plain, gen_summary = phase_generic(
+        fec, acs, gk, dev, err)
+    plain_ms.update(gen_plain)
+    print(f"[generic] main path {time.perf_counter() - t0:.1f} s")
     runs = phase_times(fec, acs, seg, q, q_ragged, lens)
     runs.update(tailbiting_times(fec, acs, tb_in))
     runs.update(soft_output_times(fec, q, q_turbo))
+    runs.update(generic_times(fec, gk, gen_in))
 
     # Launch counts: the sum over the main-path runs, each read just after.
     by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
                **stream_launches, **tb_launches, "maxlogmap": map_launches,
-               **turbo_launches}
+               **turbo_launches, **gen_launches}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     bits_per_call = MAIN_B * MAIN_L
     dci_bits = DCI_B * (DCI_PAYLOAD + 16)
     turbo_bits = TURBO_B * TURBO_L
+    generic_bits = {name: MAIN_B * L for name, _, _, L in gen_in}
     med = {key: statistics.median(ms) for key, ms in runs.items()}
     for key, ms in med.items():
         plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
-        bits = (dci_bits if "tailbiting c" in key or "rate-matched" in key
+        code = key.rsplit(" ", 1)[-1]
+        bits = (generic_bits[code] if code in generic_bits
+                else dci_bits if "tailbiting c" in key or "rate-matched" in key
                 or key.endswith(("multi", "masked tailbiting"))
                 else turbo_bits if key.startswith("turbo")
                 else bits_per_call)
@@ -1808,20 +2095,56 @@ def main() -> int:
               f" ms of {TIMED_CALLS} = {bits / (ms * 1e3):.1f} "
               f"decoded Mbit/s; plain "
               f"{'-' if plain is None else f'{plain:.1f}'} ms [{card}]")
-    bound = bounds(int(lens.clamp(0, seg.shape[1]).sum()))
+    bound = bounds(int(lens.clamp(0, seg.shape[1]).sum()),
+                   [(name, spec, x.shape[1], L) for name, spec, x, L in gen_in])
+    # The generic-k kernels' numbers are those of one main-path code: K10's
+    # of the k2 code, K9's of GENERIC_K9_CODE.
+    k2_code = GENERIC_MAIN[0][0]
+    timed_as = {name: f"{name} {code}" for name, code in (
+        ("acs_generic_forward", GENERIC_K9_CODE),
+        ("traceback_generic", GENERIC_K9_CODE),
+        ("acs_generic_k2_forward", k2_code),
+        ("traceback_generic_k2", k2_code))}
     kernels = []
     for name in KERNELS:
         source, replaces = SOURCES[name]
+        key = timed_as.get(name, name)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
-            "max_abs_err": err[name], "ms": med[name],
-            "min_ms": min(runs[name]), "plain_ms": plain_ms[name],
-            "bound_ms": bound[name][0], "bound_by": bound[name][1],
+            "max_abs_err": err[name], "ms": med[key],
+            "min_ms": min(runs[key]), "plain_ms": plain_ms[key],
+            "bound_ms": bound[key][0], "bound_by": bound[key][1],
             "library_ms": None})
         require(launches[name] > 0, f"{name} launched on the main paths")
         require(err[name] == 0, f"{name} equal to its plain version")
+    # Every code each generic-k kernel ran on.  The k2 kernels' plain
+    # versions are the runtime-k ones', timed once per code on its route.
+    twins = {"acs_generic_forward": "acs_generic_k2_forward",
+             "traceback_generic": "traceback_generic_k2"}
+    twins.update({v: k for k, v in twins.items()})
+    for name in twins:
+        kernels[KERNELS.index(name)]["by_code"] = {
+            code: {"ms": med[f"{name} {code}"],
+                   "min_ms": min(runs[f"{name} {code}"]),
+                   "plain_ms": plain_ms.get(f"{name} {code}", plain_ms.get(
+                       f"{twins[name]} {code}")),
+                   "bound_ms": bound[f"{name} {code}"][0],
+                   "bound_by": bound[f"{name} {code}"][1]}
+            for code in generic_bits if f"{name} {code}" in med}
+    generic = {"codes": gen_summary, "k2_instantiation_vs_runtime_k": {
+        kind: {"k2_ms": med[f"{k2} {k2_code}"],
+               "runtime_k_ms": med[f"{rt} {k2_code}"]}
+        for kind, rt, k2 in (("forward", "acs_generic_forward",
+                              "acs_generic_k2_forward"),
+                             ("traceback", "traceback_generic",
+                              "traceback_generic_k2"))}}
+    for code in generic_bits:
+        path = f"generic {code}"
+        generic["codes"][code].update(
+            ms=med[path], min_ms=min(runs[path]), plain_ms=plain_ms[path],
+            mbps=generic_bits[code] / (med[path] * 1e3))
     soft_stream = "stream_k1_decode soft"
     kernels[KERNELS.index("stream_k1_decode")].update(
         soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
@@ -1876,7 +2199,7 @@ def main() -> int:
         "soft_decode_plain_ms": plain_ms["soft_decode"],
         "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
         "streams": streams, "tailbiting": tailbiting,
-        "maxlogmap": maxlogmap, "turbo": turbo}))
+        "maxlogmap": maxlogmap, "turbo": turbo, "generic": generic}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """convolutionalencdec_tpu_torch: the PyTorch + CUDA port.
 
 Batched convolutional encoding and hard- and soft-decision Viterbi block
-decoding (punctured and ragged too), streaming decoding and the tail-biting
-receive chain (wrap and list decodes, CRC, LTE rate matching),
-max-log-MAP soft output and the LTE turbo receive chain on an NVIDIA
-Hopper GPU, with the forward ACS, the tracebacks (one walk or a list of
+decoding (punctured and ragged too, and hard decoding of any rate-k/n
+code), streaming decoding and the tail-biting receive chain (wrap and
+list decodes, CRC, LTE rate matching), max-log-MAP soft output and the
+LTE turbo receive chain on an NVIDIA Hopper GPU, with the forward ACS
+(butterfly and generic 2^k-way), the tracebacks (one walk or a list of
 walks per channel), the register-exchange stream decode, the max-log-MAP
 and the turbo constituent MAP as CUDA C++ kernels written for `sm_90a`
 (`csrc/`).  The JAX package `convolutionalencdec_tpu` is its reference;
@@ -13,6 +14,8 @@ this package imports torch and numpy, never jax.
     import convolutionalencdec_tpu_torch as fec
     segs, _ = fec.encode_bits(fec.NASA_K7, bits)          # uint8 [B, T]
     out = fec.viterbi_decode_batch_bytes(fec.NASA_K7, segs)
+    k2 = fec.CodeSpec(K=4, k=2, g=(0o133, 0o171, 0o266))  # rate 2/3
+    out = fec.viterbi_decode_batch(k2, fec.encode_bits(k2, bits)[0])
     q = fec.quantize_llrs(fec.bpsk_llr(received, ebn0_db, rate))
     out = fec.viterbi_decode_batch_soft_bytes(fec.NASA_K7, q.reshape(B, T, 2))
     dec = fec.StreamingDecoderBatch(fec.NASA_K7, B)       # decode delay 5K
@@ -33,12 +36,15 @@ unless the call passes `device="cpu"`.
 """
 
 from . import kernels, ops
+from .ops import (channel, crc, lte, maxlogmap, metrics, puncture, ratematch,
+                  tailbiting, turbo)
 from .ops import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
                   DEFAULT_QMAX, LA_CLAMP, LTE_BLOCK_SIZES, PUNCTURE_2_3,
                   PUNCTURE_3_4, PUNCTURE_5_6, CrcSpec, RscSpec, awgn,
                   bits_to_segments, bpsk_llr, bpsk_modulate,
                   bsc, bsc_segments, check_pattern_rows, crc_append,
                   crc_bits, crc_check, depuncture_llrs, derate_match,
+                  desegment_tb,
                   encode_bits, encode_bytes, encode_tailbiting,
                   hard_bits_to_qllrs, hard_decision, lte_dlsch_decode,
                   lte_dlsch_encode, lte_qpp, lte_turbo_decode,
@@ -47,8 +53,9 @@ from .ops import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
                   maxlogmap_llrs_batch, pack_bits, qpp_interleaver,
                   puncture_bits, puncture_mask, punctured_rate,
                   quantize_llrs, rate_match, rate_match_segments,
-                  segments_to_bits, soft_step_metrics, tail_state,
-                  turbo_decode, turbo_decode_batch, turbo_encode_batch,
+                  rsc_encode_batch, segment_tb, segments_to_bits,
+                  soft_step_metrics, tail_state, turbo_decode,
+                  turbo_decode_batch, turbo_encode_batch, turbo_encode_np,
                   traceback_terminated, uncoded_ber_bpsk, unpack_bits,
                   viterbi_decode, viterbi_decode_bytes,
                   viterbi_decode_ragged, viterbi_decode_ragged_soft,
@@ -65,6 +72,7 @@ from .kernels import (maxlogmap_llrs_batch_kernel, rsc_maxlogmap_batch_kernel,
                       viterbi_decode_batch,
                       viterbi_decode_batch_bytes,
                       viterbi_decode_batch_bytes_ragged,
+                      viterbi_decode_batch_generic, viterbi_decode_batch_k2,
                       viterbi_decode_batch_punctured,
                       viterbi_decode_batch_punctured_soft,
                       viterbi_decode_batch_ragged, viterbi_decode_batch_soft,
@@ -128,5 +136,8 @@ __all__ = [
     "qpp_interleaver", "turbo_decode", "turbo_decode_batch",
     "turbo_encode_batch", "maxlogmap_llrs_batch_kernel",
     "rsc_maxlogmap_batch_kernel", "turbo_decode_batch_kernel",
-    "turbo_decode_batch_kernel_early",
+    "turbo_decode_batch_kernel_early", "viterbi_decode_batch_generic",
+    "viterbi_decode_batch_k2", "channel", "crc", "lte", "maxlogmap",
+    "metrics", "puncture", "ratematch", "tailbiting", "turbo", "segment_tb",
+    "desegment_tb", "turbo_encode_np", "rsc_encode_batch",
 ]

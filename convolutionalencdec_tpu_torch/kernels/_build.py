@@ -58,6 +58,15 @@ SIGNATURES = {
     # l_sys, l_par, l_apriori, l_sys_tail, l_par_tail, tab, ckpt, lapp, B,
     # L, NS, S, stream
     "turbo_rsc_map": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # seg, table, planes, final_metrics, B, T, k, NS, n, shift, init_value,
+    # stream
+    "acs_generic_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "acs_generic_k2_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P],
+    # planes, out, B, T_stride, t_actual, k, NS, S, message_bits, emit_bytes,
+    # stream
+    "traceback_generic": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "traceback_generic_k2": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -89,9 +89,9 @@ def _check_kernel_spec(spec: CodeSpec) -> None:
     if not kernel_supports(spec):
         raise NotImplementedError(
             f"no CUDA kernel decodes {spec}: the k=1 butterfly kernels take "
-            "poly-symmetric codes with 64 <= NS <= 256; other codes wait for "
-            "the generic-k kernel (ROADMAP.md queue 1 item 12, TPU kernel K9)"
-            " or the NS < 64 instantiation (queue 2, K12)")
+            "poly-symmetric codes with 64 <= NS <= 256 and n <= 8; other "
+            "butterfly codes wait for ROADMAP.md queue 1 item 4 (TPU kernels "
+            "K11, K12), and the rest decode through kernels/generic.py")
 
 
 def _check_device(t: torch.Tensor) -> bool:

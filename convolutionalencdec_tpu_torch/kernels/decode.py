@@ -4,9 +4,11 @@ Ports of the JAX package's batch entry points
 (convolutionalencdec_tpu/kernels/acs_pallas.py): the hard block decodes
 (`viterbi_decode_batch`, `viterbi_decode_batch_bytes`), the soft ones
 (`viterbi_decode_batch_soft`, `viterbi_decode_batch_soft_bytes`), the
-one-call punctured decoders and the ragged decoders with per-channel
-lengths.  The JAX package re-derives its kernel choice in several places;
-here `select_kernel` is the only rule, and every entry point asks it.
+one-call punctured decoders, the ragged decoders with per-channel lengths,
+and the generic-k decodes (`viterbi_decode_batch_generic`,
+`viterbi_decode_batch_k2`).  The JAX package re-derives its kernel choice
+in several places; here `select_kernel` is the only rule, and every entry
+point asks it.
 
 Every entry point takes `device=None`: a tensor input keeps its own device,
 any other input goes to `device` (default: the CUDA card).  On the card an
@@ -27,11 +29,16 @@ from ..ops.viterbi import (init_metric_value, pad_and_pack, viterbi_decode,
 from ..params import CodeSpec
 from .acs import (acs_forward_batch, acs_forward_batch_soft, condition_qllrs,
                   kernel_supports, traceback_batch, traceback_batch_ragged)
+from .generic import (acs_forward_batch_generic, acs_forward_batch_k2,
+                      generic_kernel_supports, k2_supported,
+                      traceback_batch_generic, traceback_batch_k2)
 
 #: Route names of `select_kernel`.
 BUTTERFLY = "butterfly"  # hard: csrc/acs_k1.cu + csrc/traceback_k1.cu
 SOFT8 = "soft8"          # soft, LLRs clipped to +-qmax: csrc/acs_soft_k1.cu
 SOFT = "soft"            # soft, any int8 LLR: csrc/acs_soft_k1.cu
+K2 = "k2"                # hard, k = 2 and NS = 64: csrc/acs_generic.cu <2, 64>
+GENERIC_K = "generic_k"  # hard, any other code: csrc/acs_generic.cu
 GENERIC = "generic"      # no CUDA kernel yet: plain decoder on a CPU tensor
 
 
@@ -81,13 +88,20 @@ def select_kernel(spec: CodeSpec, mode: str = "hard",
     LTE_TBCC_K7, K9_561_753) run the hand-written forward ACS and traceback
     kernels.  SOFT8 is the route of the JAX package's 8-bit soft kernel
     (`swar8_soft_supported(spec, qmax)`, qmax default DEFAULT_QMAX), whose
-    LLRs are clipped to +-qmax; SOFT takes any int8 LLR.  GENERIC: every
-    other code decodes through the plain decoder on a CPU tensor and raises
-    on a CUDA tensor until its kernel is ported.
+    LLRs are clipped to +-qmax; SOFT takes any int8 LLR.  Hard decodes of
+    every other code take the JAX package's order: K2 (the generic kernels
+    at k = 2, NS = 64) first, then GENERIC_K (the generic kernels,
+    `generic_kernel_supports`: TOY_K3, rate-k/n codes).  GENERIC: the codes
+    left (k = 1 poly-symmetric codes with NS < 64, such as K5_23_35, or
+    NS > 256 or n > 8; soft decodes of non-butterfly codes) decode through
+    the plain decoder on a CPU tensor and raise on a CUDA tensor until their
+    kernels are ported.
     """
     if mode not in ("hard", "soft"):
         raise ValueError(f"mode must be 'hard' or 'soft', got {mode!r}")
     if not kernel_supports(spec):
+        if mode == "hard" and generic_kernel_supports(spec):
+            return K2 if k2_supported(spec) else GENERIC_K
         return GENERIC
     if mode == "hard":
         return BUTTERFLY
@@ -96,12 +110,24 @@ def select_kernel(spec: CodeSpec, mode: str = "hard",
 
 
 def _no_kernel(spec: CodeSpec, t: torch.Tensor) -> None:
-    """The GENERIC route: raise unless `t` lies on the CPU."""
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"no CUDA kernel decodes {spec} yet: it waits for the generic-k "
-            "kernel (ROADMAP.md queue 1 item 12, TPU kernel K9) or the "
-            "NS < 64 butterfly instantiation (queue 2, K12)")
+    """The GENERIC route: the plain decoder, for a CPU tensor only; raise
+    for any other."""
+    if t.device.type == "cpu":
+        return
+    if spec.k == 1 and spec.has_poly_symmetry:
+        which = ("small-NS instantiation (TPU kernel K12)"
+                 if spec.num_states < 64 else "wide instantiation (K11)")
+        reason = f"it waits for the butterfly kernels' {which}"
+    elif generic_kernel_supports(spec):
+        # Only the ragged entries get here: the JAX package scans there
+        # (acs_pallas.py:1721-1722).
+        reason = ("its ragged decodes have no kernel: the generic-k "
+                  "traceback walks one length for the whole batch")
+    else:
+        reason = ("the generic-k kernels take NS <= 1024, k <= 8 and "
+                  "n <= 8")
+    raise NotImplementedError(f"no CUDA kernel decodes {spec} here yet: "
+                              f"{reason} (ROADMAP.md queue 1 item 4)")
 
 
 def _message_bits(spec: CodeSpec, T: int, message_bits: int | None) -> int:
@@ -118,16 +144,30 @@ def _emit(bits: torch.Tensor, out: str) -> torch.Tensor:
     return pad_and_pack(bits) if out == "bytes" else bits
 
 
+#: The forward and traceback wrappers of the generic-k routes.
+_GENERIC_ROUTES = {
+    GENERIC_K: (acs_forward_batch_generic, traceback_batch_generic),
+    K2: (acs_forward_batch_k2, traceback_batch_k2),
+}
+
+
 def _decode(spec: CodeSpec, segments, message_bits: int | None, out: str,
-            device) -> torch.Tensor:
+            device, route: str | None = None) -> torch.Tensor:
+    """The hard block decodes' shared body, on `route` (default
+    `select_kernel(spec)`)."""
     segments = as_tensor(segments, torch.uint8, device)
     if segments.dim() != 2:
         raise ValueError("segments must be uint8 [B, T]")
     B, T = segments.shape
     L = _message_bits(spec, T, message_bits)
-    if select_kernel(spec) == BUTTERFLY:
+    route = select_kernel(spec) if route is None else route
+    if route == BUTTERFLY:
         decisions, _ = acs_forward_batch(spec, segments)
         return traceback_batch(spec, decisions, T, L, out=out)
+    if route in _GENERIC_ROUTES:
+        forward, traceback = _GENERIC_ROUTES[route]
+        planes, _ = forward(spec, segments)
+        return traceback(spec, planes, T, L, out=out)
     _no_kernel(spec, segments)
     return _emit(viterbi_decode(spec, segments)[:, :L], out)
 
@@ -154,6 +194,27 @@ def viterbi_decode_batch_bytes(spec: CodeSpec, segments,
     MSb-first with a zero-padded trailing byte.  On the BUTTERFLY route the
     traceback kernel emits the bytes itself."""
     return _decode(spec, segments, message_bits, "bytes", device)
+
+
+def viterbi_decode_batch_generic(spec: CodeSpec, segments,
+                                 message_bits: int | None = None,
+                                 device=None) -> torch.Tensor:
+    """Hard block decode through the generic-k kernels (any code of
+    `generic_kernel_supports`, k2 codes included): port of
+    acs_pallas.viterbi_decode_batch_generic (:2060).  Returns uint8
+    [B, L] bits, L default (T - S) * k, each k-bit symbol MSb first;
+    bit-identical to `ops.viterbi.viterbi_decode`."""
+    return _decode(spec, segments, message_bits, "bits", device, GENERIC_K)
+
+
+def viterbi_decode_batch_k2(spec: CodeSpec, segments,
+                            message_bits: int | None = None,
+                            device=None) -> torch.Tensor:
+    """Hard block decode of a k = 2, 64-state code through the generic
+    kernels' k2 instantiation: port of acs_k2.viterbi_decode_batch_k2
+    (:552).  Raises ValueError for other codes.  Returns uint8 [B, L]
+    bits, as `viterbi_decode_batch_generic`."""
+    return _decode(spec, segments, message_bits, "bits", device, K2)
 
 
 def _as_qllrs(spec: CodeSpec, qllrs, device) -> torch.Tensor:

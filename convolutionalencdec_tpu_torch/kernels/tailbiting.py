@@ -124,7 +124,7 @@ def _wrap_decode(spec: CodeSpec, x: torch.Tensor, wrap, soft: bool, qmax,
     traceback's MSb-first emit (wl is a multiple of 8)."""
     B, T = x.shape[:2]
     wl, wr = kernel_wraps(spec, T, wrap)
-    ext = circular_extend(x, wl, wr, dim=1)
+    ext = circular_extend(x, wl, wr, axis=1)
     words, fm = _forward(spec, ext, soft, qmax)
     start = torch.argmin(fm, dim=1).to(torch.int32)   # ties -> lowest state
     rows = traceback_batch_masked(spec, words, start, ext.shape[1], wl + T,
@@ -138,7 +138,7 @@ def _list_decode(spec: CodeSpec, x: torch.Tensor, list_size: int, wrap,
     metrics [B, list_size] less each channel's least final metric)."""
     B, T = x.shape[:2]
     wl = list_wrap(spec, T, wrap)
-    ext = circular_extend(x, wl, 0, dim=1)
+    ext = circular_extend(x, wl, 0, axis=1)
     words, fm = _forward(spec, ext, soft, qmax)
     states, metrics = list_candidates(fm, list_size)
     bits = traceback_batch_multi(spec, words, states, ext.shape[1], wl, T)

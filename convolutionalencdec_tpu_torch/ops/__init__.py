@@ -5,13 +5,14 @@ tail-biting and max-log-MAP), and the turbo code with its LTE chain.
 `ops.streaming` (the streaming classes) runs on the kernels' wrappers, so
 the package imports it after `kernels`, not here."""
 
-from .bits import pack_bits, parity32_np, unpack_bits
+from .bits import (int_to_bits, pack_bits, pack_bits_np, parity32,
+                   parity32_np, popcount32, unpack_bits, unpack_bits_np)
 from .crc import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
                   CrcSpec, crc_append, crc_bits, crc_check, crc_remainder_np)
 from .channel import (awgn, bits_to_segments, bpsk_llr, bpsk_modulate, bsc,
                       bsc_segments, hard_decision, segments_to_bits,
                       uncoded_ber_bpsk)
-from .encode import encode_bits, encode_bytes
+from .encode import encode_bits, encode_bits_np, encode_bytes, encode_one_input
 from .lte import (LTE_BLOCK_SIZES, Z_MAX, derate_match_turbo,
                   desegment_tb, dlsch_block_sizes, dlsch_rate_match_sizes,
                   lte_dlsch_decode, lte_dlsch_encode, lte_qpp,
@@ -49,7 +50,9 @@ from .viterbi import (hard_step_metrics, init_metric_value, ragged_epilogue,
                       viterbi_forward, viterbi_forward_butterfly)
 
 __all__ = [
-    "pack_bits", "unpack_bits", "awgn", "bits_to_segments", "bpsk_llr",
+    "pack_bits", "unpack_bits", "pack_bits_np", "unpack_bits_np",
+    "int_to_bits", "parity32", "popcount32", "encode_one_input",
+    "encode_bits_np", "awgn", "bits_to_segments", "bpsk_llr",
     "bpsk_modulate", "bsc", "bsc_segments", "hard_decision",
     "segments_to_bits", "uncoded_ber_bpsk", "encode_bits", "encode_bytes",
     "DEFAULT_QMAX", "hard_bits_to_qllrs", "quantize_llrs",

@@ -17,6 +17,7 @@ Semantics:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import as_tensor
@@ -88,9 +89,42 @@ def encode_bits(spec: CodeSpec, bits: torch.Tensor, terminate: bool = True,
     return segment, final_state
 
 
-def encode_bytes(spec: CodeSpec, data: torch.Tensor, device=None):
-    """Encode uint8 bytes [..., N] (MSb-first per byte) into terminated
-    coded segments uint8 [..., T]; `device` as in `encode_bits`."""
-    segments, _ = encode_bits(spec,
-                              unpack_bits(as_tensor(data, torch.uint8, device)))
+def encode_bytes(spec: CodeSpec, data, terminate: bool = True,
+                 device=None) -> torch.Tensor:
+    """Encode uint8 bytes [..., N] (MSb-first per byte) into coded segments
+    uint8 [..., T], terminated unless `terminate` is False; `device` as in
+    `encode_bits`."""
+    segments, _ = encode_bits(spec, unpack_bits(data, device=device),
+                              terminate)
     return segments
+
+
+def encode_one_input(spec: CodeSpec, state: int, u: int) -> tuple[int, int]:
+    """One trellis step on host ints: shift the k bits of `u` in and return
+    (coded segment, next state)."""
+    delay = ((state << spec.k) | u) & ((1 << spec.delay_width) - 1)
+    seg = 0
+    for j, grev in enumerate(spec.g_reversed):
+        seg |= (bin(delay & grev).count("1") & 1) << j
+    return seg, delay & (spec.num_states - 1)
+
+
+def encode_bits_np(spec: CodeSpec, bits: np.ndarray, terminate: bool = True,
+                   initial_state: int = 0) -> np.ndarray:
+    """Scalar numpy oracle encoder of one packet: a naive shift-register
+    walk, an independent check of `encode_bits`.  Returns uint8 [T]."""
+    bits = np.asarray(bits, dtype=np.uint8).ravel()
+    if bits.size % spec.k != 0:
+        raise ValueError("bit count not a multiple of k")
+    if terminate:
+        bits = np.concatenate([bits, np.zeros(spec.k * spec.S, np.uint8)])
+    delay = int(initial_state)
+    segs = []
+    for r in range(bits.size // spec.k):
+        for b in bits[r * spec.k:(r + 1) * spec.k]:
+            delay = ((delay << 1) | int(b)) & ((1 << spec.delay_width) - 1)
+        seg = 0
+        for j, grev in enumerate(spec.g_reversed):
+            seg |= (bin(delay & grev).count("1") & 1) << j
+        segs.append(seg)
+    return np.array(segs, dtype=np.uint8)

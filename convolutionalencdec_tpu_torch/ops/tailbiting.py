@@ -86,16 +86,16 @@ def normalize_wrap(spec: CodeSpec, wrap) -> tuple[int, int]:
 
 
 def circular_extend(x: torch.Tensor, wl: int, wr: int,
-                    dim: int = -1) -> torch.Tensor:
-    """[..., T, ...] -> the circular extension along `dim`: `wl` wrapped
+                    axis: int = -1) -> torch.Tensor:
+    """[..., T, ...] -> the circular extension along `axis`: `wl` wrapped
     steps before and `wr` after (indices taken mod T when a wrap exceeds
     T)."""
-    T = x.shape[dim]
+    T = x.shape[axis]
     if 0 <= wl <= T and 0 <= wr <= T:
-        return torch.cat([x.narrow(dim, T - wl, wl), x, x.narrow(dim, 0, wr)],
-                         dim=dim)
+        return torch.cat([x.narrow(axis, T - wl, wl), x,
+                          x.narrow(axis, 0, wr)], dim=axis)
     idx = torch.arange(-wl, T + wr, device=x.device) % T
-    return torch.index_select(x, dim, idx)
+    return torch.index_select(x, axis, idx)
 
 
 def _uniform(spec: CodeSpec, device) -> torch.Tensor:
@@ -108,7 +108,7 @@ def _hard_forward(spec: CodeSpec, ext: torch.Tensor, initial_metrics):
     if spec.k == 1 and spec.has_poly_symmetry:
         return viterbi_forward_butterfly(spec, ext, initial_metrics)
     return viterbi_forward(spec, hard_step_metrics(spec, ext),
-                           initial_metrics)
+                           initial_metrics=initial_metrics)
 
 
 def _wrap_traceback(spec: CodeSpec, decisions, fm, wl: int, T: int):
@@ -145,9 +145,10 @@ def viterbi_decode_tailbiting_soft(spec: CodeSpec, qllrs, wrap=None,
     qllrs = as_tensor(qllrs, torch.int32, device)
     T = qllrs.shape[-2]
     wl, wr = normalize_wrap(spec, wrap)
-    ext = circular_extend(qllrs, wl, wr, dim=-2)
+    ext = circular_extend(qllrs, wl, wr, axis=-2)
     decisions, fm = viterbi_forward(spec, soft_step_metrics(spec, ext),
-                                    _uniform(spec, ext.device))
+                                    initial_metrics=_uniform(spec,
+                                                             ext.device))
     return _wrap_traceback(spec, decisions, fm, wl, T)
 
 
@@ -224,9 +225,10 @@ def viterbi_decode_tailbiting_list_soft(spec: CodeSpec, qllrs,
     qllrs = as_tensor(qllrs, torch.int32, device)
     T = qllrs.shape[-2]
     wl = default_wrap(spec) if wrap is None else int(wrap)
-    ext = circular_extend(qllrs, wl, 0, dim=-2)
+    ext = circular_extend(qllrs, wl, 0, axis=-2)
     decisions, fm = viterbi_forward(spec, soft_step_metrics(spec, ext),
-                                    _uniform(spec, ext.device))
+                                    initial_metrics=_uniform(spec,
+                                                             ext.device))
     return _list_from_forward(spec, decisions, fm, list_size, wl, T)
 
 
@@ -252,12 +254,12 @@ def viterbi_decode_tailbiting_exact(spec: CodeSpec, segments,
     for s in range(NS):
         init = torch.full((NS,), _EXACT_BIG, dtype=torch.int32, device=dev)
         init[s] = 0
-        _, fm = viterbi_forward(spec, bm, init)
+        _, fm = viterbi_forward(spec, bm, initial_metrics=init)
         scores[:, s] = fm[:, s]
     best = torch.argmin(scores, dim=1)
     # Run each channel's winning pass again for its decisions.
     init = torch.full((B, NS), _EXACT_BIG, dtype=torch.int32, device=dev)
     init[rows, best] = 0
-    decisions, _ = viterbi_forward(spec, bm, init)
+    decisions, _ = viterbi_forward(spec, bm, initial_metrics=init)
     return traceback_terminated(spec, decisions, num_pad=0,
                                 start_states=best)

@@ -4,7 +4,8 @@ Port of `convolutionalencdec_tpu/ops/viterbi.py` (block, ragged and
 streaming decoders).  These are the port's ground truth and the plain
 versions of the kernels in `kernels/acs.py` and `kernels/stream.py`: a
 Python loop over time steps, tensor ops over the batch and the states.
-They run on whatever device their inputs live on.
+A tensor input keeps its device; any other input goes to `device`
+(default: the CUDA card), after the JAX function's own parameters.
 
 Metric conventions match the JAX package exactly: initial metrics are 0 for
 state 0 and `init_metric_value(spec)` for the rest, ties keep the lowest
@@ -60,31 +61,34 @@ def hard_metric_table(spec: CodeSpec, device) -> torch.Tensor:
                            device=device)
 
 
-def hard_step_metrics(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
+def hard_step_metrics(spec: CodeSpec, segments, device=None) -> torch.Tensor:
     """Branch metrics of hard n-bit segments [..., T]: int32
     [..., T, 2^k, NS], entry [t, u, s] the Hamming distance between segment t
     and the coded bits of edge (src=s, input=u)."""
-    segments = torch.as_tensor(segments)
+    segments = as_tensor(segments, device=device)
     return hard_metric_table(spec, segments.device)[segments.long()]
 
 
-def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor,
-                    initial_metrics=None):
+def viterbi_forward(spec: CodeSpec, step_metrics,
+                    collect_metrics: bool = False, initial_metrics=None,
+                    device=None):
     """Generic any-k ACS recurrence over branch metrics.
 
     Args:
       step_metrics: int32 [B, T, 2^k, NS]; entry [b, t, u, s] is the cost of
         leaving state s on the input-u edge at step t.
+      collect_metrics: also return the path-metric history.
       initial_metrics: optional int32 [NS] or [B, NS] starting metrics
         (default 0 at state 0 and `init_metric_value(spec)` elsewhere; all
         zeros give the uniform start of the tail-biting decoders).
 
     Returns:
-      (decisions uint8 [B, T, NS], final_metrics int32 [B, NS]):
-      decisions[b, t, d] is the chosen decision index e (the k shifted-out
-      bits of the chosen source); the lowest e wins ties.
+      (decisions uint8 [B, T, NS], final_metrics int32 [B, NS]), and with
+      `collect_metrics` a third item, the metrics after every step, int32
+      [B, T, NS].  decisions[b, t, d] is the chosen decision index e (the k
+      shifted-out bits of the chosen source); the lowest e wins ties.
     """
-    step_metrics = torch.as_tensor(step_metrics, dtype=torch.int32)
+    step_metrics = as_tensor(step_metrics, torch.int32, device)
     B, T = step_metrics.shape[:2]
     NS, E = spec.num_states, spec.num_edges_per_state
     dev = step_metrics.device
@@ -95,6 +99,8 @@ def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor,
 
     m = _initial_metrics(spec, B, initial_metrics, dev)
     decisions = torch.empty((B, T, NS), dtype=torch.uint8, device=dev)
+    history = (torch.empty((B, T, NS), dtype=torch.int32, device=dev)
+               if collect_metrics else None)
     for t in range(T):
         pm = m[:, prev] + step_metrics[:, t].reshape(B, E * NS)[:, bm_idx]
         best = pm[:, 0]
@@ -105,11 +111,15 @@ def viterbi_forward(spec: CodeSpec, step_metrics: torch.Tensor,
             dec = torch.where(better, e, dec)
         decisions[:, t] = dec
         m = best
+        if collect_metrics:
+            history[:, t] = m
+    if collect_metrics:
+        return decisions, m, history
     return decisions, m
 
 
-def viterbi_forward_butterfly(spec: CodeSpec, segments: torch.Tensor,
-                              initial_metrics=None):
+def viterbi_forward_butterfly(spec: CodeSpec, segments, initial_metrics=None,
+                              device=None):
     """k=1 butterfly ACS with the poly-symmetry single-edge-metric trick.
 
     Butterfly b has sources {b, b + NS/2} and destinations {2b, 2b+1}.  With
@@ -127,7 +137,7 @@ def viterbi_forward_butterfly(spec: CodeSpec, segments: torch.Tensor,
     decisions bit-identical to `viterbi_forward`.
     """
     spec.validate_for_butterfly()
-    segments = torch.as_tensor(segments, dtype=torch.uint8)
+    segments = as_tensor(segments, torch.uint8, device)
     B, T = segments.shape
     NS, half = spec.num_states, spec.num_states // 2
     dev = segments.device
@@ -157,10 +167,9 @@ def symbols_to_bits(spec: CodeSpec, symbols: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.uint8).reshape(symbols.shape[0], -1)
 
 
-def traceback_terminated(spec: CodeSpec, decisions: torch.Tensor,
-                         num_pad: int = -1,
-                         start_states: torch.Tensor | None = None
-                         ) -> torch.Tensor:
+def traceback_terminated(spec: CodeSpec, decisions, num_pad: int = -1,
+                         start_states: torch.Tensor | None = None,
+                         device=None) -> torch.Tensor:
     """Block traceback over terminated packets.
 
     Walks backward from the known terminal state 0 (or from `start_states`,
@@ -177,7 +186,7 @@ def traceback_terminated(spec: CodeSpec, decisions: torch.Tensor,
     """
     if num_pad < 0:
         num_pad = spec.S
-    decisions = torch.as_tensor(decisions, dtype=torch.uint8)
+    decisions = as_tensor(decisions, torch.uint8, device)
     B, T, _ = decisions.shape
     E = spec.num_edges_per_state
     shift = (spec.S - 1) * spec.k
@@ -193,17 +202,21 @@ def traceback_terminated(spec: CodeSpec, decisions: torch.Tensor,
     return symbols_to_bits(spec, us[:, : T - num_pad])
 
 
-def viterbi_decode(spec: CodeSpec, segments: torch.Tensor) -> torch.Tensor:
+def viterbi_decode(spec: CodeSpec, segments, use_butterfly: bool | None = None,
+                   device=None) -> torch.Tensor:
     """Hard-decision block decode of terminated packets.
-
-    Takes the butterfly formulation when k == 1 and the generators have
-    poly symmetry, else the generic decoder.
 
     Args:
       segments: uint8 [B, T] hard n-bit segments (T = L/k + S).
+      use_butterfly: the butterfly formulation (bit-identical decisions) or
+        the generic decoder; default the butterfly when k == 1 and the
+        generators have poly symmetry.
     Returns uint8 [B, (T - S) * k] decoded bits.
     """
-    if spec.has_poly_symmetry:
+    segments = as_tensor(segments, torch.uint8, device)
+    if use_butterfly is None:
+        use_butterfly = spec.k == 1 and spec.has_poly_symmetry
+    if use_butterfly:
         decisions, _ = viterbi_forward_butterfly(spec, segments)
     else:
         decisions, _ = viterbi_forward(spec, hard_step_metrics(spec, segments))
@@ -219,12 +232,13 @@ def pad_and_pack(bits: torch.Tensor) -> torch.Tensor:
     return pack_bits(bits)
 
 
-def viterbi_decode_bytes(spec: CodeSpec, segments: torch.Tensor,
-                         message_bits: int | None = None) -> torch.Tensor:
+def viterbi_decode_bytes(spec: CodeSpec, segments,
+                         message_bits: int | None = None,
+                         device=None) -> torch.Tensor:
     """Hard-decision block decode to packed bytes: the first `message_bits`
     decoded bits (default all (T - S) * k) fill bytes MSb-first; a trailing
     partial byte is zero-padded.  Returns uint8 [B, ceil(L / 8)]."""
-    bits = viterbi_decode(spec, segments)
+    bits = viterbi_decode(spec, segments, device=device)
     L = message_bits if message_bits is not None else bits.shape[-1]
     return pad_and_pack(bits[:, :L])
 

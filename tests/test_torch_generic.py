@@ -1,0 +1,274 @@
+"""The port's generic-k block decode on the CPU: any rate-k/n code, and the
+asymmetric k = 1 ones, through `viterbi_decode_batch(_bytes)`,
+`viterbi_decode_batch_generic` and `viterbi_decode_batch_k2`.
+
+A CPU tensor takes each wrapper's plain version (the CUDA kernels run only
+on the card, where chip_smoke.py holds them to these plain versions).  Here
+the entries are held bit for bit against `jax.vmap(viterbi_decode)` of the
+JAX package, and once each against its generic-k kernel (K9) and its k = 2
+kernel (K10) in interpret mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import convolutionalencdec_tpu as ref
+from convolutionalencdec_tpu.kernels.acs_k2 import (
+    viterbi_decode_batch_k2 as ref_decode_k2)
+from convolutionalencdec_tpu.kernels.acs_pallas import (
+    viterbi_decode_batch_generic as ref_decode_generic)
+
+import convolutionalencdec_tpu_torch as port
+from convolutionalencdec_tpu_torch import kernels
+from convolutionalencdec_tpu_torch.kernels import generic
+from convolutionalencdec_tpu_torch.ops.trellis import edge_coded_bits
+
+# TOY_K3 is a preset; the others by their CodeSpec arguments: a K=3 k=2 code
+# (NS = 16), the main path's codes on the card (chip_smoke.py GENERIC_MAIN:
+# punctured rate-1/2 codes written as rate-k/n trellises, see
+# test_main_path_codes_are_punctured_mother_codes), an asymmetric K=7 code,
+# and the k = 2, NS = 64 code of the JAX package's own K10 test and
+# generic-k sizing (scripts/generic_k_pricing.py).
+CODES = {
+    "TOY_K3": None,
+    "K3k2": dict(K=3, k=2, g=(0o17, 0o06, 0o13)),
+    "k2_NS64": dict(K=4, k=2, g=(0o133, 0o171, 0o266)),
+    "k2_NS256": dict(K=5, k=2, g=(0o561, 0o753, 0o1342)),
+    "k3_NS64": dict(K=3, k=3, g=(0o133, 0o171, 0o266, 0o744)),
+    "K7_134_171": dict(K=7, g=(0o134, 0o171)),
+    "k2_NS64_pricing": dict(K=4, k=2, g=(0o64, 0o52, 0o71)),
+}
+ENTRY_CODES = ["TOY_K3", "K3k2", "k2_NS64", "k2_NS256", "k3_NS64",
+               "K7_134_171"]
+B, SYMBOLS = 6, 60
+
+
+def _specs(name):
+    if CODES[name] is None:
+        return getattr(ref, name), port.PRESETS[name]
+    return ref.CodeSpec(**CODES[name]), port.CodeSpec(**CODES[name])
+
+
+def _segments(spec, kind, B, symbols, seed):
+    """uint8 [B, T] segments: encoded and hit at 10% by nonzero XOR masks,
+    or uniform garbage (tie-heavy)."""
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (B, symbols * spec.k), dtype=np.uint8)
+    coded = port.encode_bits(spec, torch.from_numpy(msgs))[0].numpy().copy()
+    if kind == "garbage":
+        return rng.integers(0, 1 << spec.n, coded.shape).astype(np.uint8)
+    hit = rng.random(coded.shape) < 0.1
+    return coded ^ (hit * rng.integers(1, 1 << spec.n, coded.shape)).astype(
+        np.uint8)
+
+
+def _cut(full):
+    """A message length below `full` and not a multiple of 8."""
+    cut = full - 13
+    return cut - 1 if cut % 8 == 0 else cut
+
+
+@pytest.mark.parametrize("kind", ["noisy", "garbage"])
+@pytest.mark.parametrize("name", ENTRY_CODES)
+def test_entries_match_vmapped_scan(name, kind):
+    ref_spec, spec = _specs(name)
+    coded = _segments(spec, kind, B, SYMBOLS, 3 + ENTRY_CODES.index(name))
+    seg = torch.from_numpy(coded)
+    want = np.asarray(jax.vmap(lambda c: ref.viterbi_decode(ref_spec, c))(
+        coded))
+    full = want.shape[1]
+    assert full == (coded.shape[1] - spec.S) * spec.k
+    entries = [kernels.viterbi_decode_batch,
+               kernels.viterbi_decode_batch_generic]
+    if generic.k2_supported(spec):
+        entries.append(kernels.viterbi_decode_batch_k2)
+    for entry in entries:
+        np.testing.assert_array_equal(entry(spec, seg).numpy(), want)
+        np.testing.assert_array_equal(entry(spec, seg, _cut(full)).numpy(),
+                                      want[:, :_cut(full)])
+    for mb in (full, _cut(full)):
+        want_bytes = np.asarray(jax.vmap(
+            lambda c: ref.viterbi_decode_bytes(ref_spec, c, mb))(coded))
+        np.testing.assert_array_equal(
+            kernels.viterbi_decode_batch_bytes(spec, seg, mb).numpy(),
+            want_bytes)
+
+
+def test_interpreted_generic_kernel_matches():
+    """One interpret-mode call of the JAX generic-k kernels (K9)."""
+    ref_spec, spec = _specs("K3k2")
+    coded = _segments(spec, "noisy", 4, 30, 41)
+    want = np.asarray(ref_decode_generic(ref_spec, coded, None, True))
+    seg = torch.from_numpy(coded)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_generic(spec, seg).numpy(), want)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch(spec, seg).numpy(), want)
+
+
+def test_interpreted_k2_kernel_matches():
+    """One interpret-mode call of the JAX k = 2 kernels (K10), on garbage:
+    the nested min's tie order against the lowest-e rule."""
+    ref_spec, spec = _specs("k2_NS64")
+    coded = _segments(spec, "garbage", 2, 20, 43)
+    want = np.asarray(ref_decode_k2(ref_spec, coded, None, True))
+    seg = torch.from_numpy(coded)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_k2(spec, seg).numpy(), want)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_bytes(spec, seg).numpy(),
+        np.packbits(want, axis=1))
+
+
+@pytest.mark.parametrize("name, mother, pattern", [
+    ("k2_NS64", "NASA_K7", "PUNCTURE_2_3"),      # IEEE 802.11a rate 2/3
+    ("k2_NS256", "K9_561_753", "PUNCTURE_2_3"),
+    ("k3_NS64", "NASA_K7", "PUNCTURE_3_4"),      # IEEE 802.11a rate 3/4
+])
+def test_main_path_codes_are_punctured_mother_codes(name, mother, pattern):
+    """Each main-path code sends, bit for bit, what its rate-1/2 mother code
+    sends through the puncturing pattern of period k: the same code on a
+    trellis of k input bits per step."""
+    _, spec = _specs(name)
+    mother, pattern = port.PRESETS[mother], getattr(port.ops.puncture,
+                                                    pattern)
+    assert len(pattern[0]) == spec.k and spec.S * spec.k == mother.S
+    msgs = torch.from_numpy(np.random.default_rng(53).integers(
+        0, 2, (3, 45 * spec.k), dtype=np.uint8))
+    seg = port.encode_bits(mother, msgs)[0]
+    want = port.puncture_bits(port.segments_to_bits(seg, 2), pattern,
+                              seg.shape[1])
+    got = port.segments_to_bits(port.encode_bits(spec, msgs)[0], spec.n)
+    assert torch.equal(got, want)
+
+
+ROUND_TRIP_CODES = list(CODES) + ["K11_asymmetric"]
+
+
+def _port_spec(name):
+    if name == "K11_asymmetric":   # NS = 1024, the generic kernel's largest
+        return port.CodeSpec(K=11, g=(0o2345, 0o3170))
+    return _specs(name)[1]
+
+
+@pytest.mark.parametrize("name", ROUND_TRIP_CODES)
+def test_decision_planes_round_trip_and_layout(name):
+    """Bit b of e at state d is bit d % 32 of word d // 32 of plane b; the
+    bits past NS are 0 (NS < 32 included)."""
+    spec = _port_spec(name)
+    NS, k = spec.num_states, spec.k
+    W = (NS + 31) // 32
+    rng = np.random.default_rng(NS + k)
+    dec = torch.from_numpy(rng.integers(0, 1 << k, (3, 5, NS)).astype(
+        np.uint8))
+    planes = generic.pack_decisions_generic(spec, dec)
+    assert planes.dtype == torch.int32 and planes.shape == (3, 5, k, W)
+    assert torch.equal(generic.unpack_decisions_generic(spec, planes), dec)
+    words = planes.numpy().astype(np.int64) & 0xFFFFFFFF
+    bits = (words[..., None] >> np.arange(32)) & 1          # [3, 5, k, W, 32]
+    bits = bits.reshape(3, 5, k, W * 32)
+    assert not bits[..., NS:].any()
+    e = (bits[..., :NS] << np.arange(k)[:, None]).sum(axis=2)
+    np.testing.assert_array_equal(e, dec.numpy())
+
+
+@pytest.mark.parametrize("name", ROUND_TRIP_CODES)
+def test_edge_tables_split_every_edge_code(name):
+    """The kernels' NS + 2^k table bytes give every edge's coded segment:
+    code(src = (d >> k) | e << (S-1)k, u = d & (2^k - 1)) = seg_d[d] ^
+    seg_e[e]."""
+    spec = _port_spec(name)
+    seg_d, seg_e = generic.edge_tables(spec)
+    ec = edge_coded_bits(spec)
+    E, k = spec.num_edges_per_state, spec.k
+    d = np.arange(spec.num_states)[None, :]
+    e = np.arange(E)[:, None]
+    src = (d >> k) | (e << ((spec.S - 1) * k))
+    np.testing.assert_array_equal(ec[d & (E - 1), src],
+                                  seg_d[None, :] ^ seg_e[:, None])
+
+
+def test_select_kernel_generic_routes():
+    """The JAX dispatch order: k = 2, NS = 64 to K2 first, then the generic
+    kernels; butterfly codes without a kernel and soft decodes of the rest
+    stay GENERIC."""
+    assert kernels.select_kernel(_specs("K3k2")[1]) == kernels.GENERIC_K
+    assert kernels.select_kernel(_specs("k2_NS64")[1]) == kernels.K2
+    assert kernels.select_kernel(_specs("k2_NS64_pricing")[1]) == kernels.K2
+    for name in ("TOY_K3", "k2_NS256", "k3_NS64", "K7_134_171"):
+        assert kernels.select_kernel(_specs(name)[1]) == kernels.GENERIC_K
+    assert kernels.select_kernel(_port_spec("K11_asymmetric")) == \
+        kernels.GENERIC_K
+    assert kernels.select_kernel(port.CodeSpec(K=12, g=(0o4345, 0o3170))) \
+        == kernels.GENERIC                         # NS = 2048
+    assert kernels.select_kernel(port.K5_23_35) == kernels.GENERIC
+    assert kernels.select_kernel(port.NASA_K7) == kernels.BUTTERFLY
+    assert kernels.select_kernel(port.TOY_K3, "soft") == kernels.GENERIC
+
+
+def test_k2_wrappers_reject_other_codes():
+    _, spec = _specs("K3k2")
+    seg = torch.zeros((2, 12), dtype=torch.uint8)
+    planes, _ = generic.acs_forward_batch_generic(spec, seg)
+    for call in (lambda: generic.acs_forward_batch_k2(spec, seg),
+                 lambda: generic.acs_forward_batch_k2_plain(spec, seg),
+                 lambda: generic.traceback_batch_k2(spec, planes, 12, 8),
+                 lambda: generic.traceback_batch_k2_plain(spec, planes, 12,
+                                                          8),
+                 lambda: kernels.viterbi_decode_batch_k2(spec, seg),
+                 lambda: kernels.viterbi_decode_batch_k2(port.TOY_K3, seg)):
+        with pytest.raises(ValueError, match="k = 2 and 64 states"):
+            call()
+
+
+@pytest.mark.parametrize("name", ["TOY_K3", "k2_NS64", "k3_NS64"])
+def test_wrappers_on_cpu_tensors_take_the_plain_versions(name):
+    """Planes and final metrics equal to the scan's, the traceback's bits
+    and bytes equal to the reference traceback's; no launch counted."""
+    for key in generic.LAUNCHES:
+        generic.LAUNCHES[key] = 0
+    _, spec = _specs(name)
+    seg = torch.from_numpy(_segments(spec, "noisy", 3, 40, 47))
+    T = seg.shape[1]
+    dec, fm = port.viterbi_forward(spec, port.ops.hard_step_metrics(spec,
+                                                                    seg))
+    want_bits = port.traceback_terminated(spec, dec)
+    pairs = [(generic.acs_forward_batch_generic,
+              generic.traceback_batch_generic)]
+    if generic.k2_supported(spec):
+        pairs.append((generic.acs_forward_batch_k2,
+                      generic.traceback_batch_k2))
+    for forward, traceback in pairs:
+        planes, got_fm = forward(spec, seg)
+        assert torch.equal(generic.unpack_decisions_generic(spec, planes), dec)
+        assert torch.equal(got_fm, fm)
+        for mb in (want_bits.shape[1], _cut(want_bits.shape[1]), 0):
+            assert torch.equal(traceback(spec, planes, T, mb, "bits"),
+                               want_bits[:, :mb])
+            assert torch.equal(traceback(spec, planes, T, mb, "bytes"),
+                               port.ops.viterbi.pad_and_pack(
+                                   want_bits[:, :mb]))
+    assert not any(generic.LAUNCHES.values())
+
+
+def test_wrappers_reject_bad_arguments():
+    _, spec = _specs("K3k2")
+    seg = torch.zeros((2, 12), dtype=torch.uint8)
+    planes, _ = generic.acs_forward_batch_generic(spec, seg)
+    with pytest.raises(ValueError, match="uint8"):
+        generic.acs_forward_batch_generic(spec, seg.to(torch.int32))
+    with pytest.raises(ValueError, match="message_bits"):
+        generic.traceback_batch_generic(spec, planes, 12, 2 * 10 + 1)
+    with pytest.raises(ValueError, match="t_actual"):
+        generic.traceback_batch_generic(spec, planes, 13, 8)
+    with pytest.raises(ValueError, match="out"):
+        generic.traceback_batch_generic(spec, planes, 12, 8, out="words")
+    with pytest.raises(ValueError, match="do not match"):
+        generic.traceback_batch_generic(_specs("k2_NS256")[1], planes, 12, 8)
+    # Butterfly codes are the butterfly kernels' (or wait for theirs).
+    for bfly in (port.NASA_K7, port.K5_23_35):
+        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+            generic.acs_forward_batch_generic(bfly, seg)

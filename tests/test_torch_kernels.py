@@ -24,7 +24,7 @@ from convolutionalencdec_tpu.ops import viterbi as ref_viterbi
 
 import convolutionalencdec_tpu_torch as port
 from convolutionalencdec_tpu_torch import kernels
-from convolutionalencdec_tpu_torch.kernels import _build, acs, stream
+from convolutionalencdec_tpu_torch.kernels import _build, acs, generic, stream
 
 KERNEL_PRESETS = ["NASA_K7", "REF_K7", "NASA_K7_R13", "LTE_TBCC_K7",
                   "K9_561_753"]
@@ -146,17 +146,18 @@ def test_select_kernel_routes():
     expected = {"NASA_K7": kernels.BUTTERFLY, "REF_K7": kernels.BUTTERFLY,
                 "NASA_K7_R13": kernels.BUTTERFLY,
                 "LTE_TBCC_K7": kernels.BUTTERFLY,
-                "K9_561_753": kernels.BUTTERFLY, "TOY_K3": kernels.GENERIC,
+                "K9_561_753": kernels.BUTTERFLY, "TOY_K3": kernels.GENERIC_K,
                 "K5_23_35": kernels.GENERIC}
     assert set(expected) == set(port.PRESETS)
     for name, route in expected.items():
         assert kernels.select_kernel(port.PRESETS[name]) == route, name
-    assert kernels.select_kernel(port.CodeSpec(**K3K2)) == kernels.GENERIC
-    # K=8 (128 states) rides the kernels; an asymmetric K=7 code does not.
+    assert kernels.select_kernel(port.CodeSpec(**K3K2)) == kernels.GENERIC_K
+    # K=8 (128 states) rides the butterfly kernels; an asymmetric K=7 code
+    # the generic-k ones.
     assert kernels.select_kernel(
         port.CodeSpec(K=8, g=(0o247, 0o371))) == kernels.BUTTERFLY
     assert kernels.select_kernel(
-        port.CodeSpec(K=7, g=(0o134, 0o171))) == kernels.GENERIC
+        port.CodeSpec(K=7, g=(0o134, 0o171))) == kernels.GENERIC_K
     # Soft: NASA_K7 at the default qmax 7 is on the route of the JAX 8-bit
     # soft kernel (LLRs clipped to +-qmax); at qmax 31, and NASA_K7_R13 at
     # any qmax, on the any-int8 route; codes off the kernels stay GENERIC.
@@ -169,8 +170,9 @@ def test_select_kernel_routes():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    for key in acs.LAUNCHES:
-        acs.LAUNCHES[key] = 0
+    for counts in (acs.LAUNCHES, generic.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
     _, coded = _noisy(port.NASA_K7, 2, 40, 0.03, 31)
     seg = torch.from_numpy(coded)
     kernels.viterbi_decode_batch_bytes(port.NASA_K7, seg)
@@ -184,23 +186,44 @@ def test_cpu_tensors_launch_no_kernel():
                               32)
     state = stream.stream_state_init(port.NASA_K7, 2, "cpu")
     stream.stream_decode_batch(port.NASA_K7, seg, state)
+    k2 = port.CodeSpec(K=4, k=2, g=(0o133, 0o171, 0o266))
+    for spec in (port.TOY_K3, k2):
+        _, coded = _noisy(spec, 2, 40, 0.03, 31)
+        seg = torch.from_numpy(coded)
+        kernels.viterbi_decode_batch_bytes(spec, seg)
+        kernels.viterbi_decode_batch_generic(spec, seg)
+        planes, _ = generic.acs_forward_batch_generic(spec, seg)
+        generic.traceback_batch_generic(spec, planes, seg.shape[1], 40)
+    kernels.viterbi_decode_batch_k2(k2, seg)
+    planes, _ = generic.acs_forward_batch_k2(k2, seg)
+    generic.traceback_batch_k2(k2, planes, seg.shape[1], 40, "bits")
     assert set(acs.LAUNCHES) == {"acs_k1_forward", "traceback_k1",
                                  "acs_soft_k1_forward", "traceback_k1_ragged",
                                  "stream_k1_decode", "traceback_k1_masked",
                                  "traceback_k1_multi"}
+    assert set(generic.LAUNCHES) == {"acs_generic_forward",
+                                     "traceback_generic",
+                                     "acs_generic_k2_forward",
+                                     "traceback_generic_k2"}
     assert not any(acs.LAUNCHES.values())
+    assert not any(generic.LAUNCHES.values())
 
 
 def test_no_fallback_off_the_cpu():
     """A tensor off the CPU goes to a kernel or raises; it is never decoded
     by the plain version or moved to the CPU."""
     meta = torch.empty((2, 40), dtype=torch.uint8, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Generic-k codes reach their kernel wrappers' device check.
+    with pytest.raises(ValueError, match="not supported"):
         kernels.viterbi_decode_batch(port.TOY_K3, meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not supported"):
         kernels.viterbi_decode_batch_bytes(port.CodeSpec(**K3K2), meta)
     with pytest.raises(ValueError, match="not supported"):
         kernels.viterbi_decode_batch_bytes(port.NASA_K7, meta)
+    # A butterfly code without a kernel waits for one.
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 4"):
+        kernels.viterbi_decode_batch(port.K5_23_35, meta)
     with pytest.raises(NotImplementedError):
         acs.acs_forward_batch(port.TOY_K3,
                               torch.zeros((2, 40), dtype=torch.uint8))

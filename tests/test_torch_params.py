@@ -106,7 +106,8 @@ def test_port_imports_no_jax():
         ".".join(("convolutionalencdec_tpu_torch",)
                  + p.relative_to(package).with_suffix("").parts)
         for p in package.rglob("*.py") if p.name != "__init__.py")
-    assert {"convolutionalencdec_tpu_torch.kernels.maxlogmap",
+    assert {"convolutionalencdec_tpu_torch.kernels.generic",
+            "convolutionalencdec_tpu_torch.kernels.maxlogmap",
             "convolutionalencdec_tpu_torch.kernels.turbo",
             "convolutionalencdec_tpu_torch.kernels.tailbiting",
             "convolutionalencdec_tpu_torch.ops.lte",

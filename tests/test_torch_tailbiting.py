@@ -100,7 +100,7 @@ def test_encode_tailbiting_rejects_partial_symbol():
 def test_circular_extend_matches_reference(wl, wr):
     x = np.arange(2 * 13 * 3).reshape(2, 13, 3)
     for axis in (1, -1):
-        got = tailbiting.circular_extend(_t(x), wl, wr, dim=axis)
+        got = tailbiting.circular_extend(_t(x), wl, wr, axis=axis)
         want = np.asarray(ref_tb.circular_extend(x, wl, wr, axis=axis))
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -122,12 +122,14 @@ def test_viterbi_forward_initial_metrics_matches_reference(name):
     want_d, want_m = jax.vmap(lambda b, i: ref_viterbi.viterbi_forward(
         ref_spec, b, initial_metrics=i))(bm, inits)
     got_d, got_m = viterbi.viterbi_forward(
-        spec, viterbi.hard_step_metrics(spec, _t(coded)), _t(inits))
+        spec, viterbi.hard_step_metrics(spec, _t(coded)),
+        initial_metrics=_t(inits))
     np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     # One [NS] vector for every channel.
     got_d, got_m = viterbi.viterbi_forward(
-        spec, viterbi.hard_step_metrics(spec, _t(coded)), _t(inits[0]))
+        spec, viterbi.hard_step_metrics(spec, _t(coded)),
+        initial_metrics=_t(inits[0]))
     want_d, want_m = jax.vmap(lambda b: ref_viterbi.viterbi_forward(
         ref_spec, b, initial_metrics=inits[0]))(bm)
     np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
