@@ -107,7 +107,31 @@ Phases (any failure exits non-zero and prints no result line):
      and `viterbi_decode_batch`; each equal to the plain decode on the card,
      BER < 0.1, launches of the route's kernels > 0; times of each kernel
      and each whole decode, and of the runtime-k kernels on the k2 code's
-     input beside its instantiation.
+     input beside its instantiation;
+ 16. small and wide butterfly kernels against plain versions on the card,
+     small sizes: random poly-symmetric codes at NS = 2, 4, 8, 16, 32 with
+     n = 1..8 (`acs_small_forward`, `acs_soft_small_forward`, the one-word
+     walks; soft n = 9 and 12 on the wide forward's runtime-n
+     instantiation), at NS = 64 and 256 with n = 5..8 (K1, K4), at
+     NS = 512, 1024, 4096, 16384 with n = 2..8 (`acs_wide_forward`,
+     `acs_soft_wide_forward`, `traceback_wide`, `_ragged`; soft n = 9);
+     noisy and garbage segments, four LLR draws; T = 1, S, S + 1, B = 1, 0;
+     all four walks (`traceback_wide_masked`, `_multi` and the one-word
+     ones) at NS = 16 and 16384; the JAX names of the fused kernels
+     (`kernels.fused`) at init_chunk 0, -1 and 1 against their plain routes
+     and the block decode;
+ 17. small-state main path (k): K5_23_35 at bench.py's working set (B =
+     2048 x L = 2048, 3% segment corruption, seed 9865): hard bytes (BER <
+     5e-3), soft bytes over AWGN at 3 dB (qmax 7), ragged hard bytes; each
+     equal to its plain route on the card, launches of the small kernels
+     and the one-word walks > 0;
+ 18. wide main path (l): the K=15 rate-1/4 Galileo code (NS = 16384) at the
+     same size: hard bytes (BER < 2e-3), soft bytes at 3 dB, the K11 names
+     (hard forward + `traceback_batch_fused`, soft forward +
+     `traceback_batch_fused_masked`), ragged hard bytes and the tail-biting
+     list decode of 64 packets; each equal to its plain route on 64 rows
+     (the list on 8), launches of every wide kernel > 0; times of each
+     kernel and decode at (k) (20 calls) and (l) (5 calls).
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -148,7 +172,16 @@ KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
            "traceback_k1_ragged", "stream_k1_decode", "traceback_k1_masked",
            "traceback_k1_multi", "maxlogmap_k1", "turbo_rsc_map",
            "acs_generic_forward", "traceback_generic",
-           "acs_generic_k2_forward", "traceback_generic_k2")
+           "acs_generic_k2_forward", "traceback_generic_k2",
+           "acs_small_forward", "acs_soft_small_forward", "traceback_k1 w1",
+           "traceback_k1_ragged w1", "acs_wide_forward",
+           "acs_soft_wide_forward", "traceback_wide", "traceback_wide_ragged",
+           "traceback_wide_masked", "traceback_wide_multi")
+# Rows of the kernels line that are one-word (NS <= 32) instantiations of
+# a walk: their launches are the walk's at (k), whose code has 16 states;
+# the walk's own row counts the other paths.
+W1_ROWS = {"traceback_k1 w1": "traceback_k1",
+           "traceback_k1_ragged w1": "traceback_k1_ragged"}
 SOURCES = {
     "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
@@ -187,6 +220,42 @@ SOURCES = {
     "traceback_generic_k2": (
         "convolutionalencdec_tpu_torch/csrc/acs_generic.cu",
         "convolutionalencdec_tpu/kernels/acs_k2.py:531"),
+    "acs_small_forward": (
+        "convolutionalencdec_tpu_torch/csrc/acs_small.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:271"),
+    "acs_soft_small_forward": (
+        "convolutionalencdec_tpu_torch/csrc/acs_small.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:489"),
+    "traceback_k1 w1": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:308"),
+    "traceback_k1_ragged w1": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_swar.py:975 (one-word "
+        "instantiation; the JAX package scans NS < 64, "
+        "acs_pallas.py:1708-1722)"),
+    "acs_wide_forward": (
+        "convolutionalencdec_tpu_torch/csrc/acs_wide.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:1004 and "
+        "acs_swar.py:847 at NS >= 512"),
+    "acs_soft_wide_forward": (
+        "convolutionalencdec_tpu_torch/csrc/acs_wide.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:1134 and "
+        "acs_swar.py:1262 at NS >= 512"),
+    "traceback_wide": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:1069 and "
+        "acs_swar.py:877 at NS >= 512"),
+    "traceback_wide_ragged": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_swar.py:975 at NS >= 512"),
+    "traceback_wide_masked": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:1069 and "
+        "acs_swar.py:920 at NS >= 512"),
+    "traceback_wide_multi": (
+        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu/kernels/acs_swar.py:655 at NS >= 512"),
 }
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
@@ -273,6 +342,31 @@ GENERIC_MAIN = (
 GENERIC_K9_CODE = "k2_NS256"
 # tests/test_kernels.py:166's gate on these codes at 3% segment corruption.
 GENERIC_BER_LIMIT = 0.1
+# Small and wide butterfly codes: the comparison phase's state counts (n =
+# 1..8 at the small ones, 5..8 at 64 and 256, 2..8 at the wide ones) and
+# message lengths; the main paths' codes at bench.py's working set:
+#   (k) K5_23_35 (NS = 16; K = 5 is GSM's speech and control channels'
+#       constraint length), hard BER < 5e-3 (the plain decoder reads
+#       1.75e-3 on 256 rows of this input on a CPU);
+#   (l) the K = 15 rate-1/4 code of the Galileo experiment (Dolinar, "A New
+#       Code for Galileo", TDA Progress Report 42-93, 1988), the widest a
+#       deployed Viterbi decoder has read (NS = 16384), BER < 2e-3.  Its
+#       plain route runs on WIDE_PLAIN_ROWS rows: the plain forward's
+#       unpacked decisions take B x T x NS bytes (69 GB at B = 2048).
+BFLY_SMALL_NS = (2, 4, 8, 16, 32)
+BFLY_MID_NS = (64, 256)
+BFLY_WIDE_NS = (512, 1024, 4096, 16384)
+BFLY_SMALL_L, BFLY_WIDE_L = 61, 40
+SMALL_MAIN = "K5_23_35"
+SMALL_BER_LIMIT = 5e-3
+WIDE_MAIN = dict(K=15, g=(0o46321, 0o51271, 0o63667, 0o70535))
+WIDE_BER_LIMIT = 2e-3
+WIDE_PLAIN_ROWS = 64
+WIDE_LIST_B, WIDE_LIST_SIZE = 64, 4
+WIDE_TIMED_CALLS = 5
+# The wrappers the K11 names call.
+FUSED_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
+                  "traceback_batch_masked")
 # The card's peaks for the bound (H100 SXM; NVIDIA's data sheet and Hopper
 # white paper): 3.35 TB/s of HBM, and int32 at 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost = 16.7 T operations/s.
@@ -470,10 +564,11 @@ def compare_one(fec, acs, spec, seg, err, lengths):
     return words
 
 
-def compare_ragged(acs, spec, words, err, rng):
+def compare_ragged(acs, spec, words, err, rng, key="traceback_k1_ragged"):
     """`traceback_batch_ragged` against its plain version on one batch of
     decision words: lengths 0, 1, S, S+1, T and random ones (some past T,
-    some negative: clamped), bytes and bits, full and cut row widths."""
+    some negative: clamped), bytes and bits, full and cut row widths; the
+    largest difference goes to err[key]."""
     import numpy as np
     import torch
     B, T, _ = words.shape
@@ -487,8 +582,7 @@ def compare_ragged(acs, spec, words, err, rng):
                 spec, words, lens.clamp(0, T), width, out)
             require(torch.equal(got, want),
                     f"{spec} ragged {out} width {width}")
-            err["traceback_k1_ragged"] = max(err["traceback_k1_ragged"],
-                                             max_abs_diff(got, want))
+            err[key] = max(err[key], max_abs_diff(got, want))
 
 
 def soft_draws(rng, shape):
@@ -503,9 +597,10 @@ def soft_draws(rng, shape):
     }
 
 
-def compare_soft(fec, acs, spec, q, qclip, err):
+def compare_soft(fec, acs, spec, q, qclip, err, key="acs_soft_k1_forward"):
     """Soft kernel against plain version on one batch of int8 LLRs: words,
-    final metrics, carried and all-zero initial metrics."""
+    final metrics, carried and all-zero initial metrics; the largest
+    difference goes to err[key]."""
     import torch
     words, fm = acs.acs_forward_batch_soft(spec, q, qclip)
     words_p, fm_p = acs.acs_forward_batch_soft_plain(spec, q, qclip)
@@ -519,7 +614,7 @@ def compare_soft(fec, acs, spec, q, qclip, err):
         require(torch.equal(w2, w2_p) and torch.equal(m2, m2_p),
                 f"{spec} soft initial metrics, qclip {qclip}")
         diffs += [max_abs_diff(w2, w2_p), max_abs_diff(m2, m2_p)]
-    err["acs_soft_k1_forward"] = max(err["acs_soft_k1_forward"], *diffs)
+    err[key] = max(err[key], *diffs)
     return words
 
 
@@ -806,9 +901,10 @@ def compare_stream(stream, spec, x, soft, W, err, cut):
         st, st_p = got[1], want[1]
 
 
-def compare_masked(acs, spec, words, err, rng):
-    """`traceback_k1_masked` against its plain version: random start states,
-    live steps 0, S, T - 1 and T, bits and bytes."""
+def compare_masked(acs, spec, words, err, rng, key="traceback_k1_masked"):
+    """`traceback_batch_masked` against its plain version: random start
+    states, live steps 0, S, T - 1 and T, bits and bytes; the largest
+    difference goes to err[key]."""
     import numpy as np
     import torch
     B, T, _ = words.shape
@@ -823,8 +919,7 @@ def compare_masked(acs, spec, words, err, rng):
                     spec, words, starts, live, out_steps, out)
                 require(torch.equal(got, want),
                         f"{spec} masked live={live} out={out_steps} {out}")
-                err["traceback_k1_masked"] = max(
-                    err["traceback_k1_masked"], max_abs_diff(got, want))
+                err[key] = max(err[key], max_abs_diff(got, want))
 
 
 def phase_compare_stream(fec, acs, stream, dev, err):
@@ -1097,11 +1192,11 @@ def phase_times(fec, acs, seg, q, q_ragged, lens):
     return runs
 
 
-def compare_multi(acs, spec, words, err, rng):
-    """`traceback_k1_multi` against its plain version on one batch of words:
-    NW = 1, 2, 8 and NS random start states per channel, live steps 0, S,
-    T - 1 and T, windows from step 0 and from step TB_WINDOW to the end,
-    bits and bytes."""
+def compare_multi(acs, spec, words, err, rng, key="traceback_k1_multi"):
+    """`traceback_batch_multi` against its plain version on one batch of
+    words: NW = 1, 2, 8 and NS random start states per channel, live steps
+    0, S, T - 1 and T, windows from step 0 and from step TB_WINDOW to the
+    end, bits and bytes; the largest difference goes to err[key]."""
     import numpy as np
     import torch
     B, T, _ = words.shape
@@ -1118,8 +1213,7 @@ def compare_multi(acs, spec, words, err, rng):
                     require(torch.equal(got, want),
                             f"{spec} multi NW={nw} live={live} "
                             f"start={start} {out}")
-                    err["traceback_k1_multi"] = max(
-                        err["traceback_k1_multi"], max_abs_diff(got, want))
+                    err[key] = max(err[key], max_abs_diff(got, want))
 
 
 def tb_inputs(fec, rng, spec, B, L, dev):
@@ -1933,13 +2027,659 @@ def generic_times(fec, gk, inputs):
     return runs
 
 
-def bounds(lens_sum: int, generic_shapes):
+# ---------------------------------------------------------------------------
+# Small and wide butterfly codes: TPU kernel K12 (NS < 64), K11 (the fused
+# int32 kernels) and the SWAR kernels at NS >= 512, on csrc/acs_small.cu,
+# csrc/acs_wide.cu and the one-word and wide walks of csrc/traceback_k1.cu.
+
+
+def nonzero(launches):
+    """Launches by path, the kernels launched only."""
+    return {p: {k: v for k, v in c.items() if v} for p, c in launches.items()}
+
+
+def walk_key(acs, spec, mode=""):
+    """The kernels line's row of a walk's launch: the wide walk's at
+    NS >= 512; the one-word instantiation's own row (" w1") for the
+    terminated and ragged walks at NS <= 32; else the walk's."""
+    name = acs._walk_kernel(spec, mode)
+    if spec.num_states < 64 and mode in ("", "_ragged"):
+        name += " w1"
+    return name
+
+
+def bfly_spec(fec, rng, NS, n):
+    """A random poly-symmetric k = 1 code with NS states and n generators:
+    each taps the newest and the oldest bit, the bits between at random."""
+    K = NS.bit_length()
+    inner = 1 << max(K - 2, 0)
+    return fec.CodeSpec(K=K, g=tuple(
+        (1 << (K - 1)) | 1 | (int(rng.integers(0, inner)) << 1 if K > 2 else 0)
+        for _ in range(n)))
+
+
+def compare_bfly_hard(fec, acs, spec, seg, err, rng):
+    """The hard forward of `spec`'s size and its walks against their plain
+    versions on one batch of segments: words and final metrics (also from
+    carried metrics), terminated bits and bytes at two lengths, ragged, and
+    `viterbi_decode_batch` against the plain decode.  Returns the words."""
+    import torch
+    T = seg.shape[1]
+    fk = acs._forward_kernel(spec, False)
+    words, fm = acs.acs_forward_batch(spec, seg)
+    words_p, fm_p = acs.acs_forward_batch_plain(spec, seg)
+    require(torch.equal(words, words_p) and torch.equal(fm, fm_p),
+            f"{spec} {fk} words and final metrics")
+    words2, fm2 = acs.acs_forward_batch(spec, seg, initial_metrics=fm)
+    words2_p, fm2_p = acs.acs_forward_batch_plain(spec, seg, fm_p)
+    require(torch.equal(words2, words2_p) and torch.equal(fm2, fm2_p),
+            f"{spec} {fk} carried initial metrics")
+    err[fk] = max(err[fk], max_abs_diff(words, words_p),
+                  max_abs_diff(fm, fm_p), max_abs_diff(words2, words2_p),
+                  max_abs_diff(fm2, fm2_p))
+    if T < spec.S:
+        return words  # no terminated packet is this short
+    tk = walk_key(acs, spec)
+    full = T - spec.S
+    for L in sorted({full, cut_bits(full)}):
+        for out in ("bytes", "bits"):
+            got = acs.traceback_batch(spec, words, T, L, out)
+            want = acs.traceback_batch_plain(spec, words_p, T, L, out)
+            require(torch.equal(got, want), f"{spec} {tk} L={L} {out}")
+            err[tk] = max(err[tk], max_abs_diff(got, want))
+    compare_ragged(acs, spec, words, err, rng, walk_key(acs, spec, "_ragged"))
+    require(torch.equal(fec.viterbi_decode_batch(spec, seg),
+                        fec.viterbi_decode(spec, seg)),
+            f"{spec} viterbi_decode_batch equal to the plain decode")
+    return words
+
+
+def compare_bfly_soft(fec, acs, spec, q, err):
+    """The soft forward of `spec`'s size against its plain version at qclip
+    QMAX and 127 (default, carried and zero start), and
+    `viterbi_decode_batch_soft` against the plain soft decode."""
+    import torch
+    fk = acs._forward_kernel(spec, True)
+    for qclip in (QMAX, 127):
+        compare_soft(fec, acs, spec, q, qclip, err, fk)
+    qc = fec.kernels.soft_qclip(spec, QMAX)
+    require(torch.equal(fec.viterbi_decode_batch_soft(spec, q, qmax=QMAX),
+                        fec.viterbi_decode_soft(spec,
+                                                acs.condition_qllrs(q, qc))),
+            f"{spec} viterbi_decode_batch_soft equal to the plain decode")
+
+
+def rows_to_bits(rows):
+    """JAX's packed rows uint8 [T/8, B] (bit j of row g = step 8g + j) ->
+    bits uint8 [B, T]."""
+    import torch
+    shifts = torch.arange(8, dtype=torch.int32, device=rows.device)
+    B = rows.shape[1]
+    return ((rows.T.to(torch.int32)[..., None] >> shifts) & 1).reshape(
+        B, -1).to(torch.uint8)
+
+
+def pad_steps(x, multiple):
+    """x [B, T, ...] padded with zero steps to a multiple of `multiple`."""
+    import torch
+    pad = -x.shape[1] % multiple
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+
+
+def compare_fused(fec, acs, spec, seg, q, err, rng):
+    """The JAX names of the fused kernels (K11) on the kernels against
+    their plain routes and the block decode: forwards at init_chunk 0, -1
+    and 1 (hard and soft), `traceback_batch_fused` and the masked form
+    from random one-hot starts over a live prefix."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import fused
+    T = seg.shape[1]
+    seg_p, q_p = pad_steps(seg, 8), pad_steps(q, 8)
+    Tp = seg_p.shape[1]
+    B = seg.shape[0]
+    for soft, x in ((False, seg_p), (True, q_p)):
+        fwd = (fused.acs_forward_batch_fused_soft if soft
+               else fused.acs_forward_batch_fused)
+        fk = acs._forward_kernel(spec, soft)
+        for init_chunk in (0, -1, 1):
+            words, fm = fwd(spec, x, init_chunk)
+            with plain_routes(fused, acs, FUSED_WRAPPERS):
+                words_p, fm_p = fwd(spec, x, init_chunk)
+            require(torch.equal(words, words_p) and torch.equal(fm, fm_p),
+                    f"{spec} fused forward soft={soft} init_chunk "
+                    f"{init_chunk}")
+            err[fk] = max(err[fk], max_abs_diff(words, words_p),
+                          max_abs_diff(fm, fm_p))
+        words, _ = fwd(spec, x)
+        mk = walk_key(acs, spec, "_masked")
+        rows = fused.traceback_batch_fused(spec, words, T)
+        with plain_routes(fused, acs, FUSED_WRAPPERS):
+            rows_p = fused.traceback_batch_fused(spec, words, T)
+        require(torch.equal(rows, rows_p), f"{spec} traceback_batch_fused")
+        block = (fec.viterbi_decode_batch_soft(spec, q, qmax=127) if soft
+                 else fec.viterbi_decode_batch(spec, seg))
+        require(torch.equal(rows_to_bits(rows)[:, :T - spec.S], block),
+                f"{spec} traceback_batch_fused rows equal to the block "
+                f"decode (soft={soft})")
+        live = int(rng.integers(spec.S, T + 1))
+        gmask = np.zeros((Tp // 8, 1), np.int32)
+        gmask[:live // 8] = 0xFF
+        if live % 8:
+            gmask[live // 8] = (1 << (live % 8)) - 1
+        h = torch.zeros((spec.num_states, B), dtype=torch.uint8,
+                        device=seg.device)
+        h[torch.from_numpy(rng.integers(0, spec.num_states, B)).to(
+            seg.device), torch.arange(B, device=seg.device)] = 1
+        rows = fused.traceback_batch_fused_masked(spec, words, gmask, h)
+        with plain_routes(fused, acs, FUSED_WRAPPERS):
+            rows_p = fused.traceback_batch_fused_masked(spec, words, gmask, h)
+        require(torch.equal(rows, rows_p),
+                f"{spec} traceback_batch_fused_masked live={live}")
+        err[mk] = max(err[mk], max_abs_diff(rows, rows_p))
+
+
+def phase_compare_butterfly(fec, acs, dev, err):
+    """The small and wide butterfly kernels against their plain versions on
+    the card: random poly-symmetric codes at every small NS with n = 1..8
+    (soft also n = 9 and 12), at NS = 64 and 256 with n = 5..8, at every
+    wide NS with n = 2..8 (soft also n = 9); noisy and garbage inputs; the
+    edge shapes; all four walks at NS = 16 and 16384; the K11 names."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2031)
+
+    def segments(spec, B, L, kind):
+        msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
+        coded = encode_reference_np(spec, msgs)
+        if kind == "garbage":
+            coded = rng.integers(0, 1 << spec.n, coded.shape).astype(np.uint8)
+        else:
+            coded = corrupt(rng, coded, NOISE[0], spec.n)
+        return torch.from_numpy(coded).to(dev)
+
+    def llrs(spec, B, T, label):
+        return torch.from_numpy(soft_draws(rng, (B, T, spec.n))[label].astype(
+            np.int8)).to(dev)
+
+    cases = [(NS, n, n <= 8) for NS in BFLY_SMALL_NS for n in range(1, 9)]
+    cases += [(NS, n, False) for NS in BFLY_SMALL_NS for n in (9, 12)]
+    cases += [(NS, n, True) for NS in BFLY_MID_NS for n in range(5, 9)]
+    cases += [(NS, n, True) for NS in BFLY_WIDE_NS for n in range(2, 9)]
+    cases += [(NS, 9, False) for NS in BFLY_WIDE_NS]
+    for i, (NS, n, hard) in enumerate(cases):
+        spec = bfly_spec(fec, rng, NS, n)
+        L = BFLY_WIDE_L if NS >= 512 else BFLY_SMALL_L
+        T = L + spec.S
+        what = []
+        if hard:
+            require(fec.select_kernel(spec) == fec.kernels.BUTTERFLY,
+                    f"{spec} on the butterfly route")
+            kinds = ("noisy", "garbage") if i % 2 == 0 else ("noisy",)
+            for kind in kinds:
+                compare_bfly_hard(fec, acs, spec, segments(spec, SMALL_B, L,
+                                                           kind), err, rng)
+            what.append(f"hard {'/'.join(kinds)} ({acs._forward_kernel(spec, False)})")
+        require(fec.select_kernel(spec, "soft") in (fec.kernels.SOFT,
+                                                    fec.kernels.SOFT8),
+                f"{spec} on a soft butterfly route")
+        label = ("int8", "+-7", "+-7, 20% zeros")[i % 3]
+        compare_bfly_soft(fec, acs, spec, llrs(spec, SMALL_B, T, label), err)
+        what.append(f"soft {label} ({acs._forward_kernel(spec, True)})")
+        print(f"[compare] NS={NS:5d} n={n:2d} {str(spec.g):40s} B={SMALL_B} "
+              f"T={T}: {', '.join(what)}: words, final metrics, walks and "
+              "entries equal")
+    # Edge shapes at each family's sizes.
+    for NS in (2, 16, 32, 512, 16384):
+        spec = bfly_spec(fec, rng, NS, 3)
+        for B, L in ((SMALL_B, 0), (1, BFLY_SMALL_L), (3, 1)):
+            seg = segments(spec, B, L, "noisy")
+            compare_bfly_hard(fec, acs, spec, seg, err, rng)
+            compare_bfly_soft(fec, acs, spec,
+                              llrs(spec, B, seg.shape[1], "int8"), err)
+        for B, T in ((SMALL_B, 1), (0, 7)):
+            seg = segments(spec, B, T, "noisy")[:, :T].contiguous()
+            words = compare_bfly_hard(fec, acs, spec, seg, err, rng) if B \
+                else acs.acs_forward_batch(spec, seg)[0]
+            require(tuple(words.shape) == (B, T, acs.decision_words(spec)),
+                    f"{spec} B={B} T={T} words' shape")
+            compare_masked(acs, spec, words, err, rng,
+                           walk_key(acs, spec, "_masked"))
+        print(f"[compare] NS={NS:5d} edges: T = S, S + 1, 1; B = 1, 0: hard, "
+              "soft and walks equal")
+    # All four walks at NS = 16 and 16384.
+    for NS in (16, 16384):
+        spec = bfly_spec(fec, rng, NS, 2)
+        seg = segments(spec, SMALL_B, BFLY_WIDE_L, "noisy")
+        words = compare_bfly_hard(fec, acs, spec, seg, err, rng)
+        compare_masked(acs, spec, words, err, rng,
+                       walk_key(acs, spec, "_masked"))
+        compare_multi(acs, spec, words, err, rng,
+                      walk_key(acs, spec, "_multi"))
+        print(f"[compare] NS={NS:5d} walks: terminated, ragged, masked, "
+              "multi (NW 1, 2, 8, NS) equal")
+    # The K11 names, on an n = 6 code at NS = 64 and on (l)'s code.
+    for spec in (bfly_spec(fec, rng, 64, 6), fec.CodeSpec(**WIDE_MAIN)):
+        seg = segments(spec, SMALL_B, BFLY_WIDE_L + 3, "noisy")
+        q = llrs(spec, SMALL_B, seg.shape[1], "int8")
+        compare_fused(fec, acs, spec, seg, q, err, rng)
+        print(f"[compare] {spec}: acs_forward_batch_fused(_soft) at "
+              "init_chunk 0, -1, 1, traceback_batch_fused(_masked) equal "
+              "to their plain routes and to the block decode")
+
+
+def phase_small(fec, acs, dev, err):
+    """(k): SMALL_MAIN at bench.py's working set through the hard byte
+    decode, the soft byte decode over AWGN at 3 dB (qmax 7) and the ragged
+    hard byte decode.  Returns (inputs for timing, launches by path, plain
+    ms, summary)."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.ops.viterbi import viterbi_decode_bytes
+    spec = fec.PRESETS[SMALL_MAIN]
+    rng = np.random.default_rng(MAIN_SEED)
+    msgs = rng.integers(0, 2, (MAIN_B, MAIN_L), dtype=np.uint8)
+    seg, _ = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))
+    require(np.array_equal(seg.cpu().numpy(), encode_reference_np(spec, msgs)),
+            f"{SMALL_MAIN} encode on the card equals the trellis walk")
+    seg = torch.from_numpy(
+        corrupt(rng, seg.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    T = seg.shape[1]
+    launches, plain_ms = {}, {}
+
+    out, launches["small hard"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_bytes(spec, seg))
+    want, plain_ms["small hard"] = time_once(
+        lambda: viterbi_decode_bytes(spec, seg))
+    require(torch.equal(out, want), "(k) hard bytes equal to the plain "
+            "decode on the card")
+    hard_ber = ber_of_bytes(out, msgs)
+    require(hard_ber < SMALL_BER_LIMIT, f"(k) hard BER {hard_ber} < "
+            f"{SMALL_BER_LIMIT}")
+    words, fm = acs.acs_forward_batch(spec, seg)
+    (words_p, fm_p), plain_ms["acs_small_forward"] = time_once(
+        lambda: acs.acs_forward_batch_plain(spec, seg))
+    require(torch.equal(words, words_p) and torch.equal(fm, fm_p),
+            "(k) words and final metrics at full size")
+    tb_p, plain_ms["traceback_k1 w1"] = time_once(
+        lambda: acs.traceback_batch_plain(spec, words_p, T, MAIN_L, "bytes"))
+    require(torch.equal(tb_p, out), "(k) plain traceback bytes")
+    err["acs_small_forward"] = max(err["acs_small_forward"],
+                                   max_abs_diff(words, words_p),
+                                   max_abs_diff(fm, fm_p))
+    err["traceback_k1 w1"] = max(err["traceback_k1 w1"],
+                                 max_abs_diff(out, tb_p))
+    del words_p, fm_p
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
+    _, llr = soft_channel(fec, spec, torch.from_numpy(msgs).to(dev), gen,
+                          spec.rate)
+    q = fec.quantize_llrs(llr, qmax=QMAX).reshape(MAIN_B, T, spec.n).to(
+        torch.int8)
+    require(fec.select_kernel(spec, "soft", QMAX) == fec.kernels.SOFT
+            and fec.kernels.soft_qclip(spec, QMAX) == 127,
+            f"{SMALL_MAIN} soft on the any-int8 route")
+    out_s, launches["small soft"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_soft_bytes(spec, q, qmax=QMAX))
+    qc = acs.condition_qllrs(q, 127)
+    want_s, plain_ms["small soft"] = time_once(
+        lambda: fec.viterbi_decode_soft(spec, qc))
+    require(torch.equal(out_s, fec.ops.viterbi.pad_and_pack(want_s)),
+            "(k) soft bytes equal to the plain soft decode on the card")
+    words, fm = acs.acs_forward_batch_soft(spec, q, 127)
+    (words_p, fm_p), plain_ms["acs_soft_small_forward"] = time_once(
+        lambda: acs.acs_forward_batch_soft_plain(spec, q, 127))
+    require(torch.equal(words, words_p) and torch.equal(fm, fm_p),
+            "(k) soft words and final metrics at full size")
+    err["acs_soft_small_forward"] = max(err["acs_soft_small_forward"],
+                                        max_abs_diff(words, words_p),
+                                        max_abs_diff(fm, fm_p))
+    del words_p, fm_p
+    soft_ber = ber_of_bytes(out_s, msgs)
+
+    rng_r = np.random.default_rng(MAIN_SEED + 1)
+    lens_np = rng_r.integers(spec.S + 1, T + 1, MAIN_B).astype(np.int32)
+    live = np.arange(MAIN_L)[None, :] < (lens_np - spec.S)[:, None]
+    msgs_r = msgs * live.astype(np.uint8)
+    seg_r, _ = fec.encode_bits(spec, torch.from_numpy(msgs_r).to(dev))
+    seg_r = torch.from_numpy(
+        corrupt(rng_r, seg_r.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    out_r, launches["small ragged"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_bytes_ragged(spec, seg_r, lens))
+    want_r, plain_ms["small ragged"] = time_once(
+        lambda: fec.ops.viterbi.pad_and_pack(fec.viterbi_decode_ragged(
+            spec, seg_r, lens)))
+    require(torch.equal(out_r, want_r), "(k) ragged bytes equal to the plain "
+            "route on the card")
+    words, _ = acs.acs_forward_batch(spec, seg_r)
+    tb_p, plain_ms["traceback_k1_ragged w1"] = time_once(
+        lambda: acs.traceback_batch_ragged_plain(spec, words, lens, MAIN_L,
+                                                 "bytes"))
+    require(torch.equal(tb_p, out_r), "(k) plain ragged traceback bytes")
+    err["traceback_k1_ragged w1"] = max(err["traceback_k1_ragged w1"],
+                                        max_abs_diff(out_r, tb_p))
+    ragged_ber = ber_of_bytes(out_r, msgs_r, lens_np - spec.S)
+    for path, used in (("small hard", ("acs_small_forward", "traceback_k1")),
+                       ("small soft", ("acs_soft_small_forward",
+                                       "traceback_k1")),
+                       ("small ragged", ("acs_small_forward",
+                                         "traceback_k1_ragged"))):
+        require(all(launches[path][k] > 0 for k in used),
+                f"{path}: {used} launched: {launches[path]}")
+    summary = {"spec": str(spec), "T": T, "hard_ber": hard_ber,
+               "soft_ber": soft_ber, "ragged_ber": ragged_ber}
+    print(f"[small] (k) {SMALL_MAIN} B={MAIN_B} L={MAIN_L} T={T} "
+          f"p={MAIN_NOISE}: hard BER {hard_ber:.4e} (< {SMALL_BER_LIMIT}); "
+          f"soft BER at {EBN0_DB} dB {soft_ber:.4e}; ragged BER "
+          f"{ragged_ber:.4e}; each equal to its plain route on the card; "
+          f"launches {nonzero(launches)}")
+    return (spec, seg, q, seg_r, lens), launches, plain_ms, summary
+
+
+def phase_wide(fec, acs, dev, err):
+    """(l): WIDE_MAIN at bench.py's working set through the hard and soft
+    byte decodes, the K11 names, the ragged hard byte decode and the
+    tail-biting list decode of WIDE_LIST_B packets; each against its plain
+    route on WIDE_PLAIN_ROWS rows (8 for the list).  Returns (inputs for
+    timing, launches by path, plain ms, summary)."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import fused
+    from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
+    from convolutionalencdec_tpu_torch.ops.viterbi import viterbi_decode_bytes
+    spec = fec.CodeSpec(**WIDE_MAIN)
+    R = WIDE_PLAIN_ROWS
+    rng = np.random.default_rng(MAIN_SEED)
+    msgs = rng.integers(0, 2, (MAIN_B, MAIN_L), dtype=np.uint8)
+    seg, _ = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))
+    require(np.array_equal(seg[:R].cpu().numpy(),
+                           encode_reference_np(spec, msgs[:R])),
+            "(l) encode on the card equals the trellis walk")
+    seg = torch.from_numpy(
+        corrupt(rng, seg.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    T = seg.shape[1]
+    launches, plain_ms = {}, {}
+
+    out, launches["wide hard"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_bytes(spec, seg))
+    want, plain_ms["wide hard"] = time_once(
+        lambda: viterbi_decode_bytes(spec, seg[:R]))
+    require(torch.equal(out[:R], want), "(l) hard bytes equal to the plain "
+            f"decode on the card ({R} rows)")
+    hard_ber = ber_of_bytes(out, msgs)
+    require(hard_ber < WIDE_BER_LIMIT, f"(l) hard BER {hard_ber} < "
+            f"{WIDE_BER_LIMIT}")
+    words, fm = acs.acs_forward_batch(spec, seg[:R])
+    (words_p, fm_p), plain_ms["acs_wide_forward"] = time_once(
+        lambda: acs.acs_forward_batch_plain(spec, seg[:R]))
+    require(torch.equal(words, words_p) and torch.equal(fm, fm_p),
+            f"(l) words and final metrics ({R} rows)")
+    tb = acs.traceback_batch(spec, words, T, MAIN_L, "bytes")
+    tb_p, plain_ms["traceback_wide"] = time_once(
+        lambda: acs.traceback_batch_plain(spec, words_p, T, MAIN_L, "bytes"))
+    require(torch.equal(tb, tb_p) and torch.equal(tb, out[:R]),
+            "(l) traceback bytes")
+    err["acs_wide_forward"] = max(err["acs_wide_forward"],
+                                  max_abs_diff(words, words_p),
+                                  max_abs_diff(fm, fm_p))
+    err["traceback_wide"] = max(err["traceback_wide"], max_abs_diff(tb, tb_p))
+    del words_p, fm_p
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
+    _, llr = soft_channel(fec, spec, torch.from_numpy(msgs).to(dev), gen,
+                          spec.rate)
+    q = fec.quantize_llrs(llr, qmax=QMAX).reshape(MAIN_B, T, spec.n).to(
+        torch.int8)
+    del llr
+    require(fec.select_kernel(spec, "soft", QMAX) == fec.kernels.SOFT
+            and fec.kernels.soft_qclip(spec, QMAX) == 127,
+            "(l) soft on the JAX package's 16-bit route")
+    out_s, launches["wide soft"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_soft_bytes(spec, q, qmax=QMAX))
+    qc = acs.condition_qllrs(q[:R], 127)
+    want_s, plain_ms["wide soft"] = time_once(
+        lambda: fec.viterbi_decode_soft(spec, qc))
+    require(torch.equal(out_s[:R], fec.ops.viterbi.pad_and_pack(want_s)),
+            f"(l) soft bytes equal to the plain soft decode ({R} rows)")
+    words, fm = acs.acs_forward_batch_soft(spec, q[:R], 127)
+    (words_p, fm_p), plain_ms["acs_soft_wide_forward"] = time_once(
+        lambda: acs.acs_forward_batch_soft_plain(spec, q[:R], 127))
+    require(torch.equal(words, words_p) and torch.equal(fm, fm_p),
+            f"(l) soft words and final metrics ({R} rows)")
+    err["acs_soft_wide_forward"] = max(err["acs_soft_wide_forward"],
+                                       max_abs_diff(words, words_p),
+                                       max_abs_diff(fm, fm_p))
+    del words, words_p, fm_p
+    soft_ber = ber_of_bytes(out_s, msgs)
+    require(soft_ber <= hard_ber or soft_ber < WIDE_BER_LIMIT,
+            f"(l) soft BER {soft_ber}")
+
+    # The K11 names on the same inputs, padded to whole 8-step rows.
+    seg_p, q_p = pad_steps(seg, 8), pad_steps(q, 8)
+    Tp = seg_p.shape[1]
+    gmask = np.zeros((Tp // 8, 1), np.int32)
+    gmask[:T // 8] = 0xFF
+    gmask[T // 8] = (1 << (T % 8)) - 1
+    h0 = torch.zeros((spec.num_states, MAIN_B), dtype=torch.uint8, device=dev)
+    h0[0] = 1
+
+    def fused_chain():
+        words, _ = fused.acs_forward_batch_fused(spec, seg_p)
+        rows = fused.traceback_batch_fused(spec, words, T)
+        del words
+        words, _ = fused.acs_forward_batch_fused_soft(spec, q_p)
+        rows_s = fused.traceback_batch_fused_masked(spec, words, gmask, h0)
+        return rows, rows_s, words
+
+    (rows, rows_s, words_f), launches["wide fused"] = drive(acs, fused_chain)
+    for r, o, what in ((rows, out, "hard"), (rows_s, out_s, "soft")):
+        require(torch.equal(fec.ops.viterbi.pad_and_pack(
+            rows_to_bits(r)[:, :MAIN_L]), o),
+            f"(l) K11 names' {what} rows equal to the {what} byte decode")
+    zeros = torch.zeros(R, dtype=torch.int32, device=dev)
+    got = acs.traceback_batch_masked(spec, words_f[:R], zeros, T, Tp, "bits")
+    want, plain_ms["traceback_wide_masked"] = time_once(
+        lambda: acs.traceback_batch_masked_plain(spec, words_f[:R], zeros, T,
+                                                 Tp, "bits"))
+    require(torch.equal(got, want), f"(l) masked walk ({R} rows)")
+    err["traceback_wide_masked"] = max(err["traceback_wide_masked"],
+                                       max_abs_diff(got, want))
+    del words_f, rows, rows_s, h0
+
+    rng_r = np.random.default_rng(MAIN_SEED + 1)
+    lens_np = rng_r.integers(spec.S + 1, T + 1, MAIN_B).astype(np.int32)
+    live = np.arange(MAIN_L)[None, :] < (lens_np - spec.S)[:, None]
+    msgs_r = msgs * live.astype(np.uint8)
+    seg_r, _ = fec.encode_bits(spec, torch.from_numpy(msgs_r).to(dev))
+    seg_r = torch.from_numpy(
+        corrupt(rng_r, seg_r.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    out_r, launches["wide ragged"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_bytes_ragged(spec, seg_r, lens))
+    words, _ = acs.acs_forward_batch(spec, seg_r[:R])
+    got = acs.traceback_batch_ragged(spec, words, lens[:R], MAIN_L, "bytes")
+    want, plain_ms["traceback_wide_ragged"] = time_once(
+        lambda: acs.traceback_batch_ragged_plain(spec, words, lens[:R], MAIN_L,
+                                                 "bytes"))
+    want_r = fec.ops.viterbi.pad_and_pack(fec.viterbi_decode_ragged(
+        spec, seg_r[:R], lens[:R]))
+    require(torch.equal(got, want) and torch.equal(out_r[:R], want_r),
+            f"(l) ragged bytes equal to the plain route ({R} rows)")
+    err["traceback_wide_ragged"] = max(err["traceback_wide_ragged"],
+                                       max_abs_diff(got, want))
+    del words
+    ragged_ber = ber_of_bytes(out_r, msgs_r, lens_np - spec.S)
+
+    msgs_t = rng.integers(0, 2, (WIDE_LIST_B, MAIN_L), dtype=np.uint8)
+    seg_t = fec.encode_tailbiting(spec, torch.from_numpy(msgs_t).to(dev))
+    seg_t = torch.from_numpy(
+        corrupt(rng, seg_t.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    (bits_t, metrics_t), launches["wide list"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_tailbiting_list(
+            spec, seg_t, WIDE_LIST_SIZE))
+    with plain_routes(ktb, acs, TB_WRAPPERS):
+        want_b, want_m = ktb.viterbi_decode_batch_tailbiting_list(
+            spec, seg_t[:8], WIDE_LIST_SIZE)
+    require(torch.equal(bits_t[:8], want_b) and torch.equal(metrics_t[:8],
+                                                            want_m),
+            "(l) tail-biting list equal to its plain route (8 rows)")
+    wl = ktb.list_wrap(spec, MAIN_L)
+    ext = fec.tailbiting.circular_extend(seg_t, wl, 0, axis=1)
+    words, fm = acs.acs_forward_batch(spec, ext, torch.zeros(
+        (WIDE_LIST_B, spec.num_states), dtype=torch.int32, device=dev))
+    starts = torch.argsort(fm, dim=1, stable=True)[:, :WIDE_LIST_SIZE].to(
+        torch.int32)
+    Te = ext.shape[1]
+    got = acs.traceback_batch_multi(spec, words[:8], starts[:8], Te, wl,
+                                    MAIN_L)
+    want, plain_ms["traceback_wide_multi"] = time_once(
+        lambda: acs.traceback_batch_multi_plain(spec, words[:8], starts[:8],
+                                                Te, wl, MAIN_L))
+    require(torch.equal(got, want), "(l) multi walk (8 rows)")
+    err["traceback_wide_multi"] = max(err["traceback_wide_multi"],
+                                      max_abs_diff(got, want))
+    list_ber = float((bits_t[:, 0].cpu().numpy() != msgs_t).mean())
+    for path, used in (("wide hard", ("acs_wide_forward", "traceback_wide")),
+                       ("wide soft", ("acs_soft_wide_forward",
+                                      "traceback_wide")),
+                       ("wide fused", ("acs_wide_forward",
+                                       "acs_soft_wide_forward",
+                                       "traceback_wide_masked")),
+                       ("wide ragged", ("acs_wide_forward",
+                                        "traceback_wide_ragged")),
+                       ("wide list", ("acs_wide_forward",
+                                      "traceback_wide_multi"))):
+        require(all(launches[path][k] > 0 for k in used),
+                f"{path}: {used} launched: {launches[path]}")
+    dec_gb = MAIN_B * T * acs.decision_words(spec) * 4 / 1e9
+    summary = {"spec": str(spec), "T": T, "hard_ber": hard_ber,
+               "soft_ber": soft_ber, "ragged_ber": ragged_ber,
+               "list_ber": list_ber, "decision_gb": dec_gb,
+               "plain_rows": R}
+    print(f"[wide] (l) {spec} B={MAIN_B} L={MAIN_L} T={T} p={MAIN_NOISE}: "
+          f"hard BER {hard_ber:.4e} (< {WIDE_BER_LIMIT}), soft BER at "
+          f"{EBN0_DB} dB {soft_ber:.4e}, ragged BER {ragged_ber:.4e}, "
+          f"tail-biting list ({WIDE_LIST_B} packets, {WIDE_LIST_SIZE} "
+          f"candidates) candidate-0 BER {list_ber:.4e}; decision words "
+          f"{dec_gb:.2f} GB per call; each equal to its plain route on "
+          f"{R} rows (the list on 8); launches {nonzero(launches)}")
+    inputs = (spec, seg, q, lens, words, starts, Te, wl)
+    return inputs, launches, plain_ms, summary
+
+
+def butterfly_times(fec, acs, small_in, wide_in):
+    """Device ms of the small and wide kernels and decodes at (k) and (l):
+    TIMED_CALLS calls on row rotations at (k), WIDE_TIMED_CALLS at (l) (its
+    forward takes tens of ms), the wide walks alternating between two
+    forwards' decisions (8.65 GB each)."""
+    import torch
+    runs = {}
+    spec, seg, q, seg_r, lens = small_in
+    T = seg.shape[1]
+    bufs = [torch.roll(seg, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["acs_small_forward"] = device_times(
+        lambda s: acs.acs_forward_batch(spec, s), bufs)
+    decs = [acs.acs_forward_batch(spec, s)[0] for s in bufs]
+    runs["traceback_k1 w1"] = device_times(
+        lambda d: acs.traceback_batch(spec, d, T, MAIN_L, "bytes"), decs)
+    lens_r = [torch.roll(lens, r + 1) for r in range(TIMED_CALLS)]
+    runs["traceback_k1_ragged w1"] = device_times(
+        lambda p: acs.traceback_batch_ragged(spec, p[0], p[1], MAIN_L,
+                                             "bytes"), list(zip(decs, lens_r)))
+    del decs
+    runs["small hard"] = device_times(
+        lambda s: fec.viterbi_decode_batch_bytes(spec, s), bufs)
+    rbufs = [torch.roll(seg_r, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["small ragged"] = device_times(
+        lambda p: fec.viterbi_decode_batch_bytes_ragged(spec, p[0], p[1]),
+        list(zip(rbufs, lens_r)))
+    del bufs, rbufs
+    qbufs = [torch.roll(q, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["acs_soft_small_forward"] = device_times(
+        lambda x: acs.acs_forward_batch_soft(spec, x, 127), qbufs)
+    runs["small soft"] = device_times(
+        lambda x: fec.viterbi_decode_batch_soft_bytes(spec, x, qmax=QMAX),
+        qbufs)
+    del qbufs
+
+    spec, seg, q, lens, list_words, starts, Te, wl = wide_in
+    T = seg.shape[1]
+    n = WIDE_TIMED_CALLS
+    bufs = [torch.roll(seg, r + 1, dims=0) for r in range(n)]
+    runs["acs_wide_forward"] = device_times(
+        lambda s: acs.acs_forward_batch(spec, s), bufs)
+    pair = [acs.acs_forward_batch(spec, s)[0] for s in bufs[:2]]
+    decs = [pair[r % 2] for r in range(n)]
+    runs["traceback_wide"] = device_times(
+        lambda d: acs.traceback_batch(spec, d, T, MAIN_L, "bytes"), decs)
+    lens_r = [torch.roll(lens, r + 1) for r in range(n)]
+    runs["traceback_wide_ragged"] = device_times(
+        lambda p: acs.traceback_batch_ragged(spec, p[0], p[1], MAIN_L,
+                                             "bytes"), list(zip(decs, lens_r)))
+    zeros = torch.zeros(seg.shape[0], dtype=torch.int32, device=seg.device)
+    runs["traceback_wide_masked"] = device_times(
+        lambda d: acs.traceback_batch_masked(spec, d, zeros, T, T, "bits"),
+        decs)
+    del pair, decs
+    runs["wide hard"] = device_times(
+        lambda s: fec.viterbi_decode_batch_bytes(spec, s), bufs)
+    del bufs
+    qbufs = [torch.roll(q, r + 1, dims=0) for r in range(n)]
+    runs["acs_soft_wide_forward"] = device_times(
+        lambda x: acs.acs_forward_batch_soft(spec, x, 127), qbufs)
+    runs["wide soft"] = device_times(
+        lambda x: fec.viterbi_decode_batch_soft_bytes(spec, x, qmax=QMAX),
+        qbufs)
+    del qbufs
+    rolled = [torch.roll(starts, r, dims=0) for r in range(n)]
+    runs["traceback_wide_multi"] = device_times(
+        lambda st: acs.traceback_batch_multi(spec, list_words, st, Te, wl,
+                                             MAIN_L), rolled)
+    print(f"[time] (l) timed with {n} calls each (its forward takes tens of "
+          f"ms); (k) with {TIMED_CALLS}")
+    return runs
+
+
+def bounds(lens_sum: int, generic_shapes, bfly_shapes):
     """(bound ms, what bounds it) of each kernel on this run's main-path
     inputs: the larger of the bytes it must move (each input read once,
     each output written once) over HBM_BYTES_PER_S and its int32 operations
     over INT32_OPS_PER_S.  `generic_shapes`: (name, spec, T, L) of each
-    generic-k main-path code; its kernels' keys end in the name."""
+    generic-k main-path code; its kernels' keys end in the name.
+    `bfly_shapes`: (spec, T, lens_sum) of (k) and of (l), and (B, steps,
+    walks) of (l)'s list walk."""
     work = {}
+    (sspec, sT, slens), (wspec, wT, wlens), (lB, lsteps, lwalks) = bfly_shapes
+    B, L = MAIN_B, MAIN_L
+    for pre, spec, T, lens, walk in (
+            ("acs_small_forward", sspec, sT, slens, "traceback_k1"),
+            ("acs_wide_forward", wspec, wT, wlens, "traceback_wide")):
+        NS, n = spec.num_states, spec.n
+        # One decision bit per state and step (the small kernels' words pad
+        # 16 states to 32 bits: padding, not work); the wide walk needs one
+        # 32-byte sector of decisions per step, the one-word walk the step's
+        # NS/8 bytes.
+        dec = B * T * NS // 8
+        ops = B * T * NS // 2 * ACS_OPS
+        per_step = 32 if NS >= 512 else NS // 8
+        soft_pre = pre.replace("acs_", "acs_soft_")
+        work[pre] = (B * T + dec + B * NS * 4, ops)
+        work[soft_pre] = (B * T * n + dec + B * NS * 4, ops)
+        suffix = " w1" if NS < 64 else ""
+        work[walk + suffix] = (B * T * per_step + B * L // 8,
+                               B * T * TRACEBACK_OPS)
+        work[walk + "_ragged" + suffix] = (
+            lens * per_step + 4 * B + B * L // 8, lens * TRACEBACK_OPS)
+    # (l)'s K11 masked walk: all T steps from state 0, one bit per step out;
+    # its list: `lwalks` walks of each of `lB` packets over `lsteps` steps.
+    work["traceback_wide_masked"] = (B * wT * 32 + 4 * B + B * wT,
+                                     B * wT * TRACEBACK_OPS)
+    work["traceback_wide_multi"] = (
+        lB * lwalks * lsteps * 32 + 4 * lB * lwalks + lB * lwalks * lsteps,
+        lB * lwalks * lsteps * TRACEBACK_OPS)
     for name, spec, T, L in generic_shapes:
         # Segments in, one decision bit per state, step and input bit and
         # the final metrics out (the kernels' int32 words hold 32 - NS
@@ -2068,16 +2808,42 @@ def main() -> int:
         fec, acs, gk, dev, err)
     plain_ms.update(gen_plain)
     print(f"[generic] main path {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_compare_butterfly(fec, acs, dev, err)
+    print(f"[compare] small and wide butterfly codes "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    small_in, small_launches, small_plain, small_summary = phase_small(
+        fec, acs, dev, err)
+    wide_in, wide_launches, wide_plain, wide_summary = phase_wide(
+        fec, acs, dev, err)
+    plain_ms.update(small_plain, **wide_plain)
+    print(f"[small/wide] main paths {time.perf_counter() - t0:.1f} s")
     runs = phase_times(fec, acs, seg, q, q_ragged, lens)
     runs.update(tailbiting_times(fec, acs, tb_in))
     runs.update(soft_output_times(fec, q, q_turbo))
     runs.update(generic_times(fec, gk, gen_in))
+    t0 = time.perf_counter()
+    runs.update(butterfly_times(fec, acs, small_in, wide_in))
+    print(f"[time] small and wide butterfly codes "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # Launch counts: the sum over the main-path runs, each read just after.
+    # A one-word row counts its walk's launches at (k) only.
     by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
                **stream_launches, **tb_launches, "maxlogmap": map_launches,
-               **turbo_launches, **gen_launches}
-    launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
+               **turbo_launches, **gen_launches, **small_launches,
+               **wide_launches}
+
+    def path_launches(name):
+        """A walk's launches split between its row (not at (k)) and its
+        one-word row (at (k))."""
+        one_word = name in W1_ROWS
+        split = one_word or name in W1_ROWS.values()
+        return {p: c[W1_ROWS.get(name, name)] for p, c in by_path.items()
+                if not split or p.startswith("small ") == one_word}
+
+    launches = {k: sum(path_launches(k).values()) for k in KERNELS}
     bits_per_call = MAIN_B * MAIN_L
     dci_bits = DCI_B * (DCI_PAYLOAD + 16)
     turbo_bits = TURBO_B * TURBO_L
@@ -2087,6 +2853,7 @@ def main() -> int:
         plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
         code = key.rsplit(" ", 1)[-1]
         bits = (generic_bits[code] if code in generic_bits
+                else WIDE_LIST_B * MAIN_L if key == "traceback_wide_multi"
                 else dci_bits if "tailbiting c" in key or "rate-matched" in key
                 or key.endswith(("multi", "masked tailbiting"))
                 else turbo_bits if key.startswith("turbo")
@@ -2095,8 +2862,15 @@ def main() -> int:
               f" ms of {TIMED_CALLS} = {bits / (ms * 1e3):.1f} "
               f"decoded Mbit/s; plain "
               f"{'-' if plain is None else f'{plain:.1f}'} ms [{card}]")
+    small_spec, small_seg, _, _, small_lens = small_in
+    wide_spec, wide_seg, _, wide_lens = wide_in[:4]
     bound = bounds(int(lens.clamp(0, seg.shape[1]).sum()),
-                   [(name, spec, x.shape[1], L) for name, spec, x, L in gen_in])
+                   [(name, spec, x.shape[1], L) for name, spec, x, L in gen_in],
+                   ((small_spec, small_seg.shape[1],
+                     int(small_lens.clamp(0, small_seg.shape[1]).sum())),
+                    (wide_spec, wide_seg.shape[1],
+                     int(wide_lens.clamp(0, wide_seg.shape[1]).sum())),
+                    (WIDE_LIST_B, MAIN_L, WIDE_LIST_SIZE)))
     # The generic-k kernels' numbers are those of one main-path code: K10's
     # of the k2 code, K9's of GENERIC_K9_CODE.
     k2_code = GENERIC_MAIN[0][0]
@@ -2112,7 +2886,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": path_launches(name),
             "max_abs_err": err[name], "ms": med[key],
             "min_ms": min(runs[key]), "plain_ms": plain_ms[key],
             "bound_ms": bound[key][0], "bound_by": bound[key][1],
@@ -2145,6 +2919,23 @@ def main() -> int:
         generic["codes"][code].update(
             ms=med[path], min_ms=min(runs[path]), plain_ms=plain_ms[path],
             mbps=generic_bits[code] / (med[path] * 1e3))
+    # (l)'s plain versions ran on its first rows, its kernels were timed
+    # with fewer calls.
+    for name in KERNELS:
+        if "wide" in name:
+            kernels[KERNELS.index(name)].update(
+                plain_rows=8 if name == "traceback_wide_multi"
+                else WIDE_PLAIN_ROWS, timed_calls=WIDE_TIMED_CALLS)
+    butterfly = {"small": dict(small_summary), "wide": dict(wide_summary)}
+    for kind, paths in (("small", ("small hard", "small soft",
+                                   "small ragged")),
+                        ("wide", ("wide hard", "wide soft"))):
+        for path in paths:
+            butterfly[kind][path] = {
+                "ms": med[path], "min_ms": min(runs[path]),
+                "plain_ms": plain_ms.get(path),
+                "mbps": bits_per_call / (med[path] * 1e3)}
+    butterfly["wide"]["plain_rows"] = WIDE_PLAIN_ROWS
     soft_stream = "stream_k1_decode soft"
     kernels[KERNELS.index("stream_k1_decode")].update(
         soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
@@ -2199,7 +2990,8 @@ def main() -> int:
         "soft_decode_plain_ms": plain_ms["soft_decode"],
         "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
         "streams": streams, "tailbiting": tailbiting,
-        "maxlogmap": maxlogmap, "turbo": turbo, "generic": generic}))
+        "maxlogmap": maxlogmap, "turbo": turbo, "generic": generic,
+        "butterfly": butterfly}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

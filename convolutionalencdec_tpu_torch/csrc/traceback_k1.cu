@@ -1,6 +1,6 @@
 // Block traceback of terminated packets over packed decision words.
 //
-// Four entry points, one kernel template:
+// Eight entry points, one kernel template:
 //   traceback_k1         replaces the TPU kernel `traceback_batch_swar` in
 //                        convolutionalencdec_tpu/kernels/acs_swar.py (its
 //                        pallas_call at :877, kernel body `_tb_kernel_swar`
@@ -20,7 +20,12 @@
 //                        candidates).
 // They compute what those kernels compute, not how: no one-hot select
 // network, no group masks, no padded steps; the walk starts at the real
-// last step of each channel.
+// last step of each channel.  At NS <= 32 (one word per step) traceback_k1
+// also replaces `traceback_batch` (acs_pallas.py, pallas_call at :308, body
+// `_tb_kernel`), the JAX package's traceback for NS < 64.  The four
+// traceback_wide* entry points are the same walks for NS >= 512, where they
+// also replace `traceback_batch_fused_masked` (acs_pallas.py, pallas_call at
+// :1069, body `_tb_kernel_fused`) and the four SWAR walks above.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -50,9 +55,10 @@
 // warm-up) and stops at step out_start, below which nothing is emitted.
 //
 // Layouts:
-//   decs  int32 [B, T_stride, W]  as written by acs_k1_forward (W = NS/32;
-//                                 the decision of state s = 2b + p is bit
-//                                 i % 32 of word i / 32, i = p*NS/2 + b)
+//   decs  int32 [B, T_stride, W]  as written by the forward kernels
+//                                 (W = ceil(NS/32); the decision of state
+//                                 s = 2b + p is bit i % 32 of word i / 32,
+//                                 i = p*NS/2 + b)
 //   lengths int32 [B]             ragged only
 //   starts  int32 [B]             masked only, states in [0, NS)
 //           int32 [B, NW]         multi
@@ -75,6 +81,14 @@
 // same addresses, served by one transaction per warp, so the decisions are
 // read from memory once for all walks (the TPU kernel's "decisions DMA'd
 // once"), and each walk's start and window are its own.
+//
+// Wide (NS >= 512, W >= 16): a step's words are 64 bytes to 2 KB, of which
+// the walk needs one bit, so the register chunk would move W times the
+// bytes it needs (and at W >= 32 holds under one step).  The wide walk
+// (template W = 0) loads only the word that holds its state's bit: one
+// dependent load, one 32-byte sector, per step.  Its floor is T times the
+// load latency; a look-ahead that loads the next step's two candidate words
+// would hide half of it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,7 +99,7 @@ constexpr int kThreads = 32;
 
 enum class Walk { kTerminated, kRagged, kMasked, kMulti };
 
-template <int W, Walk MODE>  // W: decision words per step = NS / 32
+template <int W, Walk MODE>  // W: decision words per step, ceil(NS/32); 0: wide
 __global__ void __launch_bounds__(kThreads)
 traceback_k1_kernel(const int32_t* __restrict__ decs,
                     const int32_t* __restrict__ lengths,
@@ -93,8 +107,7 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
                     uint8_t* __restrict__ out,
                     int B, int T_stride, int t_actual, int S,
                     int message_bits, int emit_bytes, int live, int nw,
-                    int out_start) {
-  constexpr int C = 32 / W;  // steps per register chunk
+                    int out_start, int wide_words) {
   // One thread per channel, or (Multi) per (channel, walk): walk index g,
   // channel g / nw, output row g.
   const int g = blockIdx.x * kThreads + threadIdx.x;
@@ -102,8 +115,9 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   const int ch = (MODE == Walk::kMulti) ? g / nw : g;
   // Multi: the walk stops at out_start and emits step t as bit t - t_lo.
   const int t_lo = (MODE == Walk::kMulti) ? out_start : 0;
+  const int words = (W > 0) ? W : wide_words;
 
-  const int32_t* row = decs + (size_t)ch * T_stride * W;
+  const int32_t* row = decs + (size_t)ch * T_stride * words;
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
   uint8_t* out_row = out + (size_t)g * row_len;
   int t_start = t_actual;
@@ -120,40 +134,54 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   unsigned cur = (MODE == Walk::kMasked || MODE == Walk::kMulti)
                      ? (unsigned)starts[g] : 0u;
   unsigned acc = 0;
-
-  for (int t_hi = t_start - 1; t_hi >= t_lo; t_hi -= C) {
-    int32_t r[C][W];
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int t = t_hi - k;
-#pragma unroll
-      for (int w = 0; w < W; ++w) r[k][w] = (t >= t_lo) ? row[(size_t)t * W + w] : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int t = t_hi - k;
-      if (t < t_lo) break;
-      const unsigned i = (cur >> 1) | ((cur & 1u) << top);
-      const unsigned wi = i >> 5;
-      unsigned word = (unsigned)r[k][0];
-#pragma unroll
-      for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
-      unsigned d = (word >> (i & 31u)) & 1u;
-      if ((MODE == Walk::kMasked || MODE == Walk::kMulti) && t >= live) d = 0u;
-      const int e = t - t_lo;  // the step's place in the row
-      if (e < msg) {
-        const unsigned bit = cur & 1u;
-        if (emit_bytes) {
-          acc |= bit << (7 - (e & 7));
-          if ((e & 7) == 0) {
-            out_row[e >> 3] = (uint8_t)acc;
-            acc = 0;
-          }
-        } else {
-          out_row[e] = (uint8_t)bit;
+  // Step t with decision word `word` of the current state's index i.
+  auto step = [&](int t, unsigned i, unsigned word) {
+    unsigned d = (word >> (i & 31u)) & 1u;
+    if ((MODE == Walk::kMasked || MODE == Walk::kMulti) && t >= live) d = 0u;
+    const int e = t - t_lo;  // the step's place in the row
+    if (e < msg) {
+      const unsigned bit = cur & 1u;
+      if (emit_bytes) {
+        acc |= bit << (7 - (e & 7));
+        if ((e & 7) == 0) {
+          out_row[e >> 3] = (uint8_t)acc;
+          acc = 0;
         }
+      } else {
+        out_row[e] = (uint8_t)bit;
       }
-      cur = (cur >> 1) | (d << top);
+    }
+    cur = (cur >> 1) | (d << top);
+  };
+
+  if constexpr (W == 0) {
+    // Wide: only the word that holds the state's bit, one dependent load
+    // per step.
+    for (int t = t_start - 1; t >= t_lo; --t) {
+      const unsigned i = (cur >> 1) | ((cur & 1u) << top);
+      step(t, i, (unsigned)row[(size_t)t * words + (i >> 5)]);
+    }
+  } else {
+    constexpr int C = 32 / W;  // steps per register chunk
+    for (int t_hi = t_start - 1; t_hi >= t_lo; t_hi -= C) {
+      int32_t r[C][W];
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int t = t_hi - k;
+#pragma unroll
+        for (int w = 0; w < W; ++w) r[k][w] = (t >= t_lo) ? row[(size_t)t * W + w] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int t = t_hi - k;
+        if (t < t_lo) break;
+        const unsigned i = (cur >> 1) | ((cur & 1u) << top);
+        const unsigned wi = i >> 5;
+        unsigned word = (unsigned)r[k][0];
+#pragma unroll
+        for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
+        step(t, i, word);
+      }
     }
   }
 }
@@ -162,29 +190,68 @@ template <Walk MODE>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
            int message_bits, int emit_bytes, int live, int nw, int out_start,
-           cudaStream_t s) {
+           bool wide, cudaStream_t s) {
   const dim3 block(kThreads);
   const dim3 grid((B * nw + kThreads - 1) / kThreads);
+#define TB_LAUNCH(W)                                                    \
+  traceback_k1_kernel<W, MODE><<<grid, block, 0, s>>>(                  \
+      d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,    \
+      emit_bytes, live, nw, out_start, (NS + 31) / 32)
+  if (wide) {
+    if (NS < 2 || NS > 16384) return static_cast<int>(cudaErrorInvalidValue);
+    TB_LAUNCH(0);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (NS) {
-    case 64:
-      traceback_k1_kernel<2, MODE><<<grid, block, 0, s>>>(
-          d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-          emit_bytes, live, nw, out_start);
-      break;
-    case 128:
-      traceback_k1_kernel<4, MODE><<<grid, block, 0, s>>>(
-          d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-          emit_bytes, live, nw, out_start);
-      break;
-    case 256:
-      traceback_k1_kernel<8, MODE><<<grid, block, 0, s>>>(
-          d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-          emit_bytes, live, nw, out_start);
-      break;
+    case 2: case 4: case 8: case 16: case 32: TB_LAUNCH(1); break;
+    case 64: TB_LAUNCH(2); break;
+    case 128: TB_LAUNCH(4); break;
+    case 256: TB_LAUNCH(8); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TB_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry points of one walk mode; `wide` picks the one-word-per-step
+// walk (the traceback_wide* symbols), else the register-chunk walk.
+int terminated(const void* decs, void* out, int B, int T_stride,
+               int t_actual, int NS, int S, int message_bits, int emit_bytes,
+               bool wide, void* stream) {
+  return launch<Walk::kTerminated>(
+      static_cast<const int32_t*>(decs), nullptr, nullptr,
+      static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
+      emit_bytes, 0, 1, 0, wide, static_cast<cudaStream_t>(stream));
+}
+
+int ragged(const void* decs, const void* lengths, void* out, int B, int T,
+           int NS, int S, int message_bits_max, int emit_bytes, bool wide,
+           void* stream) {
+  return launch<Walk::kRagged>(
+      static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
+      nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
+      emit_bytes, 0, 1, 0, wide, static_cast<cudaStream_t>(stream));
+}
+
+int masked(const void* decs, const void* starts, void* out, int B, int T,
+           int NS, int S, int live, int out_steps, int emit_bytes, bool wide,
+           void* stream) {
+  return launch<Walk::kMasked>(
+      static_cast<const int32_t*>(decs), nullptr,
+      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
+      T, NS, S, out_steps, emit_bytes, live, 1, 0, wide,
+      static_cast<cudaStream_t>(stream));
+}
+
+int multi(const void* decs, const void* starts, void* out, int B, int T,
+          int NS, int S, int NW, int live, int out_start, int out_steps,
+          int emit_bytes, bool wide, void* stream) {
+  return launch<Walk::kMulti>(
+      static_cast<const int32_t*>(decs), nullptr,
+      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
+      T, NS, S, out_steps, emit_bytes, live, NW, out_start, wide,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -192,10 +259,8 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
 extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
                             int t_actual, int NS, int S, int message_bits,
                             int emit_bytes, void* stream) {
-  return launch<Walk::kTerminated>(
-      static_cast<const int32_t*>(decs), nullptr, nullptr,
-      static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
-      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
+  return terminated(decs, out, B, T_stride, t_actual, NS, S, message_bits,
+                    emit_bytes, false, stream);
 }
 
 // Row width message_bits_max (<= T - S) bits, or ceil(message_bits_max / 8)
@@ -204,10 +269,8 @@ extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
                                    void* out, int B, int T, int NS, int S,
                                    int message_bits_max, int emit_bytes,
                                    void* stream) {
-  return launch<Walk::kRagged>(
-      static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
-      nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
-      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
+  return ragged(decs, lengths, out, B, T, NS, S, message_bits_max,
+                emit_bytes, false, stream);
 }
 
 // Walk from starts[b] at step T - 1, decision 0 at steps >= live; row width
@@ -216,11 +279,8 @@ extern "C" int traceback_k1_masked(const void* decs, const void* starts,
                                    void* out, int B, int T, int NS, int S,
                                    int live, int out_steps, int emit_bytes,
                                    void* stream) {
-  return launch<Walk::kMasked>(
-      static_cast<const int32_t*>(decs), nullptr,
-      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live, 1, 0,
-      static_cast<cudaStream_t>(stream));
+  return masked(decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes,
+                false, stream);
 }
 
 // NW walks per channel, walk (b, w) from starts[b, w] at step T - 1,
@@ -231,9 +291,40 @@ extern "C" int traceback_k1_multi(const void* decs, const void* starts,
                                   int NW, int live, int out_start,
                                   int out_steps, int emit_bytes,
                                   void* stream) {
-  return launch<Walk::kMulti>(
-      static_cast<const int32_t*>(decs), nullptr,
-      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live, NW, out_start,
-      static_cast<cudaStream_t>(stream));
+  return multi(decs, starts, out, B, T, NS, S, NW, live, out_start,
+               out_steps, emit_bytes, false, stream);
+}
+
+// The wide walks (NS >= 512): the same four modes and signatures.
+extern "C" int traceback_wide(const void* decs, void* out, int B,
+                              int T_stride, int t_actual, int NS, int S,
+                              int message_bits, int emit_bytes,
+                              void* stream) {
+  return terminated(decs, out, B, T_stride, t_actual, NS, S, message_bits,
+                    emit_bytes, true, stream);
+}
+
+extern "C" int traceback_wide_ragged(const void* decs, const void* lengths,
+                                     void* out, int B, int T, int NS, int S,
+                                     int message_bits_max, int emit_bytes,
+                                     void* stream) {
+  return ragged(decs, lengths, out, B, T, NS, S, message_bits_max,
+                emit_bytes, true, stream);
+}
+
+extern "C" int traceback_wide_masked(const void* decs, const void* starts,
+                                     void* out, int B, int T, int NS, int S,
+                                     int live, int out_steps, int emit_bytes,
+                                     void* stream) {
+  return masked(decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes,
+                true, stream);
+}
+
+extern "C" int traceback_wide_multi(const void* decs, const void* starts,
+                                    void* out, int B, int T, int NS, int S,
+                                    int NW, int live, int out_start,
+                                    int out_steps, int emit_bytes,
+                                    void* stream) {
+  return multi(decs, starts, out, B, T, NS, S, NW, live, out_start,
+               out_steps, emit_bytes, true, stream);
 }

@@ -32,24 +32,33 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_HARD_FORWARD = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SOFT_FORWARD = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_MULTI = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # name -> argtypes, in the order of the C signatures in csrc/.
 SIGNATURES = {
     # seg, cb, init, decs, final_metrics, B, T, NS, n, init_value, stream
-    "acs_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "acs_k1_forward": _HARD_FORWARD,
+    "acs_small_forward": _HARD_FORWARD,
+    "acs_wide_forward": _HARD_FORWARD,
     # decs, out, B, T_stride, t_actual, NS, S, message_bits, emit_bytes, stream
     "traceback_k1": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "traceback_wide": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # qllrs, cb, init, decs, final_metrics, B, T, NS, n, qlo, qclip,
     # init_value, stream
-    "acs_soft_k1_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+    "acs_soft_k1_forward": _SOFT_FORWARD,
+    "acs_soft_small_forward": _SOFT_FORWARD,
+    "acs_soft_wide_forward": _SOFT_FORWARD,
     # decs, lengths, out, B, T, NS, S, message_bits_max, emit_bytes, stream
     "traceback_k1_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "traceback_wide_ragged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes, stream
     "traceback_k1_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "traceback_wide_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # decs, starts, out, B, T, NS, S, NW, live, out_start, out_steps,
     # emit_bytes, stream
-    "traceback_k1_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+    "traceback_k1_multi": _MULTI,
+    "traceback_wide_multi": _MULTI,
     # input, soft, cb, m_in, r_in, sym, m_out, r_out, B, T, NS, n, W, stream
     "stream_k1_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],

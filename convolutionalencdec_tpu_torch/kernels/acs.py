@@ -1,15 +1,25 @@
 """Forward ACS and traceback of the k=1 butterfly block decodes.
 
-Six wrappers, each with its plain PyTorch version beside it (TPU kernels
-named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
+Six wrappers, each with its plain PyTorch version beside it, each launching
+the kernel of its code's size (TPU kernels named by their function in
+convolutionalencdec_tpu/kernels/acs_swar.py and acs_pallas.py):
 
-  * `acs_forward_batch` launches `csrc/acs_k1.cu` (hard decisions; replaces
-    `acs_forward_batch_swar`);
-  * `acs_forward_batch_soft` launches `csrc/acs_soft_k1.cu` (int8 quantized
-    LLRs; replaces both `acs_forward_batch_swar_soft8` and
-    `acs_forward_batch_swar_soft`);
+  * `acs_forward_batch` (hard decisions) launches `csrc/acs_k1.cu` at
+    NS = 64..256 (replaces `acs_forward_batch_swar`), `acs_small_forward`
+    of `csrc/acs_small.cu` at NS = 2..32 (replaces acs_pallas's
+    `acs_forward_batch`, K12) and `acs_wide_forward` of `csrc/acs_wide.cu`
+    at NS = 512..16384 (replaces `acs_forward_batch_fused`, K11, and the
+    SWAR kernel there);
+  * `acs_forward_batch_soft` (int8 quantized LLRs) launches
+    `csrc/acs_soft_k1.cu` at NS = 64..256 (replaces both
+    `acs_forward_batch_swar_soft8` and `acs_forward_batch_swar_soft`),
+    `acs_soft_small_forward` at NS = 2..32 (acs_pallas's
+    `acs_forward_batch_soft`, K12) and `acs_soft_wide_forward` at
+    NS = 512..16384 and for any n > 8 (`acs_forward_batch_fused_soft`,
+    K11);
   * `traceback_batch` launches `traceback_k1` in `csrc/traceback_k1.cu`
-    (replaces `traceback_batch_swar`);
+    (replaces `traceback_batch_swar`, and at NS <= 32 acs_pallas's
+    `traceback_batch`, K12);
   * `traceback_batch_ragged` launches `traceback_k1_ragged`, same file
     (per-channel lengths; replaces `traceback_batch_swar_ragged`);
   * `traceback_batch_masked` launches `traceback_k1_masked`, same file
@@ -19,18 +29,22 @@ named by their function in convolutionalencdec_tpu/kernels/acs_swar.py):
     (NW walks per channel, a window of steps out; replaces
     `traceback_batch_swar_masked_multi`).
 
-`kernels/stream.py` holds the streaming kernel's wrappers; their launches
-are counted here too.
+At NS >= 512 the four tracebacks launch the wide walk of the same file
+(`traceback_wide`, `_ragged`, `_masked`, `_multi`; they also replace
+`traceback_batch_fused_masked`, K11).  `kernels/fused.py` gives the JAX
+package's K11 names on these wrappers.  `kernels/stream.py` holds the
+streaming kernel's wrappers; their launches are counted here too.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises: nothing falls back.  `LAUNCHES`
 counts the launches of each kernel.
 
-Decision words: int32 [B, T, W] with W = NS/32.  The decision of state
-s = 2b + p (butterfly b, parity p) is bit i % 32 of word i / 32, with
-i = p * NS/2 + b: the even states' decisions fill the first W/2 words, the
-odd states' the rest, each in butterfly order.  Both the kernel and the
-plain version produce the same words.
+Decision words: int32 [B, T, W] with W = ceil(NS/32).  The decision of
+state s = 2b + p (butterfly b, parity p) is bit i % 32 of word i / 32, with
+i = p * NS/2 + b: the even states' decisions fill the first NS/2 bits, the
+odd states' the next NS/2, each in butterfly order; below 32 states the one
+word's bits NS..31 are zero.  Both the kernels and the plain versions
+produce the same words.
 """
 
 from __future__ import annotations
@@ -48,50 +62,117 @@ from ..params import CodeSpec
 #: Launches of each kernel since the count was last set to 0.
 LAUNCHES = {"acs_k1_forward": 0, "traceback_k1": 0, "acs_soft_k1_forward": 0,
             "traceback_k1_ragged": 0, "stream_k1_decode": 0,
-            "traceback_k1_masked": 0, "traceback_k1_multi": 0}
+            "traceback_k1_masked": 0, "traceback_k1_multi": 0,
+            "acs_small_forward": 0, "acs_soft_small_forward": 0,
+            "acs_wide_forward": 0, "acs_soft_wide_forward": 0,
+            "traceback_wide": 0, "traceback_wide_ragged": 0,
+            "traceback_wide_masked": 0, "traceback_wide_multi": 0}
 
-#: Bit weights of one decision word: bit 31 weighs -2^31 in int32, so the
-#: int32 sum of a word's bits is exact and equals the word's two's
-#: complement value.
-_WORD_WEIGHTS = [1 << j for j in range(31)] + [-(1 << 31)]
+#: The most states the kernels take: the wide forward keeps a channel's
+#: metrics twice in one block's shared memory (2 x 4 x NS bytes of 227 KB).
+MAX_STATES = 16384
+#: From this many states on, the wide forward and the wide walks run.
+WIDE_STATES = 512
+#: The largest n of a hard segment (one byte), and of the soft kernels'
+#: compile-time instantiations; the wide soft forward takes any n.
+MAX_HARD_N = 8
 
 
-def kernel_supports(spec: CodeSpec) -> bool:
-    """Whether the kernels decode this spec: k = 1 with poly symmetry,
-    64 <= NS <= 256 and n <= 8 (a hard segment is one byte)."""
+def kernel_supports(spec: CodeSpec, mode: str = "hard") -> bool:
+    """Whether the kernels decode this spec: k = 1 with poly symmetry and
+    2 <= NS <= MAX_STATES; hard decodes need n <= 8 (a segment is one
+    byte), soft ones (`mode="soft"`) take any n."""
     return (spec.k == 1 and spec.has_poly_symmetry
-            and spec.num_states in (64, 128, 256) and spec.n <= 8)
+            and 2 <= spec.num_states <= MAX_STATES
+            and (mode == "soft" or spec.n <= MAX_HARD_N))
+
+
+def decision_words(spec: CodeSpec) -> int:
+    """W, the int32 decision words per step: ceil(NS / 32)."""
+    return -(-spec.num_states // 32)
 
 
 def pack_decisions(spec: CodeSpec, decisions: torch.Tensor) -> torch.Tensor:
-    """uint8 [B, T, NS] decisions in state order -> int32 [B, T, NS/32]
+    """uint8 [B, T, NS] decisions in state order -> int32 [B, T, W]
     decision words (the layout in the module docstring)."""
     B, T, NS = decisions.shape
+    W = decision_words(spec)
     by_index = torch.cat([decisions[..., 0::2], decisions[..., 1::2]], dim=-1)
-    bits = by_index.reshape(B, T, NS // 32, 32).to(torch.int32)
-    weights = torch.tensor(_WORD_WEIGHTS, dtype=torch.int32,
-                           device=decisions.device)
-    return (bits * weights).sum(dim=-1, dtype=torch.int32)
+    if W * 32 != NS:
+        by_index = torch.nn.functional.pad(by_index, (0, W * 32 - NS))
+    return bits_to_words(by_index.reshape(B, T, W, 32))
+
+
+def bits_to_words(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 integers [..., 32] -> int32 words [...], bit j of a word from
+    bits[..., j], one bit position at a time so that no int32 copy of all
+    the bits is made."""
+    # Bit 31 weighs -2^31 in int32: the word's two's complement value.
+    words = bits[..., 31].to(torch.int32) * -(1 << 31)
+    for j in range(31):
+        words |= bits[..., j].to(torch.int32) << j
+    return words
 
 
 def unpack_decisions(spec: CodeSpec, words: torch.Tensor) -> torch.Tensor:
-    """int32 [B, T, NS/32] decision words -> uint8 [B, T, NS] decisions in
+    """int32 [B, T, W] decision words -> uint8 [B, T, NS] decisions in
     state order."""
     B, T, W = words.shape
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    by_index = ((words[..., None] >> shifts) & 1).reshape(B, T, W * 32)
-    half = W * 16
+    NS = spec.num_states
+    by_index = torch.empty((B, T, W, 32), dtype=torch.uint8,
+                           device=words.device)
+    for j in range(32):
+        by_index[..., j] = (words >> j) & 1
+    by_index = by_index.reshape(B, T, W * 32)[..., :NS]
+    half = NS // 2
     return torch.stack([by_index[..., :half], by_index[..., half:]],
-                       dim=-1).reshape(B, T, W * 32).to(torch.uint8)
+                       dim=-1).reshape(B, T, NS)
 
 
-def _check_kernel_spec(spec: CodeSpec) -> None:
-    if not kernel_supports(spec):
-        raise NotImplementedError(
-            f"no CUDA kernel decodes {spec}: the k=1 butterfly kernels take "
-            "poly-symmetric codes with 64 <= NS <= 256 and n <= 8; other "
-            "butterfly codes wait for ROADMAP.md queue 1 item 4 (TPU kernels "
-            "K11, K12), and the rest decode through kernels/generic.py")
+def _check_kernel_spec(spec: CodeSpec, mode: str = "hard") -> None:
+    if kernel_supports(spec, mode):
+        return
+    if not (spec.k == 1 and spec.has_poly_symmetry):
+        reason = ("the k=1 butterfly kernels take poly-symmetric codes; the "
+                  "rest decode through kernels/generic.py")
+    elif spec.num_states > MAX_STATES:
+        reason = (f"NS = {spec.num_states} > {MAX_STATES}: the wide forward "
+                  "keeps 2 x 4 x NS bytes of metrics in one block's shared "
+                  "memory (227 KB); more states are later work, ROADMAP.md "
+                  "queue 2")
+    else:
+        reason = (f"a hard segment holds n <= {MAX_HARD_N} coded bits; "
+                  f"n = {spec.n} decodes soft")
+    raise NotImplementedError(f"no CUDA kernel decodes {spec}: {reason}")
+
+
+def _forward_kernel(spec: CodeSpec, soft: bool) -> str:
+    """The forward kernel of `spec`'s size: the wide one at NS >= 512 (and
+    for soft n > 8), the small one at NS <= 32, else acs_k1."""
+    NS = spec.num_states
+    prefix = "acs_soft_" if soft else "acs_"
+    if NS >= WIDE_STATES or spec.n > MAX_HARD_N:
+        return prefix + "wide_forward"
+    if NS < 64:
+        return prefix + "small_forward"
+    return prefix + "k1_forward"
+
+
+def _walk_kernel(spec: CodeSpec, mode: str = "") -> str:
+    """The traceback kernel of `spec`'s size and walk mode ("", "_ragged",
+    "_masked" or "_multi"): the wide walk at NS >= 512."""
+    family = ("traceback_wide" if spec.num_states >= WIDE_STATES
+              else "traceback_k1")
+    return family + mode
+
+
+def _launch(name: str, *args) -> None:
+    """Launch kernel `name` with `args` (the stream last), count it, and
+    raise if it reported an error."""
+    from . import _build
+    code = getattr(_build.library(), name)(*args)
+    LAUNCHES[name] += 1
+    _build.check(name, code)
 
 
 def _check_device(t: torch.Tensor) -> bool:
@@ -131,7 +212,7 @@ def _check_words(spec: CodeSpec, decisions: torch.Tensor, out: str):
     if decisions.dtype != torch.int32 or decisions.dim() != 3:
         raise ValueError("decisions must be int32 [B, T, W]")
     B, T, W = decisions.shape
-    if W * 32 != spec.num_states:
+    if W != decision_words(spec):
         raise ValueError(f"{W} decision words per step do not match "
                          f"NS = {spec.num_states}")
     return B, T
@@ -150,8 +231,10 @@ def acs_forward_batch(spec: CodeSpec, segments: torch.Tensor,
                       initial_metrics: torch.Tensor | None = None):
     """Forward butterfly ACS of a batch of hard-decision packets.
 
-    Replaces the TPU kernel `acs_forward_batch_swar`
-    (convolutionalencdec_tpu/kernels/acs_swar.py:815, pallas_call :847).
+    Replaces the TPU kernels `acs_forward_batch_swar`
+    (convolutionalencdec_tpu/kernels/acs_swar.py:815, pallas_call :847),
+    acs_pallas's `acs_forward_batch` (:246, pallas_call :271; NS < 64) and
+    `acs_forward_batch_fused` (:976, pallas_call :1004) at NS >= 512.
 
     Args:
       segments: uint8 [B, T] hard n-bit segments, contiguous.
@@ -159,7 +242,7 @@ def acs_forward_batch(spec: CodeSpec, segments: torch.Tensor,
         state 0 and `init_metric_value(spec)` elsewhere).
 
     Returns:
-      (decisions int32 [B, T, NS/32] words, final_metrics int32 [B, NS] in
+      (decisions int32 [B, T, W] words, final_metrics int32 [B, NS] in
       natural state order).
     """
     if segments.dtype != torch.uint8 or segments.dim() != 2:
@@ -174,23 +257,19 @@ def acs_forward_batch(spec: CodeSpec, segments: torch.Tensor,
     segments = segments.contiguous()
     initial_metrics = _checked_initial_metrics(initial_metrics, B, NS,
                                                segments.device)
-    decisions = torch.empty((B, T, NS // 32), dtype=torch.int32,
+    decisions = torch.empty((B, T, decision_words(spec)), dtype=torch.int32,
                             device=segments.device)
     final_metrics = torch.empty((B, NS), dtype=torch.int32,
                                 device=segments.device)
     if B == 0:
         return decisions, final_metrics
-    from . import _build
-    lib = _build.library()
     cb = _butterfly_table(spec, segments.device)
-    code = lib.acs_k1_forward(
-        segments.data_ptr(), cb.data_ptr(),
-        None if initial_metrics is None else initial_metrics.data_ptr(),
-        decisions.data_ptr(), final_metrics.data_ptr(),
-        B, T, NS, spec.n, init_metric_value(spec),
-        torch.cuda.current_stream(segments.device).cuda_stream)
-    LAUNCHES["acs_k1_forward"] += 1
-    _build.check("acs_k1_forward", code)
+    _launch(_forward_kernel(spec, False),
+            segments.data_ptr(), cb.data_ptr(),
+            None if initial_metrics is None else initial_metrics.data_ptr(),
+            decisions.data_ptr(), final_metrics.data_ptr(),
+            B, T, NS, spec.n, init_metric_value(spec),
+            torch.cuda.current_stream(segments.device).cuda_stream)
     return decisions, final_metrics
 
 
@@ -210,10 +289,11 @@ def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
 
     Replaces the TPU kernel `traceback_batch_swar`
     (convolutionalencdec_tpu/kernels/acs_swar.py:863, pallas_call :877;
-    `msb_first=True` for bytes).
+    `msb_first=True` for bytes) and, at NS < 64, acs_pallas's
+    `traceback_batch` (:289, pallas_call :308).
 
     Args:
-      decisions: int32 [B, T, NS/32] words from `acs_forward_batch`.
+      decisions: int32 [B, T, W] words from `acs_forward_batch`.
       t_actual: steps of the packet (<= T); the walk starts at t_actual - 1.
       message_bits: decoded bits to keep, at most t_actual - S.
       out: "bytes" for uint8 [B, ceil(message_bits/8)] (MSb-first, trailing
@@ -225,7 +305,7 @@ def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
     if not 0 <= message_bits <= t_actual - spec.S:
         raise ValueError(f"message_bits = {message_bits} outside "
                          f"[0, t_actual - S = {t_actual - spec.S}]")
-    _check_kernel_spec(spec)
+    _check_kernel_spec(spec, "soft")  # any n: the walk reads decisions
     if not _check_device(decisions):
         return traceback_batch_plain(spec, decisions, t_actual, message_bits,
                                      out)
@@ -235,14 +315,10 @@ def traceback_batch(spec: CodeSpec, decisions: torch.Tensor, t_actual: int,
                          device=decisions.device)
     if B == 0:
         return result
-    from . import _build
-    lib = _build.library()
-    code = lib.traceback_k1(
-        decisions.data_ptr(), result.data_ptr(), B, T, t_actual,
-        spec.num_states, spec.S, message_bits, int(out == "bytes"),
-        torch.cuda.current_stream(decisions.device).cuda_stream)
-    LAUNCHES["traceback_k1"] += 1
-    _build.check("traceback_k1", code)
+    _launch(_walk_kernel(spec),
+            decisions.data_ptr(), result.data_ptr(), B, T, t_actual,
+            spec.num_states, spec.S, message_bits, int(out == "bytes"),
+            torch.cuda.current_stream(decisions.device).cuda_stream)
     return result
 
 
@@ -283,11 +359,14 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
     Replaces the TPU kernels `acs_forward_batch_swar_soft8`
     (convolutionalencdec_tpu/kernels/acs_swar.py:1352, pallas_call :1381)
     and `acs_forward_batch_swar_soft` (:1231, pallas_call :1262): int32
-    metrics make both of their field widths unnecessary.
+    metrics make both of their field widths unnecessary; and acs_pallas's
+    `acs_forward_batch_soft` (:465, pallas_call :489) at NS < 64 and
+    `acs_forward_batch_fused_soft` (:1109, pallas_call :1134) at
+    NS >= 512 or n > 8.
 
     Args:
-      qllrs: int8 [B, T, n] quantized LLRs, contiguous.  Each is used as
-        clamp(q, -qclip, qclip), which floors -128 at -127.
+      qllrs: int8 [B, T, n] quantized LLRs, contiguous, any n.  Each is
+        used as clamp(q, -qclip, qclip), which floors -128 at -127.
       qclip: the clip, 1..127 (qmax on the route of the 8-bit TPU kernel,
         127 elsewhere).
       initial_metrics: optional int32 [B, NS] starting metrics (default 0 at
@@ -297,7 +376,7 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
         decodes on the JAX package's 16-bit route.
 
     Returns:
-      (decisions int32 [B, T, NS/32] words, the layout of
+      (decisions int32 [B, T, W] words, the layout of
       `acs_forward_batch`; final_metrics int32 [B, NS], never renormalised).
     """
     if qllrs.dtype != torch.int8 or qllrs.dim() != 3 or qllrs.shape[2] != spec.n:
@@ -305,7 +384,7 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
     if not 1 <= qclip <= 127:
         raise ValueError(f"qclip = {qclip} outside [1, 127]")
     qlo = _qlo(qclip, floor)
-    _check_kernel_spec(spec)
+    _check_kernel_spec(spec, "soft")
     B, T, n = qllrs.shape
     if T * n * 128 + init_metric_value(spec) >= 2 ** 31:
         raise ValueError(f"T = {T} overflows int32 path metrics")
@@ -316,23 +395,19 @@ def acs_forward_batch_soft(spec: CodeSpec, qllrs: torch.Tensor, qclip: int,
     qllrs = qllrs.contiguous()
     initial_metrics = _checked_initial_metrics(initial_metrics, B, NS,
                                                qllrs.device)
-    decisions = torch.empty((B, T, NS // 32), dtype=torch.int32,
+    decisions = torch.empty((B, T, decision_words(spec)), dtype=torch.int32,
                             device=qllrs.device)
     final_metrics = torch.empty((B, NS), dtype=torch.int32,
                                 device=qllrs.device)
     if B == 0:
         return decisions, final_metrics
-    from . import _build
-    lib = _build.library()
     cb = _butterfly_table(spec, qllrs.device)
-    code = lib.acs_soft_k1_forward(
-        qllrs.data_ptr(), cb.data_ptr(),
-        None if initial_metrics is None else initial_metrics.data_ptr(),
-        decisions.data_ptr(), final_metrics.data_ptr(),
-        B, T, NS, n, qlo, qclip, init_metric_value(spec),
-        torch.cuda.current_stream(qllrs.device).cuda_stream)
-    LAUNCHES["acs_soft_k1_forward"] += 1
-    _build.check("acs_soft_k1_forward", code)
+    _launch(_forward_kernel(spec, True),
+            qllrs.data_ptr(), cb.data_ptr(),
+            None if initial_metrics is None else initial_metrics.data_ptr(),
+            decisions.data_ptr(), final_metrics.data_ptr(),
+            B, T, NS, n, qlo, qclip, init_metric_value(spec),
+            torch.cuda.current_stream(qllrs.device).cuda_stream)
     return decisions, final_metrics
 
 
@@ -360,7 +435,7 @@ def traceback_batch_ragged(spec: CodeSpec, decisions: torch.Tensor,
     the TPU kernel makes over the masked tail from step T - 1.
 
     Args:
-      decisions: int32 [B, T, NS/32] words.
+      decisions: int32 [B, T, W] words.
       lengths: int32 [B] valid steps t_b of each channel.
       message_bits_max: row width L in bits, at most T - S; channel b keeps
         its first min(max(t_b - S, 0), L) bits and the rest of its row is 0.
@@ -374,7 +449,7 @@ def traceback_batch_ragged(spec: CodeSpec, decisions: torch.Tensor,
     if not 0 <= message_bits_max <= T - spec.S:
         raise ValueError(f"message_bits_max = {message_bits_max} outside "
                          f"[0, T - S = {T - spec.S}]")
-    _check_kernel_spec(spec)
+    _check_kernel_spec(spec, "soft")  # any n: the walk reads decisions
     if not _check_device(decisions):
         return traceback_batch_ragged_plain(spec, decisions, lengths,
                                             message_bits_max, out)
@@ -385,14 +460,10 @@ def traceback_batch_ragged(spec: CodeSpec, decisions: torch.Tensor,
                          device=decisions.device)
     if B == 0:
         return result
-    from . import _build
-    lib = _build.library()
-    code = lib.traceback_k1_ragged(
-        decisions.data_ptr(), lengths.data_ptr(), result.data_ptr(), B, T,
-        spec.num_states, spec.S, message_bits_max, int(out == "bytes"),
-        torch.cuda.current_stream(decisions.device).cuda_stream)
-    LAUNCHES["traceback_k1_ragged"] += 1
-    _build.check("traceback_k1_ragged", code)
+    _launch(_walk_kernel(spec, "_ragged"),
+            decisions.data_ptr(), lengths.data_ptr(), result.data_ptr(), B, T,
+            spec.num_states, spec.S, message_bits_max, int(out == "bytes"),
+            torch.cuda.current_stream(decisions.device).cuda_stream)
     return result
 
 
@@ -426,7 +497,7 @@ def traceback_batch_masked(spec: CodeSpec, decisions: torch.Tensor,
     of the tail-biting and time-block decodes in the JAX package.
 
     Args:
-      decisions: int32 [B, T, NS/32] words.
+      decisions: int32 [B, T, W] words.
       start_states: int32 [B] states in [0, NS), on the decisions' device.
       live_steps: steps [0, live_steps) read their decisions; 0..T.
       out_steps: the bits of steps [0, out_steps) are returned; 0..T.  No
@@ -443,7 +514,7 @@ def traceback_batch_masked(spec: CodeSpec, decisions: torch.Tensor,
         raise ValueError(f"live_steps = {live_steps} outside [0, {T}]")
     if not 0 <= out_steps <= T:
         raise ValueError(f"out_steps = {out_steps} outside [0, {T}]")
-    _check_kernel_spec(spec)
+    _check_kernel_spec(spec, "soft")  # any n: the walk reads decisions
     if not _check_device(decisions):
         return traceback_batch_masked_plain(spec, decisions, start_states,
                                             live_steps, out_steps, out)
@@ -454,15 +525,11 @@ def traceback_batch_masked(spec: CodeSpec, decisions: torch.Tensor,
                          device=decisions.device)
     if B == 0:
         return result
-    from . import _build
-    lib = _build.library()
-    code = lib.traceback_k1_masked(
-        decisions.data_ptr(), start_states.data_ptr(), result.data_ptr(), B,
-        T, spec.num_states, spec.S, live_steps, out_steps,
-        int(out == "bytes"),
-        torch.cuda.current_stream(decisions.device).cuda_stream)
-    LAUNCHES["traceback_k1_masked"] += 1
-    _build.check("traceback_k1_masked", code)
+    _launch(_walk_kernel(spec, "_masked"),
+            decisions.data_ptr(), start_states.data_ptr(), result.data_ptr(),
+            B, T, spec.num_states, spec.S, live_steps, out_steps,
+            int(out == "bytes"),
+            torch.cuda.current_stream(decisions.device).cuda_stream)
     return result
 
 
@@ -503,7 +570,7 @@ def traceback_batch_multi(spec: CodeSpec, decisions: torch.Tensor,
     message, not the warm-up.
 
     Args:
-      decisions: int32 [B, T, NS/32] words.
+      decisions: int32 [B, T, W] words.
       start_states: int32 [B, NW] states in [0, NS), 1 <= NW <= NS, on the
         decisions' device.
       live_steps: steps [0, live_steps) read their decisions; 0..T.
@@ -527,7 +594,7 @@ def traceback_batch_multi(spec: CodeSpec, decisions: torch.Tensor,
             and out_start + out_steps <= T):
         raise ValueError(f"window [{out_start}, {out_start + out_steps}) "
                          f"outside [0, {T}]")
-    _check_kernel_spec(spec)
+    _check_kernel_spec(spec, "soft")  # any n: the walk reads decisions
     if not _check_device(decisions):
         return traceback_batch_multi_plain(spec, decisions, start_states,
                                            live_steps, out_start, out_steps,
@@ -539,13 +606,9 @@ def traceback_batch_multi(spec: CodeSpec, decisions: torch.Tensor,
                          device=decisions.device)
     if B == 0:
         return result
-    from . import _build
-    lib = _build.library()
-    code = lib.traceback_k1_multi(
-        decisions.data_ptr(), start_states.data_ptr(), result.data_ptr(), B,
-        T, spec.num_states, spec.S, NW, live_steps, out_start, out_steps,
-        int(out == "bytes"),
-        torch.cuda.current_stream(decisions.device).cuda_stream)
-    LAUNCHES["traceback_k1_multi"] += 1
-    _build.check("traceback_k1_multi", code)
+    _launch(_walk_kernel(spec, "_multi"),
+            decisions.data_ptr(), start_states.data_ptr(), result.data_ptr(),
+            B, T, spec.num_states, spec.S, NW, live_steps, out_start,
+            out_steps, int(out == "bytes"),
+            torch.cuda.current_stream(decisions.device).cuda_stream)
     return result

@@ -27,16 +27,20 @@ from ..ops.puncture import check_pattern_rows, depuncture_llrs
 from ..ops.viterbi import (init_metric_value, pad_and_pack, viterbi_decode,
                            viterbi_decode_ragged)
 from ..params import CodeSpec
-from .acs import (acs_forward_batch, acs_forward_batch_soft, condition_qllrs,
-                  kernel_supports, traceback_batch, traceback_batch_ragged)
+from .acs import (MAX_STATES, acs_forward_batch, acs_forward_batch_soft,
+                  condition_qllrs, kernel_supports, traceback_batch,
+                  traceback_batch_ragged)
 from .generic import (acs_forward_batch_generic, acs_forward_batch_k2,
                       generic_kernel_supports, k2_supported,
                       traceback_batch_generic, traceback_batch_k2)
 
-#: Route names of `select_kernel`.
-BUTTERFLY = "butterfly"  # hard: csrc/acs_k1.cu + csrc/traceback_k1.cu
-SOFT8 = "soft8"          # soft, LLRs clipped to +-qmax: csrc/acs_soft_k1.cu
-SOFT = "soft"            # soft, any int8 LLR: csrc/acs_soft_k1.cu
+#: Route names of `select_kernel`.  The butterfly routes launch the kernel
+#: of the code's size (kernels/acs.py): csrc/acs_small.cu at NS <= 32,
+#: csrc/acs_k1.cu / acs_soft_k1.cu at 64..256, csrc/acs_wide.cu at
+#: 512..16384, then csrc/traceback_k1.cu.
+BUTTERFLY = "butterfly"  # hard
+SOFT8 = "soft8"          # soft, LLRs clipped to +-qmax
+SOFT = "soft"            # soft, any int8 LLR (floored at -127)
 K2 = "k2"                # hard, k = 2 and NS = 64: csrc/acs_generic.cu <2, 64>
 GENERIC_K = "generic_k"  # hard, any other code: csrc/acs_generic.cu
 GENERIC = "generic"      # no CUDA kernel yet: plain decoder on a CPU tensor
@@ -84,22 +88,21 @@ def select_kernel(spec: CodeSpec, mode: str = "hard",
     """The route that decodes `spec` in `mode` ("hard" or "soft").
 
     BUTTERFLY (hard) and SOFT8 / SOFT (soft): k = 1 poly-symmetric codes
-    with 64 <= NS <= 256 and n <= 8 (NASA_K7, REF_K7, NASA_K7_R13,
-    LTE_TBCC_K7, K9_561_753) run the hand-written forward ACS and traceback
-    kernels.  SOFT8 is the route of the JAX package's 8-bit soft kernel
-    (`swar8_soft_supported(spec, qmax)`, qmax default DEFAULT_QMAX), whose
-    LLRs are clipped to +-qmax; SOFT takes any int8 LLR.  Hard decodes of
-    every other code take the JAX package's order: K2 (the generic kernels
-    at k = 2, NS = 64) first, then GENERIC_K (the generic kernels,
-    `generic_kernel_supports`: TOY_K3, rate-k/n codes).  GENERIC: the codes
-    left (k = 1 poly-symmetric codes with NS < 64, such as K5_23_35, or
-    NS > 256 or n > 8; soft decodes of non-butterfly codes) decode through
-    the plain decoder on a CPU tensor and raise on a CUDA tensor until their
-    kernels are ported.
+    with 2 <= NS <= 16384 (every preset; hard decodes need n <= 8) run the
+    hand-written forward ACS and traceback kernels.  SOFT8 is the route of
+    the JAX package's 8-bit soft kernel (`swar8_soft_supported(spec,
+    qmax)`, qmax default DEFAULT_QMAX), whose LLRs are clipped to +-qmax;
+    SOFT takes any int8 LLR.  Hard decodes of every other code take the JAX
+    package's order: K2 (the generic kernels at k = 2, NS = 64) first, then
+    GENERIC_K (the generic kernels, `generic_kernel_supports`: TOY_K3,
+    rate-k/n codes).  GENERIC: the codes left (butterfly codes with
+    NS > 16384, non-butterfly codes past the generic kernels' limits, soft
+    decodes of non-butterfly codes) decode through the plain decoder on a
+    CPU tensor and raise on a CUDA tensor.
     """
     if mode not in ("hard", "soft"):
         raise ValueError(f"mode must be 'hard' or 'soft', got {mode!r}")
-    if not kernel_supports(spec):
+    if not kernel_supports(spec, mode):
         if mode == "hard" and generic_kernel_supports(spec):
             return K2 if k2_supported(spec) else GENERIC_K
         return GENERIC
@@ -115,9 +118,9 @@ def _no_kernel(spec: CodeSpec, t: torch.Tensor) -> None:
     if t.device.type == "cpu":
         return
     if spec.k == 1 and spec.has_poly_symmetry:
-        which = ("small-NS instantiation (TPU kernel K12)"
-                 if spec.num_states < 64 else "wide instantiation (K11)")
-        reason = f"it waits for the butterfly kernels' {which}"
+        reason = (f"the butterfly kernels take NS <= {MAX_STATES} (their "
+                  "metrics live in one block's shared memory) and hard "
+                  "segments of n <= 8 bits")
     elif generic_kernel_supports(spec):
         # Only the ragged entries get here: the JAX package scans there
         # (acs_pallas.py:1721-1722).
@@ -126,8 +129,8 @@ def _no_kernel(spec: CodeSpec, t: torch.Tensor) -> None:
     else:
         reason = ("the generic-k kernels take NS <= 1024, k <= 8 and "
                   "n <= 8")
-    raise NotImplementedError(f"no CUDA kernel decodes {spec} here yet: "
-                              f"{reason} (ROADMAP.md queue 1 item 4)")
+    raise NotImplementedError(f"no CUDA kernel decodes {spec}: {reason} "
+                              "(later work, ROADMAP.md queue 2)")
 
 
 def _message_bits(spec: CodeSpec, T: int, message_bits: int | None) -> int:

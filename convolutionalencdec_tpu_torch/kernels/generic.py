@@ -46,7 +46,7 @@ from ..ops.trellis import edge_coded_bits
 from ..ops.viterbi import (hard_step_metrics, init_metric_value, pad_and_pack,
                            traceback_terminated, viterbi_forward)
 from ..params import CodeSpec
-from .acs import _WORD_WEIGHTS, _check_device
+from .acs import _check_device, bits_to_words
 
 #: Launches of each kernel since the count was last set to 0.
 LAUNCHES = {"acs_generic_forward": 0, "traceback_generic": 0,
@@ -88,8 +88,7 @@ def pack_decisions_generic(spec: CodeSpec,
     shifts = torch.arange(spec.k, dtype=torch.int32, device=d.device)
     bits = ((d[:, :, None, :] >> shifts[:, None]) & 1).reshape(
         B, T, spec.k, W, 32)
-    weights = torch.tensor(_WORD_WEIGHTS, dtype=torch.int32, device=d.device)
-    return (bits * weights).sum(dim=-1, dtype=torch.int32)
+    return bits_to_words(bits)
 
 
 def unpack_decisions_generic(spec: CodeSpec,
@@ -134,8 +133,8 @@ def _check_spec(spec: CodeSpec) -> None:
         raise NotImplementedError(
             f"the generic-k kernels do not decode {spec}: they take codes "
             f"other than k = 1 poly-symmetric butterflies, with NS <= "
-            f"{MAX_STATES}, k <= {MAX_K} and n <= 8 (butterfly codes without "
-            "a kernel wait for ROADMAP.md queue 1 item 4)")
+            f"{MAX_STATES}, k <= {MAX_K} and n <= 8 (butterfly codes decode "
+            "on the butterfly kernels, kernels/acs.py)")
 
 
 def _check_k2(spec: CodeSpec) -> None:

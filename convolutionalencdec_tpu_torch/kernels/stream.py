@@ -35,8 +35,7 @@ from ..ops.metrics import soft_step_metrics
 from ..ops.viterbi import (_initial_metrics, hard_metric_table,
                            stream_scan)
 from ..params import CodeSpec
-from .acs import (LAUNCHES, _butterfly_table, _check_device,
-                  _check_kernel_spec, condition_qllrs, kernel_supports)
+from .acs import LAUNCHES, _butterfly_table, _check_device, condition_qllrs
 
 #: Carried metrics stay below this: each call leaves them with minimum 0
 #: and a spread of at most max(init_metric_value, S n 127) < 2^14.  The
@@ -50,12 +49,20 @@ class StreamState(NamedTuple):
     registers: torch.Tensor  # int64 [B, NS], bit j = symbol j steps old
 
 
+def _stream_code(spec: CodeSpec) -> bool:
+    """The codes `stream_k1_decode` takes: k = 1 poly-symmetric,
+    64 <= NS <= 256, n <= 8 (acs_k1.cu's warp-per-channel instantiations)."""
+    return (spec.k == 1 and spec.has_poly_symmetry
+            and spec.num_states in (64, 128, 256) and spec.n <= 8)
+
+
 def stream_kernel_supports(spec: CodeSpec, traceback_len: int = 0) -> bool:
-    """Whether `stream_k1_decode` decodes this spec and window: the block
-    kernels' codes (k = 1 poly-symmetric, 64 <= NS <= 256, n <= 8) with
-    2 <= W <= 64."""
+    """Whether `stream_k1_decode` decodes this spec and window: k = 1
+    poly-symmetric, 64 <= NS <= 256, n <= 8, with 2 <= W <= 64.  The block
+    kernels take more codes (`kernels.acs.kernel_supports`); this kernel
+    does not yet (ROADMAP.md queue 2: K5 at NS >= 512)."""
     W = traceback_len or spec.traceback_len
-    return kernel_supports(spec) and 2 <= W <= 64
+    return _stream_code(spec) and 2 <= W <= 64
 
 
 def stream_state_init(spec: CodeSpec, batch: int,
@@ -141,7 +148,11 @@ def _launch(spec: CodeSpec, inputs: torch.Tensor, soft: bool,
             state: StreamState, W: int):
     B, T = inputs.shape[:2]
     NS = spec.num_states
-    _check_kernel_spec(spec)
+    if not _stream_code(spec):
+        raise NotImplementedError(
+            f"no CUDA kernel stream-decodes {spec}: stream_k1_decode takes "
+            "k = 1 poly-symmetric codes with 64 <= NS <= 256 and n <= 8 "
+            "(ROADMAP.md queue 2: K5 at NS >= 512)")
     if T * spec.n * (127 if soft else 1) + STATE_METRIC_BOUND >= 2 ** 31:
         raise ValueError(f"T = {T} overflows int32 path metrics")
     inputs = inputs.contiguous()

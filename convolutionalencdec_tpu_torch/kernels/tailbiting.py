@@ -7,8 +7,9 @@ own tail and head), the forward ACS runs from all-zero (uniform) metrics,
 and the traceback starts from the best end state with every step live:
 
   * the wrap decode: `acs_forward_batch` (K1) or `acs_forward_batch_soft`
-    (K3/K4's kernel) over [wl ++ packet ++ wr], the lowest state of least
-    final metric, `traceback_batch_masked` (K2m), the steps [wl, wl + T);
+    (K3/K4's kernel; the wide forward at NS >= 512, K11's) over
+    [wl ++ packet ++ wr], the lowest state of least final metric,
+    `traceback_batch_masked` (K2m), the steps [wl, wl + T);
   * the list decode: the same forward over [wl ++ packet], the `list_size`
     best end states by (final metric, state), all walked in one
     `traceback_batch_multi` (K6) launch that returns the message window;
@@ -22,10 +23,11 @@ changes the decoded bits, so equal wraps are what makes the outputs equal.
 
 Every entry point takes `device=None`: a tensor input keeps its device, any
 other input goes to `device` (default the card).  Codes the kernels take
-(`kernel_supports`) run the kernels on the card and their plain versions on
-a CPU tensor; other k = 1 poly-symmetric codes with NS >= 64 decode through
-the plain scans of `ops/tailbiting.py` on a CPU tensor and raise
-NotImplementedError on the card.
+(`kernel_supports`: NS <= 16384; hard decodes n <= 8) run the kernels of
+their size on the card and their plain versions on a CPU tensor; other
+k = 1 poly-symmetric codes with NS >= 64 decode through the plain scans of
+`ops/tailbiting.py` on a CPU tensor and raise NotImplementedError on the
+card.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ from ..ops.tailbiting import (check_list_size, circular_extend, default_wrap,
                               viterbi_decode_tailbiting_soft)
 from ..ops.viterbi import pad_and_pack
 from ..params import CodeSpec
-from .acs import (acs_forward_batch, acs_forward_batch_soft, condition_qllrs,
-                  kernel_supports, traceback_batch_masked,
+from .acs import (MAX_STATES, acs_forward_batch, acs_forward_batch_soft,
+                  condition_qllrs, kernel_supports, traceback_batch_masked,
                   traceback_batch_multi)
 from .decode import _as_qllrs, soft_qclip, swar_layout_supported
 
@@ -85,14 +87,15 @@ def _check_wrap_spec(spec: CodeSpec, mode: str) -> None:
 
 def _on_kernels(spec: CodeSpec, x: torch.Tensor) -> bool:
     """Whether `spec` runs the kernel route (their plain versions on a CPU
-    tensor); False means the plain scans, which only a CPU tensor takes."""
-    if kernel_supports(spec):
+    tensor) for `x`, hard segments [B, T] or LLRs [B, T, n]; False means
+    the plain scans, which only a CPU tensor takes."""
+    if kernel_supports(spec, "soft" if x.dim() == 3 else "hard"):
         return True
     if x.device.type != "cpu":
         raise NotImplementedError(
             f"no CUDA kernel decodes {spec} tail-biting: the k=1 butterfly "
-            "kernels take poly-symmetric codes with 64 <= NS <= 256 and "
-            "n <= 8")
+            f"kernels take poly-symmetric codes with NS <= {MAX_STATES} "
+            "(later work, ROADMAP.md queue 2)")
     return False
 
 

@@ -164,7 +164,8 @@ def symbols_to_bits(spec: CodeSpec, symbols: torch.Tensor) -> torch.Tensor:
     first."""
     bit_idx = torch.arange(spec.k - 1, -1, -1, device=symbols.device)
     bits = (symbols.long()[..., None] >> bit_idx) & 1
-    return bits.to(torch.uint8).reshape(symbols.shape[0], -1)
+    return bits.to(torch.uint8).reshape(symbols.shape[0],
+                                        symbols.shape[1] * spec.k)
 
 
 def traceback_terminated(spec: CodeSpec, decisions, num_pad: int = -1,

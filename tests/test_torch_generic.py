@@ -193,8 +193,8 @@ def test_edge_tables_split_every_edge_code(name):
 
 def test_select_kernel_generic_routes():
     """The JAX dispatch order: k = 2, NS = 64 to K2 first, then the generic
-    kernels; butterfly codes without a kernel and soft decodes of the rest
-    stay GENERIC."""
+    kernels; codes past both and soft decodes of the rest stay GENERIC;
+    butterfly codes, K5_23_35 included, ride the butterfly kernels."""
     assert kernels.select_kernel(_specs("K3k2")[1]) == kernels.GENERIC_K
     assert kernels.select_kernel(_specs("k2_NS64")[1]) == kernels.K2
     assert kernels.select_kernel(_specs("k2_NS64_pricing")[1]) == kernels.K2
@@ -204,7 +204,7 @@ def test_select_kernel_generic_routes():
         kernels.GENERIC_K
     assert kernels.select_kernel(port.CodeSpec(K=12, g=(0o4345, 0o3170))) \
         == kernels.GENERIC                         # NS = 2048
-    assert kernels.select_kernel(port.K5_23_35) == kernels.GENERIC
+    assert kernels.select_kernel(port.K5_23_35) == kernels.BUTTERFLY
     assert kernels.select_kernel(port.NASA_K7) == kernels.BUTTERFLY
     assert kernels.select_kernel(port.TOY_K3, "soft") == kernels.GENERIC
 
@@ -268,7 +268,7 @@ def test_wrappers_reject_bad_arguments():
         generic.traceback_batch_generic(spec, planes, 12, 8, out="words")
     with pytest.raises(ValueError, match="do not match"):
         generic.traceback_batch_generic(_specs("k2_NS256")[1], planes, 12, 8)
-    # Butterfly codes are the butterfly kernels' (or wait for theirs).
+    # Butterfly codes are the butterfly kernels'.
     for bfly in (port.NASA_K7, port.K5_23_35):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="butterfly kernels"):
             generic.acs_forward_batch_generic(bfly, seg)

@@ -29,6 +29,10 @@ from convolutionalencdec_tpu_torch.kernels import _build, acs, generic, stream
 KERNEL_PRESETS = ["NASA_K7", "REF_K7", "NASA_K7_R13", "LTE_TBCC_K7",
                   "K9_561_753"]
 K3K2 = dict(K=3, k=2, g=(0o17, 0o06, 0o13))
+# The widest code the kernels take (NS = 16384, the rate-1/4 code of the
+# Galileo experiment) and one past them (NS = 32768).
+K15 = port.CodeSpec(K=15, g=(0o46321, 0o51271, 0o63667, 0o70535))
+K16 = port.CodeSpec(K=16, g=(0o104723, 0o153545))
 
 
 def _specs(name):
@@ -147,7 +151,7 @@ def test_select_kernel_routes():
                 "NASA_K7_R13": kernels.BUTTERFLY,
                 "LTE_TBCC_K7": kernels.BUTTERFLY,
                 "K9_561_753": kernels.BUTTERFLY, "TOY_K3": kernels.GENERIC_K,
-                "K5_23_35": kernels.GENERIC}
+                "K5_23_35": kernels.BUTTERFLY}
     assert set(expected) == set(port.PRESETS)
     for name, route in expected.items():
         assert kernels.select_kernel(port.PRESETS[name]) == route, name
@@ -164,7 +168,13 @@ def test_select_kernel_routes():
     assert kernels.select_kernel(port.NASA_K7, mode="soft") == kernels.SOFT8
     assert kernels.select_kernel(port.NASA_K7, "soft", 31) == kernels.SOFT
     assert kernels.select_kernel(port.NASA_K7_R13, "soft", 7) == kernels.SOFT
-    assert kernels.select_kernel(port.K5_23_35, "soft") == kernels.GENERIC
+    assert kernels.select_kernel(port.K5_23_35, "soft") == kernels.SOFT
+    # Butterfly codes up to NS = 16384 ride the kernels (K=15 included);
+    # NS = 32768 (K=16) is past them, hard and soft.
+    assert kernels.select_kernel(K15) == kernels.BUTTERFLY
+    assert kernels.select_kernel(K15, "soft") == kernels.SOFT
+    assert kernels.select_kernel(K16) == kernels.GENERIC
+    assert kernels.select_kernel(K16, "soft") == kernels.GENERIC
     with pytest.raises(ValueError, match="mode"):
         kernels.select_kernel(port.NASA_K7, mode="list")
 
@@ -197,10 +207,25 @@ def test_cpu_tensors_launch_no_kernel():
     kernels.viterbi_decode_batch_k2(k2, seg)
     planes, _ = generic.acs_forward_batch_k2(k2, seg)
     generic.traceback_batch_k2(k2, planes, seg.shape[1], 40, "bits")
+    # The small and wide butterfly codes' wrappers and entries.
+    for spec, L in ((port.K5_23_35, 40), (K15, 4)):
+        _, coded = _noisy(spec, 2, L, 0.03, 31)
+        seg = torch.from_numpy(coded)
+        kernels.viterbi_decode_batch_bytes(spec, seg)
+        kernels.viterbi_decode_batch_soft(
+            spec, torch.ones(seg.shape + (spec.n,), dtype=torch.int8))
+        words, _ = acs.acs_forward_batch(spec, seg)
+        acs.traceback_batch_masked(spec, words,
+                                   torch.zeros(2, dtype=torch.int32), 4, 4)
     assert set(acs.LAUNCHES) == {"acs_k1_forward", "traceback_k1",
                                  "acs_soft_k1_forward", "traceback_k1_ragged",
                                  "stream_k1_decode", "traceback_k1_masked",
-                                 "traceback_k1_multi"}
+                                 "traceback_k1_multi", "acs_small_forward",
+                                 "acs_soft_small_forward", "acs_wide_forward",
+                                 "acs_soft_wide_forward", "traceback_wide",
+                                 "traceback_wide_ragged",
+                                 "traceback_wide_masked",
+                                 "traceback_wide_multi"}
     assert set(generic.LAUNCHES) == {"acs_generic_forward",
                                      "traceback_generic",
                                      "acs_generic_k2_forward",
@@ -220,10 +245,13 @@ def test_no_fallback_off_the_cpu():
         kernels.viterbi_decode_batch_bytes(port.CodeSpec(**K3K2), meta)
     with pytest.raises(ValueError, match="not supported"):
         kernels.viterbi_decode_batch_bytes(port.NASA_K7, meta)
-    # A butterfly code without a kernel waits for one.
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 4"):
-        kernels.viterbi_decode_batch(port.K5_23_35, meta)
+    # Small and wide butterfly codes reach their kernels' device check; a
+    # code past the kernels (NS = 32768) raises.
+    for spec in (port.K5_23_35, K15):
+        with pytest.raises(ValueError, match="not supported"):
+            kernels.viterbi_decode_batch(spec, meta)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        kernels.viterbi_decode_batch(K16, meta)
     with pytest.raises(NotImplementedError):
         acs.acs_forward_batch(port.TOY_K3,
                               torch.zeros((2, 40), dtype=torch.uint8))

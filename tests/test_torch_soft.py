@@ -30,6 +30,8 @@ from convolutionalencdec_tpu_torch.ops import metrics
 SCAN_SPECS = ["NASA_K7", "NASA_K7_R13", "LTE_TBCC_K7", "K9_561_753"]
 DRAWS = ["+-qmax", "int8", "+-1", "erasures"]
 K3K2 = dict(K=3, k=2, g=(0o17, 0o06, 0o13))
+# NS = 32768: past the butterfly kernels' 16384 states.
+K16 = port.CodeSpec(K=16, g=(0o104723, 0o153545))
 
 
 def _specs(name):
@@ -173,7 +175,8 @@ def test_soft_kernel_wrapper_rejects_bad_arguments():
         with pytest.raises(ValueError, match="qclip"):
             acs.acs_forward_batch_soft(spec, q, qclip)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acs.acs_forward_batch_soft(port.K5_23_35, q, 7)
+        acs.acs_forward_batch_soft(K16, torch.zeros((2, 20, 2),
+                                                    dtype=torch.int8), 7)
     # T * n * 127 + init_metric_value must stay below 2^31.
     huge = torch.zeros((0, 2 ** 31 // 254, 2), dtype=torch.int8)
     with pytest.raises(ValueError, match="overflows"):
@@ -308,5 +311,7 @@ def test_soft_cpu_tensors_launch_no_kernel_and_meta_raises():
     meta = torch.empty((2, 30, 2), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="not supported"):
         kernels.viterbi_decode_batch_soft(port.NASA_K7, meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not supported"):
         kernels.viterbi_decode_batch_soft(port.K5_23_35, meta)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.viterbi_decode_batch_soft(K16, meta)

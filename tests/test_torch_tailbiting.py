@@ -246,20 +246,26 @@ def test_kernel_list_routes_match_reference_scans(name):
 
 
 def test_generic_codes_take_the_plain_scans_on_the_cpu():
-    """A K=10 poly-symmetric code (NS = 512) is beyond the kernels: on a CPU
-    tensor it decodes through the scans at the kernel wraps, on any other
-    device it raises."""
+    """A K=10 poly-symmetric code (NS = 512) is on the kernels (the wide
+    forward and walk): on a CPU tensor their plain versions equal the scan
+    at the kernel wraps; on any other device the wrappers take it.  A K=16
+    code (NS = 32768) is beyond the kernels and raises there."""
     args = dict(K=10, g=(0o1167, 0o1545))
     ref_spec, spec = ref.CodeSpec(**args), port.CodeSpec(**args)
-    assert not acs.kernel_supports(spec)
+    assert acs.kernel_supports(spec)
     msgs, coded = _noisy(ref_spec, 2, 40, 0.02, seed=8)
     wraps = ktb.kernel_wraps(spec, 40)
     want = jax.vmap(lambda c: ref_tb.viterbi_decode_tailbiting(
         ref_spec, c, wraps))(coded)
     got = ktb.viterbi_decode_batch_tailbiting(spec, _t(coded))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="tail-biting"):
+    with pytest.raises(ValueError, match="not supported"):
         ktb.viterbi_decode_batch_tailbiting(spec, _t(coded).to("meta"))
+    k16 = port.CodeSpec(K=16, g=(0o104723, 0o153545))
+    assert not acs.kernel_supports(k16)
+    with pytest.raises(NotImplementedError, match="tail-biting"):
+        ktb.viterbi_decode_batch_tailbiting(
+            k16, torch.zeros((2, 40), dtype=torch.uint8, device="meta"))
 
 
 # ---------------------------------------------------------------------------

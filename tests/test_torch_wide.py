@@ -1,0 +1,326 @@
+"""The port's decodes of wide butterfly codes (NS = 512 ... 16384, K = 10
+... 15) and the JAX names of the fused kernels (TPU kernel K11) on the CPU,
+where each kernel wrapper takes its plain version (the CUDA kernels run
+only on the card, where chip_smoke.py holds them to these plain versions).
+
+Every entry the wide codes now reach on the card (block bits and bytes,
+soft, punctured, ragged, and the tail-biting wrap and list decodes) is held
+bit for bit against the JAX package's scans on noisy, garbage (tie-heavy)
+and -128 inputs; the K11 names' layouts (`init_chunk` 0 / -1 / 1, the
+`gmask` prefix rule) against the port's plain forward and traceback; and
+one chain of the JAX package's fused kernels (forward, then traceback) in
+interpret mode against the port's names.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import convolutionalencdec_tpu as ref
+from convolutionalencdec_tpu.kernels import acs_pallas as ref_acs
+from convolutionalencdec_tpu.kernels import tailbiting as ref_ktb
+from convolutionalencdec_tpu.ops import metrics as ref_metrics
+from convolutionalencdec_tpu.ops import puncture as ref_puncture
+from convolutionalencdec_tpu.ops import tailbiting as ref_tb
+from convolutionalencdec_tpu.ops import viterbi as ref_viterbi
+
+import convolutionalencdec_tpu_torch as port
+from convolutionalencdec_tpu_torch import kernels
+from convolutionalencdec_tpu_torch.kernels import acs, fused
+from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
+
+# K = 10 (NS = 512, the first wide size), 11, and 15 (NS = 16384, the
+# rate-1/4 code of the Galileo experiment, the widest the kernels take); a
+# rate-1/5 K=10 code (n >= 5: the JAX package floors -128 on its routes);
+# the n = 6, NS = 64 code of the interpreted fused-kernel chain.
+CODES = {
+    "K10": dict(K=10, g=(0o1167, 0o1545)),
+    "K11": dict(K=11, g=(0o2365, 0o3173)),
+    "K15": dict(K=15, g=(0o46321, 0o51271, 0o63667, 0o70535)),
+    "K10_n5": dict(K=10, g=(0o1167, 0o1545, 0o1337, 0o1071, 0o1423)),
+    "K7_n6": dict(K=7, g=(0o133, 0o171, 0o165, 0o117, 0o127, 0o155)),
+}
+B, L = 3, 50
+
+
+def _specs(name):
+    return ref.CodeSpec(**CODES[name]), port.CodeSpec(**CODES[name])
+
+
+def _segments(spec, kind, seed, B=B, L=L):
+    """uint8 segments [B, L + S]: encoded and hit at 8% by nonzero XOR
+    masks, or uniform garbage (tie-heavy)."""
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
+    coded = port.encode_bits(spec, torch.from_numpy(msgs))[0].numpy().copy()
+    if kind == "garbage":
+        return rng.integers(0, 1 << spec.n, coded.shape).astype(np.uint8)
+    hit = rng.random(coded.shape) < 0.08
+    return coded ^ (hit * rng.integers(1, 1 << spec.n, coded.shape)).astype(
+        np.uint8)
+
+
+def _llrs(spec, coded, kind, seed):
+    """int8 LLRs [B, T, n]: signs from the coded bits, magnitudes 1..7 with
+    6% flips and 5% erasures; or full int8 with -128."""
+    rng = np.random.default_rng(seed)
+    shape = coded.shape + (spec.n,)
+    if kind == "int8":
+        return rng.integers(-128, 128, shape).astype(np.int8)
+    planes = np.stack([(coded >> j) & 1 for j in range(spec.n)], -1)
+    q = (1 - 2 * planes.astype(np.int32)) * rng.integers(1, 8, shape)
+    q = np.where(rng.random(shape) < 0.06, -q, q)
+    return np.where(rng.random(shape) < 0.05, 0, q).astype(np.int8)
+
+
+def _floored(q):
+    return np.maximum(q.astype(np.int32), -127)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("kind", ["noisy", "garbage"])
+@pytest.mark.parametrize("name", ["K10", "K11", "K15"])
+def test_hard_entries_match_vmapped_scan(name, kind):
+    ref_spec, spec = _specs(name)
+    assert kernels.select_kernel(spec) == kernels.BUTTERFLY
+    coded = _segments(spec, kind, 3)
+    want = np.asarray(jax.vmap(lambda c: ref.viterbi_decode(ref_spec, c))(
+        coded))
+    seg = _t(coded)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch(spec, seg).numpy(), want)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_bytes(spec, seg, L - 3).numpy(),
+        np.packbits(want[:, :L - 3], axis=1))
+
+
+@pytest.mark.parametrize("kind", ["noisy", "int8"])
+@pytest.mark.parametrize("name", ["K10", "K15", "K10_n5"])
+def test_soft_entries_match_vmapped_scan(name, kind):
+    """The block routes floor -128 at -127 and, the 8-bit rule failing,
+    clip nothing else."""
+    ref_spec, spec = _specs(name)
+    assert kernels.select_kernel(spec, "soft") == kernels.SOFT
+    q = _llrs(spec, _segments(spec, "noisy", 5), kind, 6)
+    want = np.asarray(jax.vmap(
+        lambda x: ref.viterbi_decode_soft(ref_spec, x))(_floored(q)))
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_soft(spec, _t(q)).numpy(), want)
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_soft_bytes(spec, _t(q)).numpy(),
+        np.packbits(want, axis=1))
+
+
+def test_punctured_and_ragged_entries_match_reference():
+    ref_spec, spec = _specs("K11")
+    coded = _segments(spec, "noisy", 7)
+    T = coded.shape[1]
+    pattern = port.ops.puncture.PUNCTURE_2_3
+    q = _llrs(spec, coded, "int8", 8).reshape(B, T * spec.n)
+    q_rx = np.array(ref_puncture.puncture_bits(q, pattern, T))
+    full = np.asarray(ref_puncture.depuncture_llrs(q_rx, pattern, T))
+    want = np.asarray(jax.vmap(lambda x: ref.viterbi_decode_soft(
+        ref_spec, x))(_floored(full).reshape(B, T, spec.n)))
+    got = kernels.viterbi_decode_batch_punctured_soft(spec, _t(q_rx),
+                                                      pattern, T)
+    np.testing.assert_array_equal(got.numpy(), want)
+    lens = np.array([spec.S + 1, 17, T], np.int32)
+    want = np.asarray(ref_viterbi.viterbi_decode_ragged(ref_spec, coded,
+                                                        lens))
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_bytes_ragged(spec, _t(coded),
+                                                  _t(lens)).numpy(),
+        np.packbits(want, axis=1))
+    q = _llrs(spec, coded, "int8", 9)
+    want = np.asarray(ref_metrics.viterbi_decode_ragged_soft(
+        ref_spec, np.maximum(q, -127), lens))
+    np.testing.assert_array_equal(
+        kernels.viterbi_decode_batch_soft_bytes_ragged(spec, _t(q),
+                                                       _t(lens)).numpy(),
+        np.packbits(want, axis=1))
+
+
+def _tailbiting(ref_spec, spec, seed, T=40):
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (B, T), dtype=np.uint8)
+    coded = np.asarray(ref_tb.encode_tailbiting(ref_spec, msgs)).copy()
+    hit = rng.random(coded.shape) < 0.05
+    return coded ^ (hit * rng.integers(1, 1 << spec.n, coded.shape)).astype(
+        np.uint8)
+
+
+@pytest.mark.parametrize("name", ["K10", "K10_n5"])
+def test_tailbiting_wrap_matches_reference_scans(name):
+    """The wrap decode, hard and soft, at the kernel wraps.  -128 follows
+    the JAX route: kept for n <= 4 (its 16-bit SWAR route), floored for
+    n >= 5 (its fused int32 kernel)."""
+    ref_spec, spec = _specs(name)
+    coded = _tailbiting(ref_spec, spec, 11)
+    wraps = ktb.kernel_wraps(spec, 40)
+    assert wraps == ref_ktb.kernel_wraps(ref_spec, 40)
+    want = np.asarray(jax.vmap(lambda c: ref_tb.viterbi_decode_tailbiting(
+        ref_spec, c, wraps))(coded))
+    np.testing.assert_array_equal(
+        ktb.viterbi_decode_batch_tailbiting(spec, _t(coded)).numpy(), want)
+    q = _llrs(spec, coded, "int8", 12)
+    keeps = spec.n <= 4
+    assert kernels.swar_layout_supported(spec) == keeps
+    used = q.astype(np.int32) if keeps else _floored(q)
+    want = np.asarray(jax.vmap(lambda x: ref_tb.viterbi_decode_tailbiting_soft(
+        ref_spec, x, wraps))(used))
+    got = ktb.viterbi_decode_batch_tailbiting_soft_bytes(spec, _t(q),
+                                                         qmax=127)
+    np.testing.assert_array_equal(got.numpy(), np.packbits(want, axis=1))
+
+
+def test_tailbiting_list_matches_reference_scans():
+    ref_spec, spec = _specs("K11")
+    coded = _tailbiting(ref_spec, spec, 13, T=48)
+    wl = ktb.list_wrap(spec, 48)
+    got_b, got_m = ktb.viterbi_decode_batch_tailbiting_list(spec, _t(coded),
+                                                            4)
+    want_b, want_m = jax.vmap(lambda c: ref_tb.viterbi_decode_tailbiting_list(
+        ref_spec, c, 4, wl))(coded)
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    want_m = np.asarray(want_m)
+    np.testing.assert_array_equal(got_m.numpy(), want_m - want_m[:, :1])
+    q = _llrs(spec, coded, "noisy", 14)
+    got_b, _ = ktb.viterbi_decode_batch_tailbiting_list_soft(spec, _t(q), 3)
+    want_b, _ = jax.vmap(lambda x: ref_tb.viterbi_decode_tailbiting_list_soft(
+        ref_spec, x, 3, wl))(q.astype(np.int32))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+
+
+def test_wide_layout_round_trip():
+    """W = NS/32 = 512 words per step at NS = 16384: bit p * NS/2 + b of
+    the step's words for state 2b + p; unpack inverts pack."""
+    _, spec = _specs("K15")
+    NS = spec.num_states
+    assert acs.decision_words(spec) == 512
+    dec = torch.from_numpy(np.random.default_rng(15).integers(
+        0, 2, (2, 3, NS), dtype=np.uint8))
+    words = acs.pack_decisions(spec, dec)
+    assert words.shape == (2, 3, 512) and words.dtype == torch.int32
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    for s in (0, 1, 2, 3, 8191, 8192, NS - 2, NS - 1):
+        i = (s >> 1) + (s & 1) * NS // 2
+        assert torch.equal((w[..., i // 32] >> (i % 32)) & 1,
+                           dec[..., s].to(torch.int64)), s
+    assert torch.equal(acs.unpack_decisions(spec, words), dec)
+
+
+def test_routes_of_wide_and_past_codes():
+    for name in ("K10", "K11", "K15"):
+        spec = _specs(name)[1]
+        assert acs.kernel_supports(spec) and acs.kernel_supports(spec, "soft")
+        assert acs._forward_kernel(spec, False) == "acs_wide_forward"
+        assert acs._walk_kernel(spec, "_multi") == "traceback_wide_multi"
+    # n = 9: soft on the wide forward's runtime-n instantiation at any NS;
+    # no hard segment holds it.
+    n9 = port.CodeSpec(K=7, g=(0o133, 0o171, 0o165, 0o117, 0o127, 0o155,
+                               0o133, 0o171, 0o165))
+    assert kernels.select_kernel(n9, "soft") == kernels.SOFT
+    assert kernels.select_kernel(n9) == kernels.GENERIC
+    assert acs._forward_kernel(n9, True) == "acs_soft_wide_forward"
+    assert acs._forward_kernel(port.NASA_K7, True) == "acs_soft_k1_forward"
+    assert acs._forward_kernel(port.K5_23_35, False) == "acs_small_forward"
+    k16 = port.CodeSpec(K=16, g=(0o104723, 0o153545))
+    assert not acs.kernel_supports(k16, "soft")
+    with pytest.raises(NotImplementedError, match="16384"):
+        acs.acs_forward_batch(k16, torch.zeros((1, 20), dtype=torch.uint8))
+
+
+def test_fused_names_init_chunk():
+    """0: the standard start; -1: uniform; 1: uniform, the standard metrics
+    applied at step 48.  Final metrics less each channel's minimum."""
+    _, spec = _specs("K10")
+    seg = _t(_segments(spec, "noisy", 21, L=96 - spec.S))
+    zero = torch.zeros((B, spec.num_states), dtype=torch.int32)
+
+    def rel(m):
+        return m - m.min(dim=1, keepdim=True).values
+
+    words, fm = fused.acs_forward_batch_fused(spec, seg)
+    want_w, want_m = acs.acs_forward_batch_plain(spec, seg)
+    assert torch.equal(words, want_w) and torch.equal(fm, rel(want_m))
+    assert int(fm.min(dim=1).values.abs().sum()) == 0
+    words, fm = fused.acs_forward_batch_fused(spec, seg, -1)
+    want_w, want_m = acs.acs_forward_batch_plain(spec, seg, zero)
+    assert torch.equal(words, want_w) and torch.equal(fm, rel(want_m))
+    words, fm = fused.acs_forward_batch_fused(spec, seg, 1)
+    head, _ = acs.acs_forward_batch_plain(spec, seg[:, :48], zero)
+    tail, tail_m = acs.acs_forward_batch_plain(spec, seg[:, 48:].contiguous())
+    assert torch.equal(words, torch.cat([head, tail], dim=1))
+    assert torch.equal(fm, rel(tail_m))
+    q = _t(_llrs(spec, seg.numpy(), "int8", 22))
+    words, fm = fused.acs_forward_batch_fused_soft(spec, q, 1)
+    head, _ = acs.acs_forward_batch_soft_plain(spec, q[:, :48], 127, zero)
+    tail, tail_m = acs.acs_forward_batch_soft_plain(
+        spec, q[:, 48:].contiguous(), 127)
+    assert torch.equal(words, torch.cat([head, tail], dim=1))
+    assert torch.equal(fm, rel(tail_m))
+
+
+def test_fused_tracebacks_and_gmask_rule():
+    _, spec = _specs("K11")
+    T = 64
+    seg = _t(_segments(spec, "noisy", 31, L=T - 4 - spec.S))
+    seg = torch.cat([seg, torch.zeros((B, 4), dtype=torch.uint8)], dim=1)
+    t_actual = T - 4
+    words, _ = fused.acs_forward_batch_fused(spec, seg)
+    rows = fused.traceback_batch_fused(spec, words, t_actual)
+    assert rows.shape == (T // 8, B) and rows.dtype == torch.uint8
+    bits = np.zeros((B, T), np.uint8)
+    bits[:, :t_actual - spec.S] = kernels.viterbi_decode_batch(
+        spec, seg[:, :t_actual]).numpy()
+    np.testing.assert_array_equal(
+        rows.numpy(), np.packbits(bits, axis=1, bitorder="little").T)
+    # The masked form: gmask a live prefix, a one-hot start per channel.
+    gm = np.zeros((T // 8, 1), np.int32)
+    gm[:5] = 0xFF
+    gm[5] = 0b111
+    assert fused.live_prefix(gm, T // 8) == 43
+    assert fused.live_prefix(np.full((T // 8, 1), 0xFF), T // 8) == T
+    starts = torch.tensor([0, 5, spec.num_states - 1], dtype=torch.int32)
+    h = torch.zeros((spec.num_states, B), dtype=torch.uint8)
+    h[starts.long(), torch.arange(B)] = 1
+    rows = fused.traceback_batch_fused_masked(spec, words, gm, h)
+    want = acs.traceback_batch_masked_plain(spec, words, starts, 43, T)
+    np.testing.assert_array_equal(
+        rows.numpy(), np.packbits(want.numpy(), axis=1, bitorder="little").T)
+    for bad in ([0xFF, 0x0F, 0xFF], [0x7F, 0xFF], [0x05], [0xFF, 0x1FF],
+                [0xFF, 0xFF, 0x80]):
+        mask = np.zeros((T // 8, 1), np.int32)
+        mask[:len(bad), 0] = bad
+        with pytest.raises(ValueError, match="gmask"):
+            fused.traceback_batch_fused_masked(spec, words, mask, h)
+    with pytest.raises(ValueError, match="gmask"):
+        fused.traceback_batch_fused_masked(spec, words, gm[:-1], h)
+    with pytest.raises(ValueError, match="one-hot"):
+        fused.traceback_batch_fused_masked(spec, words, gm, h * 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused.traceback_batch_fused(spec, words[:, :60], 50)
+    with pytest.raises(ValueError, match=">= 64 states"):
+        fused.acs_forward_batch_fused(port.K5_23_35, seg)
+
+
+def test_interpreted_fused_kernel_chain_matches():
+    """One chain of the JAX package's fused kernels (K11) in interpret
+    mode, on an n = 6, NS = 64 code (the JAX package sends n > 4 to them):
+    `acs_forward_batch_fused` then `traceback_batch_fused`, against the
+    port's names bit for bit (final metrics transposed)."""
+    ref_spec, spec = _specs("K7_n6")
+    Bp = ref_acs.B_TILE
+    seg = _segments(spec, "noisy", 41, B=Bp, L=40)          # T = 46
+    seg = np.concatenate([seg, np.zeros((Bp, 2), np.uint8)], axis=1)
+    decs, fm = ref_acs.acs_forward_batch_fused(ref_spec, seg, True)
+    rows = np.asarray(ref_acs.traceback_batch_fused(ref_spec, decs, 46, True))
+    words, got_fm = fused.acs_forward_batch_fused(spec, _t(seg))
+    np.testing.assert_array_equal(got_fm.numpy(), np.asarray(fm).T)
+    np.testing.assert_array_equal(
+        fused.traceback_batch_fused(spec, words, 46).numpy(), rows)
