@@ -131,7 +131,28 @@ Phases (any failure exits non-zero and prints no result line):
      `traceback_batch_fused_masked`), ragged hard bytes and the tail-biting
      list decode of 64 packets; each equal to its plain route on 64 rows
      (the list on 8), launches of every wide kernel > 0; times of each
-     kernel and decode at (k) (20 calls) and (l) (5 calls).
+     kernel and decode at (k) (20 calls) and (l) (5 calls);
+ 19. the single-pass block decode (`block_decode_1p`, csrc/block_1p.cu)
+     against its plain version on the card: random poly-symmetric codes at
+     NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
+     NS = 512, 1024, 4096 (n = 5..8) at their longest single-pass T and at
+     T = 1, S, S + 1; noisy and garbage segments, four LLR draws, bits and
+     bytes; B = 1, 0; each case on the SINGLE_PASS route, each launch
+     counted;
+ 20. single-pass main path (m): the rate-1/6 K = 7 code at bench.py's
+     working set (3% segment corruption; AWGN at 3 dB, qmax 7) through
+     `viterbi_decode_batch_bytes`, `viterbi_decode_batch` and
+     `viterbi_decode_batch_soft_bytes`; each equal to its plain route on
+     the card, K13 launched and K1/K4/K2 not; hard BER < 2e-3, the hard
+     decisions of the 3 dB channel below the union bound (60 distances),
+     soft below them; times of each decode and of K13 alone, hard and
+     soft, and of K13 on (a)'s input (equal to (a)'s bytes) in turns with
+     (a)'s two-pass decode;
+ 21. harness path (n): `run_curve` of that code at 0..3 dB (2048 packets,
+     K13 in every hard and soft call) beside `bound_curve` (40 distances);
+     berTestK7's acceptance run (`run_reference_ber_test`, NASA_K7, 65,536
+     packets a point) within its 10% gate at all three points; one
+     `bench_decode` tick; `kernel_traffic` at (a) and (m).
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -176,7 +197,8 @@ KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
            "acs_small_forward", "acs_soft_small_forward", "traceback_k1 w1",
            "traceback_k1_ragged w1", "acs_wide_forward",
            "acs_soft_wide_forward", "traceback_wide", "traceback_wide_ragged",
-           "traceback_wide_masked", "traceback_wide_multi")
+           "traceback_wide_masked", "traceback_wide_multi",
+           "block_decode_1p")
 # Rows of the kernels line that are one-word (NS <= 32) instantiations of
 # a walk: their launches are the walk's at (k), whose code has 16 states;
 # the walk's own row counts the other paths.
@@ -256,6 +278,9 @@ SOURCES = {
     "traceback_wide_multi": (
         "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:655 at NS >= 512"),
+    "block_decode_1p": (
+        "convolutionalencdec_tpu_torch/csrc/block_1p.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:2174"),
 }
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
@@ -367,6 +392,33 @@ WIDE_TIMED_CALLS = 5
 # The wrappers the K11 names call.
 FUSED_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
                   "traceback_batch_masked")
+# The single-pass block decode (TPU kernel K13, csrc/block_1p.cu): the
+# comparison phase's state counts (n = 5..8 hard and soft, soft n = 9 too,
+# at 64..256; n = 5..8 at 512..4096, at their longest single-pass T and at
+# T = 1, S, S + 1) and the main path (m): the rate-1/6 K = 7 code (NS = 64,
+# n = 6: the JAX package sends its block decodes to K13) at bench.py's
+# working set, 16.5 KB of decisions per channel.  Its gates: the hard
+# decode of the 3% segment channel below BER_LIMIT (bench.py's gate: the
+# segment channel's flips are not independent bits, so no union bound
+# covers it); the hard decisions of the 3 dB AWGN channel (a memoryless
+# BSC of crossover Q(sqrt(2 R Eb/N0)), the union bound's own model) below
+# the union bound summed over the first SP_GATE_DMAX distances (d_free is
+# 30; a partial sum of positive terms, so stricter than the whole bound:
+# the first 40 sum to 4.6e-3, below the 6.7e-3 a CPU run of the plain
+# decoder measures there, the first 60 to 2.4e-2); the soft decode of the
+# same values below that hard one.  The curve (n) prints bound_curve's
+# 40-distance bounds beside each point.
+SP_MID_NS = (64, 128, 256)
+SP_WIDE_NS = (512, 1024, 4096)
+SP_MAIN = dict(K=7, g=(0o133, 0o171, 0o165, 0o117, 0o127, 0o155))
+SP_MAIN_N = len(SP_MAIN["g"])
+SP_DMAX = 40
+SP_GATE_DMAX = 60
+# (n): the curve's points and size, and berTestK7's acceptance run: 2x the
+# 30k packets the -3 dB point needs (RESULTS.md:12-21) at every point.
+CURVE_POINTS = (0.0, 1.0, 2.0, 3.0)
+CURVE_PACKETS = 2048
+BER_TEST_PACKETS = 65536
 # The card's peaks for the bound (H100 SXM; NVIDIA's data sheet and Hopper
 # white paper): 3.35 TB/s of HBM, and int32 at 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost = 16.7 T operations/s.
@@ -464,9 +516,10 @@ def time_once(fn):
 
 def launch_counters(acs):
     """Every kernel wrapper module's launch counts."""
-    from convolutionalencdec_tpu_torch.kernels import generic, maxlogmap, turbo
+    from convolutionalencdec_tpu_torch.kernels import (generic, maxlogmap,
+                                                       single_pass, turbo)
     return (acs.LAUNCHES, maxlogmap.LAUNCHES, turbo.LAUNCHES,
-            generic.LAUNCHES)
+            generic.LAUNCHES, single_pass.LAUNCHES)
 
 
 def drive(acs, fn):
@@ -2643,6 +2696,317 @@ def butterfly_times(fec, acs, small_in, wide_in):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The single-pass block decode: TPU kernel K13 on csrc/block_1p.cu, the
+# main path (m) and the harness path (n).
+
+
+def compare_single_pass(fec, sp, spec, x, soft, err, T=None):
+    """`block_decode_1p` against its plain version on the card at T steps
+    (default all of x's): bits, and the MSb-first bytes of a cut message
+    (the plain version packs its bits, so one plain run serves both); the
+    route says SINGLE_PASS wherever `use_single_pass` holds, and each
+    launch counts.  Returns the plain version's bits."""
+    import torch
+    T = x.shape[1] if T is None else T
+    B = x.shape[0]
+    mode = "soft" if soft else "hard"
+    if sp.use_single_pass(spec, T):
+        require(fec.select_kernel(spec, mode, T=T) == fec.kernels.SINGLE_PASS,
+                f"{spec} {mode} T={T} on the SINGLE_PASS route")
+    full = max(T - spec.S, 0)
+    cut = cut_bits(full)
+    want = sp.block_decode_1p_plain(spec, x, T, soft)
+    for out, L, expect in (("bits", full, want), ("bytes", cut,
+                           fec.ops.viterbi.pad_and_pack(want[:, :cut]))):
+        before = sp.LAUNCHES["block_decode_1p"]
+        got = sp.block_decode_1p(spec, x, T, soft, out, L)
+        torch.cuda.synchronize()
+        require(sp.LAUNCHES["block_decode_1p"] == before + (B > 0),
+                f"{spec} {mode} T={T} B={B}: one launch counted")
+        require(torch.equal(got, expect), f"{spec} {mode} T={T} B={B} {out} "
+                "equal to the plain version")
+        err["block_decode_1p"] = max(err["block_decode_1p"],
+                                     max_abs_diff(got, expect))
+    return want
+
+
+def phase_compare_single_pass(fec, dev, err):
+    """K13 against its plain version on the card: random poly-symmetric
+    codes at NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
+    NS = 512, 1024, 4096 (n = 5..8) at their longest single-pass T and at
+    T = 1, S, S + 1; noisy and garbage segments, four LLR draws; B = 1, 0;
+    each decode entry on those inputs equal to the plain version."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import single_pass as sp
+    rng = np.random.default_rng(2041)
+
+    def segments(spec, B, T, kind):
+        msgs = rng.integers(0, 2, (B, max(T - spec.S, 0)), dtype=np.uint8)
+        coded = encode_reference_np(spec, msgs)[:, :T]
+        if kind == "garbage":
+            coded = rng.integers(0, 1 << spec.n, coded.shape).astype(np.uint8)
+        else:
+            coded = corrupt(rng, coded, NOISE[0], spec.n)
+        return torch.from_numpy(np.ascontiguousarray(coded)).to(dev)
+
+    labels = list(soft_draws(rng, (1, 1, 1)))
+
+    def llrs(spec, B, T, i):
+        draw = soft_draws(rng, (B, T, spec.n))[labels[i % len(labels)]]
+        return torch.from_numpy(draw.astype(np.int8)).to(dev)
+
+    cases = [(NS, n) for NS in SP_MID_NS for n in range(5, 10)]
+    cases += [(NS, n) for NS in SP_WIDE_NS for n in range(5, 9)]
+    for i, (NS, n) in enumerate(cases):
+        spec = bfly_spec(fec, rng, NS, n)
+        top = 32768 * 8 // NS // 48 * 48
+        lengths = ((SMALL_L + spec.S,) if NS < 512
+                   else (top, 1, spec.S, spec.S + 1))
+        for T in lengths:
+            if n <= 8:
+                kind = ("noisy", "garbage")[i % 2]
+                seg = segments(spec, SMALL_B, T, kind)
+                want = compare_single_pass(fec, sp, spec, seg, False, err)
+                if T > spec.S:
+                    require(torch.equal(fec.viterbi_decode_batch(spec, seg),
+                                        want),
+                            f"{spec} viterbi_decode_batch T={T}")
+            q = llrs(spec, SMALL_B, T, i)
+            want = compare_single_pass(fec, sp, spec, q, True, err)
+            if T > spec.S:
+                require(torch.equal(fec.viterbi_decode_batch_soft_bytes(
+                    spec, q), fec.ops.viterbi.pad_and_pack(want)),
+                    f"{spec} viterbi_decode_batch_soft_bytes T={T}")
+        print(f"[compare] K13 NS={NS:5d} n={n} {str(spec.g):42s} B={SMALL_B} "
+              f"T={lengths}: {'hard and ' if n <= 8 else ''}soft bits and "
+              "bytes equal, routes SINGLE_PASS")
+    # Edge batches, and one input padded past t_actual.
+    for NS in (64, 512):
+        spec = bfly_spec(fec, rng, NS, 6)
+        for B in (1, 0):
+            compare_single_pass(fec, sp, spec, segments(spec, B, 40, "noisy"),
+                                False, err)
+            compare_single_pass(fec, sp, spec, llrs(spec, B, 40, 1), True,
+                                err)
+        seg = segments(spec, 3, 48, "noisy")
+        compare_single_pass(fec, sp, spec, seg, False, err, T=45)
+        print(f"[compare] K13 NS={NS:5d} edges: B = 1, 0; T = 45 of 48 "
+              "columns: equal")
+
+
+def phase_single_pass(fec, acs, dev, err):
+    """(m): SP_MAIN at bench.py's working set through
+    `viterbi_decode_batch_bytes`, `viterbi_decode_batch` (3% segment
+    corruption) and `viterbi_decode_batch_soft_bytes` (AWGN at 3 dB, qmax
+    7), each equal to its plain route on the card; K13 launched and K1/K2
+    not; the BER gates.  Returns (inputs for timing, launches by path,
+    plain ms, summary)."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.harness import bounds as hb
+    from convolutionalencdec_tpu_torch.kernels import single_pass as sp
+    from convolutionalencdec_tpu_torch.ops.viterbi import viterbi_decode_bytes
+    spec = fec.CodeSpec(**SP_MAIN)
+    rng = np.random.default_rng(MAIN_SEED)
+    msgs = rng.integers(0, 2, (MAIN_B, MAIN_L), dtype=np.uint8)
+    seg, _ = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))
+    require(np.array_equal(seg.cpu().numpy(), encode_reference_np(spec, msgs)),
+            "(m) encode on the card equals the trellis walk")
+    seg = torch.from_numpy(
+        corrupt(rng, seg.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    T = seg.shape[1]
+    require(fec.select_kernel(spec, T=T) == fec.kernels.SINGLE_PASS
+            and fec.select_kernel(spec, "soft", QMAX, T) ==
+            fec.kernels.SINGLE_PASS, "(m) hard and soft on SINGLE_PASS")
+    launches, plain_ms = {}, {}
+
+    out, launches["single pass hard"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_bytes(spec, seg))
+    want, plain_ms["single pass hard"] = time_once(
+        lambda: viterbi_decode_bytes(spec, seg))
+    require(torch.equal(out, want), "(m) hard bytes equal to the plain "
+            "decode on the card")
+    bits, launches["single pass bits"] = drive(
+        acs, lambda: fec.viterbi_decode_batch(spec, seg))
+    want_bits, plain_ms["block_decode_1p"] = time_once(
+        lambda: sp.block_decode_1p_plain(spec, seg, T, False))
+    require(torch.equal(bits, want_bits)
+            and torch.equal(fec.ops.viterbi.pad_and_pack(bits), out),
+            "(m) hard bits equal to the plain version and to the bytes")
+    err["block_decode_1p"] = max(err["block_decode_1p"],
+                                 max_abs_diff(out, want),
+                                 max_abs_diff(bits, want_bits))
+    hard_ber = ber_of_bytes(out, msgs)
+    require(hard_ber < BER_LIMIT, f"(m) hard BER {hard_ber} < {BER_LIMIT}")
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
+    _, llr = soft_channel(fec, spec, torch.from_numpy(msgs).to(dev), gen,
+                          spec.rate)
+    q = fec.quantize_llrs(llr, qmax=QMAX).reshape(MAIN_B, T, spec.n).to(
+        torch.int8)
+    out_s, launches["single pass soft"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_soft_bytes(spec, q, qmax=QMAX))
+    qc = acs.condition_qllrs(q, 127)
+    want_s, plain_ms["single pass soft"] = time_once(
+        lambda: fec.viterbi_decode_soft(spec, qc))
+    require(torch.equal(out_s, fec.ops.viterbi.pad_and_pack(want_s)),
+            "(m) soft bytes equal to the plain soft decode on the card")
+    err["block_decode_1p"] = max(err["block_decode_1p"], max_abs_diff(
+        out_s, fec.ops.viterbi.pad_and_pack(want_s)))
+    soft_ber = ber_of_bytes(out_s, msgs)
+    hard_seg = fec.bits_to_segments(fec.hard_decision(llr), spec.n)
+    awgn_hard_ber = ber_of_bytes(fec.viterbi_decode_batch_bytes(spec,
+                                                                hard_seg),
+                                 msgs)
+    del llr, hard_seg
+    hard_bound = hb.union_bound_ber(spec, EBN0_DB, "hard", SP_GATE_DMAX)
+    require(awgn_hard_ber <= hard_bound, f"(m) hard BER {awgn_hard_ber} of "
+            f"the {EBN0_DB} dB hard decisions <= the union bound "
+            f"{hard_bound} ({SP_GATE_DMAX} distances)")
+    require(soft_ber < awgn_hard_ber, f"(m) soft BER {soft_ber} below the "
+            f"hard BER of the same received values {awgn_hard_ber}")
+    for path in launches:
+        used = launches[path]
+        require(used["block_decode_1p"] > 0 and not used["acs_k1_forward"]
+                and not used["traceback_k1"]
+                and not used["acs_soft_k1_forward"],
+                f"(m) {path}: K13 launched, K1/K4/K2 not: {nonzero({path: used})}")
+    crossover = hb.qfunc((2 * spec.rate * 10 ** (EBN0_DB / 10)) ** 0.5)
+    summary = {
+        "spec": str(spec), "T": T, "decision_kb_per_channel":
+            T * spec.num_states / 8 / 1024,
+        "hard_ber": hard_ber, "soft_ber": soft_ber,
+        "awgn_hard_ber": awgn_hard_ber, "awgn_crossover": crossover,
+        "awgn_hard_bound": hard_bound, "gate_dmax": SP_GATE_DMAX,
+        "awgn_hard_bound_dmax40": hb.union_bound_ber(spec, EBN0_DB, "hard",
+                                                     SP_DMAX),
+        "soft_bound": hb.union_bound_ber(spec, EBN0_DB, "soft",
+                                         SP_GATE_DMAX),
+        "soft_bound_dmax40": hb.union_bound_ber(spec, EBN0_DB, "soft",
+                                                SP_DMAX)}
+    print(f"[single pass] (m) {spec} B={MAIN_B} L={MAIN_L} T={T}: hard BER "
+          f"at {MAIN_NOISE} segment corruption {hard_ber:.4e} (< "
+          f"{BER_LIMIT}); at {EBN0_DB} dB: hard decisions (crossover "
+          f"{crossover:.4f}) {awgn_hard_ber:.4e} <= union bound "
+          f"{hard_bound:.4e} ({SP_GATE_DMAX} distances; slack "
+          f"x{hard_bound / awgn_hard_ber:.2f}; 40 distances "
+          f"{summary['awgn_hard_bound_dmax40']:.4e}), soft {soft_ber:.4e} "
+          f"< that hard BER (x{awgn_hard_ber / max(soft_ber, 1e-12):.1f}; "
+          f"soft bound {summary['soft_bound']:.4e}); each equal to its "
+          f"plain route on the card; launches {nonzero(launches)}")
+    return (spec, seg, q), launches, plain_ms, summary
+
+
+def single_pass_times(fec, spec_in, seg_a):
+    """Device ms at (m): each decode and `block_decode_1p` alone, hard and
+    soft; and at (a)'s input (NASA_K7): K13 called directly, in turns with
+    (a)'s two-pass decode (K1 + K2), its bytes equal to (a)'s."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import single_pass as sp
+    spec, seg, q = spec_in
+    T = seg.shape[1]
+    runs = {}
+    bufs = [torch.roll(seg, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["block_decode_1p"] = device_times(
+        lambda s: sp.block_decode_1p(spec, s, T, False, "bytes", MAIN_L), bufs)
+    runs["single pass hard"] = device_times(
+        lambda s: fec.viterbi_decode_batch_bytes(spec, s), bufs)
+    runs["single pass bits"] = device_times(
+        lambda s: fec.viterbi_decode_batch(spec, s), bufs)
+    qbufs = [torch.roll(q, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["block_decode_1p soft"] = device_times(
+        lambda x: sp.block_decode_1p(spec, x, T, True, "bytes", MAIN_L),
+        qbufs)
+    runs["single pass soft"] = device_times(
+        lambda x: fec.viterbi_decode_batch_soft_bytes(spec, x, qmax=QMAX),
+        qbufs)
+    del bufs, qbufs
+    nasa = fec.NASA_K7
+    Ta = seg_a.shape[1]
+    want = fec.viterbi_decode_batch_bytes(nasa, seg_a)
+    got = sp.block_decode_1p(nasa, seg_a, Ta, False, "bytes", MAIN_L)
+    require(torch.equal(got, want), "K13 on (a)'s input equal to (a)'s bytes")
+    bufs = [torch.roll(seg_a, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    for turn in ("1", "2"):
+        runs[f"two-pass at (a) {turn}"] = device_times(
+            lambda s: fec.viterbi_decode_batch_bytes(nasa, s), bufs)
+        runs[f"block_decode_1p at (a) {turn}"] = device_times(
+            lambda s: sp.block_decode_1p(nasa, s, Ta, False, "bytes",
+                                         MAIN_L), bufs)
+    for key in ("two-pass at (a)", "block_decode_1p at (a)"):
+        runs[key] = runs.pop(f"{key} 1") + runs.pop(f"{key} 2")
+    return runs
+
+
+def phase_harness(fec, acs, dev, seg_a):
+    """(n): `run_curve` on SP_MAIN at CURVE_POINTS (K13 in its hard and its
+    soft calls) beside `bound_curve`; berTestK7's acceptance run on NASA_K7
+    at its 10% gate; one `bench_decode` tick on SP_MAIN; the traffic model
+    at (a) and (m).  Returns (launches by path, summary)."""
+    import torch
+    from convolutionalencdec_tpu_torch import harness, utils
+    from convolutionalencdec_tpu_torch.harness import speed
+    spec = fec.CodeSpec(**SP_MAIN)
+    launches = {}
+    t0 = time.perf_counter()
+    curve, launches["harness curve"] = drive(acs, lambda: harness.run_curve(
+        spec, list(CURVE_POINTS), n_packets=CURVE_PACKETS, packet_bits=MAIN_L,
+        batch=CURVE_PACKETS, seed=MAIN_SEED, verbose=False, device=dev))
+    curve_s = time.perf_counter() - t0
+    require(launches["harness curve"]["block_decode_1p"] ==
+            2 * len(CURVE_POINTS), f"(n) K13 launched by every hard and soft "
+            f"call of the curve: {nonzero(launches)}")
+    bound = harness.bound_curve(spec, CURVE_POINTS, SP_DMAX)
+    for pt, b in zip(curve, bound):
+        pt.update(hard_bound=b["hard_ber_bound"],
+                  soft_bound=b["soft_ber_bound"])
+        require(pt["soft_ber"] <= pt["hard_ber"],
+                f"(n) soft BER below hard at {pt['ebn0_db']} dB: {pt}")
+        print(f"[harness] (n) run_curve {pt['ebn0_db']:.1f} dB: hard BER "
+              f"{pt['hard_ber']:.4e} (union bound {pt['hard_bound']:.4e}), "
+              f"soft {pt['soft_ber']:.4e} (bound {pt['soft_bound']:.4e}), "
+              f"{pt['bits']} bits")
+    t0 = time.perf_counter()
+    ber, launches["harness berTestK7"] = drive(
+        acs, lambda: harness.run_reference_ber_test(
+            fec.NASA_K7, n_packets=BER_TEST_PACKETS, batch=MAIN_B,
+            verbose=False, device=dev))
+    ber_s = time.perf_counter() - t0
+    for r in ber:
+        print(f"[harness] (n) berTestK7 {r.snr_db:+.0f} dB: coded BER "
+              f"{r.measured_coded_ber:.6e} vs {r.expected_coded_ber:.6e} "
+              f"({100 * r.relative_error:.2f}%), channel "
+              f"{r.measured_uncoded_ber:.5e} vs {r.uncoded_ber:.5e}, "
+              f"{r.bits_tested} bits [{'PASS' if r.passed else 'FAIL'}]")
+        require(r.passed, f"(n) berTestK7 at {r.snr_db} dB within 10%")
+    require(launches["harness berTestK7"]["acs_k1_forward"] > 0,
+            "(n) berTestK7 on the kernels")
+    mbps, launches["harness bench"] = drive(acs, lambda: speed.bench_decode(
+        spec, batch=MAIN_B, packet_bits=MAIN_L, seconds=0.0, device=dev))
+    require(launches["harness bench"]["block_decode_1p"] > 0,
+            "(n) bench_decode on K13")
+    print(f"[harness] (n) bench_decode tick ({speed.NBUF} calls): "
+          f"{mbps:.1f} decoded Mbit/s on {spec}")
+    traffic = {}
+    for what, code in (("(a)", fec.NASA_K7), ("(m)", spec)):
+        print(f"[harness] {what} {utils.traffic_report(code, MAIN_B, seg_a.shape[1])}")
+        traffic[what] = {m: utils.kernel_traffic(code, MAIN_B,
+                                                 seg_a.shape[1], m)
+                         for m in utils.telemetry.MODES}
+    summary = {"curve": curve, "curve_s": curve_s, "ber_test": [
+        dataclass_dict(r) for r in ber], "ber_test_s": ber_s,
+        "bench_decode_mbps": mbps, "traffic": traffic}
+    return launches, summary
+
+
+def dataclass_dict(r) -> dict:
+    import dataclasses
+    return dict(dataclasses.asdict(r), relative_error=r.relative_error,
+                passed=r.passed)
+
+
 def bounds(lens_sum: int, generic_shapes, bfly_shapes):
     """(bound ms, what bounds it) of each kernel on this run's main-path
     inputs: the larger of the bytes it must move (each input read once,
@@ -2680,6 +3044,14 @@ def bounds(lens_sum: int, generic_shapes, bfly_shapes):
     work["traceback_wide_multi"] = (
         lB * lwalks * lsteps * 32 + 4 * lB * lwalks + lB * lwalks * lsteps,
         lB * lwalks * lsteps * TRACEBACK_OPS)
+    # K13 at (m) and at (a)'s input (both NS = 64, T = L + 6): the inputs in
+    # and the bytes out, no decisions; the ACS's operations.
+    T = MAIN_L + 6
+    sp_ops = B * T * 64 // 2 * ACS_OPS
+    sp_out = B * MAIN_L // 8
+    work["block_decode_1p"] = (B * T + sp_out, sp_ops)
+    work["block_decode_1p at (a)"] = work["block_decode_1p"]
+    work["block_decode_1p soft"] = (B * T * SP_MAIN_N + sp_out, sp_ops)
     for name, spec, T, L in generic_shapes:
         # Segments in, one decision bit per state, step and input bit and
         # the final metrics out (the kernels' int32 words hold 32 - NS
@@ -2827,13 +3199,27 @@ def main() -> int:
     runs.update(butterfly_times(fec, acs, small_in, wide_in))
     print(f"[time] small and wide butterfly codes "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_compare_single_pass(fec, dev, err)
+    print(f"[compare] single pass {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp_in, sp_launches, sp_plain, sp_summary = phase_single_pass(fec, acs,
+                                                                 dev, err)
+    plain_ms.update(sp_plain)
+    print(f"[single pass] main path {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs.update(single_pass_times(fec, sp_in, seg))
+    print(f"[time] single pass {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    harness_launches, harness_summary = phase_harness(fec, acs, dev, seg)
+    print(f"[harness] {time.perf_counter() - t0:.1f} s")
 
     # Launch counts: the sum over the main-path runs, each read just after.
     # A one-word row counts its walk's launches at (k) only.
     by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
                **stream_launches, **tb_launches, "maxlogmap": map_launches,
                **turbo_launches, **gen_launches, **small_launches,
-               **wide_launches}
+               **wide_launches, **sp_launches, **harness_launches}
 
     def path_launches(name):
         """A walk's launches split between its row (not at (k)) and its
@@ -2936,6 +3322,21 @@ def main() -> int:
                 "plain_ms": plain_ms.get(path),
                 "mbps": bits_per_call / (med[path] * 1e3)}
     butterfly["wide"]["plain_rows"] = WIDE_PLAIN_ROWS
+    k13 = kernels[KERNELS.index("block_decode_1p")]
+    k13.update({f"{what}_{stat}": f(runs[key]) for what, key in (
+        ("soft", "block_decode_1p soft"), ("at_a", "block_decode_1p at (a)"),
+        ("two_pass_at_a", "two-pass at (a)")) for stat, f in (
+        ("ms", statistics.median), ("min_ms", min))})
+    k13.update(soft_bound_ms=bound["block_decode_1p soft"][0],
+               soft_bound_by=bound["block_decode_1p soft"][1])
+    single_pass = {"m": dict(sp_summary), "n": harness_summary}
+    for path, bits in (("single pass hard", bits_per_call),
+                       ("single pass bits", bits_per_call),
+                       ("single pass soft", bits_per_call)):
+        single_pass["m"][path] = {
+            "ms": med[path], "min_ms": min(runs[path]),
+            "plain_ms": plain_ms.get(path),
+            "mbps": bits / (med[path] * 1e3)}
     soft_stream = "stream_k1_decode soft"
     kernels[KERNELS.index("stream_k1_decode")].update(
         soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
@@ -2991,7 +3392,7 @@ def main() -> int:
         "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
         "streams": streams, "tailbiting": tailbiting,
         "maxlogmap": maxlogmap, "turbo": turbo, "generic": generic,
-        "butterfly": butterfly}))
+        "butterfly": butterfly, "single_pass": single_pass}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@ code), streaming decoding and the tail-biting receive chain (wrap and
 list decodes, CRC, LTE rate matching), max-log-MAP soft output and the
 LTE turbo receive chain on an NVIDIA Hopper GPU, with the forward ACS
 (butterfly and generic 2^k-way), the tracebacks (one walk or a list of
-walks per channel), the register-exchange stream decode, the max-log-MAP
-and the turbo constituent MAP as CUDA C++ kernels written for `sm_90a`
-(`csrc/`).  The JAX package `convolutionalencdec_tpu` is its reference;
-this package imports torch and numpy, never jax.
+walks per channel), the single-pass decode (forward and walk in one
+launch), the register-exchange stream decode, the max-log-MAP and the
+turbo constituent MAP as CUDA C++ kernels written for `sm_90a`
+(`csrc/`); the BER, curve and speed harnesses (`harness`).  The JAX
+package `convolutionalencdec_tpu` is its reference; this package imports
+torch and numpy, never jax.
 
     import convolutionalencdec_tpu_torch as fec
     segs, _ = fec.encode_bits(fec.NASA_K7, bits)          # uint8 [B, T]
@@ -30,12 +32,13 @@ this package imports torch and numpy, never jax.
     tx = fec.lte_turbo_encode_batch(fec.crc_append(fec.CRC24B, payload),
                                     2056)                 # [B, 2056] bits
     bits, lapp, ok, iters = fec.lte_turbo_decode_early(q, 1024)
+    fec.harness.run_reference_ber_test(fec.NASA_K7, n_packets=30000)
 
 A tensor input keeps its own device; any other input goes to the card
 unless the call passes `device="cpu"`.
 """
 
-from . import kernels, ops
+from . import harness, kernels, ops
 from .ops import (channel, crc, lte, maxlogmap, metrics, puncture, ratematch,
                   tailbiting, turbo)
 from .ops import (CRC6_NR, CRC8_LTE, CRC11_NR, CRC16_CCITT, CRC24A, CRC24B,
@@ -95,8 +98,8 @@ from .params import (K5_23_35, K9_561_753, LTE_TBCC_K7, NASA_K7, NASA_K7_R13,
                      PRESETS, REF_K7, TOY_K3, CodeSpec, from_reference)
 
 __all__ = [
-    "kernels", "ops", "CRC6_NR", "CRC8_LTE", "CRC11_NR", "CRC16_CCITT",
-    "CRC24A", "CRC24B", "CrcSpec", "crc_append", "crc_bits", "crc_check",
+    "harness", "kernels", "ops", "CRC6_NR", "CRC8_LTE", "CRC11_NR",
+    "CRC16_CCITT", "CRC24A", "CRC24B", "CrcSpec", "crc_append", "crc_bits", "crc_check",
     "derate_match", "encode_tailbiting", "rate_match", "rate_match_segments",
     "tail_state", "viterbi_decode_tailbiting",
     "viterbi_decode_tailbiting_exact", "viterbi_decode_tailbiting_list",

@@ -76,6 +76,9 @@ SIGNATURES = {
     # stream
     "traceback_generic": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "traceback_generic_k2": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # in, soft, cb, out, B, T, NS, n, S, message_bits, emit_bytes,
+    # init_value, stream
+    "block_decode_1p": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -8,7 +8,17 @@ one-call punctured decoders, the ragged decoders with per-channel lengths,
 and the generic-k decodes (`viterbi_decode_batch_generic`,
 `viterbi_decode_batch_k2`).  The JAX package re-derives its kernel choice
 in several places; here `select_kernel` is the only rule, and every entry
-point asks it.
+point asks it.  Its routes:
+
+  * BUTTERFLY (hard), SOFT8 and SOFT (soft): k = 1 poly-symmetric codes,
+    the forward of the code's size (kernels/acs.py) then the walk;
+  * SINGLE_PASS: such codes that the JAX package's SWAR kernels do not
+    take (in practice n >= 5) at NS >= 64, where a packet is short enough
+    that its decisions fit on chip (`use_single_pass`): forward and walk
+    in one launch (kernels/single_pass.py);
+  * K2 and GENERIC_K (hard): every other code, on the generic-k kernels
+    (kernels/generic.py);
+  * GENERIC: the codes left, on the plain decoder (CPU tensors only).
 
 Every entry point takes `device=None`: a tensor input keeps its own device,
 any other input goes to `device` (default: the CUDA card).  On the card an
@@ -33,6 +43,7 @@ from .acs import (MAX_STATES, acs_forward_batch, acs_forward_batch_soft,
 from .generic import (acs_forward_batch_generic, acs_forward_batch_k2,
                       generic_kernel_supports, k2_supported,
                       traceback_batch_generic, traceback_batch_k2)
+from .single_pass import block_decode_1p, use_single_pass
 
 #: Route names of `select_kernel`.  The butterfly routes launch the kernel
 #: of the code's size (kernels/acs.py): csrc/acs_small.cu at NS <= 32,
@@ -41,6 +52,7 @@ from .generic import (acs_forward_batch_generic, acs_forward_batch_k2,
 BUTTERFLY = "butterfly"  # hard
 SOFT8 = "soft8"          # soft, LLRs clipped to +-qmax
 SOFT = "soft"            # soft, any int8 LLR (floored at -127)
+SINGLE_PASS = "single_pass"  # hard or soft, one launch: csrc/block_1p.cu
 K2 = "k2"                # hard, k = 2 and NS = 64: csrc/acs_generic.cu <2, 64>
 GENERIC_K = "generic_k"  # hard, any other code: csrc/acs_generic.cu
 GENERIC = "generic"      # no CUDA kernel yet: plain decoder on a CPU tensor
@@ -84,21 +96,27 @@ def soft_qclip(spec: CodeSpec, qmax: int) -> int:
 
 
 def select_kernel(spec: CodeSpec, mode: str = "hard",
-                  qmax: int | None = None) -> str:
-    """The route that decodes `spec` in `mode` ("hard" or "soft").
+                  qmax: int | None = None, T: int | None = None) -> str:
+    """The route that decodes `spec` in `mode` ("hard" or "soft") at T
+    steps (None: a length-free answer, as the ragged and stream decodes
+    need).
 
     BUTTERFLY (hard) and SOFT8 / SOFT (soft): k = 1 poly-symmetric codes
     with 2 <= NS <= 16384 (every preset; hard decodes need n <= 8) run the
     hand-written forward ACS and traceback kernels.  SOFT8 is the route of
     the JAX package's 8-bit soft kernel (`swar8_soft_supported(spec,
     qmax)`, qmax default DEFAULT_QMAX), whose LLRs are clipped to +-qmax;
-    SOFT takes any int8 LLR.  Hard decodes of every other code take the JAX
-    package's order: K2 (the generic kernels at k = 2, NS = 64) first, then
-    GENERIC_K (the generic kernels, `generic_kernel_supports`: TOY_K3,
-    rate-k/n codes).  GENERIC: the codes left (butterfly codes with
-    NS > 16384, non-butterfly codes past the generic kernels' limits, soft
-    decodes of non-butterfly codes) decode through the plain decoder on a
-    CPU tensor and raise on a CUDA tensor.
+    SOFT takes any int8 LLR.  SINGLE_PASS, given T: the JAX package's
+    single-pass branch (acs_pallas.py:371-372, :550-551), for such a code
+    that its SWAR kernels reject (hard: not `swar_supported`; soft: not
+    `swar_layout_supported`) where `use_single_pass(spec, T)` holds.
+    Hard decodes of every other code take the JAX package's order: K2 (the
+    generic kernels at k = 2, NS = 64) first, then GENERIC_K (the generic
+    kernels, `generic_kernel_supports`: TOY_K3, rate-k/n codes).  GENERIC:
+    the codes left (butterfly codes with NS > 16384, non-butterfly codes
+    past the generic kernels' limits, soft decodes of non-butterfly codes)
+    decode through the plain decoder on a CPU tensor and raise on a CUDA
+    tensor.
     """
     if mode not in ("hard", "soft"):
         raise ValueError(f"mode must be 'hard' or 'soft', got {mode!r}")
@@ -106,10 +124,15 @@ def select_kernel(spec: CodeSpec, mode: str = "hard",
         if mode == "hard" and generic_kernel_supports(spec):
             return K2 if k2_supported(spec) else GENERIC_K
         return GENERIC
+    single = T is not None and use_single_pass(spec, T)
     if mode == "hard":
-        return BUTTERFLY
+        return (SINGLE_PASS if single and not swar_supported(spec)
+                else BUTTERFLY)
     qmax = DEFAULT_QMAX if qmax is None else qmax
-    return SOFT8 if swar8_soft_supported(spec, qmax) else SOFT
+    if swar8_soft_supported(spec, qmax):
+        return SOFT8
+    return (SINGLE_PASS if single and not swar_layout_supported(spec)
+            else SOFT)
 
 
 def _no_kernel(spec: CodeSpec, t: torch.Tensor) -> None:
@@ -163,7 +186,9 @@ def _decode(spec: CodeSpec, segments, message_bits: int | None, out: str,
         raise ValueError("segments must be uint8 [B, T]")
     B, T = segments.shape
     L = _message_bits(spec, T, message_bits)
-    route = select_kernel(spec) if route is None else route
+    route = select_kernel(spec, T=T) if route is None else route
+    if route == SINGLE_PASS:
+        return block_decode_1p(spec, segments, T, False, out, L)
     if route == BUTTERFLY:
         decisions, _ = acs_forward_batch(spec, segments)
         return traceback_batch(spec, decisions, T, L, out=out)
@@ -194,8 +219,8 @@ def viterbi_decode_batch_bytes(spec: CodeSpec, segments,
                                message_bits: int | None = None,
                                device=None) -> torch.Tensor:
     """Byte twin of `viterbi_decode_batch`: uint8 [B, ceil(L/8)], filled
-    MSb-first with a zero-padded trailing byte.  On the BUTTERFLY route the
-    traceback kernel emits the bytes itself."""
+    MSb-first with a zero-padded trailing byte.  On the BUTTERFLY and
+    SINGLE_PASS routes the kernel emits the bytes itself."""
     return _decode(spec, segments, message_bits, "bytes", device)
 
 
@@ -237,7 +262,10 @@ def _decode_soft(spec: CodeSpec, qllrs, message_bits: int | None,
     L = _message_bits(spec, T, message_bits)
     qmax = DEFAULT_QMAX if qmax is None else qmax
     qclip = soft_qclip(spec, qmax)
-    if select_kernel(spec, "soft", qmax) != GENERIC:
+    route = select_kernel(spec, "soft", qmax, T)
+    if route == SINGLE_PASS:  # qclip is 127 off the 8-bit route
+        return block_decode_1p(spec, qllrs, T, True, out, L)
+    if route != GENERIC:
         decisions, _ = acs_forward_batch_soft(spec, qllrs, qclip)
         return traceback_batch(spec, decisions, T, L, out=out)
     _no_kernel(spec, qllrs)

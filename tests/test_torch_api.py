@@ -23,7 +23,9 @@ from convolutionalencdec_tpu_torch.ops import viterbi as port_viterbi
 MODULES = ["", ".ops.bits", ".ops.channel", ".ops.crc", ".ops.encode",
            ".ops.lte", ".ops.maxlogmap", ".ops.metrics", ".ops.puncture",
            ".ops.ratematch", ".ops.streaming", ".ops.tailbiting",
-           ".ops.trellis", ".ops.turbo", ".ops.viterbi", ".kernels"]
+           ".ops.trellis", ".ops.turbo", ".ops.viterbi", ".kernels",
+           ".harness", ".harness.ber", ".harness.bounds", ".harness.curve",
+           ".harness.speed", ".utils", ".utils.telemetry"]
 # Kept on purpose: the port's channel draws from a torch.Generator where the
 # JAX functions take a key first, and its traceback takes batched start
 # states.
@@ -49,15 +51,31 @@ def _shared_functions(suffix):
 
 
 def test_top_level_exports_every_reference_name():
-    """Every name of the JAX package's `__all__`, but the subpackages not
-    ported yet (ROADMAP.md queue 1 items 5-6)."""
+    """Every name of the JAX package's `__all__`, but the subpackage not
+    ported yet (ROADMAP.md queue 1 item 5)."""
     missing = [n for n in ref.__all__ if n not in port.__all__]
-    assert missing == ["parallel", "harness"]
+    assert missing == ["parallel"]
     for name in port.__all__:
         assert hasattr(port, name), name
     for name in ("channel", "crc", "lte", "maxlogmap", "metrics", "puncture",
                  "ratematch", "tailbiting", "turbo"):
         assert getattr(port, name) is getattr(port.ops, name)
+
+
+@pytest.mark.parametrize("suffix", [m for m in MODULES
+                                    if m.startswith((".harness", ".utils"))])
+def test_harness_and_utils_have_every_reference_name(suffix):
+    """Each public function, class and constant the JAX module defines."""
+    ref_mod = importlib.import_module("convolutionalencdec_tpu" + suffix)
+    port_mod = importlib.import_module("convolutionalencdec_tpu_torch"
+                                       + suffix)
+    names = [n for n, v in vars(ref_mod).items()
+             if not n.startswith("_") and not inspect.ismodule(v)
+             and (getattr(v, "__module__", None) == ref_mod.__name__
+                  or n.isupper())]
+    assert [n for n in names if not hasattr(port_mod, n)] == []
+    if hasattr(ref_mod, "__all__"):
+        assert port_mod.__all__ == ref_mod.__all__
 
 
 @pytest.mark.parametrize("suffix", MODULES, ids=lambda s: s or "top")

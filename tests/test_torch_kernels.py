@@ -175,6 +175,23 @@ def test_select_kernel_routes():
     assert kernels.select_kernel(K15, "soft") == kernels.SOFT
     assert kernels.select_kernel(K16) == kernels.GENERIC
     assert kernels.select_kernel(K16, "soft") == kernels.GENERIC
+    # Given T, every preset keeps its route (each is on a JAX SWAR
+    # kernel's); a rate-1/5 K=8 code takes the single pass while its
+    # decisions fit 32 KiB per channel (T_pad <= 2016), as the JAX
+    # package's viterbi_decode_batch(_soft) does.
+    for name, route in expected.items():
+        assert kernels.select_kernel(port.PRESETS[name], T=2054) == route
+    assert kernels.select_kernel(port.NASA_K7, "soft", T=2054) == \
+        kernels.SOFT8
+    assert kernels.select_kernel(port.NASA_K7_R13, "soft", T=50) == \
+        kernels.SOFT
+    k8_n5 = port.CodeSpec(K=8, g=(0o247, 0o371, 0o275, 0o313, 0o357))
+    assert kernels.select_kernel(k8_n5) == kernels.BUTTERFLY
+    for mode in ("hard", "soft"):
+        assert kernels.select_kernel(k8_n5, mode, T=2016) == \
+            kernels.SINGLE_PASS
+    assert kernels.select_kernel(k8_n5, T=2017) == kernels.BUTTERFLY
+    assert kernels.select_kernel(k8_n5, "soft", T=2017) == kernels.SOFT
     with pytest.raises(ValueError, match="mode"):
         kernels.select_kernel(port.NASA_K7, mode="list")
 

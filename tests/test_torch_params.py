@@ -111,7 +111,13 @@ def test_port_imports_no_jax():
             "convolutionalencdec_tpu_torch.kernels.turbo",
             "convolutionalencdec_tpu_torch.kernels.tailbiting",
             "convolutionalencdec_tpu_torch.ops.lte",
-            "convolutionalencdec_tpu_torch.ops.crc"} <= set(modules)
+            "convolutionalencdec_tpu_torch.ops.crc",
+            "convolutionalencdec_tpu_torch.kernels.single_pass",
+            "convolutionalencdec_tpu_torch.harness.bounds",
+            "convolutionalencdec_tpu_torch.harness.ber",
+            "convolutionalencdec_tpu_torch.harness.curve",
+            "convolutionalencdec_tpu_torch.harness.speed",
+            "convolutionalencdec_tpu_torch.utils.telemetry"} <= set(modules)
     code = (f"import sys, convolutionalencdec_tpu_torch, {', '.join(modules)}; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "

@@ -226,6 +226,22 @@ def test_routes_of_wide_and_past_codes():
                                0o133, 0o171, 0o165))
     assert kernels.select_kernel(n9, "soft") == kernels.SOFT
     assert kernels.select_kernel(n9) == kernels.GENERIC
+    # Given a length, codes the JAX package's SWAR kernels reject (n >= 5)
+    # take the single pass while T_pad * NS/8 <= 32 KiB (K10_n5: T_pad
+    # <= 480; n9 at NS = 64: T_pad <= 4080), the two-pass route past it;
+    # n <= 4 codes never; a hard n9 decode has no segment to take.
+    k10_n5 = _specs("K10_n5")[1]
+    for spec, top in ((k10_n5, 480), (n9, 4080)):
+        assert kernels.select_kernel(spec, "soft", T=top) == \
+            kernels.SINGLE_PASS
+        assert kernels.select_kernel(spec, "soft", T=top + 1) == kernels.SOFT
+    assert kernels.select_kernel(k10_n5, T=480) == kernels.SINGLE_PASS
+    assert kernels.select_kernel(k10_n5, T=481) == kernels.BUTTERFLY
+    assert kernels.select_kernel(n9, T=100) == kernels.GENERIC
+    for name in ("K10", "K11", "K15"):
+        for mode in ("hard", "soft"):
+            assert kernels.select_kernel(_specs(name)[1], mode, T=48) != \
+                kernels.SINGLE_PASS
     assert acs._forward_kernel(n9, True) == "acs_soft_wide_forward"
     assert acs._forward_kernel(port.NASA_K7, True) == "acs_soft_k1_forward"
     assert acs._forward_kernel(port.K5_23_35, False) == "acs_small_forward"
