@@ -117,7 +117,10 @@ Phases (any failure exits non-zero and prints no result line):
      `acs_soft_wide_forward`, `traceback_wide`, `_ragged`; soft n = 9);
      noisy and garbage segments, four LLR draws; T = 1, S, S + 1, B = 1, 0;
      all four walks (`traceback_wide_masked`, `_multi` and the one-word
-     ones) at NS = 16 and 16384; the JAX names of the fused kernels
+     ones) at NS = 16 and 16384; the hard wide forward's rounds at
+     NS = 512, 2048, 8192 and 16384 for every T mod R and T < R (R from
+     its dispatch switch), fresh and carried metrics, noisy and garbage
+     segments; the JAX names of the fused kernels
      (`kernels.fused`) at init_chunk 0, -1 and 1 against their plain routes
      and the block decode;
  17. small-state main path (k): K5_23_35 at bench.py's working set (B =
@@ -382,6 +385,8 @@ BFLY_SMALL_NS = (2, 4, 8, 16, 32)
 BFLY_MID_NS = (64, 256)
 BFLY_WIDE_NS = (512, 1024, 4096, 16384)
 BFLY_SMALL_L, BFLY_WIDE_L = 61, 40
+# The hard wide forward's round checks: these NS, T = WIDE_ROUND_M * R + j.
+WIDE_ROUND_NS, WIDE_ROUND_M = (512, 2048, 8192, 16384), 10
 SMALL_MAIN = "K5_23_35"
 SMALL_BER_LIMIT = 5e-3
 WIDE_MAIN = dict(K=15, g=(0o46321, 0o51271, 0o63667, 0o70535))
@@ -2234,6 +2239,57 @@ def compare_fused(fec, acs, spec, seg, q, err, rng):
         err[mk] = max(err[mk], max_abs_diff(rows, rows_p))
 
 
+def wide_round_steps(source=None):
+    """NS -> the steps a round R at which the dispatch switch of
+    csrc/acs_wide.cu (or of `source`, a copy of it) launches the hard wide
+    forward (a block of NS >> R threads)."""
+    import re
+    src = Path(source or ROOT / SOURCES["acs_wide_forward"][0]).read_text()
+    return {int(ns): int(r) for ns, _, r in re.findall(
+        r"case (\d+): return launch_round<(\d+), (\d+)>", src)}
+
+
+def compare_wide_rounds(fec, acs, dev, err, rng):
+    """The hard wide forward's rounds (R steps in registers between two
+    barriers, the last round T mod R steps) against the plain forward at
+    NS = WIDE_ROUND_NS: T = m*R + j for every residue j of the launch's R
+    and every T < R, fresh and carried start metrics, noisy and garbage
+    segments."""
+    import numpy as np
+    import torch
+    steps = wide_round_steps()
+    for NS in WIDE_ROUND_NS:
+        R = steps[NS]
+        spec = bfly_spec(fec, rng, NS, 4)
+        lengths = list(range(1, R)) + [WIDE_ROUND_M * R + j for j in range(R)]
+        for T in lengths:
+            for kind in ("noisy", "garbage"):
+                if kind == "garbage":
+                    seg = rng.integers(0, 1 << spec.n, (SMALL_B, T))
+                else:
+                    seg = corrupt(rng, encode_reference_np(spec, rng.integers(
+                        0, 2, (SMALL_B, T), dtype=np.uint8))[:, :T],
+                        NOISE[0], spec.n)
+                seg = torch.from_numpy(seg.astype(np.uint8)).to(dev)
+                words, fm = acs.acs_forward_batch(spec, seg)
+                words_p, fm_p = acs.acs_forward_batch_plain(spec, seg)
+                words2, fm2 = acs.acs_forward_batch(spec, seg.flip(0), fm)
+                words2_p, fm2_p = acs.acs_forward_batch_plain(
+                    spec, seg.flip(0), fm_p)
+                require(torch.equal(words, words_p) and torch.equal(fm, fm_p)
+                        and torch.equal(words2, words2_p)
+                        and torch.equal(fm2, fm2_p),
+                        f"{spec} acs_wide_forward R={R} T={T} {kind}")
+                err["acs_wide_forward"] = max(
+                    err["acs_wide_forward"], max_abs_diff(words, words_p),
+                    max_abs_diff(fm, fm_p), max_abs_diff(words2, words2_p),
+                    max_abs_diff(fm2, fm2_p))
+        print(f"[compare] NS={NS:5d} acs_wide_forward: R={R}, {NS >> R} "
+              f"threads a block; T = {lengths} (every T mod R, T < R), "
+              "noisy and garbage, fresh and carried metrics: words and "
+              "final metrics equal")
+
+
 def phase_compare_butterfly(fec, acs, dev, err):
     """The small and wide butterfly kernels against their plain versions on
     the card: random poly-symmetric codes at every small NS with n = 1..8
@@ -2313,6 +2369,7 @@ def phase_compare_butterfly(fec, acs, dev, err):
                       walk_key(acs, spec, "_multi"))
         print(f"[compare] NS={NS:5d} walks: terminated, ragged, masked, "
               "multi (NW 1, 2, 8, NS) equal")
+    compare_wide_rounds(fec, acs, dev, err, rng)
     # The K11 names, on an n = 6 code at NS = 64 and on (l)'s code.
     for spec in (bfly_spec(fec, rng, 64, 6), fec.CodeSpec(**WIDE_MAIN)):
         seg = segments(spec, SMALL_B, BFLY_WIDE_L + 3, "noisy")

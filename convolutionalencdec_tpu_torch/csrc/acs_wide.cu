@@ -1,6 +1,6 @@
-// Wide k=1 butterfly add-compare-select (ACS), forward pass, hard and soft:
-// NS = 512 ... 16384 (K = 10 ... 15), and soft decodes with n > 8 at every
-// NS.
+// Wide k=1 butterfly add-compare-select (ACS), forward pass: hard decodes at
+// NS = 512 ... 16384 (K = 10 ... 15), soft decodes there and with n > 8 at
+// every NS.
 //
 // Replaces the TPU kernels `acs_forward_batch_fused` (convolutionalencdec_tpu/
 // kernels/acs_pallas.py, pallas_call at :1004, body `_fwd_kernel_fused`) and
@@ -33,20 +33,54 @@
 // Operations bound it: a warp-per-channel register design (acs_k1.cu) would
 // need 256 metrics per lane.
 //
-// What the design does about that: one block per channel, a step's NS/2
-// butterflies spread over min(NS/2, 1024) threads (BPT = 1..8 butterflies
-// each), the metrics double-buffered in shared memory (2 x 4 x NS bytes:
-// 128 KB at NS = 16384, past the 48 KB default, so the launch raises the
-// block's dynamic shared memory limit) and one __syncthreads per step.
-// Thread slot j holds butterfly b = j * threads + tid, so each warp's 32
-// consecutive butterflies give, by two __ballot_sync, exactly one even and
-// one odd decision word, which lanes 0 and 1 store; the two destination
-// metrics 2b, 2b + 1 go to shared memory as one 8-byte store (no stride-2
-// bank conflict).  Every kChunk steps the block stages the channel's inputs
-// in shared memory.  Soft decodes with n <= 8 take n as a template
-// argument; any other n runs the runtime-n instantiation (N = 0), at any
-// NS: below 64 states one warp serves the channel with lanes NS/2..31
-// idle, and the step's one word holds the even and odd halves.
+// The hard forward (`acs_round_kernel`): R trellis steps a round in
+// registers, one barrier a round.  Butterfly b takes sources b and b + H
+// (H = NS/2) and writes states 2b, 2b + 1.  With G = NS >> R, group c
+// (0 <= c < G) is closed over R steps: it starts from the 2^R sources
+// c + m*G and reaches only the 2^R destinations c*2^R + u.  Step j of the
+// round runs its butterflies b = c*2^j + u + k*(NS >> (R - j)), u < 2^j,
+// k < 2^(R-j-1).  Thread c owns group c for the whole decode: its metrics
+// sit in registers in the order idx = k*2^j + u, so every step pairs
+// registers i and i + 2^(R-1) and writes registers 2i and 2i + 1, the same
+// renaming at every step; the coded segments of its R * 2^(R-1) butterflies
+// are loaded once, packed four to a register.  After R steps the thread holds
+// states c*2^R .. c*2^R + 2^R - 1, stores them to shared memory as int4
+// (XOR-swizzled so that no two lanes of a quarter warp share a bank), and
+// after one __syncthreads reads its next sources c + m*G, consecutive lanes
+// on consecutive words; the metrics are double-buffered, so one barrier a
+// round suffices.  Decision words keep the layout above: lane l of warp w
+// holds c = 32w + l, so for fixed (j, k, p) the warp's 32 * 2^j decisions
+// are 2^j aligned words starting at word (p*H + k*(NS >> (R-j)) +
+// 32w*2^j) / 32, lane l's 2^j decisions (its butterflies u = 0 .. 2^j - 1)
+// at bits l*2^j ...  At j = 0 a ballot is a word.  At j = 1..3 each lane
+// packs every group's 2^j bits into 8-bit fields of a few registers,
+// neighbours' fields join by one __shfl_down_sync a register and stage
+// into whole bytes, and each lane owning a byte stores it; at j = 4
+// (R = 5) each lane stores its 16 bits.  The stores go to a shared-memory
+// copy of the round's R steps of words (contiguous in `decs`, double-
+// buffered), which the block writes out after the round's barrier, 8 bytes
+// a thread.  A block serves a channel with G threads; the segments are
+// read with __ldg, the same address in every lane.  The last round runs
+// T mod R steps, each guarded.  R is 4 up to NS = 8192 and 5 at 16384
+// (512 threads of 128 registers, 148 KB of shared memory: one block fills
+// an SM), as measured (PERF.md section 6); there, at R = 4, the decisions
+// took ~45% of the time, the exchange and barrier ~18%, the
+// add-compare-selects the rest.
+//
+// The soft forward (`acs_soft_wide_kernel`): one block per channel, a
+// step's NS/2 butterflies spread over min(NS/2, 1024) threads (BPT = 1..8
+// butterflies each), the metrics double-buffered in shared memory (2 x 4 x
+// NS bytes: 128 KB at NS = 16384, past the 48 KB default, so the launch
+// raises the block's dynamic shared memory limit) and one __syncthreads per
+// step.  Thread slot j holds butterfly b = j * threads + tid, so each
+// warp's 32 consecutive butterflies give, by two __ballot_sync, exactly one
+// even and one odd decision word, which lanes 0 and 1 store; the two
+// destination metrics 2b, 2b + 1 go to shared memory as one 8-byte store
+// (no stride-2 bank conflict).  Every kChunk steps the block stages the
+// channel's inputs in shared memory.  n <= 8 is a template argument; any
+// other n runs the runtime-n instantiation (N = 0), at any NS: below 64
+// states one warp serves the channel with lanes NS/2..31 idle, and the
+// step's one word holds the even and odd halves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,17 +88,280 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kChunk = 64;  // steps of inputs staged at a time
+constexpr int kChunk = 64;  // steps of soft inputs staged at a time
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int BPT, int N, bool SOFT>  // N: soft n (0: runtime); hard ignores N
+// ---------------------------------------------------------------------------
+// The hard forward: R steps a round in registers.
+
+template <int LOGNS, int R>
+struct Round {
+  static constexpr int NS = 1 << LOGNS;
+  static constexpr int H = NS / 2;
+  static constexpr int W = NS / 32;
+  static constexpr int G = NS >> R;      // groups = threads of the block
+  static constexpr int M = 1 << R;       // metrics a thread holds
+  static constexpr int HALF = M / 2;     // butterflies a thread runs a step
+  static constexpr int CBW = (HALF + 3) / 4;  // packed cb registers a step
+  static constexpr int Q = M / 4;        // int4 stores of a round
+  static constexpr int SH = 5 - R;       // swizzle key: bits SH.. of owner
+  static_assert(R >= 2 && R <= 5 && G >= 32 && G <= kMaxThreads, "shape");
+
+  // Shared-memory word of state s after a round (its owner o = s >> R
+  // stored it as quad (s >> 2) & (Q - 1), swizzled).
+  static __device__ __forceinline__ int phys(int s) {
+    if constexpr (Q == 1) {
+      return s;
+    } else {
+      const int o = s >> R;
+      return (o << R) | ((((s >> 2) & (Q - 1)) ^ ((o >> SH) & (Q - 1))) << 2) |
+             (s & 3);
+    }
+  }
+  // phys(c + m*G) == phys(c) + m*G: m*G moves the owner by a multiple of
+  // the swizzle key's period.
+  static constexpr bool kShiftInvariant =
+      Q == 1 || ((G >> R) % (Q << SH)) == 0;
+
+  // Step J of a round: the 2^(R-1) butterflies of the thread's group on
+  // metrics m (order idx = k*2^J + u), their decisions into row `dec`
+  // (the step's W words).
+  template <int J>
+  static __device__ __forceinline__ void step(int (&m)[M],
+                                              const uint32_t (&cbp)[R][CBW],
+                                              uint32_t r, int n, int nmask,
+                                              int32_t* dec, int warp,
+                                              int lane) {
+    constexpr int GROUPS = HALF >> J;      // k values
+    constexpr int DJ = NS >> (R - J);      // k stride in butterflies
+    const uint32_t r4 = r * 0x01010101u;
+    int nm[M];
+    // Steps 1..3: bit u of group g = 2k + p in field 8 * (g % 4) of
+    // pk[g / 4]; step 4 (R = 5): in nib[k][p].  (One form for both, with
+    // 16-bit fields at step 4, measured ~4% slower at NS = 16384.)
+    constexpr int NPK = (2 * GROUPS + 3) / 4;
+    uint32_t pk[NPK];
+#pragma unroll
+    for (int w = 0; w < NPK; ++w) pk[w] = 0;
+    uint32_t nib[GROUPS][2];
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) nib[g][0] = nib[g][1] = 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const uint32_t x = r4 ^ cbp[J][i >> 2];
+      const int em = __popc(x & ((uint32_t)nmask << (8 * (i & 3))));
+      const int lo = m[i], hi = m[i + HALF];
+      const int emc = n - em;
+      const int a0 = lo + em, a1 = hi + emc;
+      const int b0 = lo + emc, b1 = hi + em;
+      nm[2 * i] = min(a0, a1);
+      nm[2 * i + 1] = min(b0, b1);
+      // The decisions: the high source strictly better.
+      const bool da = a0 > a1, db = b0 > b1;
+      const int k = i >> J, u = i & ((1 << J) - 1);
+      if constexpr (J == 0) {
+        const unsigned wa = __ballot_sync(kFullMask, da);
+        const unsigned wb = __ballot_sync(kFullMask, db);
+        if (lane == 0) {
+          dec[k * (DJ / 32) + warp] = (int)wa;
+          dec[H / 32 + k * (DJ / 32) + warp] = (int)wb;
+        }
+      } else if constexpr (J <= 3) {
+        pk[(2 * k) >> 2] |= da ? (1u << (8 * ((2 * k) & 3) + u)) : 0u;
+        pk[(2 * k + 1) >> 2] |= db ? (1u << (8 * ((2 * k + 1) & 3) + u)) : 0u;
+      } else {
+        nib[k][0] |= (uint32_t)da << u;
+        nib[k][1] |= (uint32_t)db << u;
+      }
+    }
+    if constexpr (J >= 1 && J <= 3) {
+      // Join 8 >> J lanes' fields into whole bytes; lanes owning a byte
+      // store each group's.
+#pragma unroll
+      for (int w = 0; w < NPK; ++w) {
+#pragma unroll
+        for (int s = 1; (s << J) < 8; s <<= 1) {
+          pk[w] |= __shfl_down_sync(kFullMask, pk[w], s) << (s << J);
+        }
+      }
+      if ((lane & ((8 >> J) - 1)) == 0) {
+        const int byte = (lane << J) >> 3;
+#pragma unroll
+        for (int g = 0; g < 2 * GROUPS; ++g) {
+          uint8_t* base = reinterpret_cast<uint8_t*>(
+              dec + (g & 1) * (H / 32) + (g >> 1) * (DJ / 32) + (warp << J));
+          base[byte] = (uint8_t)(pk[g >> 2] >> (8 * (g & 3)));
+        }
+      }
+    }
+    if constexpr (J == 4) {
+      // 16 bits a lane and group: each lane stores a half word.
+#pragma unroll
+      for (int g = 0; g < 2 * GROUPS; ++g) {
+        reinterpret_cast<uint16_t*>(
+            dec + (g & 1) * (H / 32) + (g >> 1) * (DJ / 32) + (warp << J))
+            [lane] = (uint16_t)nib[g >> 1][g & 1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) m[i] = nm[i];
+  }
+
+  // Steps 0..R-1 of a round (all of them when steps >= R).
+  template <bool GUARD>
+  static __device__ __forceinline__ void round(int (&m)[M],
+                                               const uint32_t (&cbp)[R][CBW],
+                                               const uint8_t* seg, int steps,
+                                               int n, int nmask, int32_t* dec,
+                                               int warp, int lane) {
+    uint32_t r[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) r[j] = (!GUARD || j < steps) ? __ldg(seg + j) : 0;
+#define ACS_WIDE_STEP(J)                                                   \
+    if constexpr (J < R) {                                                 \
+      if (!GUARD || J < steps) {                                           \
+        step<J>(m, cbp, r[J], n, nmask, dec + (size_t)(J) * W, warp, lane); \
+      }                                                                    \
+    }
+    ACS_WIDE_STEP(0)
+    ACS_WIDE_STEP(1)
+    ACS_WIDE_STEP(2)
+    ACS_WIDE_STEP(3)
+    ACS_WIDE_STEP(4)
+#undef ACS_WIDE_STEP
+  }
+};
+
+// words int32 of src to dst, int2 at a time (words even, both 8-aligned),
+// by the G threads of the block.
+template <int G>
+__device__ __forceinline__ void copy_words(const int32_t* src, int32_t* dst,
+                                           int words, int c) {
+  for (int i = c; i < words / 2; i += G) {
+    reinterpret_cast<int2*>(dst)[i] = reinterpret_cast<const int2*>(src)[i];
+  }
+}
+
+template <int LOGNS, int R>
+__global__ void __launch_bounds__((1 << LOGNS) >> R, 1)
+acs_round_kernel(const uint8_t* __restrict__ in,
+                 const int32_t* __restrict__ cb,
+                 const int32_t* __restrict__ init,
+                 int32_t* __restrict__ decs,
+                 int32_t* __restrict__ final_metrics, int T, int n,
+                 int init_value) {
+  using Rd = Round<LOGNS, R>;
+  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M, HALF = Rd::HALF;
+  // Two buffers of NS metrics, then two of a round's R * W decision words.
+  extern __shared__ int4 smem4[];
+  int* const buf0 = reinterpret_cast<int*>(smem4);
+  int* const buf1 = buf0 + NS;
+  int32_t* const stage0 = buf1 + NS;
+  int32_t* const stage1 = stage0 + R * Rd::W;
+  const int c = threadIdx.x;
+  const int lane = c & 31, warp = c >> 5;
+  const int ch = blockIdx.x;
+  const int nmask = (1 << n) - 1;
+
+  // Coded segments of the group's butterflies, byte i % 4 of cbp[j][i / 4]
+  // for butterfly pair i = k*2^j + u of step j.
+  uint32_t cbp[R][Rd::CBW];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+#pragma unroll
+    for (int w = 0; w < Rd::CBW; ++w) cbp[j][w] = 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const int b = (c << j) + (i & ((1 << j) - 1)) + (i >> j) * (NS >> (R - j));
+      cbp[j][i >> 2] |= ((uint32_t)__ldg(cb + b) & 0xffu) << (8 * (i & 3));
+    }
+  }
+  int m[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int s = c + i * G;
+    m[i] = (init != nullptr) ? __ldg(init + (size_t)ch * NS + s)
+                             : (s == 0 ? 0 : init_value);
+  }
+
+  const uint8_t* row = in + (size_t)ch * T;
+  int32_t* dec_row = decs + (size_t)ch * T * Rd::W;
+  const int rd_base = Rd::phys(c);
+  int* wb = buf0;
+  int32_t* sd = stage0;
+  int t = 0;
+  for (; t + R <= T; t += R) {
+    Rd::template round<false>(m, cbp, row + t, R, n, nmask, sd, warp, lane);
+    // Destinations c*2^R + u, u = idx: Q int4 stores, swizzled.
+#pragma unroll
+    for (int q = 0; q < Rd::Q; ++q) {
+      const int qs = q ^ ((c >> Rd::SH) & (Rd::Q - 1));
+      reinterpret_cast<int4*>(wb)[c * Rd::Q + qs] =
+          make_int4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      m[i] = wb[Rd::kShiftInvariant ? rd_base + i * G : Rd::phys(c + i * G)];
+    }
+    // The round's R steps of words are contiguous in `decs`.  The next
+    // round writes the other buffers; these are written again only after
+    // the next barrier, which every thread reaches after its reads.
+    copy_words<G>(sd, dec_row + (size_t)t * Rd::W, R * Rd::W, c);
+    wb = (wb == buf0) ? buf1 : buf0;
+    sd = (sd == stage0) ? stage1 : stage0;
+  }
+  // The last round's T mod R steps.
+  const int J = T - t;
+  if (J > 0) {
+    Rd::template round<true>(m, cbp, row + t, J, n, nmask, sd, warp, lane);
+    __syncthreads();
+    copy_words<G>(sd, dec_row + (size_t)t * Rd::W, J * Rd::W, c);
+  }
+  // After J steps register idx = k*2^J + u holds state
+  // c*2^J + u + k*(NS >> (R - J)).
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int s = (c << J) + (i & ((1 << J) - 1)) + (i >> J) * (NS >> (R - J));
+    final_metrics[(size_t)ch * NS + s] = m[i];
+  }
+}
+
+struct Args {
+  const uint8_t* in;
+  const int32_t* cb;
+  const int32_t* init;
+  int32_t* decs;
+  int32_t* final_metrics;
+  int B, T, NS, n, qlo, qclip, init_value;
+};
+
+template <int LOGNS, int R>
+int launch_round(const Args& a, cudaStream_t s) {
+  constexpr int NS = 1 << LOGNS;
+  const size_t smem = ((size_t)2 * NS + 2 * R * NS / 32) * sizeof(int);
+  auto kernel = acs_round_kernel<LOGNS, R>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<a.B, NS >> R, smem, s>>>(a.in, a.cb, a.init, a.decs,
+                                    a.final_metrics, a.T, a.n, a.init_value);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The soft forward: a barrier a step.
+
+template <int BPT, int N>  // N: n (0: runtime)
 __global__ void __launch_bounds__(kMaxThreads)
-acs_wide_kernel(const uint8_t* __restrict__ in,
-                const int32_t* __restrict__ cb,
-                const int32_t* __restrict__ init,
-                int32_t* __restrict__ decs,
-                int32_t* __restrict__ final_metrics, int T, int NS, int n,
-                int qlo, int qclip, int init_value) {
+acs_soft_wide_kernel(const uint8_t* __restrict__ in,
+                     const int32_t* __restrict__ cb,
+                     const int32_t* __restrict__ init,
+                     int32_t* __restrict__ decs,
+                     int32_t* __restrict__ final_metrics, int T, int NS, int n,
+                     int qlo, int qclip, int init_value) {
   extern __shared__ int2 smem2[];  // 8-byte aligned
   int* m_cur = reinterpret_cast<int*>(smem2);
   int* m_nxt = m_cur + NS;
@@ -75,8 +372,7 @@ acs_wide_kernel(const uint8_t* __restrict__ in,
   const int threads = blockDim.x;
   const int lane = tid & 31;
   const int ch = blockIdx.x;
-  const int step_bytes = SOFT ? n : 1;
-  const int nmask = (1 << min(n, 8)) - 1;
+  const int step_bytes = n;
 
   for (int s = tid; s < NS; s += threads) {
     m_cur[s] = (init != nullptr) ? init[(size_t)ch * NS + s]
@@ -98,58 +394,46 @@ acs_wide_kernel(const uint8_t* __restrict__ in,
       // __syncthreads (or, at t = 0, nothing was staged).
       const int len = min(kChunk, T - t) * step_bytes;
       for (int i = tid; i < len; i += threads) {
-        int v = row[(size_t)t * step_bytes + i];
-        if (SOFT) v = min(max((int)(int8_t)v, qlo), qclip);
-        stage[i] = (int8_t)v;
+        const int v = row[(size_t)t * step_bytes + i];
+        stage[i] = (int8_t)min(max((int)(int8_t)v, qlo), qclip);
       }
       __syncthreads();
     }
     // The step's edge-metric terms, the same in every thread.
-    int r = 0, base = 0, Q = 0;
-    int q[(SOFT && N > 0) ? N : 1];
-    if constexpr (SOFT) {
-      const int8_t* qs = stage + k * step_bytes;
-      if constexpr (N > 0) {
+    int base = 0, Q = 0;
+    int q[N > 0 ? N : 1];
+    const int8_t* qs = stage + k * step_bytes;
+    if constexpr (N > 0) {
 #pragma unroll
-        for (int i = 0; i < N; ++i) q[i] = qs[i];
+      for (int i = 0; i < N; ++i) q[i] = qs[i];
 #pragma unroll
-        for (int i = 0; i < N; ++i) {
-          base += max(-q[i], 0);
-          Q += abs(q[i]);
-        }
-      } else {
-        for (int i = 0; i < n; ++i) {
-          const int qi = qs[i];
-          base += max(-qi, 0);
-          Q += abs(qi);
-        }
+      for (int i = 0; i < N; ++i) {
+        base += max(-q[i], 0);
+        Q += abs(q[i]);
       }
     } else {
-      r = (uint8_t)stage[k];
+      for (int i = 0; i < n; ++i) {
+        const int qi = qs[i];
+        base += max(-qi, 0);
+        Q += abs(qi);
+      }
     }
 #pragma unroll
     for (int j = 0; j < BPT; ++j) {
       const int b = j * threads + tid;
       const bool act = b < H;  // false only for lanes NS/2..31 when NS < 64
-      int em, emc;
-      if constexpr (SOFT) {
-        em = base;
-        if constexpr (N > 0) {
+      int em = base;
+      if constexpr (N > 0) {
 #pragma unroll
-          for (int i = 0; i < N; ++i) em += q[i] & -((cbl[j] >> i) & 1);
-        } else {
-          // The coded-bit table holds n <= 8 bits (ops/trellis.py): a
-          // coded bit past the eighth is 0 and costs relu(-q), in `base`.
-          const int8_t* qs = stage + k * step_bytes;
-          for (int i = 0; i < min(n, 8); ++i) {
-            em += (int)qs[i] & -((cbl[j] >> i) & 1);
-          }
-        }
-        emc = Q - em;
+        for (int i = 0; i < N; ++i) em += q[i] & -((cbl[j] >> i) & 1);
       } else {
-        em = __popc((r ^ cbl[j]) & nmask);
-        emc = n - em;
+        // The coded-bit table holds n <= 8 bits (ops/trellis.py): a coded
+        // bit past the eighth is 0 and costs relu(-q), in `base`.
+        for (int i = 0; i < min(n, 8); ++i) {
+          em += (int)qs[i] & -((cbl[j] >> i) & 1);
+        }
       }
+      const int emc = Q - em;
       const int lo = act ? m_cur[b] : 0;
       const int hi = act ? m_cur[b + H] : 0;
       const int a0 = lo + em, a1 = hi + emc;
@@ -183,43 +467,34 @@ acs_wide_kernel(const uint8_t* __restrict__ in,
   }
 }
 
-struct Args {
-  const uint8_t* in;
-  const int32_t* cb;
-  const int32_t* init;
-  int32_t* decs;
-  int32_t* final_metrics;
-  int B, T, NS, n, qlo, qclip, init_value;
-};
-
-template <int BPT, int N, bool SOFT>
-int launch(const Args& a, int threads, size_t smem, cudaStream_t s) {
+template <int BPT, int N>
+int launch_soft(const Args& a, int threads, size_t smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        acs_wide_kernel<BPT, N, SOFT>,
+        acs_soft_wide_kernel<BPT, N>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  acs_wide_kernel<BPT, N, SOFT><<<a.B, threads, smem, s>>>(
+  acs_soft_wide_kernel<BPT, N><<<a.B, threads, smem, s>>>(
       a.in, a.cb, a.init, a.decs, a.final_metrics, a.T, a.NS, a.n, a.qlo,
       a.qclip, a.init_value);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N, bool SOFT>
+template <int N>
 int launch_bpt(int bpt, const Args& a, int threads, size_t smem,
                cudaStream_t s) {
   switch (bpt) {
-    case 1: return launch<1, N, SOFT>(a, threads, smem, s);
-    case 2: return launch<2, N, SOFT>(a, threads, smem, s);
-    case 4: return launch<4, N, SOFT>(a, threads, smem, s);
-    case 8: return launch<8, N, SOFT>(a, threads, smem, s);
+    case 1: return launch_soft<1, N>(a, threads, smem, s);
+    case 2: return launch_soft<2, N>(a, threads, smem, s);
+    case 4: return launch_soft<4, N>(a, threads, smem, s);
+    case 8: return launch_soft<8, N>(a, threads, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Threads, butterflies per thread and shared memory of a launch at NS; false
-// for an NS the kernel does not take (a power of two in [2, 16384]).
+// Threads, butterflies per thread and shared memory of a soft launch at NS;
+// false for an NS the kernel does not take (a power of two in [2, 16384]).
 bool shape(const Args& a, int step_bytes, int* threads, int* bpt,
            size_t* smem) {
   if (a.NS < 2 || a.NS > 16384 || (a.NS & (a.NS - 1)) != 0) return false;
@@ -243,13 +518,18 @@ extern "C" int acs_wide_forward(const void* seg, const void* cb,
                static_cast<int32_t*>(decs),
                static_cast<int32_t*>(final_metrics),
                B, T, NS, n, 0, 0, init_value};
-  int threads, bpt;
-  size_t smem;
-  if (n < 1 || n > 8 || !shape(a, 1, &threads, &bpt, &smem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Steps a round by NS, as measured (PERF.md section 6).
+  switch (NS) {
+    case 512: return launch_round<9, 4>(a, s);
+    case 1024: return launch_round<10, 4>(a, s);
+    case 2048: return launch_round<11, 4>(a, s);
+    case 4096: return launch_round<12, 4>(a, s);
+    case 8192: return launch_round<13, 4>(a, s);
+    case 16384: return launch_round<14, 5>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_bpt<0, false>(bpt, a, threads, smem,
-                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int acs_soft_wide_forward(const void* qllrs, const void* cb,
@@ -270,14 +550,14 @@ extern "C" int acs_soft_wide_forward(const void* qllrs, const void* cb,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n) {
-    case 1: return launch_bpt<1, true>(bpt, a, threads, smem, s);
-    case 2: return launch_bpt<2, true>(bpt, a, threads, smem, s);
-    case 3: return launch_bpt<3, true>(bpt, a, threads, smem, s);
-    case 4: return launch_bpt<4, true>(bpt, a, threads, smem, s);
-    case 5: return launch_bpt<5, true>(bpt, a, threads, smem, s);
-    case 6: return launch_bpt<6, true>(bpt, a, threads, smem, s);
-    case 7: return launch_bpt<7, true>(bpt, a, threads, smem, s);
-    case 8: return launch_bpt<8, true>(bpt, a, threads, smem, s);
-    default: return launch_bpt<0, true>(bpt, a, threads, smem, s);
+    case 1: return launch_bpt<1>(bpt, a, threads, smem, s);
+    case 2: return launch_bpt<2>(bpt, a, threads, smem, s);
+    case 3: return launch_bpt<3>(bpt, a, threads, smem, s);
+    case 4: return launch_bpt<4>(bpt, a, threads, smem, s);
+    case 5: return launch_bpt<5>(bpt, a, threads, smem, s);
+    case 6: return launch_bpt<6>(bpt, a, threads, smem, s);
+    case 7: return launch_bpt<7>(bpt, a, threads, smem, s);
+    case 8: return launch_bpt<8>(bpt, a, threads, smem, s);
+    default: return launch_bpt<0>(bpt, a, threads, smem, s);
   }
 }

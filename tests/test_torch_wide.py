@@ -9,8 +9,13 @@ bit for bit against the JAX package's scans on noisy, garbage (tie-heavy)
 and -128 inputs; the K11 names' layouts (`init_chunk` 0 / -1 / 1, the
 `gmask` prefix rule) against the port's plain forward and traceback; and
 one chain of the JAX package's fused kernels (forward, then traceback) in
-interpret mode against the port's names.
+interpret mode against the port's names; and a numpy model of the hard
+wide forward's round schedule (csrc/acs_wide.cu) against the port's plain
+forward.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +35,8 @@ import convolutionalencdec_tpu_torch as port
 from convolutionalencdec_tpu_torch import kernels
 from convolutionalencdec_tpu_torch.kernels import acs, fused
 from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
+from convolutionalencdec_tpu_torch.ops.trellis import butterfly_coded_bits
+from convolutionalencdec_tpu_torch.ops.viterbi import init_metric_value
 
 # K = 10 (NS = 512, the first wide size), 11, and 15 (NS = 16384, the
 # rate-1/4 code of the Galileo experiment, the widest the kernels take); a
@@ -340,3 +347,155 @@ def test_interpreted_fused_kernel_chain_matches():
     np.testing.assert_array_equal(got_fm.numpy(), np.asarray(fm).T)
     np.testing.assert_array_equal(
         fused.traceback_batch_fused(spec, words, 46).numpy(), rows)
+
+
+def _shfl_down(v, s):
+    """__shfl_down_sync over warps of the last axis: lane l gets lane
+    l + s's value, lanes past 31 keep their own."""
+    w = v.reshape(v.shape[:-1] + (-1, 32))
+    out = w.copy()
+    out[..., :32 - s] = w[..., s:]
+    return out.reshape(v.shape)
+
+
+def _round_model(NS, n, cb, seg, init, init_value, R):
+    """numpy model of csrc/acs_wide.cu's hard forward (`acs_round_kernel`),
+    done the way the kernel does it: thread c owns closed group c, its 2^R
+    metrics in registers idx = k*2^j + u; step j pairs registers i and
+    i + 2^(R-1) (butterfly c*2^j + u + k*(NS >> (R - j))) and writes 2i,
+    2i + 1; decisions as ballots (j = 0) or per-lane 2^j-bit nibbles joined
+    by shfl_down into bytes and stored per lane; after R steps the
+    destinations go to a swizzled shared buffer and come back as sources
+    c + m*G; the last round runs T mod R steps.  Returns (decision words
+    int32 [B, T, NS/32], final metrics int32 [B, NS])."""
+    B, T = seg.shape
+    H, G, M, HALF, W = NS // 2, NS >> R, 1 << R, 1 << (R - 1), NS // 32
+    Q, SH = M // 4, 5 - R
+    c = np.arange(G)
+    lane, warp = c & 31, c >> 5
+    nmask = (1 << n) - 1
+    cbj = np.empty((R, G, HALF), np.int64)
+    for j in range(R):
+        for i in range(HALF):
+            b = (c << j) + (i & ((1 << j) - 1)) + (i >> j) * (NS >> (R - j))
+            cbj[j, :, i] = cb[b] & 0xFF
+    start = c[:, None] + np.arange(M)[None, :] * G
+    if init is None:
+        m = np.broadcast_to(np.where(start == 0, 0, init_value),
+                            (B, G, M)).astype(np.int64)
+    else:
+        m = init.astype(np.int64)[:, start]
+    dec = np.zeros((B, T, 4 * W), np.uint8)
+    rows = np.arange(B)[:, None]
+
+    def phys(s):
+        if Q == 1:
+            return s
+        o = s >> R
+        return (o << R) | ((((s >> 2) & (Q - 1)) ^ ((o >> SH) & (Q - 1)))
+                           << 2) | (s & 3)
+
+    def step(m, j, t):
+        r = seg[:, t].astype(np.int64)[:, None, None]
+        em = np.bitwise_count((r ^ cbj[j][None]) & nmask).astype(np.int64)
+        emc = n - em
+        lo, hi = m[..., :HALF], m[..., HALF:]
+        a0, a1, b0, b1 = lo + em, hi + emc, lo + emc, hi + em
+        nm = np.empty_like(m)
+        nm[..., 0::2] = np.minimum(a0, a1)
+        nm[..., 1::2] = np.minimum(b0, b1)
+        for p, d in ((0, a0 > a1), (1, b0 > b1)):
+            for k in range(HALF >> j):
+                word = p * (H // 32) + k * ((NS >> (R - j)) // 32) + (warp << j)
+                d_k = d[..., k << j:(k + 1) << j].astype(np.int64)
+                if j == 0:   # a ballot is the word; lane 0 stores it
+                    ballot = (d_k[..., 0].reshape(B, -1, 32)
+                              << np.arange(32)).sum(-1)
+                    at = 4 * word[::32, None] + np.arange(4)
+                    dec[rows[..., None], t, at[None]] = (
+                        ballot[..., None] >> (8 * np.arange(4))) & 0xFF
+                    continue
+                v = (d_k << np.arange(1 << j)).sum(-1)
+                s = 1
+                while (s << j) < 8:
+                    v = v | (_shfl_down(v, s) << (s << j))
+                    s <<= 1
+                byte = 4 * word + ((lane << j) >> 3)
+                if j >= 4:   # a half word a lane
+                    dec[rows, t, byte] = v & 0xFF
+                    dec[rows, t, byte + 1] = (v >> 8) & 0xFF
+                else:        # lanes owning a byte store it
+                    own = (lane & ((8 >> j) - 1)) == 0
+                    dec[rows, t, byte[own]] = v[:, own] & 0xFF
+        return nm
+
+    t = 0
+    while t + R <= T:
+        for j in range(R):
+            m = step(m, j, t + j)
+        smem = np.empty((B, NS), np.int64)
+        for q in range(Q):
+            qs = q ^ ((c >> SH) & (Q - 1))
+            for w in range(4):
+                smem[:, (c << R) + (qs << 2) + w] = m[..., 4 * q + w]
+        m = smem[:, phys(start)]
+        t += R
+    J = T - t
+    for j in range(J):
+        m = step(m, j, t + j)
+    i = np.arange(M)
+    states = ((c[:, None] << J) + (i & ((1 << J) - 1))
+              + (i >> J) * (NS >> (R - J)))
+    final = np.empty((B, NS), np.int64)
+    final[:, states] = m
+    return dec.view("<i4"), final.astype(np.int32)
+
+
+def _kernel_round_steps():
+    """NS -> the steps a round R at which csrc/acs_wide.cu's dispatch
+    switch launches the hard wide forward."""
+    src = (Path(kernels.__file__).resolve().parent.parent / "csrc"
+           / "acs_wide.cu").read_text()
+    return {int(ns): int(r) for ns, _, r in re.findall(
+        r"case (\d+): return launch_round<(\d+), (\d+)>", src)}
+
+
+# (NS, R, B, T) at the R the kernel launches at NS: T = 1 ... 2R at NS 512
+# and 1024 (every residue mod R, T < R, whole rounds); one round and a step
+# at NS 2048 ... 16384, and NS 16384 with T = 3, each with B = 1.
+_STEPS = _kernel_round_steps()
+_ROUND_CASES = (
+    [(NS, _STEPS[NS], 2, T) for NS in (512, 1024)
+     for T in range(1, 2 * _STEPS[NS] + 1)]
+    + [(NS, _STEPS[NS], 1, _STEPS[NS] + 1)
+       for NS in (2048, 4096, 8192, 16384)]
+    + [(16384, _STEPS[16384], 1, 3)])
+
+
+@pytest.mark.parametrize("NS,R,B,T", _ROUND_CASES)
+def test_round_schedule_model_matches_plain_forward(NS, R, B, T):
+    """The kernel's round schedule, modelled in numpy, gives the plain
+    forward's words and final metrics bit for bit: fresh and carried start
+    metrics, segments over all 2^n values (ties)."""
+    assert NS >> R >= 32
+    rng = np.random.default_rng(NS + 16 * R + T)
+    # A poly-symmetric code: each generator taps the newest and the oldest
+    # bit, the bits between at random; n = 2 ... 8 over the cases.
+    K = NS.bit_length()
+    spec = port.CodeSpec(K=K, g=tuple(
+        (1 << (K - 1)) | 1 | (int(rng.integers(0, 1 << (K - 2))) << 1)
+        for _ in range(2 + T % 7)))
+    seg = rng.integers(0, 1 << spec.n, (B, T)).astype(np.uint8)
+    cb = np.asarray(butterfly_coded_bits(spec), np.int64)
+    init_value = init_metric_value(spec)
+    words_p, fm_p = acs.acs_forward_batch_plain(spec, _t(seg))
+    words, fm = _round_model(NS, spec.n, cb, seg, None, init_value, R)
+    np.testing.assert_array_equal(words, words_p.numpy())
+    np.testing.assert_array_equal(fm, fm_p.numpy())
+    # Carried metrics: the plain forward's own, over a second draw.
+    seg2 = rng.integers(0, 1 << spec.n, (B, T)).astype(np.uint8)
+    words_p, fm2_p = acs.acs_forward_batch_plain(spec, _t(seg2), fm_p)
+    words, fm2 = _round_model(NS, spec.n, cb, seg2, fm_p.numpy(), init_value,
+                              R)
+    np.testing.assert_array_equal(words, words_p.numpy())
+    np.testing.assert_array_equal(fm2, fm2_p.numpy())
