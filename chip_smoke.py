@@ -120,7 +120,11 @@ Phases (any failure exits non-zero and prints no result line):
      ones) at NS = 16 and 16384; the hard wide forward's rounds at
      NS = 512, 2048, 8192 and 16384 for every T mod R and T < R (R from
      its dispatch switch), fresh and carried metrics, noisy and garbage
-     segments; the JAX names of the fused kernels
+     segments; the soft wide forward's rounds at the same NS and T (R from
+     its own switch), n = 1..8 in turn and an n = 9 code, noisy and
+     garbage int8 LLRs (-128 included) under the three conditionings
+     (clamps [-7, 7], [-127, 127], [-128, 127]), fresh and carried
+     metrics; the JAX names of the fused kernels
      (`kernels.fused`) at init_chunk 0, -1 and 1 against their plain routes
      and the block decode;
  17. small-state main path (k): K5_23_35 at bench.py's working set (B =
@@ -2239,14 +2243,15 @@ def compare_fused(fec, acs, spec, seg, q, err, rng):
         err[mk] = max(err[mk], max_abs_diff(rows, rows_p))
 
 
-def wide_round_steps(source=None):
+def wide_round_steps(source=None, soft=False):
     """NS -> the steps a round R at which the dispatch switch of
     csrc/acs_wide.cu (or of `source`, a copy of it) launches the hard wide
-    forward (a block of NS >> R threads)."""
+    forward (`soft`: the soft one, n <= 8), a block of NS >> R threads."""
     import re
     src = Path(source or ROOT / SOURCES["acs_wide_forward"][0]).read_text()
+    launch = "launch_soft_round" if soft else "launch_round"
     return {int(ns): int(r) for ns, _, r in re.findall(
-        r"case (\d+): return launch_round<(\d+), (\d+)>", src)}
+        rf"case (\d+): return {launch}<(\d+), (\d+)>", src)}
 
 
 def compare_wide_rounds(fec, acs, dev, err, rng):
@@ -2288,6 +2293,65 @@ def compare_wide_rounds(fec, acs, dev, err, rng):
               f"threads a block; T = {lengths} (every T mod R, T < R), "
               "noisy and garbage, fresh and carried metrics: words and "
               "final metrics equal")
+
+
+def compare_wide_soft_rounds(fec, acs, dev, err, rng):
+    """The soft wide forward's rounds (the hard one's schedule, edge metrics
+    from a shared-memory table a step) against the plain forward at
+    NS = WIDE_ROUND_NS: T = m*R + j for every residue j of the launch's R
+    and every T < R, noisy and garbage LLRs over the whole int8 range (-128
+    included), the three conditionings (clamp to [-7, 7], [-127, 127],
+    [-128, 127]) and n = 1 ... 8 in turn, fresh and carried start metrics;
+    and an n = 9 code, which keeps the barrier-a-step kernel."""
+    import numpy as np
+    import torch
+    steps = wide_round_steps(soft=True)
+    modes = ((QMAX, True), (127, True), (127, False))
+    for NS in WIDE_ROUND_NS:
+        R = steps[NS]
+        lengths = list(range(1, R)) + [WIDE_ROUND_M * R + j for j in range(R)]
+        cases = [(T, kind) for T in lengths for kind in ("noisy", "garbage")]
+        cases.append((lengths[-1], "n = 9"))
+        for i, (T, kind) in enumerate(cases):
+            n = 9 if kind == "n = 9" else 1 + i % 8
+            qclip, floor = modes[i % 3]
+            spec = bfly_spec(fec, rng, NS, n)
+            if kind == "noisy":
+                # Encoded bits as LLRs of magnitude 1..7, 10% of them
+                # flipped, 5% saturated at +-127 or -128.
+                bits = (encode_reference_np(spec, rng.integers(
+                    0, 2, (SMALL_B, T), dtype=np.uint8))[:, :T, None]
+                        >> np.arange(n)) & 1
+                q = (1 - 2 * bits.astype(np.int64)) * rng.integers(
+                    1, 8, bits.shape)
+                q = np.where(rng.random(q.shape) < 0.1, -q, q)
+                sat = rng.choice(np.array([127, -127, -128]), q.shape)
+                q = np.where(rng.random(q.shape) < 0.05, sat, q)
+            else:
+                q = rng.integers(-128, 128, (SMALL_B, T, n))
+            q = torch.from_numpy(q.astype(np.int8)).to(dev)
+            words, fm = acs.acs_forward_batch_soft(spec, q, qclip, None, floor)
+            words_p, fm_p = acs.acs_forward_batch_soft_plain(spec, q, qclip,
+                                                             None, floor)
+            q2 = q.flip(0).contiguous()
+            words2, fm2 = acs.acs_forward_batch_soft(spec, q2, qclip, fm,
+                                                     floor)
+            words2_p, fm2_p = acs.acs_forward_batch_soft_plain(
+                spec, q2, qclip, fm_p, floor)
+            require(torch.equal(words, words_p) and torch.equal(fm, fm_p)
+                    and torch.equal(words2, words2_p)
+                    and torch.equal(fm2, fm2_p),
+                    f"{spec} acs_soft_wide_forward R={R} T={T} {kind} "
+                    f"qclip={qclip} floor={floor}")
+            err["acs_soft_wide_forward"] = max(
+                err["acs_soft_wide_forward"], max_abs_diff(words, words_p),
+                max_abs_diff(fm, fm_p), max_abs_diff(words2, words2_p),
+                max_abs_diff(fm2, fm2_p))
+        print(f"[compare] NS={NS:5d} acs_soft_wide_forward: R={R}, "
+              f"{NS >> R} threads a block; T = {lengths} (every T mod R, "
+              "T < R), noisy and garbage int8 LLRs, clamps [-7, 7], "
+              "[-127, 127], [-128, 127], n = 1..8 and 9, fresh and carried "
+              "metrics: words and final metrics equal")
 
 
 def phase_compare_butterfly(fec, acs, dev, err):
@@ -2370,6 +2434,7 @@ def phase_compare_butterfly(fec, acs, dev, err):
         print(f"[compare] NS={NS:5d} walks: terminated, ragged, masked, "
               "multi (NW 1, 2, 8, NS) equal")
     compare_wide_rounds(fec, acs, dev, err, rng)
+    compare_wide_soft_rounds(fec, acs, dev, err, rng)
     # The K11 names, on an n = 6 code at NS = 64 and on (l)'s code.
     for spec in (bfly_spec(fec, rng, 64, 6), fec.CodeSpec(**WIDE_MAIN)):
         seg = segments(spec, SMALL_B, BFLY_WIDE_L + 3, "noisy")

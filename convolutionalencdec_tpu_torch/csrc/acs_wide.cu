@@ -67,23 +67,42 @@
 // took ~45% of the time, the exchange and barrier ~18%, the
 // add-compare-selects the rest.
 //
-// The soft forward (`acs_soft_wide_kernel`): one block per channel, a
-// step's NS/2 butterflies spread over min(NS/2, 1024) threads (BPT = 1..8
-// butterflies each), the metrics double-buffered in shared memory (2 x 4 x
-// NS bytes: 128 KB at NS = 16384, past the 48 KB default, so the launch
-// raises the block's dynamic shared memory limit) and one __syncthreads per
-// step.  Thread slot j holds butterfly b = j * threads + tid, so each
-// warp's 32 consecutive butterflies give, by two __ballot_sync, exactly one
-// even and one odd decision word, which lanes 0 and 1 store; the two
-// destination metrics 2b, 2b + 1 go to shared memory as one 8-byte store
-// (no stride-2 bank conflict).  Every kChunk steps the block stages the
-// channel's inputs in shared memory.  n <= 8 is a template argument; any
-// other n runs the runtime-n instantiation (N = 0), at any NS: below 64
-// states one warp serves the channel with lanes NS/2..31 idle, and the
-// step's one word holds the even and odd halves.
+// The soft forward at NS = 512 ... 16384, n <= 8 (`acs_soft_round_kernel`):
+// the same rounds, groups, exchange and decision words, with R in its own
+// dispatch switch: 4 up to NS = 8192 and 5 at 16384, as measured (PERF.md
+// section 6; R = 5 spills ~140 bytes there and still wins, R = 3 and 5
+// lose below).  Only the edge metric differs.  All butterflies of a step share its
+// conditioned LLRs q_i: the edge (src b, input 0) costs em = base +
+// sum of q_i over the set bits i of b's coded segment p (base = sum_i
+// relu(-q_i)), its complement Q - em (Q = sum_i |q_i|).  So once a round,
+// 8R threads build from the round's R * n LLRs a shared-memory table a
+// step: 16 entries of base + the low four bits' sum, for n > 4 16 more of
+// bits 4..7, and Q.  A butterfly then costs one byte extraction and one
+// table load (n <= 4: the packed byte is already the entry's byte offset;
+// the 16 entries lie in 16 banks) where the hard one pays a popcount.
+// The round's LLRs arrive two rounds ahead: thread c < R * n loads byte c
+// of round r + 2 as round r starts and stores it, conditioned, before
+// round r's barrier, when the table threads read round r + 1's.  Tables and
+// LLRs are double-buffered, so the round keeps its one barrier.
+//
+// The soft forward for n > 8 (`acs_soft_wide_kernel`, at any NS): one
+// block per channel, a step's NS/2 butterflies spread over min(NS/2,
+// 1024) threads (BPT = 1..8 butterflies each), the metrics double-buffered
+// in shared memory (2 x 4 x NS bytes: 128 KB at NS = 16384, past the 48 KB
+// default, so the launch raises the block's dynamic shared memory limit)
+// and one __syncthreads per step.  Thread slot j holds butterfly b = j *
+// threads + tid, so each warp's 32 consecutive butterflies give, by two
+// __ballot_sync, exactly one even and one odd decision word, which lanes 0
+// and 1 store; the two destination metrics 2b, 2b + 1 go to shared memory
+// as one 8-byte store (no stride-2 bank conflict).  Every kChunk steps the
+// block stages the channel's inputs in shared memory.  Below 64 states one
+// warp serves the channel with lanes NS/2..31 idle, and the step's one
+// word holds the even and odd halves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -125,16 +144,14 @@ struct Round {
 
   // Step J of a round: the 2^(R-1) butterflies of the thread's group on
   // metrics m (order idx = k*2^J + u), their decisions into row `dec`
-  // (the step's W words).
-  template <int J>
-  static __device__ __forceinline__ void step(int (&m)[M],
-                                              const uint32_t (&cbp)[R][CBW],
-                                              uint32_t r, int n, int nmask,
-                                              int32_t* dec, int warp,
-                                              int lane) {
+  // (the step's W words).  em_of(i) is the edge metric of butterfly pair
+  // i's (src b, input 0) edge, total - em_of(i) its complement's.
+  template <int J, class EdgeMetric>
+  static __device__ __forceinline__ void step(int (&m)[M], EdgeMetric em_of,
+                                              int total, int32_t* dec,
+                                              int warp, int lane) {
     constexpr int GROUPS = HALF >> J;      // k values
     constexpr int DJ = NS >> (R - J);      // k stride in butterflies
-    const uint32_t r4 = r * 0x01010101u;
     int nm[M];
     // Steps 1..3: bit u of group g = 2k + p in field 8 * (g % 4) of
     // pk[g / 4]; step 4 (R = 5): in nib[k][p].  (One form for both, with
@@ -148,10 +165,9 @@ struct Round {
     for (int g = 0; g < GROUPS; ++g) nib[g][0] = nib[g][1] = 0;
 #pragma unroll
     for (int i = 0; i < HALF; ++i) {
-      const uint32_t x = r4 ^ cbp[J][i >> 2];
-      const int em = __popc(x & ((uint32_t)nmask << (8 * (i & 3))));
+      const int em = em_of(i);
       const int lo = m[i], hi = m[i + HALF];
-      const int emc = n - em;
+      const int emc = total - em;
       const int a0 = lo + em, a1 = hi + emc;
       const int b0 = lo + emc, b1 = hi + em;
       nm[2 * i] = min(a0, a1);
@@ -217,10 +233,19 @@ struct Round {
     uint32_t r[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) r[j] = (!GUARD || j < steps) ? __ldg(seg + j) : 0;
+    // The Hamming distance of the step's segment to the pair's coded
+    // segment (byte i % 4 of cbp[J][i / 4]).
 #define ACS_WIDE_STEP(J)                                                   \
     if constexpr (J < R) {                                                 \
       if (!GUARD || J < steps) {                                           \
-        step<J>(m, cbp, r[J], n, nmask, dec + (size_t)(J) * W, warp, lane); \
+        const uint32_t r4 = r[J] * 0x01010101u;                            \
+        step<J>(                                                           \
+            m,                                                             \
+            [&](int i) {                                                   \
+              return __popc((r4 ^ cbp[J][i >> 2]) &                        \
+                            ((uint32_t)nmask << (8 * (i & 3))));           \
+            },                                                             \
+            n, dec + (size_t)(J) * W, warp, lane);                         \
       }                                                                    \
     }
     ACS_WIDE_STEP(0)
@@ -352,9 +377,213 @@ int launch_round(const Args& a, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// The soft forward: a barrier a step.
+// The soft forward at NS >= 512, n <= 8: R steps a round in registers.
 
-template <int BPT, int N>  // N: n (0: runtime)
+// Words of one step's edge-metric table: 16 entries of the low four coded
+// bits (with the step's base), 16 of bits 4..7, then Q.
+constexpr int kTabStep = 33;
+constexpr int kTabQ = 32;
+
+// int8 LLR as the route uses it: clamp(q, qlo, qclip).
+__device__ __forceinline__ int condition(int8_t q, int qlo, int qclip) {
+  return min(max((int)q, qlo), qclip);
+}
+
+// The edge-metric tables of a round's R steps from its conditioned LLRs
+// `sq` (R * n, step-major), by threads c < 8R: thread c builds entries s
+// and s + 8 (s = c % 8) of step c / 8 of each table, and Q.  With q_i the
+// step's LLRs, base = sum_i relu(-q_i): entry p of the low table is base +
+// the q_i of the set bits i < 4 of p, of the high one the q_i of the set
+// bits i - 4 >= 0 of p, so that em = lo[p & 15] + hi[p >> 4] =
+// sum_i cost(bit i of p, q_i) (ops/metrics.py), and Q = sum_i |q_i|.
+template <int R, bool HI>
+__device__ __forceinline__ void build_tables(int* tab, const int* sq, int c,
+                                             int n) {
+  if (c >= 8 * R) return;
+  const int j = c >> 3, s = c & 7;
+  const int* q = sq + j * n;
+  int base = 0, Q = 0, lo0 = 0, lo1 = 0, hi0 = 0, hi1 = 0;
+  for (int i = 0; i < n; ++i) {
+    const int qi = q[i];
+    base += max(-qi, 0);
+    Q += abs(qi);
+    if (i < 4) {
+      lo0 += ((s >> i) & 1) ? qi : 0;
+      lo1 += (((s + 8) >> i) & 1) ? qi : 0;
+    } else if (HI) {
+      hi0 += ((s >> (i - 4)) & 1) ? qi : 0;
+      hi1 += (((s + 8) >> (i - 4)) & 1) ? qi : 0;
+    }
+  }
+  int* t = tab + j * kTabStep;
+  t[s] = base + lo0;
+  t[s + 8] = base + lo1;
+  if (HI) {
+    t[16 + s] = hi0;
+    t[24 + s] = hi1;
+  }
+  if (s == 0) t[kTabQ] = Q;
+}
+
+template <int LOGNS, int R, bool HI>  // HI: n > 4
+__global__ void __launch_bounds__((1 << LOGNS) >> R, 1)
+acs_soft_round_kernel(const int8_t* __restrict__ in,
+                      const int32_t* __restrict__ cb,
+                      const int32_t* __restrict__ init,
+                      int32_t* __restrict__ decs,
+                      int32_t* __restrict__ final_metrics, int T, int n,
+                      int qlo, int qclip, int init_value) {
+  using Rd = Round<LOGNS, R>;
+  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M, HALF = Rd::HALF;
+  constexpr int W = Rd::W;
+  static_assert(G >= 8 * R, "8R table threads, R * 8 LLR loaders");
+  // Two buffers each of NS metrics, of a round's R * W decision words, of
+  // its R step tables and of its R * 8 conditioned LLRs.
+  extern __shared__ int4 smem4[];
+  int* const buf0 = reinterpret_cast<int*>(smem4);
+  int* const buf1 = buf0 + NS;
+  int32_t* const stage0 = buf1 + NS;
+  int32_t* const stage1 = stage0 + R * W;
+  int* const tab0 = stage1 + R * W;
+  int* const tab1 = tab0 + R * kTabStep;
+  int* const sq0 = tab1 + R * kTabStep;
+  int* const sq1 = sq0 + R * 8;
+  const int c = threadIdx.x;
+  const int lane = c & 31, warp = c >> 5;
+  const int ch = blockIdx.x;
+
+  // Coded segments of the group's butterflies, byte i % 4 of cbp[j][i / 4]
+  // for pair i = k*2^j + u of step j: n <= 4, the byte offset of its entry
+  // in the low table; n > 4, the segment.
+  uint32_t cbp[R][Rd::CBW];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+#pragma unroll
+    for (int w = 0; w < Rd::CBW; ++w) cbp[j][w] = 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      const int b = (c << j) + (i & ((1 << j) - 1)) + (i >> j) * (NS >> (R - j));
+      const uint32_t p = (uint32_t)__ldg(cb + b) & 0xffu;
+      cbp[j][i >> 2] |= (HI ? p : p << 2) << (8 * (i & 3));
+    }
+  }
+  int m[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int s = c + i * G;
+    m[i] = (init != nullptr) ? __ldg(init + (size_t)ch * NS + s)
+                             : (s == 0 ? 0 : init_value);
+  }
+
+  // The LLRs of a round are R * n consecutive bytes: thread c < R * n
+  // loads byte c of round r + 2 as round r starts and stores it,
+  // conditioned, as round r ends; the threads building round r + 1's
+  // tables then read that round's LLRs, stored a round earlier.
+  const int8_t* row = in + (size_t)ch * T * n;
+  const int tn = T * n, rn = R * n;
+  if (c < rn) {
+    sq0[c] = c < tn ? condition(row[c], qlo, qclip) : 0;
+    sq1[c] = rn + c < tn ? condition(row[rn + c], qlo, qclip) : 0;
+  }
+  __syncthreads();
+  build_tables<R, HI>(tab0, sq0, c, n);
+  __syncthreads();
+
+  int32_t* dec_row = decs + (size_t)ch * T * W;
+  const int rd_base = Rd::phys(c);
+  int* wb = buf0;
+  int32_t* sd = stage0;
+  const int* tab = tab0;
+  int* sq = sq0;
+  // Step J of a round from its table: em = lo[p & 15] (+ hi[p >> 4]).
+#define ACS_SOFT_STEP(J)                                                   \
+  if constexpr (J < R) {                                                   \
+    if (!GUARD || J < steps) {                                             \
+      const int* tj = tab + (J) * kTabStep;                                \
+      Rd::template step<J>(                                                \
+          m,                                                               \
+          [&](int i) {                                                     \
+            const uint32_t x =                                             \
+                __byte_perm(cbp[J][i >> 2], 0, 0x4440 | (i & 3));          \
+            if constexpr (HI) {                                            \
+              return tj[x & 15] + tj[16 + (x >> 4)];                       \
+            } else {                                                       \
+              return *reinterpret_cast<const int*>(                        \
+                  reinterpret_cast<const char*>(tj) + x);                  \
+            }                                                              \
+          },                                                               \
+          tj[kTabQ], sd + (J) * W, warp, lane);                            \
+    }                                                                      \
+  }
+  auto soft_round = [&](auto guard, int steps) {
+    constexpr bool GUARD = decltype(guard)::value;
+    ACS_SOFT_STEP(0)
+    ACS_SOFT_STEP(1)
+    ACS_SOFT_STEP(2)
+    ACS_SOFT_STEP(3)
+    ACS_SOFT_STEP(4)
+  };
+#undef ACS_SOFT_STEP
+  int t = 0;
+  for (; t + R <= T; t += R) {
+    const int ahead = (t + 2 * R) * n + c;
+    const int8_t q_ahead = (c < rn && ahead < tn) ? row[ahead] : 0;
+    soft_round(std::false_type{}, R);
+#pragma unroll
+    for (int q = 0; q < Rd::Q; ++q) {
+      const int qs = q ^ ((c >> Rd::SH) & (Rd::Q - 1));
+      reinterpret_cast<int4*>(wb)[c * Rd::Q + qs] =
+          make_int4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    }
+    int* const sq_next = (sq == sq0) ? sq1 : sq0;
+    if (c < rn) sq[c] = condition(q_ahead, qlo, qclip);
+    build_tables<R, HI>(tab == tab0 ? tab1 : tab0, sq_next, c, n);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      m[i] = wb[Rd::kShiftInvariant ? rd_base + i * G : Rd::phys(c + i * G)];
+    }
+    copy_words<G>(sd, dec_row + (size_t)t * W, R * W, c);
+    wb = (wb == buf0) ? buf1 : buf0;
+    sd = (sd == stage0) ? stage1 : stage0;
+    tab = (tab == tab0) ? tab1 : tab0;
+    sq = sq_next;
+  }
+  const int J = T - t;
+  if (J > 0) {
+    soft_round(std::true_type{}, J);
+    __syncthreads();
+    copy_words<G>(sd, dec_row + (size_t)t * W, J * W, c);
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const int s = (c << J) + (i & ((1 << J) - 1)) + (i >> J) * (NS >> (R - J));
+    final_metrics[(size_t)ch * NS + s] = m[i];
+  }
+}
+
+template <int LOGNS, int R>
+int launch_soft_round(const Args& a, cudaStream_t s) {
+  constexpr int NS = 1 << LOGNS;
+  const size_t smem = ((size_t)2 * NS + 2 * R * (NS / 32) +
+                       2 * R * kTabStep + 2 * R * 8) * sizeof(int);
+  auto kernel = a.n > 4 ? acs_soft_round_kernel<LOGNS, R, true>
+                        : acs_soft_round_kernel<LOGNS, R, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<a.B, NS >> R, smem, s>>>(
+      reinterpret_cast<const int8_t*>(a.in), a.cb, a.init, a.decs,
+      a.final_metrics, a.T, a.n, a.qlo, a.qclip, a.init_value);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The soft forward for n > 8 (any NS): a barrier a step.
+
+template <int BPT>
 __global__ void __launch_bounds__(kMaxThreads)
 acs_soft_wide_kernel(const uint8_t* __restrict__ in,
                      const int32_t* __restrict__ cb,
@@ -394,44 +623,28 @@ acs_soft_wide_kernel(const uint8_t* __restrict__ in,
       // __syncthreads (or, at t = 0, nothing was staged).
       const int len = min(kChunk, T - t) * step_bytes;
       for (int i = tid; i < len; i += threads) {
-        const int v = row[(size_t)t * step_bytes + i];
-        stage[i] = (int8_t)min(max((int)(int8_t)v, qlo), qclip);
+        stage[i] = (int8_t)condition((int8_t)row[(size_t)t * step_bytes + i],
+                                     qlo, qclip);
       }
       __syncthreads();
     }
     // The step's edge-metric terms, the same in every thread.
     int base = 0, Q = 0;
-    int q[N > 0 ? N : 1];
     const int8_t* qs = stage + k * step_bytes;
-    if constexpr (N > 0) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) q[i] = qs[i];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        base += max(-q[i], 0);
-        Q += abs(q[i]);
-      }
-    } else {
-      for (int i = 0; i < n; ++i) {
-        const int qi = qs[i];
-        base += max(-qi, 0);
-        Q += abs(qi);
-      }
+    for (int i = 0; i < n; ++i) {
+      const int qi = qs[i];
+      base += max(-qi, 0);
+      Q += abs(qi);
     }
 #pragma unroll
     for (int j = 0; j < BPT; ++j) {
       const int b = j * threads + tid;
       const bool act = b < H;  // false only for lanes NS/2..31 when NS < 64
+      // The coded-bit table holds n <= 8 bits (ops/trellis.py): a coded
+      // bit past the eighth is 0 and costs relu(-q), in `base`.
       int em = base;
-      if constexpr (N > 0) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) em += q[i] & -((cbl[j] >> i) & 1);
-      } else {
-        // The coded-bit table holds n <= 8 bits (ops/trellis.py): a coded
-        // bit past the eighth is 0 and costs relu(-q), in `base`.
-        for (int i = 0; i < min(n, 8); ++i) {
-          em += (int)qs[i] & -((cbl[j] >> i) & 1);
-        }
+      for (int i = 0; i < min(n, 8); ++i) {
+        em += (int)qs[i] & -((cbl[j] >> i) & 1);
       }
       const int emc = Q - em;
       const int lo = act ? m_cur[b] : 0;
@@ -467,43 +680,40 @@ acs_soft_wide_kernel(const uint8_t* __restrict__ in,
   }
 }
 
-template <int BPT, int N>
+template <int BPT>
 int launch_soft(const Args& a, int threads, size_t smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        acs_soft_wide_kernel<BPT, N>,
+        acs_soft_wide_kernel<BPT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  acs_soft_wide_kernel<BPT, N><<<a.B, threads, smem, s>>>(
+  acs_soft_wide_kernel<BPT><<<a.B, threads, smem, s>>>(
       a.in, a.cb, a.init, a.decs, a.final_metrics, a.T, a.NS, a.n, a.qlo,
       a.qclip, a.init_value);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
-int launch_bpt(int bpt, const Args& a, int threads, size_t smem,
-               cudaStream_t s) {
+// The barrier-a-step soft forward at NS (a power of two in [2, 16384]):
+// min(NS/2, 1024) threads (32 below 64 states), NS/2 / threads butterflies
+// each, the metrics twice and kChunk steps of LLRs in shared memory.
+int launch_soft_steps(const Args& a, cudaStream_t s) {
+  if (a.NS < 2 || a.NS > 16384 || (a.NS & (a.NS - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int H = a.NS / 2;
+  const int threads = H < 32 ? 32 : (H < kMaxThreads ? H : kMaxThreads);
+  const int bpt = H < 32 ? 1 : H / threads;
+  const size_t smem = (size_t)2 * a.NS * sizeof(int) +
+                      (((size_t)kChunk * a.n + 15) & ~(size_t)15);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   switch (bpt) {
-    case 1: return launch_soft<1, N>(a, threads, smem, s);
-    case 2: return launch_soft<2, N>(a, threads, smem, s);
-    case 4: return launch_soft<4, N>(a, threads, smem, s);
-    case 8: return launch_soft<8, N>(a, threads, smem, s);
+    case 1: return launch_soft<1>(a, threads, smem, s);
+    case 2: return launch_soft<2>(a, threads, smem, s);
+    case 4: return launch_soft<4>(a, threads, smem, s);
+    case 8: return launch_soft<8>(a, threads, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Threads, butterflies per thread and shared memory of a soft launch at NS;
-// false for an NS the kernel does not take (a power of two in [2, 16384]).
-bool shape(const Args& a, int step_bytes, int* threads, int* bpt,
-           size_t* smem) {
-  if (a.NS < 2 || a.NS > 16384 || (a.NS & (a.NS - 1)) != 0) return false;
-  const int H = a.NS / 2;
-  *threads = H < 32 ? 32 : (H < kMaxThreads ? H : kMaxThreads);
-  *bpt = H < 32 ? 1 : H / *threads;
-  *smem = (size_t)2 * a.NS * sizeof(int) +
-          (((size_t)kChunk * step_bytes + 15) & ~(size_t)15);
-  return true;
 }
 
 }  // namespace
@@ -543,21 +753,19 @@ extern "C" int acs_soft_wide_forward(const void* qllrs, const void* cb,
                static_cast<int32_t*>(decs),
                static_cast<int32_t*>(final_metrics),
                B, T, NS, n, qlo, qclip, init_value};
-  int threads, bpt;
-  size_t smem;
-  if (n < 1 || !shape(a, n, &threads, &bpt, &smem) || smem > 232448) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case 1: return launch_bpt<1>(bpt, a, threads, smem, s);
-    case 2: return launch_bpt<2>(bpt, a, threads, smem, s);
-    case 3: return launch_bpt<3>(bpt, a, threads, smem, s);
-    case 4: return launch_bpt<4>(bpt, a, threads, smem, s);
-    case 5: return launch_bpt<5>(bpt, a, threads, smem, s);
-    case 6: return launch_bpt<6>(bpt, a, threads, smem, s);
-    case 7: return launch_bpt<7>(bpt, a, threads, smem, s);
-    case 8: return launch_bpt<8>(bpt, a, threads, smem, s);
-    default: return launch_bpt<0>(bpt, a, threads, smem, s);
+  if (n <= 8) {
+    // Steps a round by NS, as measured (PERF.md section 6).
+    switch (NS) {
+      case 512: return launch_soft_round<9, 4>(a, s);
+      case 1024: return launch_soft_round<10, 4>(a, s);
+      case 2048: return launch_soft_round<11, 4>(a, s);
+      case 4096: return launch_soft_round<12, 4>(a, s);
+      case 8192: return launch_soft_round<13, 4>(a, s);
+      case 16384: return launch_soft_round<14, 5>(a, s);
+      default: break;
+    }
   }
+  return launch_soft_steps(a, s);
 }

@@ -25,6 +25,7 @@ from .._device import as_tensor
 from ..params import CodeSpec
 from .metrics import soft_step_metrics
 from .trellis import next_state_table, prev_state_table
+from .viterbi import one_packet
 
 #: Exclusion constant for impossible states: the value of a state that
 #: cannot start (or end) the packet.  Path costs stay far below it
@@ -33,6 +34,7 @@ from .trellis import next_state_table, prev_state_table
 BIG = 1 << 28
 
 
+@one_packet(3)
 def maxlogmap_llrs(spec: CodeSpec, qllrs, terminated: bool = True,
                    device=None) -> torch.Tensor:
     """A-posteriori per-bit LLRs of a batch of packets via max-log-MAP.
@@ -93,6 +95,7 @@ def maxlogmap_llrs(spec: CodeSpec, qllrs, terminated: bool = True,
     return torch.stack(llrs, dim=2).reshape(B, T * k)
 
 
+@one_packet(3)
 def maxlogmap_decode(spec: CodeSpec, qllrs, terminated: bool = True,
                      device=None) -> torch.Tensor:
     """Hard bitwise-MAP decisions from `maxlogmap_llrs` (a negative LLR is

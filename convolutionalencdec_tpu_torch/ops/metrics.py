@@ -21,8 +21,8 @@ import torch
 from .._device import as_tensor
 from ..params import CodeSpec
 from .trellis import butterfly_coded_bits, edge_coded_bits
-from .viterbi import (_initial_metrics, ragged_epilogue, traceback_terminated,
-                      viterbi_forward)
+from .viterbi import (_initial_metrics, one_packet, ragged_epilogue,
+                      traceback_terminated, viterbi_forward)
 
 #: Default quantizer ceiling: 3-bit magnitudes, which give up only
 #: ~0.1-0.2 dB against unquantized soft decoding.
@@ -38,13 +38,15 @@ def quantize_llrs(llrs, qmax: int = DEFAULT_QMAX, scale: float | None = None,
       scale: LLR units per quantizer step.  Default: 3 sigma of the incoming
         LLRs mapped onto qmax, 3 sqrt(mean(llr^2)) / qmax in float32,
         floored at 1e-9.
-    Rounds half to even, then clips.
+    Rounds half to even, then clips; a NaN becomes 0 (so with the default
+    scale one NaN or +-inf among the LLRs makes every output 0), as the
+    JAX package's cast gives it.
     """
     llrs = as_tensor(llrs, torch.float32, device)
     if scale is None:
         scale = 3.0 * torch.sqrt(torch.mean(torch.square(llrs))) / qmax
         scale = torch.clamp_min(scale, 1e-9)
-    q = torch.round(llrs / scale)
+    q = torch.nan_to_num(torch.round(llrs / scale), nan=0.0)
     return torch.clamp(q, -qmax, qmax).to(torch.int32)
 
 
@@ -69,6 +71,7 @@ def soft_step_metrics(spec: CodeSpec, qllrs, device=None) -> torch.Tensor:
     return out
 
 
+@one_packet(3)
 def viterbi_forward_butterfly_soft(spec: CodeSpec, qllrs,
                                    initial_metrics=None, device=None):
     """k=1 butterfly ACS on quantized LLRs.
@@ -124,6 +127,7 @@ def _soft_decisions(spec: CodeSpec, qllrs: torch.Tensor) -> torch.Tensor:
     return decisions
 
 
+@one_packet(3)
 def viterbi_decode_soft(spec: CodeSpec, qllrs, device=None) -> torch.Tensor:
     """Soft-decision block decode of terminated packets.
 

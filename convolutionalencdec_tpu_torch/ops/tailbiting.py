@@ -31,7 +31,7 @@ from .._device import as_tensor
 from ..params import CodeSpec
 from .encode import encode_bits
 from .metrics import soft_step_metrics
-from .viterbi import (hard_step_metrics, traceback_terminated,
+from .viterbi import (hard_step_metrics, one_packet, traceback_terminated,
                       viterbi_forward, viterbi_forward_butterfly)
 
 #: Exclusion metric of the exact oracle: above any real path metric while
@@ -120,6 +120,7 @@ def _wrap_traceback(spec: CodeSpec, decisions, fm, wl: int, T: int):
     return bits[:, wl * spec.k:(wl + T) * spec.k]
 
 
+@one_packet(2)
 def viterbi_decode_tailbiting(spec: CodeSpec, segments, wrap=None,
                               device=None) -> torch.Tensor:
     """Circular wrap decode of tail-biting packets (hard decision).
@@ -138,6 +139,7 @@ def viterbi_decode_tailbiting(spec: CodeSpec, segments, wrap=None,
     return _wrap_traceback(spec, decisions, fm, wl, T)
 
 
+@one_packet(3)
 def viterbi_decode_tailbiting_soft(spec: CodeSpec, qllrs, wrap=None,
                                    device=None) -> torch.Tensor:
     """Circular wrap decode of quantized LLRs [B, T, n] (used as they are:
@@ -191,6 +193,7 @@ def _list_from_forward(spec: CodeSpec, decisions, fm, list_size: int,
     return bits.reshape(B, list_size, T * spec.k), metrics
 
 
+@one_packet(2)
 def viterbi_decode_tailbiting_list(spec: CodeSpec, segments,
                                    list_size: int = 4, wrap: int | None = None,
                                    device=None):
@@ -214,6 +217,7 @@ def viterbi_decode_tailbiting_list(spec: CodeSpec, segments,
     return _list_from_forward(spec, decisions, fm, list_size, wl, T)
 
 
+@one_packet(3)
 def viterbi_decode_tailbiting_list_soft(spec: CodeSpec, qllrs,
                                         list_size: int = 4,
                                         wrap: int | None = None,
@@ -232,6 +236,7 @@ def viterbi_decode_tailbiting_list_soft(spec: CodeSpec, qllrs,
     return _list_from_forward(spec, decisions, fm, list_size, wl, T)
 
 
+@one_packet(2)
 def viterbi_decode_tailbiting_exact(spec: CodeSpec, segments,
                                     device=None) -> torch.Tensor:
     """ML tail-biting decode (a test oracle): the best circular path over

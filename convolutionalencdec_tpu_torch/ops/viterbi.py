@@ -15,6 +15,8 @@ int32 metrics are never renormalized (exact for any T below 2^31 / n).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -22,6 +24,26 @@ from .._device import as_tensor
 from ..params import CodeSpec
 from .bits import pack_bits
 from .trellis import butterfly_coded_bits, edge_coded_bits, prev_state_table
+
+
+def one_packet(rank: int):
+    """Decorator of a batched function `fn(spec, x, ...)` whose input x has
+    `rank` dimensions (a leading batch axis B): given one packet, x of
+    rank - 1 dimensions as the JAX package's function takes it, it adds a
+    batch axis of 1 and drops it from every tensor the function returns.
+    Batched inputs pass through unchanged."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(spec, x, *args, **kwargs):
+            is_tensor = isinstance(x, torch.Tensor)
+            if (x.dim() if is_tensor else np.ndim(x)) != rank - 1:
+                return fn(spec, x, *args, **kwargs)
+            out = fn(spec, x[None] if is_tensor else np.asarray(x)[None],
+                     *args, **kwargs)
+            return tuple(o[0] for o in out) if isinstance(out, tuple) \
+                else out[0]
+        return entry
+    return wrap
 
 
 def init_metric_value(spec: CodeSpec) -> int:
@@ -69,6 +91,7 @@ def hard_step_metrics(spec: CodeSpec, segments, device=None) -> torch.Tensor:
     return hard_metric_table(spec, segments.device)[segments.long()]
 
 
+@one_packet(4)
 def viterbi_forward(spec: CodeSpec, step_metrics,
                     collect_metrics: bool = False, initial_metrics=None,
                     device=None):
@@ -118,6 +141,7 @@ def viterbi_forward(spec: CodeSpec, step_metrics,
     return decisions, m
 
 
+@one_packet(2)
 def viterbi_forward_butterfly(spec: CodeSpec, segments, initial_metrics=None,
                               device=None):
     """k=1 butterfly ACS with the poly-symmetry single-edge-metric trick.
@@ -203,6 +227,7 @@ def traceback_terminated(spec: CodeSpec, decisions, num_pad: int = -1,
     return symbols_to_bits(spec, us[:, : T - num_pad])
 
 
+@one_packet(2)
 def viterbi_decode(spec: CodeSpec, segments, use_butterfly: bool | None = None,
                    device=None) -> torch.Tensor:
     """Hard-decision block decode of terminated packets.
@@ -233,6 +258,7 @@ def pad_and_pack(bits: torch.Tensor) -> torch.Tensor:
     return pack_bits(bits)
 
 
+@one_packet(2)
 def viterbi_decode_bytes(spec: CodeSpec, segments,
                          message_bits: int | None = None,
                          device=None) -> torch.Tensor:
@@ -363,6 +389,7 @@ def _decode_stream(spec: CodeSpec, step_metrics, B: int, T: int,
     return symbols_to_bits(spec, torch.cat([emitted[:, W - 1:], flush], 1))
 
 
+@one_packet(2)
 def viterbi_decode_stream(spec: CodeSpec, segments, traceback_len: int = 0,
                           device=None) -> torch.Tensor:
     """Streaming sliding-window decode (decode delay = traceback_len W,
@@ -385,6 +412,7 @@ def viterbi_decode_stream(spec: CodeSpec, segments, traceback_len: int = 0,
                           traceback_len, segments.device)
 
 
+@one_packet(3)
 def viterbi_decode_stream_soft(spec: CodeSpec, qllrs, traceback_len: int = 0,
                                device=None) -> torch.Tensor:
     """Soft-decision `viterbi_decode_stream`: quantized-LLR branch costs

@@ -358,7 +358,25 @@ def _shfl_down(v, s):
     return out.reshape(v.shape)
 
 
-def _round_model(NS, n, cb, seg, init, init_value, R):
+def _soft_tables(q, n, qlo, qclip):
+    """The soft round kernel's per-step tables (`build_tables`) of int8
+    LLRs q [B, T, n]: (lo [B, T, 16], hi [B, T, 16], Q [B, T]), lo[p] =
+    base + the conditioned q_i of the set bits i < 4 of p, hi[p] = those of
+    the set bits i - 4 of p, base = sum_i relu(-q_i), Q = sum_i |q_i|."""
+    qc = np.clip(q.astype(np.int64), qlo, qclip)
+    base = np.maximum(-qc, 0).sum(-1)
+    s = np.arange(16)
+    lo = np.broadcast_to(base[..., None], base.shape + (16,)).copy()
+    hi = np.zeros_like(lo)
+    for i in range(n):
+        if i < 4:
+            lo += ((s >> i) & 1) * qc[..., i:i + 1]
+        else:
+            hi += ((s >> (i - 4)) & 1) * qc[..., i:i + 1]
+    return lo, hi, np.abs(qc).sum(-1)
+
+
+def _round_model(NS, n, cb, seg, init, init_value, R, soft=None):
     """numpy model of csrc/acs_wide.cu's hard forward (`acs_round_kernel`),
     done the way the kernel does it: thread c owns closed group c, its 2^R
     metrics in registers idx = k*2^j + u; step j pairs registers i and
@@ -366,9 +384,13 @@ def _round_model(NS, n, cb, seg, init, init_value, R):
     2i + 1; decisions as ballots (j = 0) or per-lane 2^j-bit nibbles joined
     by shfl_down into bytes and stored per lane; after R steps the
     destinations go to a swizzled shared buffer and come back as sources
-    c + m*G; the last round runs T mod R steps.  Returns (decision words
-    int32 [B, T, NS/32], final metrics int32 [B, NS])."""
-    B, T = seg.shape
+    c + m*G; the last round runs T mod R steps.  With `soft` = (qlo, qclip)
+    it models the soft one (`acs_soft_round_kernel`) on int8 LLRs seg
+    [B, T, n]: the same rounds, each butterfly's edge metric read from its
+    step's tables by its packed coded byte (n <= 4: the entry's byte
+    offset; else lo[p & 15] + hi[p >> 4]), the complement Q - em.  Returns
+    (decision words int32 [B, T, NS/32], final metrics int32 [B, NS])."""
+    B, T = seg.shape[:2]
     H, G, M, HALF, W = NS // 2, NS >> R, 1 << R, 1 << (R - 1), NS // 32
     Q, SH = M // 4, 5 - R
     c = np.arange(G)
@@ -395,10 +417,25 @@ def _round_model(NS, n, cb, seg, init, init_value, R):
         return (o << R) | ((((s >> 2) & (Q - 1)) ^ ((o >> SH) & (Q - 1)))
                            << 2) | (s & 3)
 
+    if soft is not None:
+        lo_t, hi_t, q_t = _soft_tables(seg, n, *soft)
+        # The packed byte of each pair: its entry's byte offset (n <= 4) or
+        # its coded segment.
+        cbo = cbj << 2 if n <= 4 else cbj
+
     def step(m, j, t):
-        r = seg[:, t].astype(np.int64)[:, None, None]
-        em = np.bitwise_count((r ^ cbj[j][None]) & nmask).astype(np.int64)
-        emc = n - em
+        if soft is None:
+            r = seg[:, t].astype(np.int64)[:, None, None]
+            em = np.bitwise_count((r ^ cbj[j][None]) & nmask).astype(np.int64)
+            emc = n - em
+        else:
+            rows3 = np.arange(B)[:, None, None]
+            if n <= 4:
+                em = lo_t[rows3, t, cbo[j][None] >> 2]
+            else:
+                em = (lo_t[rows3, t, cbo[j][None] & 15]
+                      + hi_t[rows3, t, cbo[j][None] >> 4])
+            emc = q_t[:, t, None, None] - em
         lo, hi = m[..., :HALF], m[..., HALF:]
         a0, a1, b0, b1 = lo + em, hi + emc, lo + emc, hi + em
         nm = np.empty_like(m)
@@ -451,13 +488,14 @@ def _round_model(NS, n, cb, seg, init, init_value, R):
     return dec.view("<i4"), final.astype(np.int32)
 
 
-def _kernel_round_steps():
+def _kernel_round_steps(soft=False):
     """NS -> the steps a round R at which csrc/acs_wide.cu's dispatch
-    switch launches the hard wide forward."""
+    switch launches the hard wide forward (`soft`: the soft one, n <= 8)."""
     src = (Path(kernels.__file__).resolve().parent.parent / "csrc"
            / "acs_wide.cu").read_text()
+    launch = "launch_soft_round" if soft else "launch_round"
     return {int(ns): int(r) for ns, _, r in re.findall(
-        r"case (\d+): return launch_round<(\d+), (\d+)>", src)}
+        rf"case (\d+): return {launch}<(\d+), (\d+)>", src)}
 
 
 # (NS, R, B, T) at the R the kernel launches at NS: T = 1 ... 2R at NS 512
@@ -497,5 +535,52 @@ def test_round_schedule_model_matches_plain_forward(NS, R, B, T):
     words_p, fm2_p = acs.acs_forward_batch_plain(spec, _t(seg2), fm_p)
     words, fm2 = _round_model(NS, spec.n, cb, seg2, fm_p.numpy(), init_value,
                               R)
+    np.testing.assert_array_equal(words, words_p.numpy())
+    np.testing.assert_array_equal(fm2, fm2_p.numpy())
+
+
+# (NS, R, B, T, n, qclip, floor) at the R the soft kernel launches at NS:
+# T = 1 ... 2R at NS 512 and 1024, one round and a step at NS 2048 ...
+# 16384 and NS 16384 at T = 3; n = 1, 4, 8 and the three conditionings
+# (clamp to [-7, 7], [-127, 127], [-128, 127]) in turn.
+_SOFT_STEPS = _kernel_round_steps(soft=True)
+_SOFT_MODES = ((7, True), (127, True), (127, False))
+_SOFT_ROUND_CASES = [
+    case + ((1, 4, 8)[i % 3],) + _SOFT_MODES[(i // 3 + i) % 3]
+    for i, case in enumerate(
+        [(NS, _SOFT_STEPS[NS], 2, T) for NS in (512, 1024)
+         for T in range(1, 2 * _SOFT_STEPS[NS] + 1)]
+        + [(NS, _SOFT_STEPS[NS], 1, _SOFT_STEPS[NS] + 1)
+           for NS in (2048, 4096, 8192, 16384)]
+        + [(16384, _SOFT_STEPS[16384], 1, 3)])]
+
+
+@pytest.mark.parametrize("NS,R,B,T,n,qclip,floor", _SOFT_ROUND_CASES)
+def test_soft_round_schedule_model_matches_plain_forward(NS, R, B, T, n,
+                                                         qclip, floor):
+    """The soft kernel's rounds and table edge metrics, modelled in numpy,
+    give the plain soft forward's words and final metrics bit for bit: LLRs
+    over the whole int8 range, fresh and carried start metrics."""
+    assert NS >> R >= 32
+    rng = np.random.default_rng(NS + 16 * R + T + 1000 * n)
+    K = NS.bit_length()
+    spec = port.CodeSpec(K=K, g=tuple(
+        (1 << (K - 1)) | 1 | (int(rng.integers(0, 1 << (K - 2))) << 1)
+        for _ in range(n)))
+    qlo = -qclip if floor else -128
+    cb = np.asarray(butterfly_coded_bits(spec), np.int64)
+    init_value = init_metric_value(spec)
+    q = rng.integers(-128, 128, (B, T, n)).astype(np.int8)
+    words_p, fm_p = acs.acs_forward_batch_soft_plain(spec, _t(q), qclip,
+                                                     floor=floor)
+    words, fm = _round_model(NS, n, cb, q, None, init_value, R,
+                             (qlo, qclip))
+    np.testing.assert_array_equal(words, words_p.numpy())
+    np.testing.assert_array_equal(fm, fm_p.numpy())
+    q2 = rng.integers(-128, 128, (B, T, n)).astype(np.int8)
+    words_p, fm2_p = acs.acs_forward_batch_soft_plain(spec, _t(q2), qclip,
+                                                      fm_p, floor)
+    words, fm2 = _round_model(NS, n, cb, q2, fm_p.numpy(), init_value, R,
+                              (qlo, qclip))
     np.testing.assert_array_equal(words, words_p.numpy())
     np.testing.assert_array_equal(fm2, fm2_p.numpy())
