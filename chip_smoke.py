@@ -1975,9 +1975,65 @@ def compare_generic(fec, gk, spec, seg, err):
     return want
 
 
+def generic_forward_shapes(source=None):
+    """(k, log2 NS, log2 lanes a channel) of each case of the generic
+    forward's dispatch switch in csrc/acs_generic.cu (or `source`)."""
+    import re
+    src = Path(source or ROOT / SOURCES["acs_generic_forward"][0]).read_text()
+    return [tuple(map(int, m)) for m in re.findall(
+        r"launch_forward<(\d+), (\d+), (\d+)(?:, \d+)*>\(GENERIC_ARGS\)", src)]
+
+
+def compare_generic_shapes(fec, gk, dev, err, rng):
+    """Every instantiation of the generic forward against the plain forward
+    on the card: at each (k, NS) of its dispatch switch a random code (n = 1
+    ... 8 in turn; at k = 1 not a butterfly code), noisy and garbage segments, B = 1 and B = 2 CPW + 3
+    (CPW: the shape's channels a warp, a block's), T = 1, S + 1, 31, 32,
+    33 and 100; planes and final metrics, through both entries at k = 2,
+    NS = 64."""
+    import numpy as np
+    import torch
+    for i, (k, logns, logc) in enumerate(generic_forward_shapes()):
+        n, K, cpw = 1 + i % 8, logns // k + 1, 32 >> logc
+        spec = None
+        while spec is None or not gk.generic_kernel_supports(spec):
+            spec = fec.CodeSpec(K=K, k=k, g=tuple(
+                int(x) for x in rng.integers(1, 1 << (k * K), n)))
+        cases = 0
+        for kind in ("noisy", "garbage"):
+            for B in (1, 2 * cpw + 3):
+                for T in (1, spec.S + 1, 31, 32, 33, 100):
+                    x = rng.integers(0, 1 << n, (B, T)).astype(np.uint8)
+                    if kind == "noisy" and T > spec.S:
+                        msgs = rng.integers(0, 2, (B, (T - spec.S) * k),
+                                            dtype=np.uint8)
+                        coded = fec.encode_bits(spec, torch.from_numpy(
+                            msgs).to(dev))[0].cpu().numpy()
+                        x = corrupt(rng, coded, 0.1, n)
+                    seg = torch.from_numpy(x).to(dev)
+                    planes_p, fm_p = gk.acs_forward_batch_generic_plain(spec,
+                                                                        seg)
+                    for fname, _, fwd, _, _, _ in generic_pairs(gk, spec):
+                        planes, fm = fwd(spec, seg)
+                        require(torch.equal(planes, planes_p)
+                                and torch.equal(fm, fm_p),
+                                f"{spec} {fname} B={B} T={T} {kind}: planes "
+                                "and final metrics")
+                        err[fname] = max(err[fname],
+                                         max_abs_diff(planes, planes_p),
+                                         max_abs_diff(fm, fm_p))
+                        cases += 1
+        print(f"[compare] generic forward k={k} NS={1 << logns} n={n}: "
+              f"{cpw} channels a warp ({1 << logc} lanes a channel), "
+              f"{cases} cases (noisy, garbage; B = 1, {2 * cpw + 3}; T = 1, "
+              f"S+1, 31, 32, 33, 100): planes and final metrics equal to "
+              "the plain forward")
+
+
 def phase_compare_generic(fec, gk, dev, err):
     """The generic-k kernels against their plain versions on the card, on
-    every code of the slice, noisy and garbage inputs and the edges."""
+    every code of the slice, noisy and garbage inputs and the edges, and
+    the forward at every instantiation of its dispatch switch."""
     import numpy as np
     import torch
     rng = np.random.default_rng(2030)
@@ -2010,6 +2066,7 @@ def phase_compare_generic(fec, gk, dev, err):
               f"T={clean.shape[1]}: {', '.join(draws)}: planes, final "
               "metrics, bits and bytes equal to the plain versions, entries "
               f"equal to the plain decode; BER at p={NOISE[0]} {ber:.4f}")
+    compare_generic_shapes(fec, gk, dev, err, rng)
 
 
 def phase_generic(fec, acs, gk, dev, err):

@@ -2,7 +2,7 @@
 // and the traceback, for any rate-k/n code that is not a k = 1
 // poly-symmetric butterfly (any k > 1 code, and asymmetric k = 1 codes).
 //
-// Four entry points, two kernel templates:
+// Four entry points:
 //   acs_generic_forward     replaces the TPU kernel `acs_forward_batch_generic`
 //                           in convolutionalencdec_tpu/kernels/acs_pallas.py
 //                           (pallas_call at :2004, kernel body
@@ -16,22 +16,24 @@
 //                           (pallas_call at :345, `_fwd_kernel_k2`, :236);
 //   traceback_generic_k2    replaces `traceback_batch_k2` (pallas_call at
 //                           :531, `_tb_kernel_k2`, :478).
-// The k2 entry points are the generic templates instantiated with k = 2 and
-// NS = 64 fixed at compile time.  They compute what those kernels compute,
-// not how: no MXU edge-metric weights, no key-packed argmin scaled by 2^k,
-// no (u, s) row blocks and their per-step interleave, no binary halving
-// stages in a 3-step sublane cycle, no renormalisation, no padding of T or B.
+// Both forward entries launch one template, instantiated for each of the 25
+// (k, NS) shapes the route admits (NS = 2^(k S) <= 1024, k <= 8: the switch
+// in `launch_generic_forward`); the k2 entry takes only k = 2, NS = 64.  The
+// traceback_generic_k2 entry is the traceback template at k = 2, NS = 64.
+// They compute what the TPU kernels compute, not how: no MXU edge-metric
+// weights, no key-packed argmin scaled by 2^k, no (u, s) row blocks and
+// their per-step interleave, no renormalisation, no padding of T or B.
 //
 // Semantics (bit for bit those of ops/viterbi.viterbi_forward on
 // hard_step_metrics, and of traceback_terminated):
 //   destination d = s 2^k + u takes, over e = 0 .. 2^k - 1 in rising order,
-//   the least of m[(d >> k) | e << (S-1)k] + popc(r ^ code(e, d)), r the
-//   received segment; strict < keeps the lowest e on ties (jnp.argmin).  The
-//   edge's delay register is d | e << S k and each coded bit is its parity
-//   under a generator mask, so code(e, d) = seg_d[d] ^ seg_e[e] (the
-//   parity is linear over XOR): NS + 2^k table bytes, not 2^k NS.  Metrics
-//   start at 0 in state 0 and init_value elsewhere, int32, never
-//   renormalised (exact for T n + init_value < 2^31).
+//   the least of m[s + e G] + popc(r ^ code(e, d)), G = NS / 2^k, r the
+//   received segment; the lowest e wins ties (jnp.argmin).  The edge's delay
+//   register is d | e << S k and each coded bit is its parity under a
+//   generator mask, so code(e, d) = seg_d[d] ^ seg_e[e] (the parity is
+//   linear over XOR): NS + 2^k table bytes, not 2^k NS.  Metrics start at 0
+//   in state 0 and init_value elsewhere, int32, never renormalised (exact
+//   for T n + init_value < 2^31).
 //   The traceback walks from state 0 at step t_actual - 1; at step t it
 //   emits u = cur & (2^k - 1) as bits t k .. t k + k - 1, MSb first, keeps
 //   those below message_bits (<= (t_actual - S) k), and moves to
@@ -54,21 +56,64 @@
 // bits): at k = 2, NS = 64 that is 448 operations per 17 bytes, so it is
 // bound by operations (B = 2048 channels, T = 1027 steps: 0.94 G
 // operations, 0.056 ms at the card's 16.7 T int32 operations/s, against
-// 36.3 MB, 0.011 ms, of bytes).
-// The steps of one channel are a recurrence, so the kernel is also bound by
-// the latency of one step, times T, unless enough channels are in flight.
-// The traceback is a chain of dependent reads, k decision bits per step,
-// through the k NS / 8 bytes of each step the forward wrote.
+// 36.3 MB, 0.011 ms, of bytes).  The steps of one channel are a
+// recurrence, so at small NS the kernel is bound by one step's latency,
+// times T, unless the step is short.  The traceback is a chain of
+// dependent reads, k decision bits per step, through the k NS / 8 bytes of
+// each step the forward wrote.
 //
-// What the design does about that: the forward runs one warp per channel;
-// lane l owns destinations d = 32 j + l (lanes past NS idle when NS < 32).
-// The sources of a destination lie on other lanes, so the metrics live in
-// shared memory, double-buffered (one __syncwarp per step), with the edge
-// table beside them; a segment comes by one shuffle from a register holding
-// 32 steps' segments; the branch metric is one XOR and one __popc; each
-// decision bit-plane word is one __ballot_sync, staged in shared memory and
-// written by the warp as one contiguous run of k W words per step.  The
-// traceback runs one thread per channel, 32 channels per warp: the warp
+// What the forward's design does about that (`generic_forward_kernel`,
+// one warp a block; every choice below was measured in turns with the
+// others by scripts/torch_generic_variants.py, PERF.md §6):
+//   * k and NS are template arguments, so every loop over sources,
+//     destinations and planes unrolls and a lane's source loads issue
+//     together.  Only n is a runtime value.  Each instantiation may hold
+//     128 registers a lane (16 resident blocks an SM; nvcc otherwise held
+//     most at 64).
+//   * C = 2^LOGC lanes serve a channel, 32 / C channels a warp (the third
+//     template argument, chosen per shape in the dispatch switch).  At
+//     B = 2048 a step's latency, not issue, bounds the small shapes, so
+//     more lanes a channel won down to one or two destinations a lane; one
+//     lane a channel, which needs no exchange, lost 1.4-2.3x.  Lane l of a
+//     channel owns the DPL = NS / C destinations l DPL .. l DPL + DPL - 1,
+//     contiguous, their metrics in its registers, in NGL groups (DPL / 2^k
+//     whole groups, or DPL destinations of one group).
+//   * The exchange: the lane stores its destinations to a double-buffered
+//     row of shared memory as int4 runs, one __syncwarp a step, and loads
+//     each group's 2^k sources s + e G (k <= 3: into registers, NGL
+//     consecutive groups' as one int4 / int2 run, consecutive lanes on
+//     consecutive words, lanes of one group as a broadcast; k >= 4: eight
+//     at a time, unrolled).  A group's sources lie on up to 2^k lanes, and
+//     the lanes that read one sender want different registers of it, so a
+//     shuffle would need a select per value and lane.  Where a lane owns
+//     one destination and k <= 2, it has one register to send, and the
+//     2^k sources come by __shfl_sync, with no row and no __syncwarp a step
+//     (at k >= 3 the row's broadcast loads were faster).
+//   * The branch metric: popc(r ^ seg_d ^ seg_e), one LOP3 and one POPC; for
+//     k <= 3 and n <= 3 (HAM = 1) a byte permute instead: a step's 2^k
+//     tables D_x, x = r ^ seg_e[e], hold popc(x ^ c) for the eight c as
+//     bytes, and prmt(D_x, 0x8880 | seg_d[d]) is the distance,
+//     zero-extended (selector nibbles of 8 replicate byte 0's sign bit,
+//     which is 0).
+//   * The 2^k candidates meet in a tree of strict < compares, lower e on
+//     the left, so ties keep the lowest e.
+//   * Decisions: each lane packs plane b's bits of its contiguous
+//     destinations into fields at their word offsets; the LW lanes sharing
+//     a word join them with log2(LW) __shfl_xor_sync ORs (a __ballot_sync
+//     when a lane owns one destination; whole words when it owns 32), at
+//     the end of the step or, where the fourth template argument says so,
+//     during the next one; the lane owning the word stages it in shared
+//     memory.  Every R steps the warp writes each channel's R k W
+//     contiguous words with coalesced stores.
+//   * Segments: each chunk of R steps' bytes are loaded into registers one
+//     chunk ahead and staged in shared memory at the chunk's start; a
+//     step's byte is read two steps ahead and its tables one step ahead,
+//     so that no load waits on another load of the same step.
+//   * The step loop is unrolled 1, 2 or 4 times (the fifth template
+//     argument): at the small shapes the unrolled steps' independent work
+//     (loads, the word join) overlaps the metric chain (TOY_K3: -19% at 2),
+//     at the largest the longer body lost (k = 8: +49% at 4).
+// The traceback runs one thread per channel, 32 channels per warp: the warp
 // copies chunks of steps of its 32 channels' planes (contiguous runs, so
 // coalesced) into shared memory with cp.async, which keeps every copy of a
 // chunk in flight at once, the next chunk's copies running while each
@@ -78,99 +123,452 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
 // The traceback's threads per block (one warp) and the most decision words
 // it stages per channel per chunk (two chunks are staged at a time).
 constexpr int kTbThreads = 32;
 constexpr int kTbStageWords = 128;
 
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+// Steps staged per chunk: a power of two in [2, 32] with at most 512
+// staged decision words a warp.
+constexpr int staged_steps(int words) {
+  int r = 32;
+  while (r > 2 && r * words > 512) r >>= 1;
+  return r;
+}
 
-// Shared memory of the forward, per block: the edge table (NS + 2^k bytes,
-// rounded up to 16), then per warp two metric buffers of NS int32 and two
-// staging rows of k W decision words.
-template <int KC, int NSC>  // compile-time k and NS, or 0: runtime
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-acs_generic_forward_kernel(const uint8_t* __restrict__ seg,
-                           const uint8_t* __restrict__ table,
-                           int32_t* __restrict__ decs,
-                           int32_t* __restrict__ final_metrics,
-                           int B, int T, int k_rt, int NS_rt, int n,
-                           int shift, int init_value) {
-  const int k = KC ? KC : k_rt;
-  const int NS = NSC ? NSC : NS_rt;
-  const int E = 1 << k;
-  const int W = (NS + 31) >> 5;
-  const int KW = k * W;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* seg_d = smem;
-  uint8_t* seg_e = smem + NS;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int32_t* m_cur = reinterpret_cast<int32_t*>(smem + round16(NS + E)) +
-                   warp * (2 * NS + 2 * KW);
-  int32_t* m_next = m_cur + NS;
-  int32_t* stage = m_next + NS;  // [2][KW], by step parity
+// The constants of one instantiation of the forward.
+template <int K, int LOGNS, int LOGC>
+struct FwdShape {
+  static constexpr int E = 1 << K;           // sources per destination
+  static constexpr int NS = 1 << LOGNS;
+  static constexpr int G = NS >> K;          // groups; group s: sources
+                                             // s + e G, destinations s E + u
+  static constexpr int C = 1 << LOGC;        // lanes per channel
+  static constexpr int CPW = 32 >> LOGC;     // channels per warp
+  static constexpr int DPL = NS >> LOGC;     // destinations per lane
+  static constexpr bool kSmallE = K <= 3;    // a group's sources in registers
+  // One destination a lane and 2 or 4 sources: they come by __shfl_sync
+  // from the lanes that own them, with no shared row.
+  static constexpr bool kShfl = DPL == 1 && K <= 2;
+  // Fields of lanes that share a word, joined by __shfl_xor_sync.
+  static constexpr bool kTree = DPL > 1 && DPL < 32;
+  // Groups a lane serves, and its destinations in each.
+  static constexpr int NGL = DPL >= E ? DPL / E : 1;
+  static constexpr int U = DPL >= E ? E : DPL;
+  static constexpr int W = (NS + 31) / 32;
+  static constexpr int KW = K * W;
+  static constexpr int WPL = DPL >= 32 ? DPL / 32 : 1;  // words a lane packs
+  // Lanes whose fields share a word.
+  static constexpr int LW = DPL >= 32 ? 1 : (NS < 32 ? NS : 32) / DPL;
+  static constexpr int R = staged_steps(CPW * KW);
+  // Segment bytes a lane prefetches a chunk.
+  static constexpr int NLD = (CPW * R + 31) / 32;
+  // Resident one-warp blocks an SM must hold: 16 lets a lane use 128
+  // registers (without it nvcc held most instantiations at 64, for 32
+  // blocks an SM), and B = 2048 channels at one channel a warp need 15.5
+  // an SM.
+  static constexpr int kMinBlocks = 16;
+  static_assert(LOGC <= 5 && LOGC <= LOGNS, "lanes per channel");
+  static_assert(kSmallE || DPL <= E, "a lane's destinations in one group");
+};
 
-  for (int i = threadIdx.x; i < NS + E; i += blockDim.x) smem[i] = table[i];
-  __syncthreads();
-  const int ch = blockIdx.x * kWarpsPerBlock + warp;
-  if (ch >= B) return;  // uniform across the warp: the ragged B edge
+// N consecutive int32 from shared memory, as the widest aligned vectors.
+template <int N>
+__device__ __forceinline__ void load_run(const int32_t* p, int* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const int4 x = *reinterpret_cast<const int4*>(p + i);
+      v[i] = x.x;
+      v[i + 1] = x.y;
+      v[i + 2] = x.z;
+      v[i + 3] = x.w;
+    }
+  } else if constexpr (N == 2) {
+    const int2 x = *reinterpret_cast<const int2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = p[0];
+  }
+}
 
-  for (int d = lane; d < NS; d += 32) m_cur[d] = (d == 0) ? 0 : init_value;
+template <int N>
+__device__ __forceinline__ void store_run(int32_t* p, const int* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      *reinterpret_cast<int4*>(p + i) =
+          make_int4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    }
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+__device__ __forceinline__ int prmt(int a, int b, int sel) {
+  int d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// The least of v[0 .. E-1] and its index, the lowest index on ties: a tree
+// of strict < compares with the lower indices on the left.
+template <int E>
+__device__ __forceinline__ void argmin_tree(int (&v)[E], int& best,
+                                            int& idx) {
+  int ix[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) ix[e] = e;
+#pragma unroll
+  for (int w = 1; w < E; w <<= 1) {
+#pragma unroll
+    for (int i = 0; i < E; i += 2 * w) {
+      const bool p = v[i + w] < v[i];
+      v[i] = p ? v[i + w] : v[i];
+      ix[i] = p ? ix[i + w] : ix[i];
+    }
+  }
+  best = v[0];
+  idx = ix[0];
+}
+
+// HAM = 1: the byte-permute branch metric (n <= 3, k <= 3 only);
+// HAM = 0: popc.  DEFER = 1: a step's words are joined and staged during
+// the next step.  UNROLL: steps of the step loop unrolled.
+template <int K, int LOGNS, int LOGC, int DEFER, int UNROLL, int HAM>
+__global__ void __launch_bounds__(32, FwdShape<K, LOGNS, LOGC>::kMinBlocks)
+generic_forward_kernel(const uint8_t* __restrict__ seg,
+                       const uint8_t* __restrict__ table,
+                       int32_t* __restrict__ decs,
+                       int32_t* __restrict__ final_metrics, int B, int T,
+                       int n, int init_value) {
+  using S = FwdShape<K, LOGNS, LOGC>;
+  constexpr int E = S::E, NS = S::NS, G = S::G, C = S::C, CPW = S::CPW;
+  constexpr int DPL = S::DPL, NGL = S::NGL, U = S::U, W = S::W, KW = S::KW;
+  constexpr int R = S::R, LW = S::LW, WPL = S::WPL, NLD = S::NLD;
+  constexpr bool kSmallE = S::kSmallE, kShfl = S::kShfl, kTree = S::kTree;
+  static_assert(HAM == 0 || kSmallE, "the byte-permute metric needs k <= 3");
+  // Metrics of the last step, double-buffered: [parity][channel][NS].
+  __shared__ __align__(16) int32_t mrow[kShfl ? 4 : 2 * CPW * NS];
+  __shared__ int32_t stage[CPW * R * KW];     // [channel][step][k][W]
+  __shared__ int32_t segs[CPW * (R + 1)];     // [channel][step]
+  __shared__ int32_t se_row[kSmallE ? 1 : E];  // seg_e, k >= 4
+  __shared__ uint2 pop_tab[8];                // D_x, x < 8 (HAM = 1)
+
+  const int lane = threadIdx.x;
+  const int c = lane >> LOGC;      // the lane's channel in the warp
+  const int l = lane & (C - 1);    // its lane in the channel
+  const int ch0 = blockIdx.x * CPW;
+  const int ch = ch0 + c;
+  const int first = l * DPL;       // its first destination
+  const int grp0 = first >> K;     // its first group
+  const int lane0 = c << LOGC;     // its channel's first lane
+
+  // Lane constants: seg_d of its destinations (HAM: as prmt selectors),
+  // seg_e.
+  int sd[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    sd[i] = table[first + i] | (HAM ? 0x8880 : 0);
+  }
+  int se[kSmallE ? E : 1];
+  if constexpr (kSmallE) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) se[e] = table[NS + e];
+  } else {
+    for (int e = lane; e < E; e += 32) se_row[e] = table[NS + e];
+  }
+  if constexpr (HAM) {
+    if (lane < 8) {
+      unsigned lo = 0, hi = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        lo |= (unsigned)__popc(lane ^ b) << (8 * b);
+        hi |= (unsigned)__popc(lane ^ (b + 4)) << (8 * b);
+      }
+      pop_tab[lane] = make_uint2(lo, hi);
+    }
+  }
+
+  int m[DPL];  // this lane's destinations' metrics after the last step
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) m[i] = (first + i == 0) ? 0 : init_value;
+  int par = 0;
+  if constexpr (!kShfl) store_run<DPL>(mrow + c * NS + first, m);
+
+  // Segments: a chunk's R bytes of each channel, fetched into registers one
+  // chunk ahead and staged in shared memory at the chunk's start.
+  int pre[NLD];
+  auto fetch = [&](int t0) {
+#pragma unroll
+    for (int j = 0; j < NLD; ++j) {
+      const int i = lane + 32 * j;
+      const int cc = i / R, s = i % R;
+      pre[j] = (i < CPW * R && ch0 + cc < B && t0 + s < T)
+                   ? seg[(size_t)(ch0 + cc) * T + t0 + s]
+                   : 0;
+    }
+  };
+  fetch(0);
   __syncwarp();
 
   const int nmask = (1 << n) - 1;
-  const uint8_t* seg_row = seg + (size_t)ch * T;
-  int32_t* dec_row = decs + (size_t)ch * T * KW;
-  for (int t0 = 0; t0 < T; t0 += 32) {
-    const int steps = min(32, T - t0);
-    const int my_seg = (lane < steps) ? seg_row[t0 + lane] : 0;
-    for (int s = 0; s < steps; ++s) {
-      const int r = __shfl_sync(kFullMask, my_seg, s) & nmask;
-      int32_t* st = stage + (s & 1) * KW;
+  for (int t0 = 0; t0 < T; t0 += R) {
+    const int steps = min(R, T - t0);
 #pragma unroll
-      for (int j = 0; j < W; ++j) {
-        const int d = 32 * j + lane;
-        int be = 0;
-        if (d < NS) {
-          const int rd = r ^ seg_d[d];
-          const int base = d >> k;
-          int best = m_cur[base] + __popc(rd ^ seg_e[0]);
+    for (int j = 0; j < NLD; ++j) {
+      const int i = lane + 32 * j;
+      if (i < CPW * R) segs[(i / R) * (R + 1) + i % R] = pre[j];
+    }
+    __syncwarp();
+    if (t0 + R < T) fetch(t0 + R);
+    // A step's segment is read two steps ahead and (HAM) its tables one
+    // step ahead, so that no load of a step waits on another of the same
+    // step.
+    int r_cur = segs[c * (R + 1)] & nmask;
+    int r_nx = segs[c * (R + 1) + 1] & nmask;
+    int dlo[HAM ? E : 1], dhi[HAM ? E : 1];
+    if constexpr (HAM) {
 #pragma unroll
-          for (int e = 1; e < E; ++e) {
-            const int c = m_cur[base | (e << shift)] + __popc(rd ^ seg_e[e]);
-            if (c < best) {
-              best = c;
-              be = e;
-            }
-          }
-          m_next[d] = best;
-        }
+      for (int e = 0; e < E; ++e) {
+        const uint2 t = pop_tab[r_cur ^ se[e]];
+        dlo[e] = (int)t.x;
+        dhi[e] = (int)t.y;
+      }
+    }
+    // Plane b's fields (1 < DPL < 32), joined across their LW lanes and
+    // staged at the end of the step or (DEFER) during the next one, off
+    // its chain.
+    unsigned fld[kTree ? K : 1] = {};
+    auto join = [&](int s) {
 #pragma unroll
-        for (int b = 0; b < k; ++b) {
-          const unsigned word = __ballot_sync(kFullMask, (be >> b) & 1);
-          if (lane == 0) st[b * W + j] = (int32_t)word;
+      for (int b = 0; b < (kTree ? K : 0); ++b) {
+        unsigned f = fld[b];
+#pragma unroll
+        for (int x = 1; x < LW; x <<= 1) f |= __shfl_xor_sync(kFullMask, f, x);
+        if (s >= 0 && (l & (LW - 1)) == 0) {
+          stage[(c * R + s) * KW + b * W + (first >> 5)] = (int)f;
         }
       }
-      // Every lane's metrics and staged words of this step are in place,
-      // and every lane has read this step's sources.
-      __syncwarp();
-      int32_t* out = dec_row + (size_t)(t0 + s) * KW;
-      for (int i = lane; i < KW; i += 32) out[i] = st[i];
-      int32_t* tmp = m_cur;
-      m_cur = m_next;
-      m_next = tmp;
+    };
+#pragma unroll (UNROLL)
+    for (int s = 0; s < steps; ++s) {
+      const int r = r_cur;
+      int lo[HAM ? E : 1], hi[HAM ? E : 1];
+      if constexpr (HAM) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          lo[e] = dlo[e];
+          hi[e] = dhi[e];
+          const uint2 t = pop_tab[r_nx ^ se[e]];
+          dlo[e] = (int)t.x;
+          dhi[e] = (int)t.y;
+        }
+      }
+      r_cur = r_nx;
+      r_nx = segs[c * (R + 1) + min(s + 2, R - 1)] & nmask;
+      const int32_t* src = mrow + par * CPW * NS + c * NS;
+      if constexpr (DEFER) join(s - 1);
+      int idx[DPL];
+      if constexpr (kSmallE) {
+        // Sources: the 2^k sources of the lane's q-th group in v[q][e].
+        int v[NGL][E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if constexpr (kShfl) {
+            v[0][e] = __shfl_sync(kFullMask, m[0], lane0 + grp0 + e * G);
+          } else {
+            int run[NGL];
+            load_run<NGL>(src + e * G + grp0, run);
+#pragma unroll
+            for (int q = 0; q < NGL; ++q) v[q][e] = run[q];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NGL; ++q) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int i = q * U + u;
+            int cand[E];
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              const int bm = HAM ? prmt(lo[e], hi[e], sd[i])
+                                 : __popc(r ^ sd[i] ^ se[e]);
+              cand[e] = v[q][e] + bm;
+            }
+            argmin_tree<E>(cand, m[i], idx[i]);
+          }
+        }
+      } else {
+        // One group's sources, eight at a time: broadcasts from the row,
+        // or shuffles.
+        const int mine = m[0];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          m[i] = INT_MAX;
+          idx[i] = 0;
+        }
+#pragma unroll 2
+        for (int e0 = 0; e0 < E; e0 += 8) {
+          int sv[8], sev[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sv[j] = kShfl ? __shfl_sync(kFullMask, mine,
+                                        lane0 + grp0 + (e0 + j) * G)
+                          : src[grp0 + (e0 + j) * G];
+            sev[j] = se_row[e0 + j];
+          }
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int rd = r ^ sd[i];
+            int cand[8], best, at;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) cand[j] = sv[j] + __popc(rd ^ sev[j]);
+            argmin_tree<8>(cand, best, at);
+            if (best < m[i]) {
+              m[i] = best;
+              idx[i] = e0 + at;
+            }
+          }
+        }
+      }
+      if constexpr (!kShfl) {
+        store_run<DPL>(mrow + (par ^ 1) * CPW * NS + c * NS + first, m);
+        par ^= 1;
+      }
+
+      // Decision words: plane b's bits of the lane's destinations.
+      int32_t* st = stage + (c * R + s) * KW;
+#pragma unroll
+      for (int b = 0; b < K; ++b) {
+        if constexpr (DPL >= 32) {
+#pragma unroll
+          for (int w = 0; w < WPL; ++w) {
+            unsigned word = 0;
+#pragma unroll
+            for (int p = 0; p < 32; ++p) {
+              word |= (unsigned)((idx[w * 32 + p] >> b) & 1) << p;
+            }
+            st[b * W + (first >> 5) + w] = (int)word;
+          }
+        } else if constexpr (DPL == 1) {
+          const unsigned bal = __ballot_sync(kFullMask, (idx[0] >> b) & 1);
+          if (l == 0) {
+            st[b * W + (first >> 5)] =
+                (int)(C == 32 ? bal : (bal >> (c * C)) & ((1u << C) - 1u));
+          }
+        } else {
+          unsigned field = 0;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            field |= (unsigned)((idx[i] >> b) & 1) << i;
+          }
+          fld[b] = field << (first & 31);
+        }
+      }
+      // Every lane's metrics of this step are in the row, and every lane
+      // has read this step's sources (with shuffles, the chunk's last
+      // __syncwarp orders the staged words).
+      if constexpr (!DEFER) join(s);
+      if constexpr (!kShfl) __syncwarp();
+    }
+    if constexpr (DEFER) join(steps - 1);
+    __syncwarp();
+    // The chunk's words: each channel's steps * k W words are contiguous.
+    if (steps == R) {
+      constexpr int RUN = R * KW;
+#pragma unroll 4
+      for (int i = lane; i < CPW * RUN; i += 32) {
+        const int cc = i / RUN;
+        if (ch0 + cc < B) {
+          decs[((size_t)(ch0 + cc) * T + t0) * KW + (i - cc * RUN)] =
+              stage[i];
+        }
+      }
+    } else {
+      const int run = steps * KW;
+#pragma unroll 1
+      for (int cc = 0; cc < CPW && ch0 + cc < B; ++cc) {
+        int32_t* out = decs + ((size_t)(ch0 + cc) * T + t0) * KW;
+        const int32_t* from = stage + cc * R * KW;
+        for (int i = lane; i < run; i += 32) out[i] = from[i];
+      }
+    }
+    __syncwarp();
+  }
+  if (ch < B) store_run<DPL>(final_metrics + (size_t)ch * NS + first, m);
+}
+
+template <int K, int LOGNS, int LOGC, int DEFER, int UNROLL>
+int launch_forward(const void* seg, const void* table, void* decs,
+                   void* final_metrics, int B, int T, int n, int init_value,
+                   cudaStream_t s) {
+  using S = FwdShape<K, LOGNS, LOGC>;
+  const dim3 grid((B + S::CPW - 1) / S::CPW);
+  const auto* seg8 = static_cast<const uint8_t*>(seg);
+  const auto* table8 = static_cast<const uint8_t*>(table);
+  auto* planes = static_cast<int32_t*>(decs);
+  auto* fm = static_cast<int32_t*>(final_metrics);
+  if constexpr (S::kSmallE) {
+    if (n <= 3) {
+      generic_forward_kernel<K, LOGNS, LOGC, DEFER, UNROLL, 1><<<grid, 32, 0, s>>>(
+          seg8, table8, planes, fm, B, T, n, init_value);
+      return static_cast<int>(cudaGetLastError());
     }
   }
-  for (int d = lane; d < NS; d += 32) {
-    final_metrics[(size_t)ch * NS + d] = m_cur[d];
+  generic_forward_kernel<K, LOGNS, LOGC, DEFER, UNROLL, 0><<<grid, 32, 0, s>>>(
+      seg8, table8, planes, fm, B, T, n, init_value);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The admitted shapes, NS = 2^(k S) <= 1024 with k <= 8, each one's lanes
+// a channel, log2 (the third argument), whether its words are joined a
+// step late (the fourth) and its steps unrolled (the fifth), as measured
+// fastest (PERF.md §6).
+// tests/test_torch_generic.py and chip_smoke.py read this switch.
+int launch_generic_forward(const void* seg, const void* table, void* decs,
+                           void* final_metrics, int B, int T, int k, int NS,
+                           int n, int init_value, cudaStream_t s) {
+  const int key = k * 2048 + NS;
+#define GENERIC_ARGS seg, table, decs, final_metrics, B, T, n, init_value, s
+  switch (key) {
+    case 1 * 2048 + 2: return launch_forward<1, 1, 1, 0, 2>(GENERIC_ARGS);
+    case 1 * 2048 + 4: return launch_forward<1, 2, 2, 0, 2>(GENERIC_ARGS);
+    case 1 * 2048 + 8: return launch_forward<1, 3, 3, 0, 4>(GENERIC_ARGS);
+    case 1 * 2048 + 16: return launch_forward<1, 4, 4, 0, 4>(GENERIC_ARGS);
+    case 1 * 2048 + 32: return launch_forward<1, 5, 5, 0, 4>(GENERIC_ARGS);
+    case 1 * 2048 + 64: return launch_forward<1, 6, 5, 0, 4>(GENERIC_ARGS);
+    case 1 * 2048 + 128: return launch_forward<1, 7, 5, 0, 4>(GENERIC_ARGS);
+    case 1 * 2048 + 256: return launch_forward<1, 8, 5, 0, 4>(GENERIC_ARGS);
+    case 1 * 2048 + 512: return launch_forward<1, 9, 5, 0, 1>(GENERIC_ARGS);
+    case 1 * 2048 + 1024: return launch_forward<1, 10, 5, 0, 1>(GENERIC_ARGS);
+    case 2 * 2048 + 4: return launch_forward<2, 2, 2, 0, 2>(GENERIC_ARGS);
+    case 2 * 2048 + 16: return launch_forward<2, 4, 4, 0, 4>(GENERIC_ARGS);
+    case 2 * 2048 + 64: return launch_forward<2, 6, 4, 0, 1>(GENERIC_ARGS);
+    case 2 * 2048 + 256: return launch_forward<2, 8, 5, 0, 4>(GENERIC_ARGS);
+    case 2 * 2048 + 1024: return launch_forward<2, 10, 5, 0, 2>(GENERIC_ARGS);
+    case 3 * 2048 + 8: return launch_forward<3, 3, 3, 0, 4>(GENERIC_ARGS);
+    case 3 * 2048 + 64: return launch_forward<3, 6, 4, 1, 4>(GENERIC_ARGS);
+    case 3 * 2048 + 512: return launch_forward<3, 9, 5, 1, 2>(GENERIC_ARGS);
+    case 4 * 2048 + 16: return launch_forward<4, 4, 4, 0, 4>(GENERIC_ARGS);
+    case 4 * 2048 + 256: return launch_forward<4, 8, 5, 0, 1>(GENERIC_ARGS);
+    case 5 * 2048 + 32: return launch_forward<5, 5, 5, 0, 4>(GENERIC_ARGS);
+    case 5 * 2048 + 1024: return launch_forward<5, 10, 5, 0, 1>(GENERIC_ARGS);
+    case 6 * 2048 + 64: return launch_forward<6, 6, 5, 0, 1>(GENERIC_ARGS);
+    case 7 * 2048 + 128: return launch_forward<7, 7, 5, 0, 1>(GENERIC_ARGS);
+    case 8 * 2048 + 256: return launch_forward<8, 8, 5, 1, 2>(GENERIC_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef GENERIC_ARGS
 }
 
 // Shared memory of the traceback: two buffers of 32 channels' staged
@@ -260,24 +658,6 @@ traceback_generic_kernel(const int32_t* __restrict__ decs,
 }
 
 template <int KC, int NSC>
-int launch_forward(const void* seg, const void* table, void* decs,
-                   void* final_metrics, int B, int T, int k, int NS, int n,
-                   int shift, int init_value, cudaStream_t s) {
-  const int E = 1 << k;
-  const int KW = k * ((NS + 31) / 32);
-  const size_t smem = round16(NS + E) + (size_t)kWarpsPerBlock *
-                                            (2 * NS + 2 * KW) *
-                                            sizeof(int32_t);
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  acs_generic_forward_kernel<KC, NSC><<<grid, block, smem, s>>>(
-      static_cast<const uint8_t*>(seg), static_cast<const uint8_t*>(table),
-      static_cast<int32_t*>(decs), static_cast<int32_t*>(final_metrics), B,
-      T, k, NS, n, shift, init_value);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int KC, int NSC>
 int launch_traceback(const void* decs, void* out, int B, int T_stride,
                      int t_actual, int k, int NS, int S, int message_bits,
                      int emit_bytes, cudaStream_t s) {
@@ -293,8 +673,8 @@ int launch_traceback(const void* decs, void* out, int B, int T_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The runtime kernel's limits (kernels/generic.py: generic_kernel_supports):
-// with NS <= 1024 and k <= 8 the forward's shared memory stays under 48 KB.
+// The generic kernels' limits (kernels/generic.py: generic_kernel_supports):
+// k <= 8, NS = 2^(k S) <= 1024, n <= 8.
 bool generic_shape_ok(int k, int NS, int n) {
   return k >= 1 && k <= 8 && NS >= 2 && NS <= 1024 && (NS & (NS - 1)) == 0 &&
          NS >= (1 << k) && n >= 1 && n <= 8;
@@ -308,24 +688,21 @@ extern "C" int acs_generic_forward(const void* seg, const void* table,
                                    void* decs, void* final_metrics, int B,
                                    int T, int k, int NS, int n, int shift,
                                    int init_value, void* stream) {
-  if (!generic_shape_ok(k, NS, n)) {
+  if (!generic_shape_ok(k, NS, n) || shift < 0 || (1 << (shift + k)) != NS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_forward<0, 0>(seg, table, decs, final_metrics, B, T, k, NS,
-                              n, shift, init_value,
-                              static_cast<cudaStream_t>(stream));
+  return launch_generic_forward(seg, table, decs, final_metrics, B, T, k, NS,
+                                n, init_value,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int acs_generic_k2_forward(const void* seg, const void* table,
                                       void* decs, void* final_metrics, int B,
                                       int T, int k, int NS, int n, int shift,
                                       int init_value, void* stream) {
-  if (k != 2 || NS != 64 || !generic_shape_ok(k, NS, n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_forward<2, 64>(seg, table, decs, final_metrics, B, T, k, NS,
-                               n, shift, init_value,
-                               static_cast<cudaStream_t>(stream));
+  if (k != 2 || NS != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return acs_generic_forward(seg, table, decs, final_metrics, B, T, k, NS, n,
+                             shift, init_value, stream);
 }
 
 // planes, out, B, T_stride, t_actual, k, NS, S, message_bits, emit_bytes,

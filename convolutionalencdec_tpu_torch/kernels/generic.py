@@ -16,11 +16,13 @@ runs here.  Four wrappers, each with its plain PyTorch version beside it
   * `traceback_batch_k2` launches `traceback_generic_k2`, same file
     (replaces `acs_k2.traceback_batch_k2`, pallas_call acs_k2.py:531).
 
-The k2 kernels are the generic kernels instantiated at compile time with
-k = 2 and NS = 64: on the TPU the JAX package wrote a second kernel family
-for those codes to avoid a per-step row interleave; on Hopper the
-destinations' sources are read from shared memory, so no interleave exists
-and the instantiation does the same work with the loops unrolled.
+The k2 kernels are the generic kernels at k = 2 and NS = 64: on the TPU
+the JAX package wrote a second kernel family for those codes to avoid a
+per-step row interleave; on Hopper no interleave exists.  Both forward
+entries launch one template instantiated at compile time for each admitted
+(k, NS), so `acs_generic_k2_forward` runs the same kernel as
+`acs_generic_forward` on a k = 2, 64-state code; the k2 traceback is the
+traceback template at k = 2, NS = 64.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches its kernel or raises: nothing falls back.

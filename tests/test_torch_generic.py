@@ -9,6 +9,9 @@ JAX package, and once each against its generic-k kernel (K9) and its k = 2
 kernel (K10) in interpret mode.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -272,3 +275,212 @@ def test_wrappers_reject_bad_arguments():
     for bfly in (port.NASA_K7, port.K5_23_35):
         with pytest.raises(NotImplementedError, match="butterfly kernels"):
             generic.acs_forward_batch_generic(bfly, seg)
+
+
+# --- The forward kernel's schedule, modelled in numpy -------------------------
+
+def _forward_shapes():
+    """(k, log2 NS, log2 lanes a channel) of each case of the dispatch
+    switch in csrc/acs_generic.cu (`launch_generic_forward`)."""
+    src = (Path(kernels.__file__).resolve().parent.parent / "csrc"
+           / "acs_generic.cu").read_text()
+    return [tuple(map(int, m)) for m in re.findall(
+        r"launch_forward<(\d+), (\d+), (\d+)(?:, \d+)*>\(GENERIC_ARGS\)", src)]
+
+
+def _staged_steps(words):
+    """csrc/acs_generic.cu `staged_steps`: steps staged a chunk."""
+    r = 32
+    while r > 2 and r * words > 512:
+        r >>= 1
+    return r
+
+
+def _prmt(lo, hi, sel):
+    """PTX prmt.b32 (default mode) on int64 arrays: byte j of the result is
+    byte sel_j & 7 of {hi:lo}, or that byte's sign bit replicated when
+    sel_j & 8."""
+    out = np.zeros(np.broadcast(lo, hi, sel).shape, np.int64)
+    for j in range(4):
+        s = (sel >> (4 * j)) & 15
+        src = np.where((s & 7) < 4, lo, hi)
+        byte = (src >> (8 * (s & 3))) & 0xFF
+        byte = np.where(s & 8, np.where(byte & 0x80, 0xFF, 0), byte)
+        out |= byte << (8 * j)
+    return out
+
+
+def _argmin_tree(v):
+    """`argmin_tree` along the last axis: strict < compares in a tree, the
+    lower indices on the left, so ties keep the lowest index."""
+    v = v.copy()
+    E = v.shape[-1]
+    ix = np.broadcast_to(np.arange(E), v.shape).copy()
+    w = 1
+    while w < E:
+        for i in range(0, E, 2 * w):
+            p = v[..., i + w] < v[..., i]
+            v[..., i] = np.where(p, v[..., i + w], v[..., i])
+            ix[..., i] = np.where(p, ix[..., i + w], ix[..., i])
+        w *= 2
+    return v[..., 0], ix[..., 0]
+
+
+def _generic_forward_model(k, logns, logc, n, seg_d, seg_e, seg, init_value):
+    """numpy model of csrc/acs_generic.cu's `generic_forward_kernel`, done
+    the way the kernel does it.  C = 2^logc lanes a channel, 32 / C
+    channels a warp; lane l owns destinations l*DPL .. l*DPL + DPL - 1, in
+    NGL groups from group (l*DPL) >> k on (U of each group's destinations).
+    Each group's 2^k sources s + e*G come from the channel's row of the last
+    step's metrics in shared memory, or (DPL = 1) by __shfl_sync from lane
+    s + e*G of the channel.  k <= 3: the lane takes the branch metric from a byte permute of the
+    step's table D_x, x = r ^ seg_e[e] (n <= 3), or popc, and the
+    candidates meet in `argmin_tree`.  k >= 4: the sources eight at a time,
+    a tree each, strict < across the eights, popc.  Plane b's bits: a lane's
+    whole words (DPL >= 32), a ballot over the warp cut to the channel
+    (DPL = 1), or fields at their word offsets joined over LW lanes by XOR
+    shuffles, the first lane of the LW storing the word; words staged R
+    steps and written a channel's run at a time.  Returns (planes int32
+    [B, T, k, W], final metrics int32 [B, NS])."""
+    B, T = seg.shape
+    E, NS = 1 << k, 1 << logns
+    G, C, CPW, DPL = NS >> k, 1 << logc, 32 >> logc, NS >> logc
+    small_e = k <= 3
+    NGL, U = max(DPL // E, 1), min(DPL, E)
+    W = (NS + 31) // 32
+    KW = k * W
+    LW = 1 if DPL >= 32 else min(NS, 32) // DPL
+    R = _staged_steps(CPW * KW)
+    ham = small_e and n <= 3
+    BP = -(-B // CPW) * CPW                  # whole warps; padded rows r = 0
+    segp = np.zeros((BP, T), np.int64)
+    segp[:B] = seg
+    lane = np.arange(C)
+    first = lane * DPL
+    dest = first[:, None] + np.arange(DPL)   # [C, DPL]
+    sd = seg_d.astype(np.int64)[dest] | (0x8880 if ham else 0)
+    se = seg_e.astype(np.int64)
+    pop = np.array([[bin(x ^ c).count("1") for c in range(8)]
+                    for x in range(8)], np.int64)
+    pop_lo = (pop[:, :4] << (8 * np.arange(4))).sum(-1)
+    pop_hi = (pop[:, 4:] << (8 * np.arange(4))).sum(-1)
+    m = np.broadcast_to(np.where(dest == 0, 0, init_value),
+                        (BP, C, DPL)).astype(np.int64)
+    row = m.reshape(BP, NS)                  # the shared row, natural order
+    planes = np.zeros((BP, T, KW), np.int64)
+    nmask = (1 << n) - 1
+    for t0 in range(0, T, R):
+        steps = min(R, T - t0)
+        stage = np.zeros((BP, R, KW), np.int64)
+        for s in range(steps):
+            r = segp[:, t0 + s] & nmask
+            if small_e:
+                src = ((first >> k)[:, None, None] + np.arange(NGL)[:, None]
+                       + np.arange(E) * G)   # [C, NGL, E]
+                if DPL == 1:                 # __shfl_sync from lane src
+                    v = m[:, src, 0]
+                else:                        # the shared row
+                    v = row[:, src]          # [BP, C, NGL, E]
+                sdq = sd.reshape(C, NGL, U)  # [C, q, u]
+                if ham:
+                    x = r[:, None] ^ se      # [BP, E]
+                    bm = _prmt(pop_lo[x][:, None, None, None, :],
+                               pop_hi[x][:, None, None, None, :],
+                               sdq[None, :, :, :, None])
+                else:
+                    bm = np.bitwise_count(
+                        r[:, None, None, None, None]
+                        ^ sdq[None, :, :, :, None] ^ se).astype(np.int64)
+                best, ix = _argmin_tree(v[:, :, :, None, :] + bm)
+            else:
+                src = (first >> k)[:, None] + np.arange(E) * G  # [C, E]
+                sv = m[:, src, 0] if DPL == 1 else row[:, src]  # [BP, C, E]
+                cand = sv[:, :, None, :] + np.bitwise_count(
+                    r[:, None, None, None] ^ sd[None, :, :, None]
+                    ^ se).astype(np.int64)
+                best = np.full(cand.shape[:-1], 2 ** 31 - 1, np.int64)
+                ix = np.zeros(cand.shape[:-1], np.int64)
+                for e0 in range(0, E, 8):
+                    b8, at = _argmin_tree(cand[..., e0:e0 + 8])
+                    p = b8 < best
+                    best = np.where(p, b8, best)
+                    ix = np.where(p, e0 + at, ix)
+            m = best.reshape(BP, C, DPL)
+            ix = ix.reshape(BP, C, DPL)
+            row = m.reshape(BP, NS)
+            for b in range(k):
+                bits = (ix >> b) & 1         # [BP, C, DPL]
+                if DPL >= 32:
+                    words = (bits.reshape(BP, C, DPL // 32, 32)
+                             << np.arange(32)).sum(-1)
+                    at = b * W + (first[:, None] >> 5) + np.arange(DPL // 32)
+                    stage[:, s, at] = words
+                elif DPL == 1:
+                    ballot = (bits[..., 0].reshape(-1, 32)
+                              << np.arange(32)).sum(-1)    # per warp
+                    c = np.arange(BP) % CPW
+                    mask = (1 << C) - 1
+                    stage[:, s, b * W] = (np.repeat(ballot, CPW) >> (c * C)) \
+                        & mask
+                else:
+                    field = (bits << np.arange(DPL)).sum(-1) << (first & 31)
+                    x = 1
+                    while x < LW:            # __shfl_xor_sync(field, x)
+                        field = field | field[:, lane ^ x]
+                        x *= 2
+                    own = (lane & (LW - 1)) == 0
+                    stage[:, s, b * W + (first[own] >> 5)] = field[:, own]
+        planes[:, t0:t0 + steps] = stage[:, :steps]
+    planes = planes[:B].reshape(B, T, k, W)
+    planes = np.where(planes >= 2 ** 31, planes - 2 ** 32, planes)
+    return planes.astype(np.int32), row[:B].astype(np.int32)
+
+
+# Every shape of the kernel's dispatch, each at three T: one step (n 1 ... 3,
+# the byte-permute metric where k <= 3), S + 1 (n 4 ...
+# 8, POPC), and one past a staging run, R + 1 (n 1 ... 8 in turn); B one
+# more than the channels a warp (two rows when a warp holds one channel).
+_MODEL_CASES = [
+    (k, logns, logc, n, which)
+    for i, (k, logns, logc) in enumerate(_forward_shapes())
+    for which, n in (("one", 1 + i % 3), ("S+1", 4 + i % 5),
+                     ("R+1", 1 + i % 8))]
+
+
+@pytest.mark.parametrize("k,logns,logc,n,which", _MODEL_CASES)
+def test_forward_schedule_model_matches_plain_forward(k, logns, logc, n,
+                                                      which):
+    """The generic forward's lanes, exchange, branch metric and word
+    packing, modelled in numpy, give the plain forward's planes and final
+    metrics bit for bit on a random code."""
+    rng = np.random.default_rng(1000 * k + 10 * logns + n)
+    K = logns // k + 1
+    spec = port.CodeSpec(K=K, k=k, g=tuple(
+        int(x) for x in rng.integers(1, 1 << (k * K), n)))
+    cpw = 32 >> logc
+    W = (spec.num_states + 31) // 32
+    T = {"one": 1, "S+1": spec.S + 1,
+         "R+1": _staged_steps(cpw * k * W) + 1}[which]
+    B = cpw + 1 if cpw > 1 else 2
+    seg = rng.integers(0, 1 << n, (B, T)).astype(np.uint8)
+    seg_d, seg_e = generic.edge_tables(spec)
+    planes, fm = _generic_forward_model(
+        k, logns, logc, n, seg_d, seg_e, seg,
+        port.ops.viterbi.init_metric_value(spec))
+    planes_p, fm_p = generic.acs_forward_batch_generic_plain(
+        spec, torch.from_numpy(seg))
+    np.testing.assert_array_equal(planes, planes_p.numpy())
+    np.testing.assert_array_equal(fm, fm_p.numpy())
+
+
+def test_forward_dispatch_covers_every_admitted_shape():
+    """The dispatch switch instantiates the forward for exactly the 25
+    (k, NS) shapes `generic_kernel_supports` admits, NS = 2^(k S) <= 1024,
+    k <= 8, each with lanes a channel that divide a warp and the state
+    count."""
+    shapes = _forward_shapes()
+    admitted = {(k, k * S) for k in range(1, generic.MAX_K + 1)
+                for S in range(1, 11) if k * S <= 10}
+    assert len(shapes) == len(admitted) == 25
+    assert {(k, logns) for k, logns, _ in shapes} == admitted
+    assert all(0 <= logc <= min(5, logns) for _, logns, logc in shapes)
