@@ -72,7 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
      K=8 code (T = S + 1, 32, 48, 203; +-7, int8 with -128, 20% erasures;
      terminated and not; B = 1), `turbo_rsc_map` at L = 40, 47, 61, 104,
      1024, 6144 (a-priori +-31 and +-4000), the LA_CLAMP contract case and
-     B = 1, and every new public entry (the turbo decodes fixed and early,
+     B = 1, at its round edges (L = 1, 2, 7, 8, 9, 63, 64, 65, 2047; B = 5
+     and 3) and on codes of 4 and 2 states and an 8-state code whose edges
+     into a state carry one input (L = 47, 1024), and every new public entry (the turbo decodes fixed and early,
      `lte_turbo_decode(_early)`, `maxlogmap_llrs_batch_kernel` at L = 40
      and 104, `lte_dlsch_decode` of a two-block transport block) against
      its plain route;
@@ -327,6 +329,15 @@ MAP_VITERBI_DIFFER_LIMIT = 2.6e-3
 # gates.  CURVES_EARLYTERM_r05.json records 6 iterations and accept rate
 # 1.0 at this point: properties of the algorithm and the draw.
 TURBO_LENGTHS = (40, 47, 61, 104, 1024, 6144)
+# `turbo_rsc_map`'s edges: lengths around its 32-step rounds (the meeting
+# point of the two walks on and off a round's edge), B = 3 (a partly empty
+# warp), and codes of 4 and 2 states and an 8-state one whose edges into a
+# state carry one input (its emit without the swap).
+RSC_EDGE_LENGTHS = (1, 2, 7, 8, 9, 63, 64, 65, 2047)
+RSC_SMALL_CODES = (("NS4", dict(K=3, g_fb=0o7, g_fw=0o5)),
+                   ("NS2", dict(K=2, g_fb=0o3, g_fw=0o2)),
+                   ("NS8_same_u", dict(K=4, g_fb=0o12, g_fw=0o15)))
+RSC_SMALL_LENGTHS = (47, 1024)
 TURBO_B, TURBO_L, TURBO_EBN0, TURBO_QMAX, TURBO_MAX_ITERS = (
     2048, 1024, 2.0, 31, 8)
 TURBO_E = 2 * (TURBO_L + 4)
@@ -1697,6 +1708,21 @@ def phase_compare_soft_output(fec, dev, err):
                     f"B=1 L={L}")
     print(f"[compare] RSC MAP L={','.join(map(str, TURBO_LENGTHS))} (B=5, "
           "a-priori +-31 and +-4000), the LA_CLAMP contract case, B=1: "
+          "equal to the plain version")
+    for L in RSC_EDGE_LENGTHS:
+        for B in (5, 3):
+            compare_rsc(kt, rsc, turbo_fields(rng, B, L, rsc.S, 4000, dev),
+                        err, f"B={B} L={L}")
+    for name, kwargs in RSC_SMALL_CODES:
+        small = fec.RscSpec(**kwargs)
+        for L in RSC_SMALL_LENGTHS:
+            for B in (3, 2 * 32 // small.num_states + 3):
+                compare_rsc(kt, small, turbo_fields(rng, B, L, small.S, 4000,
+                                                    dev),
+                            err, f"{name} B={B} L={L}")
+    print(f"[compare] RSC MAP L={','.join(map(str, RSC_EDGE_LENGTHS))} at "
+          f"B=5 and 3; {', '.join(n for n, _ in RSC_SMALL_CODES)} at "
+          f"L={','.join(map(str, RSC_SMALL_LENGTHS))}, B=3 and 2 (32/NS)+3: "
           "equal to the plain version")
 
     crc = fec.CRC24B

@@ -64,8 +64,8 @@ SIGNATURES = {
                          _P],
     # qllrs, cb, ckpt, llrs, B, T, NS, n, start, terminated, stream
     "maxlogmap_k1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # l_sys, l_par, l_apriori, l_sys_tail, l_par_tail, tab, ckpt, lapp, B,
-    # L, NS, S, stream
+    # l_sys, l_par, l_apriori, l_sys_tail, l_par_tail, tab, scratch, lapp,
+    # B, L, NS, S, stream
     "turbo_rsc_map": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # seg, table, planes, final_metrics, B, T, k, NS, n, shift, init_value,
     # stream
@@ -153,6 +153,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
+    # B, L, NS -> int32 words of turbo_rsc_map's scratch
+    lib.turbo_rsc_map_scratch_words.argtypes = [_I, _I, _I]
+    lib.turbo_rsc_map_scratch_words.restype = ctypes.c_longlong
     return lib
 
 

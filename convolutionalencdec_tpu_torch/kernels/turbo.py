@@ -4,11 +4,13 @@
 `csrc/turbo_rsc.cu`, which replaces both TPU kernels of
 `convolutionalencdec_tpu/kernels/turbo_pallas.py` (the forward at
 pallas_call :283 and the backward at :300) and the `_beta_tail` recurrence
-beside them, in one launch.  Its plain version `rsc_maxlogmap_batch_plain`
-is the scan `ops.turbo.rsc_maxlogmap`; the kernel equals it on every entry
-(its renormalisation cancels in the LLRs: csrc/turbo_rsc.cu).  A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts the launches.
+beside them, in one launch: alpha and beta walk from both ends at once,
+meet in the middle, and each emits the other half's LLRs while a helper
+warp replays the other recursion a round ahead.  Its plain version
+`rsc_maxlogmap_batch_plain` is the scan `ops.turbo.rsc_maxlogmap`; the
+kernel equals it on every entry (its renormalisation cancels in the LLRs:
+csrc/turbo_rsc.cu).  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.  `LAUNCHES` counts the launches.
 
 The turbo decoders run the exchange of `ops.turbo` (`turbo_iteration`:
 3/4 extrinsic scaling with floor division, the a-priori clamp, the
@@ -32,9 +34,6 @@ from .acs import _check_device
 
 #: Launches of the kernel since the count was last set to 0.
 LAUNCHES = {"turbo_rsc_map": 0}
-
-#: Steps per alpha checkpoint in the kernel (csrc/turbo_rsc.cu kChunk).
-CHUNK = 32
 
 
 def turbo_kernel_supported(rsc: RscSpec) -> bool:
@@ -97,15 +96,16 @@ def rsc_maxlogmap_batch_kernel(rsc: RscSpec, l_sys, l_par, l_apriori,
     if B == 0 or L == 0:
         return out
     NS = rsc.num_states
-    ckpt = torch.empty((B, -(-L // CHUNK), NS), dtype=torch.int32,
-                       device=dev)
     inputs = [x.contiguous() for x in (l_sys, l_par, l_apriori, l_sys_tail,
                                        l_par_tail)]
     from . import _build
     lib = _build.library()
+    # The half-walks' checkpoints, one a 32-step chunk (csrc/turbo_rsc.cu).
+    scratch = torch.empty(lib.turbo_rsc_map_scratch_words(B, L, NS),
+                          dtype=torch.int32, device=dev)
     code = lib.turbo_rsc_map(
         *(x.data_ptr() for x in inputs), _edge_table(rsc, dev).data_ptr(),
-        ckpt.data_ptr(), out.data_ptr(), B, L, NS, S,
+        scratch.data_ptr(), out.data_ptr(), B, L, NS, S,
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["turbo_rsc_map"] += 1
     _build.check("turbo_rsc_map", code)

@@ -60,7 +60,8 @@ GENERIC = ("acs_generic_forward", "traceback_generic",
            "acs_generic_k2_forward", "traceback_generic_k2")
 # Redesigned after their port (rule 2): not taken again.
 REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
-              "acs_generic_forward", "acs_generic_k2_forward"}
+              "acs_generic_forward", "acs_generic_k2_forward",
+              "turbo_rsc_map"}
 MAIN_T = 2054  # (a)'s steps, at which stream_k1_decode's bound is given
 
 

@@ -6,6 +6,8 @@ tensors (their plain route); the JAX Pallas kernels are held to the same
 scans by the JAX package's own tests."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -145,6 +147,160 @@ def test_rsc_maxlogmap_at_the_clamp_contract():
     got = kt.rsc_maxlogmap_batch_kernel(
         LTE, *(torch.from_numpy(x) for x in fields))
     np.testing.assert_array_equal(got.numpy(), _vmap_map(*fields))
+
+
+KERNEL_SOURCE = (Path(kt.__file__).resolve().parent.parent / "csrc"
+                 / "turbo_rsc.cu")
+
+
+def _kernel_constant(name: str) -> str:
+    """The value of `constexpr ... name = VALUE;` in csrc/turbo_rsc.cu."""
+    return re.search(rf"constexpr \w+ {name} = (\w+);",
+                     KERNEL_SOURCE.read_text()).group(1)
+
+
+def _schedule_model(rsc, l_sys, l_par, l_apriori, l_sys_tail, l_par_tail,
+                    R):
+    """A numpy model of `turbo_rsc_map`'s schedule (csrc/turbo_rsc.cu), in
+    np.int32: the alpha walk and the beta walk (after its S tail steps) go
+    in rounds of 32 steps from both ends, alpha on chunk k and beta on
+    chunk 2m - 1 - k in round k (nC = ceil(L / 32) chunks, m = ceil(nC /
+    2), a chunk >= nC idle); steps past L hold.  Rounds k < m - 1 store the
+    walk's metric at the chunk's start (a checkpoint); round m - 1 hands
+    each step's metric (x before the step) to the other walk's slot 31 - j
+    of its chunk.  Rounds k >= m emit, reading the other recursion's slot
+    j at step j: alpha by destination (w_u over the edges into a state with
+    input u), beta by source, the NS-way minima taken over the states.
+    Their slots come from the hand-over (round m) or from a helper's replay
+    of the other recursion over the chunk from its checkpoint, without
+    renormalisation (the kernel's helper replays it a round ahead).  Every
+    R steps (j % R == R - 1) a walk takes its least metric and subtracts it
+    at j % R == R / 2 - 1.  Asserts the note's margin: the walks' finite
+    metrics in [-(3R/2) mb, (3R/2 + 2S) mb], a replay's within 32 mb more,
+    excluded ones (alpha's first S steps) within S mb of BIG.  Returns
+    int32 [B, L]."""
+    nxt, par, prev, pu = pt.rsc_tables(rsc)
+    zp = par[pu, prev]
+    B, L = l_sys.shape
+    S, NS = rsc.S, rsc.num_states
+    lu = (l_sys + l_apriori).astype(np.int32)
+    lp = l_par.astype(np.int32)
+    mb = int(np.abs(np.concatenate([lu, l_sys_tail], 1)).max()
+             + np.abs(np.concatenate([lp, l_par_tail], 1)).max())
+    big, inf = np.int32(pt.BIG), np.iinfo(np.int32).max
+    nC = -(-L // 32)
+    m = -(-nC // 2)
+    slots = np.zeros((B, nC, 32, NS), np.int32)   # the hand-over
+    ckpt = np.zeros((B, nC, NS), np.int32)
+    lapp = np.zeros((B, L), np.int32)
+
+    def edge_sums(d, x, u_t, p_t):
+        u_t, p_t = u_t[:, None], p_t[:, None]
+        if d > 0:
+            return [x[:, prev[e]] + pu[e] * u_t + zp[e] * p_t
+                    for e in (0, 1)]
+        return [x[:, nxt[u]] + u * u_t + par[u] * p_t for u in (0, 1)]
+
+    def check(x, slack=0):
+        fin = x < big // 2
+        lo = -(3 * R // 2 + slack) * mb
+        hi = (3 * R // 2 + 2 * S + slack) * mb
+        assert lo <= x[fin].min(initial=0) and x[fin].max(initial=0) <= hi
+        assert (np.abs(x[~fin].astype(np.int64) - pt.BIG) <= S * mb).all()
+
+    def step_of(d, c, j):
+        return 32 * c + (j if d > 0 else 31 - j)
+
+    def replay(d, c):
+        """Recursion d over chunk c from its checkpoint: its slots."""
+        x, out = ckpt[:, c].copy(), np.zeros((B, 32, NS), np.int32)
+        for j in range(32):
+            t = step_of(d, c, j)
+            out[:, 31 - j] = x
+            if t < L:
+                x = np.minimum(*edge_sums(d, x, lu[:, t], lp[:, t]))
+            check(x, slack=32)
+        return out
+
+    x, pend = {}, {}
+    for d in (1, -1):
+        x[d] = np.full((B, NS), big, np.int32)
+        x[d][:, 0] = 0
+        pend[d] = np.zeros((B, 1), np.int32)
+    for t in range(S - 1, -1, -1):
+        x[-1] = np.minimum(*edge_sums(-1, x[-1], l_sys_tail[:, t],
+                                      l_par_tail[:, t]))
+    for k in range(2 * m):
+        for d in (1, -1):
+            c = k if d > 0 else 2 * m - 1 - k
+            if c >= nC:
+                continue
+            if k < m - 1:
+                ckpt[:, c] = x[d]
+            if k >= m:
+                other = slots[:, c] if k == m else replay(-d, c)
+            for j in range(32):
+                t = step_of(d, c, j)
+                if t < L:
+                    c0, c1 = edge_sums(d, x[d], lu[:, t], lp[:, t])
+                    if k == m - 1:
+                        slots[:, c, 31 - j] = x[d]
+                    elif k >= m:
+                        o = other[:, j]
+                        v0, v1 = c0 + o, c1 + o
+                        if d > 0:
+                            w0 = np.minimum(np.where(pu[0] == 0, v0, inf),
+                                            np.where(pu[1] == 0, v1, inf))
+                            w1 = np.minimum(np.where(pu[0] == 1, v0, inf),
+                                            np.where(pu[1] == 1, v1, inf))
+                        else:
+                            w0, w1 = v0, v1
+                        lapp[:, t] = w1.min(1) - w0.min(1)
+                    x[d] = np.minimum(c0, c1)
+                if j % R == R // 2 - 1:
+                    x[d] = x[d] - pend[d]
+                if j % R == R - 1:
+                    pend[d] = x[d].min(1, keepdims=True)
+                check(x[d])
+    return lapp
+
+
+# The kernel's state counts: NS = 8 (LTE), 4, 2, and an 8-state code whose
+# two edges into a state carry the same input (no D^S feedback tap: the
+# kernel's emit without the swap).
+MODEL_CODES = {"NS8": dict(), "NS4": dict(K=3, g_fb=0o7, g_fw=0o5),
+               "NS2": dict(K=2, g_fb=0o3, g_fw=0o2),
+               "NS8_same_u": dict(K=4, g_fb=0o12, g_fw=0o15)}
+MODEL_LENGTHS = (1, 6, 7, 8, 9, 40, 47, 61, 136, 1024, "clamp")
+MODEL_CASES = [(code, L) for code in ("NS8", "NS4", "NS2")
+               for L in MODEL_LENGTHS] + [
+    ("NS8_same_u", L) for L in (9, 47, 1024, "clamp")]
+
+
+@pytest.mark.parametrize("code, L", MODEL_CASES,
+                         ids=[f"{c}-{L}" for c, L in MODEL_CASES])
+def test_schedule_model_matches_reference(code, L):
+    """The numpy model of the kernel's schedule, at the kernel's
+    renormalisation period, against the JAX scan and the port's; L lands
+    the meeting point on and off a chunk edge, and "clamp" is the
+    LA_CLAMP contract case."""
+    kwargs = MODEL_CODES[code]
+    r, p = ref.RscSpec(**kwargs), pt.RscSpec(**kwargs)
+    if L == "clamp":
+        fields = _fields(np.random.default_rng(2024), 3, 104, p.S,
+                         pt.LA_CLAMP)
+        for i in (0, 1, 3, 4):
+            fields[i] = fields[i] * 264
+        fields[2][:, ::7] = pt.LA_CLAMP
+        fields[2][:, 3::7] = -pt.LA_CLAMP
+    else:
+        fields = _fields(np.random.default_rng(L + p.S), 3, L, p.S, 4000)
+    want = np.asarray(jax.vmap(lambda *x: ref.rsc_maxlogmap(r, *x))(*fields))
+    np.testing.assert_array_equal(
+        pt.rsc_maxlogmap(p, *(torch.from_numpy(x) for x in fields)).numpy(),
+        want)
+    R = int(_kernel_constant("kRenorm"))
+    np.testing.assert_array_equal(_schedule_model(p, *fields, R), want)
 
 
 def _noisy_fields(rng, B, L, flip):
