@@ -98,7 +98,12 @@ Phases (any failure exits non-zero and prints no result line):
      (tie-heavy), and at B = 1, at T = S + 1, and at a message length below
      the full one and not a multiple of 8: decision planes, final metrics,
      bits and bytes, and the public entries against the plain decode; the
-     BER of each code's plain decode at 3%;
+     BER of each code's plain decode at 3%; the forward and the walk at
+     every instantiation of their dispatch switches (the walk on random
+     decision planes, which send its guesses wrong, and on the forward's;
+     B = 1 and 2 CPW + 3; T = 1, S + 1, 31, 32, 33, 100, and 5,000 at
+     B = 3; t_actual = T and T - 2; whole and cut messages; bits and
+     bytes);
  15. generic-k main path at full width (B = 2048): the IEEE 802.11a
      rate-2/3 code as a k = 2 trellis (NS = 64, the k2 route, L = 2048),
      the K=9 (561, 753) code punctured to rate 2/3 as a k = 2 trellis
@@ -2056,10 +2061,83 @@ def compare_generic_shapes(fec, gk, dev, err, rng):
               "the plain forward")
 
 
+def generic_walk_shapes(source=None):
+    """(k, log2 NS, log2 lanes a channel, log2 channels a warp, log2 steps
+    a segment, warm-up steps) of each case of the generic walk's dispatch
+    switch in csrc/acs_generic.cu (or `source`)."""
+    import re
+    src = Path(source or ROOT / SOURCES["traceback_generic"][0]).read_text()
+    return [tuple(map(int, m)) for m in re.findall(
+        r"launch_walk<(\d+), (\d+), (\d+), (\d+), (\d+), (\d+)>"
+        r"\(WALK_ARGS\)", src)]
+
+
+def compare_generic_walks(fec, gk, dev, err, rng):
+    """Every instantiation of the generic walk against the plain walk on
+    the card: at each (k, NS) of its dispatch switch a random code, on
+    uniform decision words (bits past NS zero: most guesses go wrong, so
+    segments are walked again) and on the forward's planes of random
+    segments; B = 1 and 2 CPW + 3 (CPW: the shape's channels a warp, a
+    block's) at T = 1, S + 1, 31, 32, 33 and 100, and B = 3 at T = 5000
+    (several windows); t_actual = T and T - 2 (within T_stride); the whole
+    message and `cut_bits` of it; bits and bytes; through both entries at
+    k = 2, NS = 64."""
+    import numpy as np
+    import torch
+    pad_and_pack = fec.ops.viterbi.pad_and_pack
+    for i, (k, logns, logc, logcpw, logg, wu) in enumerate(
+            generic_walk_shapes()):
+        n, K, cpw = 1 + i % 8, logns // k + 1, 1 << logcpw
+        NS, S = 1 << logns, logns // k
+        spec = None
+        while spec is None or not gk.generic_kernel_supports(spec):
+            spec = fec.CodeSpec(K=K, k=k, g=tuple(
+                int(x) for x in rng.integers(1, 1 << (k * K), n)))
+        walks = [(t, tb) for _, t, _, _, tb, _ in generic_pairs(gk, spec)]
+        runs = [(B, T) for B in (1, 2 * cpw + 3)
+                for T in (1, S + 1, 31, 32, 33, 100)] + [(3, 5000)]
+        cases = 0
+        for kind in ("random", "forward"):
+            for B, T in runs:
+                if kind == "random":
+                    words = rng.integers(-2 ** 31, 2 ** 31,
+                                         (B, T, k, (NS + 31) // 32))
+                    if NS < 32:
+                        words &= (1 << NS) - 1
+                    planes = torch.from_numpy(words.astype(np.int32)).to(dev)
+                else:
+                    planes = gk.acs_forward_batch_generic(
+                        spec, torch.from_numpy(rng.integers(
+                            0, 1 << n, (B, T)).astype(np.uint8)).to(dev))[0]
+                for ta in sorted({T, T - 2} & set(range(S, T + 1))):
+                    full = (ta - S) * k
+                    want = gk.traceback_batch_generic_plain(spec, planes, ta,
+                                                            full, "bits")
+                    for L in sorted({full, cut_bits(full)}):
+                        for out in ("bytes", "bits"):
+                            ref = (pad_and_pack(want[:, :L]) if out == "bytes"
+                                   else want[:, :L])
+                            for tname, tb in walks:
+                                got = tb(spec, planes, ta, L, out)
+                                require(torch.equal(got, ref),
+                                        f"{spec} {tname} {kind} B={B} T={T} "
+                                        f"t_actual={ta} L={L} {out}")
+                                err[tname] = max(err[tname],
+                                                 max_abs_diff(got, ref))
+                                cases += 1
+        print(f"[compare] generic walk k={k} NS={NS}: {1 << logc} lanes a "
+              f"channel, {cpw} channel(s) a warp, {1 << logg} steps a "
+              f"segment, warm-up {wu}; {cases} cases (random and forward "
+              f"planes; B = 1, {2 * cpw + 3}: T = 1, S+1, 31, 32, 33, 100; "
+              "B = 3: T = 5000; t_actual = T, T - 2; whole and cut "
+              "messages): bits and bytes equal to the plain walk")
+
+
 def phase_compare_generic(fec, gk, dev, err):
     """The generic-k kernels against their plain versions on the card, on
     every code of the slice, noisy and garbage inputs and the edges, and
-    the forward at every instantiation of its dispatch switch."""
+    the forward and the walk at every instantiation of their dispatch
+    switches."""
     import numpy as np
     import torch
     rng = np.random.default_rng(2030)
@@ -2093,6 +2171,7 @@ def phase_compare_generic(fec, gk, dev, err):
               "metrics, bits and bytes equal to the plain versions, entries "
               f"equal to the plain decode; BER at p={NOISE[0]} {ber:.4f}")
     compare_generic_shapes(fec, gk, dev, err, rng)
+    compare_generic_walks(fec, gk, dev, err, rng)
 
 
 def phase_generic(fec, acs, gk, dev, err):

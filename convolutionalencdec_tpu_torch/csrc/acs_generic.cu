@@ -19,7 +19,9 @@
 // Both forward entries launch one template, instantiated for each of the 25
 // (k, NS) shapes the route admits (NS = 2^(k S) <= 1024, k <= 8: the switch
 // in `launch_generic_forward`); the k2 entry takes only k = 2, NS = 64.  The
-// traceback_generic_k2 entry is the traceback template at k = 2, NS = 64.
+// two traceback entries launch the walk template the same way (the switch
+// in `launch_generic_walk`); traceback_generic_k2 takes only its k = 2,
+// NS = 64 case.
 // They compute what the TPU kernels compute, not how: no MXU edge-metric
 // weights, no key-packed argmin scaled by 2^k, no (u, s) row blocks and
 // their per-step interleave, no renormalisation, no padding of T or B.
@@ -58,9 +60,10 @@
 // operations, 0.056 ms at the card's 16.7 T int32 operations/s, against
 // 36.3 MB, 0.011 ms, of bytes).  The steps of one channel are a
 // recurrence, so at small NS the kernel is bound by one step's latency,
-// times T, unless the step is short.  The traceback is a chain of
-// dependent reads, k decision bits per step, through the k NS / 8 bytes of
-// each step the forward wrote.
+// times T, unless the step is short.  The traceback reads those bytes once
+// (k NS / 8 a step; at k = 2, NS = 256, T = 512: 67.1 MB, 0.020 ms) and
+// does a few operations a step, but as a chain of dependent reads, k
+// decision bits a step, from state 0 at the last step down to the first.
 //
 // What the forward's design does about that (`generic_forward_kernel`,
 // one warp a block; every choice below was measured in turns with the
@@ -113,15 +116,54 @@
 //     argument): at the small shapes the unrolled steps' independent work
 //     (loads, the word join) overlaps the metric chain (TOY_K3: -19% at 2),
 //     at the largest the longer body lost (k = 8: +49% at 4).
-// The traceback runs one thread per channel, 32 channels per warp: the warp
-// copies chunks of steps of its 32 channels' planes (contiguous runs, so
-// coalesced) into shared memory with cp.async, which keeps every copy of a
-// chunk in flight at once, the next chunk's copies running while each
-// thread walks its own channel through the current one; no step of the
-// walk waits on device memory.  The k2 instantiation unrolls the 4-way
-// compare and the 2-word planes.
+//
+// What the walk's design does about its chain (`generic_walk_kernel`; every
+// choice below was measured in turns with the others and with the one
+// thread a channel walk it replaced, by scripts/torch_generic_variants.py
+// --walk, PERF.md §6):
+//   * A channel's T steps are cut into segments of G steps, one a lane, C
+//     lanes a channel (a warp; two channels a warp at k = 2, NS = 256;
+//     fewer lanes, the rest idle, where a window's words would not fit),
+//     so a lane's chain is T / C steps and a warm-up, not T, and B = 2048
+//     channels put 8-16 resident warps on every SM, where one thread a
+//     channel left 68 of 132 SMs idle (21-463x the bound).  The lanes walk
+//     the segments of a window of C G steps at once, windows top down on
+//     the grid of multiples of C G.
+//   * Exact, as block_1p.cu's `walk`: a lane guesses the state at its
+//     segment's top by a warm-up of WU steps from state 0 above it, or
+//     from the window's known top state where the warm-up reaches the top,
+//     so the top segment's start is exact.  After the first pass each lane
+//     whose start differs from the state the segment above ended in walks
+//     again from that state, in rounds (a shuffle and a warp vote each),
+//     until none differs: on any input the serial walk's result, at most a
+//     window's chain more on garbage.  Halving WU at the main-path codes
+//     changed their times by under 2% (the saved steps came back as
+//     re-walk rounds), doubling it cost 7-12%.
+//   * Output: segments are multiples of Q = 8 / gcd(k, 8) steps, so a lane
+//     owns whole bytes: it gathers a group's k Q bits MSb first in a
+//     register and stores them to the window's bytes in shared memory; the
+//     warp then writes the window's part of each row with consecutive
+//     lanes on consecutive bytes (bits: a byte a bit), the bits past
+//     message_bits masked.
+//   * Staging: two windows of each channel in shared memory (NB = 2), the
+//     next one landing while the walk takes this one, each segment at its
+//     own row of P words (an odd number of 16-byte chunks, so that the
+//     lanes' rows start in different banks), by one bulk copy a segment (cp.async.bulk on one mbarrier a buffer)
+//     of the 16-byte chunks that hold its words (a chunk that holds a word
+//     of the planes lies in their allocation).  No step waits on device
+//     memory.  16-byte cp.async copies by the lanes were 9-47% slower at
+//     NS >= 256 and as fast below; a third window staged (NB = 3), or shorter
+//     segments in more windows, cost more (resident warps, warm-ups) than
+//     they gained; four warps a block gained nothing.
+//   * k, NS and G are template arguments: a step's k word loads, their bit
+//     selects and a block of max(Q, 4) steps unroll (the loops over blocks
+//     stay `#pragma unroll 1`: nvcc 12.9 miscompiled block_1p.cu's unrolled
+//     warm-up).  Where a step's words are few (W = 2 and k W <= 8, or
+//     W = 4 and k = 1) and the planes are 16-byte aligned, a step loads its
+//     whole row as vectors whose addresses do not depend on the state and
+//     selects the words with the state, so its chain is ALU work only
+//     (k = 2, NS = 64: -5%; k = 1, NS = 64: -21%).
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -129,10 +171,9 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-// The traceback's threads per block (one warp) and the most decision words
-// it stages per channel per chunk (two chunks are staged at a time).
-constexpr int kTbThreads = 32;
-constexpr int kTbStageWords = 128;
+
+constexpr int gcd_c(int a, int b) { return b ? gcd_c(b, a % b) : a; }
+
 
 // Steps staged per chunk: a power of two in [2, 32] with at most 512
 // staged decision words a warp.
@@ -571,106 +612,393 @@ int launch_generic_forward(const void* seg, const void* table, void* decs,
 #undef GENERIC_ARGS
 }
 
-// Shared memory of the traceback: two buffers of 32 channels' staged
-// chunks, each of chunk * k W words plus one, so that the lanes' rows start
-// in different banks.  Chunk j holds steps [t_lo, t_hi], t_hi =
-// t_actual - 1 - j * chunk.
-template <int KC, int NSC>
-__global__ void __launch_bounds__(kTbThreads)
-traceback_generic_kernel(const int32_t* __restrict__ decs,
-                         uint8_t* __restrict__ out, int B, int T_stride,
-                         int t_actual, int k_rt, int NS_rt, int S,
-                         int message_bits, int emit_bytes, int chunk) {
-  const int k = KC ? KC : k_rt;
-  const int NS = NSC ? NSC : NS_rt;
-  const int W = (NS + 31) >> 5;
-  const int KW = k * W;
-  const int pitch = chunk * KW + 1;
-  extern __shared__ int32_t stage[];
-  const int lane = threadIdx.x;
-  const int ch0 = blockIdx.x * kTbThreads;
-  const int nch = min(kTbThreads, B - ch0);
-  const bool walks = lane < nch;
-  const int shift = (S - 1) * k;
-  const unsigned umask = (1u << k) - 1u;
-  const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
-  uint8_t* out_row = out + (size_t)(ch0 + lane) * row_len;
-  const int n_chunks = (t_actual + chunk - 1) / chunk;
-  unsigned cur = 0u;
-  unsigned acc = 0u;
+// The walk's constants at one shape: C = 2^LOGC lanes a channel, one
+// segment of G = 2^LOGG steps each, so a window of WS = C G steps; CPW =
+// 2^LOGCPW channels a warp (C CPW <= 32, the other lanes idle); WU
+// warm-up steps.  A segment's words are staged at a pitch of P words, an
+// odd number of 16-byte chunks, so that the 32 lanes' segments start in
+// different banks.
+template <int K_, int LOGNS_, int LOGC, int LOGCPW, int LOGG, int WU_>
+struct WalkShape {
+  static constexpr int K = K_;
+  static constexpr int LG = LOGG;
+  static constexpr int NS = 1 << LOGNS_;
+  static constexpr int W = (NS + 31) / 32;
+  static constexpr int KW = K * W;           // words a step
+  static constexpr int C = 1 << LOGC;
+  static constexpr int CPW = 1 << LOGCPW;
+  static constexpr int G = 1 << LOGG;
+  static constexpr int WS = C * G;
+  static constexpr int Q = 8 / gcd_c(K, 8);  // steps that fill whole bytes
+  static constexpr int QB = Q * K / 8;       // and their bytes
+  static constexpr int UB = Q > 4 ? Q : 4;   // steps of an unrolled block
+  static constexpr int SEGW = G * KW;        // words a segment
+  static constexpr int P = SEGW + (SEGW % 8 == 0 ? 4 : 8);
+  static constexpr int STAGE = (WS * K / 8 + 15) & ~15;  // output bytes
+  static constexpr int SHIFT = LOGNS_ - K;
+  static constexpr unsigned UMASK = (1u << K) - 1u;
+  static constexpr int NB = 2;               // windows staged
+  // A step's words are few enough to load whole (2 or 4 words a plane).
+  static constexpr bool kRow = (W == 2 && KW <= 8) || (W == 4 && KW == 4);
+  // Bytes of shared memory a block (one warp) takes.
+  static constexpr size_t kSmem =
+      ((size_t)NB * CPW * C * P * sizeof(int32_t) + (size_t)CPW * STAGE +
+       8 * NB + 15) & ~(size_t)15;
+  static_assert(LOGC + LOGCPW <= 5, "lanes a warp");
+  static_assert(G % UB == 0 && WU_ % UB == 0, "whole unrolled blocks");
+};
 
-  // Start the copies of chunk j into buffer j & 1, as one pipeline stage.
-  auto fetch = [&](int j) {
-    const int t_hi = t_actual - 1 - j * chunk;
-    const int t_lo = max(t_hi - chunk + 1, 0);
-    const int words = (t_hi - t_lo + 1) * KW;
-    int32_t* buf = stage + (j & 1) * kTbThreads * pitch;
-    for (int c = 0; c < nch; ++c) {
-      const int32_t* src = decs + ((size_t)(ch0 + c) * T_stride + t_lo) * KW;
-      int32_t* dst = buf + c * pitch;
-      for (int i = lane; i < words; i += kTbThreads) {
-        __pipeline_memcpy_async(dst + i, src + i, sizeof(int32_t));
-      }
-    }
-    __pipeline_commit();
-  };
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  if (n_chunks > 0) fetch(0);
-  for (int j = 0; j < n_chunks; ++j) {
-    if (j + 1 < n_chunks) {
-      fetch(j + 1);
-      __pipeline_wait_prior(1);  // this thread's copies of chunk j landed
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncwarp();  // and every lane's
-    const int t_hi = t_actual - 1 - j * chunk;
-    const int t_lo = max(t_hi - chunk + 1, 0);
-    const int32_t* mine = stage + (j & 1) * kTbThreads * pitch + lane * pitch;
-    for (int t = t_hi; walks && t >= t_lo; --t) {
-      const int32_t* w = mine + (t - t_lo) * KW + (cur >> 5);
-      unsigned e = 0u;
-#pragma unroll
-      for (int b = 0; b < k; ++b) {
-        e |= (((unsigned)w[b * W] >> (cur & 31u)) & 1u) << b;
-      }
-      const unsigned u = cur & umask;
-#pragma unroll
-      for (int i = k - 1; i >= 0; --i) {
-        const int p = t * k + i;  // the symbol's bit k - 1 - i
-        if (p < message_bits) {
-          const unsigned bit = (u >> (k - 1 - i)) & 1u;
-          if (emit_bytes) {
-            acc |= bit << (7 - (p & 7));
-            if ((p & 7) == 0) {
-              out_row[p >> 3] = (uint8_t)acc;
-              acc = 0u;
-            }
-          } else {
-            out_row[p] = (uint8_t)bit;
-          }
-        }
-      }
-      cur = (cur >> k) | (e << shift);
-    }
-    __syncwarp();  // every walk is done with buffer j & 1 before chunk j + 2
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// that completes on the mbarrier at `bar`, whose phase this lane's arrival
+// also expects them.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait for the mbarrier's phase of parity `parity` to complete; a copy that
+// never lands stops the kernel with an error rather than spinning forever.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  for (long long tries = 0;; ++tries) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1ll << 28)) __trap();
   }
 }
 
-template <int KC, int NSC>
-int launch_traceback(const void* decs, void* out, int B, int T_stride,
-                     int t_actual, int k, int NS, int S, int message_bits,
-                     int emit_bytes, cudaStream_t s) {
-  const int KW = k * ((NS + 31) / 32);
-  const int chunk = max(1, min(64, kTbStageWords / KW));
-  const size_t smem =
-      2 * (size_t)kTbThreads * (chunk * KW + 1) * sizeof(int32_t);
-  const dim3 block(kTbThreads);
-  const dim3 grid((B + kTbThreads - 1) / kTbThreads);
-  traceback_generic_kernel<KC, NSC><<<grid, block, smem, s>>>(
+// One lane's walk over the staged window [lo, lo + WS) of its channel.
+// `base` is the channel's staged window plus its word phase.  ROW (S::kRow
+// shapes, phase 0): a step's KW words come as 16- or 8-byte vector loads
+// whose addresses do not depend on the state, and the state selects among
+// them.
+template <class S, bool ROW>
+struct Walker {
+  const int32_t* base;
+  int lo;
+
+  // The words of step t.
+  __device__ __forceinline__ const int32_t* row(int t) const {
+    const int r = t - lo;
+    return base + (r >> S::LG) * S::P + (r & (S::G - 1)) * S::KW;
+  }
+
+  // The state at step t - 1 from the state at step t, `w` step t's words.
+  static __device__ __forceinline__ unsigned step(const int32_t* w,
+                                                  unsigned cur) {
+    unsigned e = 0u;
+    if constexpr (ROW) {
+      static_assert(S::kRow, "a row in vectors");
+      unsigned v[S::KW];
+      if constexpr (S::KW % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < S::KW; i += 4) {
+          const int4 x = *reinterpret_cast<const int4*>(w + i);
+          v[i] = x.x, v[i + 1] = x.y, v[i + 2] = x.z, v[i + 3] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < S::KW; i += 2) {
+          const int2 x = *reinterpret_cast<const int2*>(w + i);
+          v[i] = x.x, v[i + 1] = x.y;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < S::K; ++b) {
+        const unsigned* p = v + b * S::W;
+        unsigned word = (cur & 32u) ? p[1] : p[0];
+        if constexpr (S::W == 4) {
+          word = (cur & 64u) ? ((cur & 32u) ? p[3] : p[2]) : word;
+        }
+        e |= ((word >> (cur & 31u)) & 1u) << b;
+      }
+    } else {
+      const int32_t* x = w + (S::W > 1 ? (int)(cur >> 5) : 0);
+#pragma unroll
+      for (int b = 0; b < S::K; ++b) {
+        e |= (((unsigned)x[b * S::W] >> (cur & 31u)) & 1u) << b;
+      }
+    }
+    return (cur >> S::K) | (e << S::SHIFT);
+  }
+
+  // Step t's symbol into its byte group's accumulator (MSb first; j = t
+  // mod Q), and the group's bytes to `st` once its lowest step is done.
+  template <bool EMIT>
+  __device__ __forceinline__ void emit(int t, int j, unsigned cur,
+                                       unsigned long long& acc,
+                                       uint8_t* st) const {
+    if constexpr (EMIT) {
+      acc |= (unsigned long long)(cur & S::UMASK) << (S::K * (S::Q - 1 - j));
+      if (j == 0) {
+        uint8_t* p = st + (((t - lo) * S::K) >> 3);
+#pragma unroll
+        for (int m = 0; m < S::QB; ++m) {
+          p[m] = (uint8_t)(acc >> (8 * (S::QB - 1 - m)));
+        }
+        acc = 0ull;
+      }
+    }
+  }
+
+  // Walk steps hi - 1 down to lo_t (a multiple of UB) from `cur`, the state
+  // at step hi - 1; returns the state at step lo_t - 1.  EMIT: the steps'
+  // symbols go to the window's output bytes `st`.
+  template <bool EMIT>
+  __device__ unsigned walk(int hi, int lo_t, unsigned cur, uint8_t* st) const {
+    unsigned long long acc = 0ull;
+    int t = hi - 1;
+    // The top block's steps above a multiple of UB, one at a time (kept a
+    // loop: see block_1p.cu's warm-up).
+#pragma unroll 1
+    for (; t >= lo_t && ((t + 1) & (S::UB - 1)); --t) {
+      emit<EMIT>(t, t & (S::Q - 1), cur, acc, st);
+      cur = step(row(t), cur);
+    }
+#pragma unroll 1
+    for (; t >= lo_t; t -= S::UB) {
+      const int32_t* w = row(t);  // a block lies in one segment
+#pragma unroll
+      for (int s = 0; s < S::UB; ++s) {
+        emit<EMIT>(t - s, (S::UB - 1 - s) & (S::Q - 1), cur, acc, st);
+        cur = step(w - s * S::KW, cur);
+      }
+    }
+    return cur;
+  }
+};
+
+// The walk: each channel from state 0 at step t_actual - 1 down to step 0,
+// in windows of WS steps on the grid of multiples of WS, top window first.
+template <int K, int LOGNS, int LOGC, int LOGCPW, int LOGG, int WU,
+          bool ROW>
+__global__ void __launch_bounds__(32)
+generic_walk_kernel(const int32_t* __restrict__ decs,
+                    uint8_t* __restrict__ out, int B, int T_stride,
+                    int t_actual, int message_bits, int emit_bytes) {
+  using S = WalkShape<K, LOGNS, LOGC, LOGCPW, LOGG, WU>;
+  constexpr int NB = S::NB;
+  constexpr int C = S::C, CPW = S::CPW, G = S::G, WS = S::WS, P = S::P;
+  constexpr int KW = S::KW;
+  // [NB][CPW][C][P] staged words, [CPW][STAGE] output bytes, NB mbarriers.
+  extern __shared__ __align__(16) int32_t wsm[];
+  uint8_t* const stage_all =
+      reinterpret_cast<uint8_t*>(wsm + NB * CPW * C * P);
+  uint64_t* const bars =
+      reinterpret_cast<uint64_t*>(stage_all + CPW * S::STAGE);
+  if (message_bits <= 0) return;
+  const int warp = blockIdx.x;  // one warp a block
+  const int lane = threadIdx.x;
+  const int c = lane >> LOGC;  // the lane's channel in the warp
+  const int l = lane & (C - 1);
+  const int cs = c < CPW ? c : 0;
+  const int ch = warp * CPW + c;
+  const bool live = c < CPW && ch < B;
+  const size_t chan_words = (size_t)T_stride * KW;
+  // The word phase of the channel's planes: every segment starts at a
+  // multiple of 4 words from the channel's first, so at this phase.
+  const int ph = live ? (int)((reinterpret_cast<uintptr_t>(
+                                   decs + (size_t)ch * chan_words) >> 2) & 3)
+                      : 0;
+  const int n_win = (t_actual + WS - 1) / WS;
+
+  // Stage window j of the warp's channels into buffer `buf`: each lane's
+  // segment as one bulk copy of the 16-byte chunks that hold its words, to
+  // its own row of P words; every lane arrives on the buffer's mbarrier
+  // (a window past the first arrives with no copies).
+  auto fetch = [&](int j, int buf) {
+    const int a = j * WS + l * G;
+    const int hi = min(j * WS + WS, t_actual);
+    if (j >= 0 && live && a < hi) {
+      const int32_t* chb = decs + (size_t)ch * chan_words;
+      const uintptr_t g0 = reinterpret_cast<uintptr_t>(chb + (size_t)a * KW);
+      const uintptr_t g1 =
+          reinterpret_cast<uintptr_t>(chb + (size_t)min(a + G, hi) * KW);
+      const uintptr_t src = g0 & ~uintptr_t(15);
+      bulk_copy(wsm + ((buf * CPW + c) * C + l) * P,
+                reinterpret_cast<const void*>(src),
+                (unsigned)(((g1 + 15) & ~uintptr_t(15)) - src), bars + buf);
+    } else {
+      bar_arrive(bars + buf);
+    }
+  };
+
+  if (lane == 0) {
+    for (int b = 0; b < NB; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(
+                       smem_addr(bars + b))
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  unsigned top = 0u;  // the state at the window's top step
+  // Window n_win - 1 - i goes to buffer i % NB, NB - 1 windows ahead.
+#pragma unroll 1
+  for (int i = 0; i < NB - 1; ++i) fetch(n_win - 1 - i, i);
+  for (int i = 0; i < n_win; ++i) {
+    const int j = n_win - 1 - i;
+    const int buf = i % NB;
+    if (j - (NB - 1) >= 0) fetch(j - (NB - 1), (i + NB - 1) % NB);
+    bar_wait(bars + buf, (unsigned)(i / NB) & 1u);
+    __syncwarp();
+    const int lo = j * WS;
+    const int hi = min(lo + WS, t_actual);
+    const Walker<S, ROW> wk{wsm + (buf * CPW + cs) * C * P + ph, lo};
+    uint8_t* const st = stage_all + cs * S::STAGE;
+    const int a = lo + l * G;
+    const int b = min(a + G, hi);
+    const bool mine = live && a < hi;
+    const bool top_seg = b == hi;  // its start is the window's top state
+    // The guess: a warm-up of WU steps from state 0 above the segment, or
+    // from the window's top state where the warm-up reaches the top.
+    unsigned start = top;
+    if (mine && !top_seg) {
+      const int t0 = min(b - 1 + WU, hi - 1);
+      start = wk.template walk<false>(t0 + 1, b, t0 == hi - 1 ? top : 0u,
+                                      nullptr);
+    }
+    unsigned end = mine ? wk.template walk<true>(b, a, start, st) : 0u;
+    // Top down: a segment whose start differs from the state the segment
+    // above ended in walks again from that state, until none differs.
+    for (;;) {
+      const unsigned above = __shfl_down_sync(kFullMask, end, 1);
+      const bool redo = mine && !top_seg && above != start;
+      if (!__any_sync(kFullMask, redo)) break;
+      if (redo) {
+        start = above;
+        end = wk.template walk<true>(b, a, start, st);
+      }
+    }
+    top = __shfl_sync(kFullMask, end, cs << LOGC);  // state at step lo - 1
+    __syncwarp();
+    // The window's bits, each channel's row written by the whole warp.
+    const int bit_lo = lo * K;
+    const int bit_hi = min(hi * K, message_bits);
+    for (int cc = 0; cc < CPW; ++cc) {
+      const int chn = warp * CPW + cc;
+      if (chn >= B) break;
+      const uint8_t* sc = stage_all + cc * S::STAGE;
+      if (emit_bytes) {
+        uint8_t* orow = out + (size_t)chn * ((message_bits + 7) >> 3);
+        const int byte_lo = bit_lo >> 3;
+        for (int m = byte_lo + lane; m * 8 < bit_hi; m += 32) {
+          unsigned v = sc[m - byte_lo];
+          const int rem = bit_hi - m * 8;  // bits of the byte kept
+          if (rem < 8) v &= 0xffu << (8 - rem);
+          orow[m] = (uint8_t)v;
+        }
+      } else {
+        uint8_t* orow = out + (size_t)chn * message_bits;
+        for (int p = bit_lo + lane; p < bit_hi; p += 32) {
+          orow[p] = (uint8_t)((sc[(p - bit_lo) >> 3] >> (7 - (p & 7))) & 1u);
+        }
+      }
+    }
+    __syncwarp();  // the buffer and the bytes are free for window j - 2
+  }
+}
+
+template <int K, int LOGNS, int LOGC, int LOGCPW, int LOGG, int WU, bool ROW>
+int launch_walk_kernel(const void* decs, void* out, int B, int T_stride,
+                       int t_actual, int message_bits, int emit_bytes,
+                       cudaStream_t s) {
+  using S = WalkShape<K, LOGNS, LOGC, LOGCPW, LOGG, WU>;
+  auto* kernel = generic_walk_kernel<K, LOGNS, LOGC, LOGCPW, LOGG, WU, ROW>;
+  if constexpr (S::kSmem > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  const dim3 grid((B + S::CPW - 1) / S::CPW);
+  kernel<<<grid, 32, S::kSmem, s>>>(
       static_cast<const int32_t*>(decs), static_cast<uint8_t*>(out), B,
-      T_stride, t_actual, k, NS, S, message_bits, emit_bytes, chunk);
+      T_stride, t_actual, message_bits, emit_bytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The walk at one shape: with a step's words loaded whole (S::kRow) where
+// every channel's planes start 16-byte aligned.
+template <int K, int LOGNS, int LOGC, int LOGCPW, int LOGG, int WU>
+int launch_walk(const void* decs, void* out, int B, int T_stride,
+                int t_actual, int message_bits, int emit_bytes,
+                cudaStream_t s) {
+  using S = WalkShape<K, LOGNS, LOGC, LOGCPW, LOGG, WU>;
+  if constexpr (S::kRow) {
+    if ((reinterpret_cast<uintptr_t>(decs) & 15) == 0 &&
+        (size_t)T_stride * S::KW % 4 == 0) {
+      return launch_walk_kernel<K, LOGNS, LOGC, LOGCPW, LOGG, WU, true>(
+          decs, out, B, T_stride, t_actual, message_bits, emit_bytes, s);
+    }
+  }
+  return launch_walk_kernel<K, LOGNS, LOGC, LOGCPW, LOGG, WU, false>(
+      decs, out, B, T_stride, t_actual, message_bits, emit_bytes, s);
+}
+
+// The admitted shapes, NS = 2^(k S) <= 1024 with k <= 8, each one's walk:
+// launch_walk<k, log2 NS, log2 lanes a channel, log2 channels a warp,
+// log2 steps a segment, warm-up steps>, as measured
+// fastest (PERF.md §6).
+// tests/test_torch_generic.py and chip_smoke.py read this switch.
+int launch_generic_walk(const void* decs, void* out, int B, int T_stride,
+                        int t_actual, int k, int NS, int message_bits,
+                        int emit_bytes, cudaStream_t s) {
+  const int key = k * 2048 + NS;
+#define WALK_ARGS decs, out, B, T_stride, t_actual, message_bits, emit_bytes, s
+  switch (key) {
+    case 1 * 2048 + 2: return launch_walk<1, 1, 5, 0, 5, 8>(WALK_ARGS);
+    case 1 * 2048 + 4: return launch_walk<1, 2, 5, 0, 5, 16>(WALK_ARGS);
+    case 1 * 2048 + 8: return launch_walk<1, 3, 5, 0, 5, 16>(WALK_ARGS);
+    case 1 * 2048 + 16: return launch_walk<1, 4, 5, 0, 5, 24>(WALK_ARGS);
+    case 1 * 2048 + 32: return launch_walk<1, 5, 5, 0, 5, 32>(WALK_ARGS);
+    case 1 * 2048 + 64: return launch_walk<1, 6, 5, 0, 4, 32>(WALK_ARGS);
+    case 1 * 2048 + 128: return launch_walk<1, 7, 5, 0, 3, 40>(WALK_ARGS);
+    case 1 * 2048 + 256: return launch_walk<1, 8, 5, 0, 3, 48>(WALK_ARGS);
+    case 1 * 2048 + 512: return launch_walk<1, 9, 5, 0, 3, 48>(WALK_ARGS);
+    case 1 * 2048 + 1024: return launch_walk<1, 10, 4, 0, 3, 56>(WALK_ARGS);
+    case 2 * 2048 + 4: return launch_walk<2, 2, 5, 0, 4, 8>(WALK_ARGS);
+    case 2 * 2048 + 16: return launch_walk<2, 4, 5, 0, 4, 12>(WALK_ARGS);
+    case 2 * 2048 + 64: return launch_walk<2, 6, 5, 0, 3, 20>(WALK_ARGS);
+    case 2 * 2048 + 256: return launch_walk<2, 8, 4, 1, 2, 24>(WALK_ARGS);
+    case 2 * 2048 + 1024: return launch_walk<2, 10, 4, 0, 2, 28>(WALK_ARGS);
+    case 3 * 2048 + 8: return launch_walk<3, 3, 5, 0, 3, 8>(WALK_ARGS);
+    case 3 * 2048 + 64: return launch_walk<3, 6, 5, 0, 3, 16>(WALK_ARGS);
+    case 3 * 2048 + 512: return launch_walk<3, 9, 3, 0, 3, 24>(WALK_ARGS);
+    case 4 * 2048 + 16: return launch_walk<4, 4, 5, 0, 3, 8>(WALK_ARGS);
+    case 4 * 2048 + 256: return launch_walk<4, 8, 4, 0, 2, 12>(WALK_ARGS);
+    case 5 * 2048 + 32: return launch_walk<5, 5, 5, 0, 3, 8>(WALK_ARGS);
+    case 5 * 2048 + 1024: return launch_walk<5, 10, 2, 0, 3, 16>(WALK_ARGS);
+    case 6 * 2048 + 64: return launch_walk<6, 6, 5, 0, 2, 8>(WALK_ARGS);
+    case 7 * 2048 + 128: return launch_walk<7, 7, 4, 0, 3, 8>(WALK_ARGS);
+    case 8 * 2048 + 256: return launch_walk<8, 8, 4, 0, 2, 8>(WALK_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef WALK_ARGS
 }
 
 // The generic kernels' limits (kernels/generic.py: generic_kernel_supports):
@@ -711,12 +1039,13 @@ extern "C" int traceback_generic(const void* decs, void* out, int B,
                                  int T_stride, int t_actual, int k, int NS,
                                  int S, int message_bits, int emit_bytes,
                                  void* stream) {
-  if (!generic_shape_ok(k, NS, 1)) {
+  if (!generic_shape_ok(k, NS, 1) || S < 1 || (1 << (S * k)) != NS ||
+      t_actual > T_stride) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_traceback<0, 0>(decs, out, B, T_stride, t_actual, k, NS, S,
-                                message_bits, emit_bytes,
-                                static_cast<cudaStream_t>(stream));
+  return launch_generic_walk(decs, out, B, T_stride, t_actual, k, NS,
+                             message_bits, emit_bytes,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int traceback_generic_k2(const void* decs, void* out, int B,
@@ -726,7 +1055,6 @@ extern "C" int traceback_generic_k2(const void* decs, void* out, int B,
   if (k != 2 || NS != 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_traceback<2, 64>(decs, out, B, T_stride, t_actual, k, NS, S,
-                                 message_bits, emit_bytes,
-                                 static_cast<cudaStream_t>(stream));
+  return traceback_generic(decs, out, B, T_stride, t_actual, k, NS, S,
+                           message_bits, emit_bytes, stream);
 }

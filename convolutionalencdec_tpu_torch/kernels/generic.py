@@ -21,8 +21,8 @@ the JAX package wrote a second kernel family for those codes to avoid a
 per-step row interleave; on Hopper no interleave exists.  Both forward
 entries launch one template instantiated at compile time for each admitted
 (k, NS), so `acs_generic_k2_forward` runs the same kernel as
-`acs_generic_forward` on a k = 2, 64-state code; the k2 traceback is the
-traceback template at k = 2, NS = 64.
+`acs_generic_forward` on a k = 2, 64-state code; so do the two traceback
+entries with the walk template.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches its kernel or raises: nothing falls back.

@@ -484,3 +484,197 @@ def test_forward_dispatch_covers_every_admitted_shape():
     assert len(shapes) == len(admitted) == 25
     assert {(k, logns) for k, logns, _ in shapes} == admitted
     assert all(0 <= logc <= min(5, logns) for _, logns, logc in shapes)
+
+
+# --- The walk kernel's schedule, modelled in numpy ----------------------------
+
+def _walk_shapes():
+    """(k, log2 NS, log2 lanes a channel, log2 channels a warp, log2 steps
+    a segment, warm-up steps) of each case of the walk's dispatch switch in
+    csrc/acs_generic.cu (`launch_generic_walk`)."""
+    src = (Path(kernels.__file__).resolve().parent.parent / "csrc"
+           / "acs_generic.cu").read_text()
+    return [tuple(map(int, m)) for m in re.findall(
+        r"launch_walk<(\d+), (\d+), (\d+), (\d+), (\d+), (\d+)>\(WALK_ARGS\)",
+        src)]
+
+
+def _generic_walk_model(k, logns, logc, logg, wu, planes, t_actual,
+                        lengths, rng):
+    """numpy model of csrc/acs_generic.cu's `generic_walk_kernel`, done the
+    way the kernel does it.  C = 2^logc lanes a channel; windows of C G
+    steps (G = 2^logg) on the grid of multiples of C G, the top one first;
+    lane l owns the segment [lo + l G, lo + l G + G) of window [lo, hi).  A
+    lane guesses the state at its segment's top by a warm-up of `wu` steps
+    from state 0, or from the window's top state where the warm-up reaches
+    the window's top (so the top segment's start is exact), then walks its
+    segment, its symbols MSb first into an accumulator of Q = 8 / gcd(k, 8)
+    steps whose bytes it stores to the window's output bytes at the group's
+    lowest step.  Then, in rounds, every lane whose start differs from the
+    state the segment above ended in walks again from that state, until no
+    lane differs; the window's lowest segment's end is the next window's top
+    state.  The window's bytes (left as they were in the shared buffer where
+    no lane stores) are written out for each message length in `lengths`,
+    as bits or as bytes with the bits past the length masked.  Asserts that
+    each lane stores only bytes of its own segment.  Returns ({length:
+    (bits uint8 [B, length], bytes uint8 [B, ceil(length / 8)])}, segments
+    walked again)."""
+    B = planes.shape[0]
+    S, C, G = logns // k, 1 << logc, 1 << logg
+    WS = C * G
+    Q = 8 // np.gcd(k, 8)
+    QB = Q * k // 8
+    words = planes.astype(np.int64) & 0xFFFFFFFF        # [B, T, k, W]
+    rows = np.arange(B)[:, None]
+    lanes = np.arange(C)
+
+    def step(t, cur):
+        w = words[rows, t, :, cur >> 5]                  # [B, C, k]
+        e = (((w >> (cur & 31)[..., None]) & 1)
+             << np.arange(k)).sum(-1)
+        return (cur >> k) | (e << (logns - k))
+
+    outs = {L: (np.zeros((B, L), np.uint8),
+                np.zeros((B, (L + 7) // 8), np.uint8)) for L in lengths}
+    stage = rng.integers(0, 256, (B, WS * k // 8)).astype(np.int64)
+    top = np.zeros(B, np.int64)
+    rewalks = 0
+    for j in reversed(range(-(-t_actual // WS))):
+        lo, hi = j * WS, min(j * WS + WS, t_actual)
+        a = lo + lanes * G
+        b = np.minimum(a + G, hi)
+        mine = np.broadcast_to(a < hi, (B, C))
+        top_seg = b == hi
+        own_lo = ((a - lo) * k) // 8                     # a lane's own bytes
+        own_hi = own_lo + G * k // 8
+
+        def walk(lo_t, hi_t, cur, active, emit):
+            """Steps hi_t - 1 down to lo_t (per lane) of the active lanes,
+            all lanes a step at a time."""
+            acc = np.zeros_like(cur)
+            for tau in range(int(np.max(hi_t - lo_t, initial=0))):
+                t = hi_t - 1 - tau                       # [C]
+                on = active & (t >= lo_t)
+                if not on.any():
+                    break
+                tt = np.broadcast_to(np.clip(t, 0, t_actual - 1), cur.shape)
+                jq = t & (Q - 1)
+                if emit:
+                    acc = np.where(on, acc | ((cur & ((1 << k) - 1))
+                                              << (k * (Q - 1 - jq))), acc)
+                cur = np.where(on, step(tt, cur), cur)
+                if emit:
+                    store = on & (jq == 0)
+                    r, l = np.nonzero(store)
+                    at = ((t[l] - lo) * k) // 8
+                    assert np.all((own_lo[l] <= at) & (at + QB <= own_hi[l]))
+                    for m in range(QB):
+                        stage[r, at + m] = (acc[r, l] >> (8 * (QB - 1 - m))) \
+                            & 0xFF
+                    acc = np.where(store, 0, acc)
+            return cur
+
+        t0 = np.minimum(b - 1 + wu, hi - 1)
+        x = np.where(t0 == hi - 1, top[:, None], 0)
+        start = walk(b, t0 + 1, x, mine & ~top_seg, False)
+        start = np.where(top_seg, top[:, None], start)
+        end = walk(a, b, start, mine, True)
+        while True:
+            above = np.concatenate([end[:, 1:], end[:, -1:]], axis=1)
+            redo = mine & ~top_seg & (above != start)
+            if not redo.any():
+                break
+            rewalks += int(redo.sum())
+            start = np.where(redo, above, start)
+            end = np.where(redo, walk(a, b, start, redo, True), end)
+        top = end[:, 0]
+        staged = stage.astype(np.uint8)
+        for L, (bits, out_bytes) in outs.items():
+            bit_lo, bit_hi = lo * k, min(hi * k, L)
+            if bit_hi <= bit_lo:
+                continue
+            bits[:, bit_lo:bit_hi] = np.unpackbits(
+                staged, axis=1)[:, :bit_hi - bit_lo]
+            m_lo, m_hi = bit_lo // 8, (bit_hi + 7) // 8
+            out_bytes[:, m_lo:m_hi] = staged[:, :m_hi - m_lo]
+            if bit_hi % 8:
+                out_bytes[:, m_hi - 1] &= 0xFF << (8 - bit_hi % 8) & 0xFF
+    return outs, rewalks
+
+
+def _random_planes(rng, k, NS, B, T):
+    """Uniform decision words, the bits past NS zero: guesses go wrong."""
+    words = rng.integers(-2 ** 31, 2 ** 31, (B, T, k, (NS + 31) // 32))
+    if NS < 32:
+        words &= (1 << NS) - 1
+    return words.astype(np.int32)
+
+
+# Every shape of the walk's dispatch at: one step; S + 1 steps; a
+# segment's steps - 1 and + 1; one past a window with t_actual two below
+# T_stride (random planes, the kernel's warm-up); and one past a window at
+# a warm-up of 0 (every guess but the top segment's from state 0), where
+# segments must be walked again.  Three channels; the whole message and a
+# cut one, not a multiple of 8.
+_WALK_CASES = [(shape, which) for shape in _walk_shapes()
+               for which in ("one", "S+1", "G-1", "G+1", "window+1",
+                             "no warm-up")]
+
+
+@pytest.mark.parametrize("shape,which", _WALK_CASES,
+                         ids=[f"k{s[0]}_NS{1 << s[1]}-{w}"
+                              for s, w in _WALK_CASES])
+def test_walk_schedule_model_matches_plain_walk(shape, which):
+    """The generic walk's windows, segments, warm-ups, guesses, top-down
+    check and re-walks, and each lane's whole output bytes, modelled in
+    numpy, give the plain traceback's bits and bytes bit for bit."""
+    k, logns, logc, _, logg, wu = shape
+    rng = np.random.default_rng(100 * k + logns + len(which))
+    S, G, WS = logns // k, 1 << logg, (1 << logc) << logg
+    spec = port.CodeSpec(K=S + 1, k=k, g=tuple(
+        int(x) for x in rng.integers(1, 1 << (k * (S + 1)), 2)))
+    t_actual = {"one": 1, "S+1": S + 1, "G-1": max(G - 1, S),
+                "G+1": G + 1, "window+1": WS + 1,
+                "no warm-up": WS + 1}[which]
+    T = t_actual + (2 if which == "window+1" else 0)
+    planes = _random_planes(rng, k, 1 << logns, 3, T)
+    full = max(t_actual - S, 0) * k
+    cut = max(full - 13, 0)
+    cut -= 1 if cut % 8 == 0 and cut > 0 else 0
+    warm = 0 if which == "no warm-up" else wu
+    outs, walked_again = _generic_walk_model(
+        k, logns, logc, logg, warm, planes, t_actual, sorted({full, cut}),
+        rng)
+    want = generic.traceback_batch_generic_plain(
+        spec, torch.from_numpy(planes), t_actual, full, "bits")
+    for L, (bits, out_bytes) in outs.items():
+        np.testing.assert_array_equal(bits, want[:, :L].numpy())
+        np.testing.assert_array_equal(
+            out_bytes, port.ops.viterbi.pad_and_pack(want[:, :L]).numpy())
+    if which == "no warm-up":
+        assert walked_again > 0
+
+
+def test_walk_dispatch_covers_every_admitted_shape():
+    """The walk's dispatch switch instantiates the walk for exactly the 25
+    (k, NS) shapes `generic_kernel_supports` admits, each with lanes and
+    channels that fit a warp, segments of whole output bytes and whole
+    unrolled blocks, and the two windows of staged words fitting a block's
+    (one warp's) shared memory."""
+    shapes = _walk_shapes()
+    admitted = {(k, k * S) for k in range(1, generic.MAX_K + 1)
+                for S in range(1, 11) if k * S <= 10}
+    assert len(shapes) == len(admitted) == 25
+    assert {(k, logns) for k, logns, *_ in shapes} == admitted
+    for k, logns, logc, logcpw, logg, wu in shapes:
+        G = 1 << logg
+        q = 8 // np.gcd(k, 8)
+        unrolled = max(q, 4)
+        assert logc + logcpw <= 5
+        assert G % unrolled == 0 and wu % unrolled == 0
+        segw = G * k * (((1 << logns) + 31) // 32)
+        pitch = segw + (4 if segw % 8 == 0 else 8)
+        smem = (2 * (1 << logcpw) * (1 << logc) * pitch * 4
+                + (1 << logcpw) * (((1 << logc) * G * k // 8 + 15) & ~15)
+                + 8 * 2 + 15) & ~15
+        assert smem <= 232448
