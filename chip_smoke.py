@@ -131,7 +131,13 @@ Phases (any failure exits non-zero and prints no result line):
      its own switch), n = 1..8 in turn and an n = 9 code, noisy and
      garbage int8 LLRs (-128 included) under the three conditionings
      (clamps [-7, 7], [-127, 127], [-128, 127]), fresh and carried
-     metrics; the JAX names of the fused kernels
+     metrics; the two segment walks (`traceback_wide`,
+     `traceback_wide_masked`) at every line of their dispatch switch
+     (NS = 512 ... 16384) on the forward's and on garbage words, B = 3,
+     T = 1, 5, S + 5, a window of 16-step segments less 5 and three
+     windows, terminated (t_actual = T, T - 2) and masked (live 0, S,
+     T - 1, T; random starts), whole and cut rows, bits and bytes; the JAX
+     names of the fused kernels
      (`kernels.fused`) at init_chunk 0, -1 and 1 against their plain routes
      and the block decode;
  17. small-state main path (k): K5_23_35 at bench.py's working set (B =
@@ -279,14 +285,14 @@ SOURCES = {
         "convolutionalencdec_tpu/kernels/acs_pallas.py:1134 and "
         "acs_swar.py:1262 at NS >= 512"),
     "traceback_wide": (
-        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu_torch/csrc/traceback_wide.cu",
         "convolutionalencdec_tpu/kernels/acs_pallas.py:1069 and "
         "acs_swar.py:877 at NS >= 512"),
     "traceback_wide_ragged": (
         "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:975 at NS >= 512"),
     "traceback_wide_masked": (
-        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu_torch/csrc/traceback_wide.cu",
         "convolutionalencdec_tpu/kernels/acs_pallas.py:1069 and "
         "acs_swar.py:920 at NS >= 512"),
     "traceback_wide_multi": (
@@ -2416,6 +2422,101 @@ def wide_round_steps(source=None, soft=False):
         rf"case (\d+): return {launch}<(\d+), (\d+)>", src)}
 
 
+def wide_walk_lines(source=None):
+    """[(NS, G's cap, warm-up steps, segments a window)] of each wide NS:
+    its line of the wide walk's dispatch switch in csrc/traceback_wide.cu
+    (or in `source`, a copy of it), with the file's three constants
+    (`kGCap`, `kWarm`, `kSegs`), the same at every NS."""
+    import re
+    src = Path(source or ROOT / SOURCES["traceback_wide"][0]).read_text()
+    consts = tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                                 src).group(1))
+                   for name in ("kGCap", "kWarm", "kSegs"))
+    return [(int(ns), *consts) for ns, log in re.findall(
+        r"case (\d+): return launch_walk<(\d+), M>\(a, s\);", src)
+        if int(ns) == 1 << int(log)]
+
+
+def wide_walk_lengths(S, spw, gcap):
+    """The step counts at which the wide walks are held to their plain
+    versions: 1, 5 (below a segment), S + 5, spw x 16 - 5 (segments of 16
+    steps, one short of a window) and two windows and 37 steps of the G cap
+    (three windows)."""
+    return (1, 5, S + 5, spw * 16 - 5, 2 * spw * gcap + 37)
+
+
+def compare_wide_walks(fec, acs, dev, err, rng):
+    """The two redesigned wide walks (`traceback_wide` and
+    `traceback_wide_masked`, csrc/traceback_wide.cu) against their plain
+    versions at every line of their dispatch switch (NS = 512 ... 16384):
+    a random rate-1/4 code; the forward's words of 3%-corrupted packets
+    and uniform garbage words (which send the warm-up guesses wrong, so
+    segments are walked again); B = 3 at `wide_walk_lengths` (up to three
+    windows); terminated at t_actual = T and T - 2 (rows longer than the
+    packet), the whole message and a cut one; masked from random starts at
+    live 0, S, T - 1 and T, out_steps T and a cut one; bits and bytes."""
+    import numpy as np
+    import torch
+    pad_and_pack = fec.ops.viterbi.pad_and_pack
+    for NS, gcap, wu, spw in wide_walk_lines():
+        spec = bfly_spec(fec, rng, NS, 4)
+        S, cases = spec.S, 0
+        for T in wide_walk_lengths(S, spw, gcap):
+            for kind in ("noisy", "garbage"):
+                if kind == "garbage":
+                    words = torch.from_numpy(rng.integers(
+                        -2 ** 31, 2 ** 31, (3, T, NS // 32)).astype(
+                            np.int32)).to(dev)
+                else:
+                    msgs = rng.integers(0, 2, (3, max(T - S, 1)),
+                                        dtype=np.uint8)
+                    seg = fec.encode_bits(spec, torch.from_numpy(msgs).to(
+                        dev))[0][:, :T]
+                    seg = torch.from_numpy(corrupt(
+                        rng, seg.cpu().numpy(), NOISE[0], spec.n)).to(dev)
+                    words = acs.acs_forward_batch(spec, seg)[0]
+                for ta in sorted({T, T - 2} & set(range(S, T + 1))):
+                    full = ta - S
+                    want = acs.traceback_batch_plain(spec, words, ta, full,
+                                                     "bits")
+                    for L in sorted({full, cut_bits(full)}):
+                        for out in ("bits", "bytes"):
+                            ref = (pad_and_pack(want[:, :L]) if out == "bytes"
+                                   else want[:, :L])
+                            got = acs.traceback_batch(spec, words, ta, L, out)
+                            require(torch.equal(got, ref),
+                                    f"{spec} traceback_wide {kind} T={T} "
+                                    f"t_actual={ta} L={L} {out}")
+                            err["traceback_wide"] = max(
+                                err["traceback_wide"], max_abs_diff(got, ref))
+                            cases += 1
+                starts = torch.from_numpy(rng.integers(0, NS, 3).astype(
+                    np.int32)).to(dev)
+                for live in sorted({0, min(S, T), T - 1, T}):
+                    want = acs.traceback_batch_masked_plain(
+                        spec, words, starts, live, T, "bits")
+                    for L in sorted({T, cut_bits(T)}):
+                        for out in ("bits", "bytes"):
+                            ref = (pad_and_pack(want[:, :L]) if out == "bytes"
+                                   else want[:, :L])
+                            got = acs.traceback_batch_masked(
+                                spec, words, starts, live, L, out)
+                            require(torch.equal(got, ref),
+                                    f"{spec} traceback_wide_masked {kind} "
+                                    f"T={T} live={live} L={L} {out}")
+                            err["traceback_wide_masked"] = max(
+                                err["traceback_wide_masked"],
+                                max_abs_diff(got, ref))
+                            cases += 1
+                del words
+        print(f"[compare] wide walks NS={NS}: G cap {gcap}, warm-up {wu}, "
+              f"{spw} segments a window; {cases} cases "
+              "(forward and garbage words; B = 3: T = "
+              f"{', '.join(map(str, wide_walk_lengths(S, spw, gcap)))}; "
+              "terminated and masked, whole and cut rows): bits and bytes "
+              "equal to the plain walks")
+
+
 def compare_wide_rounds(fec, acs, dev, err, rng):
     """The hard wide forward's rounds (R steps in registers between two
     barriers, the last round T mod R steps) against the plain forward at
@@ -2597,6 +2698,7 @@ def phase_compare_butterfly(fec, acs, dev, err):
               "multi (NW 1, 2, 8, NS) equal")
     compare_wide_rounds(fec, acs, dev, err, rng)
     compare_wide_soft_rounds(fec, acs, dev, err, rng)
+    compare_wide_walks(fec, acs, dev, err, rng)
     # The K11 names, on an n = 6 code at NS = 64 and on (l)'s code.
     for spec in (bfly_spec(fec, rng, 64, 6), fec.CodeSpec(**WIDE_MAIN)):
         seg = segments(spec, SMALL_B, BFLY_WIDE_L + 3, "noisy")

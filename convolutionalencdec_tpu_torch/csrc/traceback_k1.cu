@@ -22,10 +22,12 @@
 // network, no group masks, no padded steps; the walk starts at the real
 // last step of each channel.  At NS <= 32 (one word per step) traceback_k1
 // also replaces `traceback_batch` (acs_pallas.py, pallas_call at :308, body
-// `_tb_kernel`), the JAX package's traceback for NS < 64.  The four
-// traceback_wide* entry points are the same walks for NS >= 512, where they
-// also replace `traceback_batch_fused_masked` (acs_pallas.py, pallas_call at
-// :1069, body `_tb_kernel_fused`) and the four SWAR walks above.
+// `_tb_kernel`), the JAX package's traceback for NS < 64.  Two more entry
+// points, traceback_wide_ragged and traceback_wide_multi, are the ragged
+// and multi walks for NS >= 512 (the wide instantiation, W = 0).  The
+// terminated and masked walks for NS >= 512 (`traceback_wide`,
+// `traceback_wide_masked`, which also replace `traceback_batch_fused_masked`)
+// are segment walks of their own in traceback_wide.cu.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -82,13 +84,14 @@
 // read from memory once for all walks (the TPU kernel's "decisions DMA'd
 // once"), and each walk's start and window are its own.
 //
-// Wide (NS >= 512, W >= 16): a step's words are 64 bytes to 2 KB, of which
-// the walk needs one bit, so the register chunk would move W times the
-// bytes it needs (and at W >= 32 holds under one step).  The wide walk
-// (template W = 0) loads only the word that holds its state's bit: one
-// dependent load, one 32-byte sector, per step.  Its floor is T times the
-// load latency; a look-ahead that loads the next step's two candidate words
-// would hide half of it.
+// Wide (NS >= 512, W >= 16), the ragged and multi walks only: a step's
+// words are 64 bytes to 2 KB, of which the walk needs one bit, so the
+// register chunk would move W times the bytes it needs (and at W >= 32
+// holds under one step).  The wide instantiation (W = 0) loads only the
+// word that holds its state's bit: one dependent load, one 32-byte sector,
+// per step, one thread a channel, so its floor is T times the load
+// latency.  traceback_wide.cu's segment walks, a lane a segment from
+// guessed starts, are the template for these two as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -186,18 +189,20 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   }
 }
 
-template <Walk MODE>
+// WIDE: the one-word-per-step instantiation (W = 0) at any NS, else the
+// register-chunk walk of NS's words.
+template <Walk MODE, bool WIDE = false>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
            int message_bits, int emit_bytes, int live, int nw, int out_start,
-           bool wide, cudaStream_t s) {
+           cudaStream_t s) {
   const dim3 block(kThreads);
   const dim3 grid((B * nw + kThreads - 1) / kThreads);
 #define TB_LAUNCH(W)                                                    \
   traceback_k1_kernel<W, MODE><<<grid, block, 0, s>>>(                  \
       d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,    \
       emit_bytes, live, nw, out_start, (NS + 31) / 32)
-  if (wide) {
+  if constexpr (WIDE) {
     if (NS < 2 || NS > 16384) return static_cast<int>(cudaErrorInvalidValue);
     TB_LAUNCH(0);
     return static_cast<int>(cudaGetLastError());
@@ -214,43 +219,47 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The entry points of one walk mode; `wide` picks the one-word-per-step
-// walk (the traceback_wide* symbols), else the register-chunk walk.
+// The entry points of one walk mode; WIDE picks the one-word-per-step
+// walk (traceback_wide_ragged, traceback_wide_multi; the wide terminated
+// and masked walks are in traceback_wide.cu), else the register-chunk
+// walk.
 int terminated(const void* decs, void* out, int B, int T_stride,
                int t_actual, int NS, int S, int message_bits, int emit_bytes,
-               bool wide, void* stream) {
+               void* stream) {
   return launch<Walk::kTerminated>(
       static_cast<const int32_t*>(decs), nullptr, nullptr,
       static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
-      emit_bytes, 0, 1, 0, wide, static_cast<cudaStream_t>(stream));
+      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
 }
 
+template <bool WIDE>
 int ragged(const void* decs, const void* lengths, void* out, int B, int T,
-           int NS, int S, int message_bits_max, int emit_bytes, bool wide,
+           int NS, int S, int message_bits_max, int emit_bytes,
            void* stream) {
-  return launch<Walk::kRagged>(
+  return launch<Walk::kRagged, WIDE>(
       static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
       nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
-      emit_bytes, 0, 1, 0, wide, static_cast<cudaStream_t>(stream));
+      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
 }
 
 int masked(const void* decs, const void* starts, void* out, int B, int T,
-           int NS, int S, int live, int out_steps, int emit_bytes, bool wide,
+           int NS, int S, int live, int out_steps, int emit_bytes,
            void* stream) {
   return launch<Walk::kMasked>(
       static_cast<const int32_t*>(decs), nullptr,
       static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live, 1, 0, wide,
+      T, NS, S, out_steps, emit_bytes, live, 1, 0,
       static_cast<cudaStream_t>(stream));
 }
 
+template <bool WIDE>
 int multi(const void* decs, const void* starts, void* out, int B, int T,
           int NS, int S, int NW, int live, int out_start, int out_steps,
-          int emit_bytes, bool wide, void* stream) {
-  return launch<Walk::kMulti>(
+          int emit_bytes, void* stream) {
+  return launch<Walk::kMulti, WIDE>(
       static_cast<const int32_t*>(decs), nullptr,
       static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live, NW, out_start, wide,
+      T, NS, S, out_steps, emit_bytes, live, NW, out_start,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -260,7 +269,7 @@ extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
                             int t_actual, int NS, int S, int message_bits,
                             int emit_bytes, void* stream) {
   return terminated(decs, out, B, T_stride, t_actual, NS, S, message_bits,
-                    emit_bytes, false, stream);
+                    emit_bytes, stream);
 }
 
 // Row width message_bits_max (<= T - S) bits, or ceil(message_bits_max / 8)
@@ -269,8 +278,8 @@ extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
                                    void* out, int B, int T, int NS, int S,
                                    int message_bits_max, int emit_bytes,
                                    void* stream) {
-  return ragged(decs, lengths, out, B, T, NS, S, message_bits_max,
-                emit_bytes, false, stream);
+  return ragged<false>(decs, lengths, out, B, T, NS, S, message_bits_max,
+                       emit_bytes, stream);
 }
 
 // Walk from starts[b] at step T - 1, decision 0 at steps >= live; row width
@@ -280,7 +289,7 @@ extern "C" int traceback_k1_masked(const void* decs, const void* starts,
                                    int live, int out_steps, int emit_bytes,
                                    void* stream) {
   return masked(decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes,
-                false, stream);
+                stream);
 }
 
 // NW walks per channel, walk (b, w) from starts[b, w] at step T - 1,
@@ -291,33 +300,19 @@ extern "C" int traceback_k1_multi(const void* decs, const void* starts,
                                   int NW, int live, int out_start,
                                   int out_steps, int emit_bytes,
                                   void* stream) {
-  return multi(decs, starts, out, B, T, NS, S, NW, live, out_start,
-               out_steps, emit_bytes, false, stream);
+  return multi<false>(decs, starts, out, B, T, NS, S, NW, live, out_start,
+                      out_steps, emit_bytes, stream);
 }
 
-// The wide walks (NS >= 512): the same four modes and signatures.
-extern "C" int traceback_wide(const void* decs, void* out, int B,
-                              int T_stride, int t_actual, int NS, int S,
-                              int message_bits, int emit_bytes,
-                              void* stream) {
-  return terminated(decs, out, B, T_stride, t_actual, NS, S, message_bits,
-                    emit_bytes, true, stream);
-}
-
+// The wide ragged and multi walks (NS >= 512): the same modes and
+// signatures; the wide terminated and masked walks are in
+// traceback_wide.cu.
 extern "C" int traceback_wide_ragged(const void* decs, const void* lengths,
                                      void* out, int B, int T, int NS, int S,
                                      int message_bits_max, int emit_bytes,
                                      void* stream) {
-  return ragged(decs, lengths, out, B, T, NS, S, message_bits_max,
-                emit_bytes, true, stream);
-}
-
-extern "C" int traceback_wide_masked(const void* decs, const void* starts,
-                                     void* out, int B, int T, int NS, int S,
-                                     int live, int out_steps, int emit_bytes,
-                                     void* stream) {
-  return masked(decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes,
-                true, stream);
+  return ragged<true>(decs, lengths, out, B, T, NS, S, message_bits_max,
+                      emit_bytes, stream);
 }
 
 extern "C" int traceback_wide_multi(const void* decs, const void* starts,
@@ -325,6 +320,6 @@ extern "C" int traceback_wide_multi(const void* decs, const void* starts,
                                     int NW, int live, int out_start,
                                     int out_steps, int emit_bytes,
                                     void* stream) {
-  return multi(decs, starts, out, B, T, NS, S, NW, live, out_start,
-               out_steps, emit_bytes, true, stream);
+  return multi<true>(decs, starts, out, B, T, NS, S, NW, live, out_start,
+                     out_steps, emit_bytes, stream);
 }

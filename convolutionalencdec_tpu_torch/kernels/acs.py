@@ -29,9 +29,11 @@ convolutionalencdec_tpu/kernels/acs_swar.py and acs_pallas.py):
     (NW walks per channel, a window of steps out; replaces
     `traceback_batch_swar_masked_multi`).
 
-At NS >= 512 the four tracebacks launch the wide walk of the same file
-(`traceback_wide`, `_ragged`, `_masked`, `_multi`; they also replace
-`traceback_batch_fused_masked`, K11).  `kernels/fused.py` gives the JAX
+At NS >= 512 the four tracebacks launch the wide walks: `traceback_wide`
+and `traceback_wide_masked` in `csrc/traceback_wide.cu` (segment walks a
+lane; the masked one also replaces `traceback_batch_fused_masked`, K11),
+and `traceback_wide_ragged` and `_multi`, the one-word-a-step walk of
+`csrc/traceback_k1.cu`.  `kernels/fused.py` gives the JAX
 package's K11 names on these wrappers.  `kernels/stream.py` holds the
 streaming kernel's wrappers; their launches are counted here too.
 

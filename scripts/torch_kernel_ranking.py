@@ -61,7 +61,8 @@ GENERIC = ("acs_generic_forward", "traceback_generic",
 # Redesigned after their port (rule 2): not taken again.
 REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "acs_generic_forward", "acs_generic_k2_forward",
-              "turbo_rsc_map", "traceback_generic", "traceback_generic_k2"}
+              "turbo_rsc_map", "traceback_generic", "traceback_generic_k2",
+              "traceback_wide", "traceback_wide_masked"}
 MAIN_T = 2054  # (a)'s steps, at which stream_k1_decode's bound is given
 
 

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Build-time variants of the wide forwards (`acs_wide_forward`, with
-`--soft` `acs_soft_wide_forward`, csrc/acs_wide.cu) against a reference
-build of the same C entry, on one GPU.
+`--soft` `acs_soft_wide_forward`, csrc/acs_wide.cu) or, with `--walk`, of
+the wide segment walks (`traceback_wide`, `traceback_wide_masked`,
+csrc/traceback_wide.cu) against a reference build of the same C entries, on
+one GPU.
 
     python3 scripts/torch_wide_variants.py [--soft [--n 4 6]] \\
         [--ref PATH.cu] [--variant NAME[=SOURCE.cu] ...] [--ns 512 16384] \\
         [--calls 5] [--sass] [--out DIR]
+    python3 scripts/torch_wide_variants.py --walk [--ref PATH.cu] \\
+        [--variant NAME[=SOURCE.cu] ...] [--lines NAME=SPEC ...] \\
+        [--ns 512 2048 16384] [--check-ns ...] [--calls 7] [--out DIR]
 
 Builds each variant, csrc/acs_wide.cu or a modified copy of it
 (`=SOURCE.cu`: other steps a round in its dispatch switch, another
@@ -26,6 +31,28 @@ noisy segments, soft: its AWGN LLRs at 3 dB quantized to 7, used as
 [-127, 127]) in turns with the reference, CUDA events, median of
 `--calls`.  Prints one JSON line per variant and the card's name and power
 limit.  Exits non-zero if a build fails or a variant differs.
+
+`--walk`: the variants are csrc/traceback_wide.cu, copies of it
+(`--variant NAME=SOURCE.cu`) and copies whose walk constants `--lines`
+rewrites: SPEC is `field=value,...` with the fields g (G's cap, `kGCap`),
+wu (warm-up steps, `kWarm`) and spw (segments a window, `kSegs`), e.g.
+`--lines wu16=wu=16`.  The reference (`--ref`) is another source that
+defines both C entries, e.g. an older tree's csrc/traceback_k1.cu (one
+thread a channel).  Each variant is held bit for bit against the reference at every
+NS of `--check-ns` (default all six) on the forward's words of
+3%-corrupted packets and on garbage words, B = 3, at
+`chip_smoke.wide_walk_lengths` of its own dispatch line (up to three
+windows), terminated (t_actual T and T - 2, whole and cut messages) and
+masked (live 0, S, T - 1, T from random starts, whole and cut rows), bits
+and bytes, and against the plain walks on the first rows; then timed at
+each `--ns` in turns with the reference, at B = 2048, T = 2062 on two
+forwards' words alternately (WALK_CODES with 3% of the segments hit;
+16384: (l)'s code and input, as `chip_smoke.py` times it): the terminated
+walk into bytes and the masked walk from state 0 into bits.  At NS <= 1024
+the run also times, in the same turns, the generic walk of
+csrc/acs_generic.cu (`traceback_generic`, the package's build: the staged
+windows over a k = 1 code's planes) on the generic forward's planes of a
+code of the same K and input.
 """
 
 from __future__ import annotations
@@ -34,6 +61,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +69,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "acs_wide.cu"
+WALK_SOURCE = (ROOT / "convolutionalencdec_tpu_torch" / "csrc"
+               / "traceback_wide.cu")
+WALKS = ("traceback_wide", "traceback_wide_masked")
+# The walks' timed codes: rate-1/2 codes of K = 10 ... 14 with no common
+# factor (none catastrophic: a catastrophic code's survivors never merge,
+# so every warm-up guess is wrong), and (l)'s code at NS = 16384.
+WALK_CODES = {512: (0o1167, 0o1545), 1024: (0o2365, 0o3173),
+              2048: (0o4335, 0o5723), 4096: (0o10533, 0o17661),
+              8192: (0o21675, 0o27123)}
+# --lines fields and the constants of csrc/traceback_wide.cu they set.
+WALK_FIELDS = {"g": "kGCap", "wu": "kWarm", "spw": "kSegs"}
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "wide_variants"
 TIMED_B, TIMED_T = 2048, 2062
 CHECK_B, CHECK_T = 64, (1, 2, 3, 4, 5, 6, 7, 8, 9, 61, 62, 63, 64, 65)
@@ -73,7 +112,8 @@ def build_all(builds: dict[str, Path], out: Path):
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and (
                     "acs_round_kernel" in line
-                    or "acs_soft_round_kernel" in line):
+                    or "acs_soft_round_kernel" in line
+                    or "wide_walk_kernel" in line):
                 regs = next((x for x in lines[i + 1:i + 4]
                              if "registers" in x), "").strip()
                 spill = next((x for x in lines[i + 1:i + 4]
@@ -254,6 +294,233 @@ def run(lib_path: str, source: str, ref_path: str | None, ns_list,
     return 1 if bad else 0
 
 
+def with_lines(name: str, spec: str, out: Path) -> Path:
+    """A copy of csrc/traceback_wide.cu whose walk constants `spec` (see
+    the module docstring) rewrites, written to out/NAME.cu."""
+    src = WALK_SOURCE.read_text()
+    for field in spec.split(","):
+        key, _, value = field.partition("=")
+        if key not in WALK_FIELDS or not value.isdigit():
+            raise SystemExit(f"--lines {name}: fields are {set(WALK_FIELDS)}"
+                             " with whole numbers")
+        src, count = re.subn(rf"constexpr int {WALK_FIELDS[key]} = \d+;",
+                             f"constexpr int {WALK_FIELDS[key]} = {value};",
+                             src)
+        if count != 1:
+            raise SystemExit(f"--lines {name}: no {WALK_FIELDS[key]}")
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name}.cu"
+    path.write_text(src)
+    return path
+
+
+def load_walks(path: Path) -> dict:
+    lib = ctypes.CDLL(str(path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {"traceback_wide": lib.traceback_wide,
+           "traceback_wide_masked": lib.traceback_wide_masked}
+    fns["traceback_wide"].argtypes = [P, P, I, I, I, I, I, I, I, P]
+    fns["traceback_wide_masked"].argtypes = [P, P, P, I, I, I, I, I, I, I, P]
+    for fn in fns.values():
+        fn.restype = I
+    return fns
+
+
+def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
+             timed_ns, calls: int) -> int:
+    """`--walk`: one variant's walks (built from `source`) against the
+    reference build; prints its JSON line."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import convolutionalencdec_tpu_torch as fec
+    from convolutionalencdec_tpu_torch.kernels import _build, acs, generic
+    dev = torch.device("cuda", 0)
+    fns = load_walks(Path(lib_path))
+    refs = load_walks(Path(ref_path)) if ref_path else {
+        name: getattr(_build.library(), name) for name in WALKS}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pad_and_pack = fec.ops.viterbi.pad_and_pack
+    rng = np.random.default_rng(2060)
+    lines = {ns: rest for ns, *rest in cs.wide_walk_lines(source)}
+
+    def terminated(f, spec, words, t_actual, L, out, res=None):
+        B, T = words.shape[:2]
+        if res is None:
+            res = torch.full((B, (L + 7) // 8 if out == "bytes" else L),
+                             0xA5, dtype=torch.uint8, device=dev)
+        code = f(words.data_ptr(), res.data_ptr(), B, T, t_actual,
+                 spec.num_states, spec.S, L, int(out == "bytes"), stream)
+        if code:
+            raise RuntimeError(f"{spec}: traceback_wide, CUDA error {code}")
+        return res
+
+    def masked(f, spec, words, starts, live, L, out, res=None):
+        B, T = words.shape[:2]
+        if res is None:
+            res = torch.full((B, (L + 7) // 8 if out == "bytes" else L),
+                             0xA5, dtype=torch.uint8, device=dev)
+        code = f(words.data_ptr(), starts.data_ptr(), res.data_ptr(), B, T,
+                 spec.num_states, spec.S, live, L, int(out == "bytes"),
+                 stream)
+        if code:
+            raise RuntimeError(f"{spec}: traceback_wide_masked, CUDA error "
+                               f"{code}")
+        return res
+
+    def noisy_segments(spec, B, T):
+        msgs = rng.integers(0, 2, (B, max(T - spec.S, 1)), dtype=np.uint8)
+        seg = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))[0]
+        return torch.from_numpy(cs.corrupt(
+            rng, seg[:, :T].cpu().numpy(), cs.MAIN_NOISE, spec.n)).to(dev)
+
+    result = {"lib": Path(lib_path).stem, "walk": True, "lines": lines,
+              "checked": {}, "ms": {}, "ref_ms": {}, "staged_ms": {}}
+    bad = []
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            bad.append(what)
+            if len(bad) == 1:
+                d = (got != want).nonzero()[:8]
+                print(f"[wide-variants] {what}: differs at {d.tolist()}",
+                      flush=True)
+
+    for NS in check_ns:
+        gcap, wu, spw = lines[NS]
+        spec = cs.bfly_spec(fec, rng, NS, 4)
+        S, cases = spec.S, 0
+        for T in cs.wide_walk_lengths(S, spw, gcap):
+            for kind in ("noisy", "garbage"):
+                if kind == "garbage":
+                    words = torch.from_numpy(rng.integers(
+                        -2 ** 31, 2 ** 31, (3, T, NS // 32)).astype(
+                            np.int32)).to(dev)
+                else:
+                    words = acs.acs_forward_batch(
+                        spec, noisy_segments(spec, 3, T))[0]
+                for ta in sorted({T, T - 2} & set(range(S, T + 1))):
+                    full = ta - S
+                    for L in sorted({full, cs.cut_bits(full)}):
+                        for out in ("bits", "bytes"):
+                            same(terminated(fns[WALKS[0]], spec, words, ta,
+                                            L, out),
+                                 terminated(refs[WALKS[0]], spec, words, ta,
+                                            L, out),
+                                 f"NS={NS} {kind} T={T} t_actual={ta} "
+                                 f"L={L} {out}")
+                            cases += 1
+                starts = torch.from_numpy(rng.integers(0, NS, 3).astype(
+                    np.int32)).to(dev)
+                for live in sorted({0, min(S, T), T - 1, T}):
+                    for L in sorted({T, cs.cut_bits(T)}):
+                        for out in ("bits", "bytes"):
+                            same(masked(fns[WALKS[1]], spec, words, starts,
+                                        live, L, out),
+                                 masked(refs[WALKS[1]], spec, words, starts,
+                                        live, L, out),
+                                 f"NS={NS} {kind} T={T} masked live={live} "
+                                 f"L={L} {out}")
+                            cases += 1
+                if T == spw * 16 - 5:
+                    want = acs.traceback_batch_plain(spec, words[:2], T,
+                                                     T - S, "bits")
+                    same(terminated(fns[WALKS[0]], spec, words[:2], T,
+                                    T - S, "bits"), want, f"NS={NS} plain")
+                    same(terminated(fns[WALKS[0]], spec, words[:2], T,
+                                    T - S, "bytes"), pad_and_pack(want),
+                         f"NS={NS} plain bytes")
+                    want = acs.traceback_batch_masked_plain(
+                        spec, words[:2], starts[:2], T - 7, T, "bits")
+                    same(masked(fns[WALKS[1]], spec, words[:2], starts[:2],
+                                T - 7, T, "bits"), want,
+                         f"NS={NS} masked plain")
+                del words
+        torch.cuda.synchronize()
+        result["checked"][NS] = cases
+        print(f"[wide-variants] {result['lib']} NS={NS} (G cap {gcap}, "
+              f"warm-up {wu}, {spw} segments a window): "
+              f"{cases} cases against the reference", flush=True)
+
+    rng = np.random.default_rng(2061)  # the same inputs in every variant
+    B, T = TIMED_B, TIMED_T
+    for NS in timed_ns:
+        spec = (fec.CodeSpec(**cs.WIDE_MAIN) if NS == 16384
+                else fec.CodeSpec(K=NS.bit_length(), g=WALK_CODES[NS]))
+        seg = noisy_segments(spec, B, T)
+        decs = [acs.acs_forward_batch(spec, torch.roll(seg, r, dims=0))[0]
+                for r in range(2)]
+        zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        res = {"bytes": torch.empty((B, (T - spec.S + 7) // 8),
+                                    dtype=torch.uint8, device=dev),
+               "bits": torch.empty((B, T), dtype=torch.uint8, device=dev)}
+        runs = {
+            "terminated": lambda lib, d: terminated(
+                lib[WALKS[0]], spec, d, T, T - spec.S, "bytes", res["bytes"]),
+            "masked": lambda lib, d: masked(
+                lib[WALKS[1]], spec, d, zeros, T, T, "bits", res["bits"])}
+        staged = None
+        if NS <= 1024:
+            # The generic kernels take the k = 1 codes that are not
+            # butterflies: the timed code with its second generator's
+            # oldest tap moved (still no common factor).
+            gspec = fec.CodeSpec(K=spec.K, g=(spec.g[0], spec.g[1] ^ 1))
+            gseg = noisy_segments(gspec, B, T)
+            planes = [generic.acs_forward_batch_generic(
+                gspec, torch.roll(gseg, r, dims=0))[0] for r in range(2)]
+            del gseg
+            staged = lambda _, d: generic.traceback_batch_generic(
+                gspec, planes[d], T, T - gspec.S, "bytes")
+        for mode, fn in runs.items():
+            same(fn(fns, decs[0]).clone(), fn(refs, decs[0]),
+                 f"NS={NS} timed input {mode}")
+            times = {"var": [], "ref": [], "staged": []}
+            launched = {"walk": 0, "staged": 0}
+            for i in range(calls):
+                order = [("var", fns), ("ref", refs)]
+                if staged is not None and mode == "terminated":
+                    order.append(("staged", None))
+                if i % 2:
+                    order.reverse()
+                for key, lib in order:
+                    # Each build reads the other forward's words than the
+                    # launch before it: no sector comes from L2.
+                    kind = "staged" if key == "staged" else "walk"
+                    d = launched[kind] % 2
+                    launched[kind] += 1
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(10_000_000)
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    if key == "staged":
+                        staged(None, d)
+                    else:
+                        fn(lib, decs[d])
+                    e1.record()
+                    torch.cuda.synchronize()
+                    times[key].append(e0.elapsed_time(e1))
+            key = f"{NS} {mode}"
+            result["ms"][key] = statistics.median(times["var"])
+            result["ref_ms"][key] = statistics.median(times["ref"])
+            line = (f"[wide-variants] {result['lib']} NS={NS} {mode} "
+                    f"(B={B} T={T}): {result['ms'][key]:.4f} ms, reference "
+                    f"{result['ref_ms'][key]:.4f} ms")
+            if times["staged"]:
+                result["staged_ms"][key] = statistics.median(times["staged"])
+                line += (f", staged generic walk "
+                         f"{result['staged_ms'][key]:.4f} ms")
+            print(line, flush=True)
+        del decs, res
+        if staged is not None:
+            del planes
+        torch.cuda.empty_cache()
+    result["differs"] = bad
+    print(json.dumps(result))
+    return 1 if bad else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--soft", action="store_true",
@@ -269,11 +536,22 @@ def main() -> int:
                     help="keep each build's SASS beside its log")
     ap.add_argument("--out", type=Path, default=LIBS,
                     help="directory of the build logs and SASS")
+    ap.add_argument("--walk", action="store_true",
+                    help="the wide walks (traceback_wide, _masked)")
+    ap.add_argument("--lines", action="append", default=[],
+                    help="--walk: NAME=SPEC, walk constants rewritten "
+                         "(repeatable; see the module docstring)")
+    ap.add_argument("--check-ns", type=int, nargs="+",
+                    default=[512 << i for i in range(6)],
+                    help="--walk: the NS of the bit-for-bit checks")
     ap.add_argument("--run", help=argparse.SUPPRESS)
     ap.add_argument("--source", help=argparse.SUPPRESS)
     ap.add_argument("--ref-lib", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.run:
+        if args.walk:
+            return run_walk(args.run, args.source, args.ref_lib,
+                            args.check_ns, args.ns, args.calls)
         return run(args.run, args.source, args.ref_lib, args.ns, args.calls,
                    args.soft, args.n)
     import torch
@@ -281,12 +559,25 @@ def main() -> int:
         print("torch_wide_variants: no CUDA device", file=sys.stderr)
         return 1
     builds = {}
-    for item in args.variant or ["default"]:
+    for item in args.variant or ([] if args.lines else ["default"]):
         name, _, src = item.partition("=")
-        builds[name] = Path(src) if src else SOURCE
+        builds[name] = Path(src) if src else (WALK_SOURCE if args.walk
+                                              else SOURCE)
+    for item in args.lines:
+        name, _, spec = item.partition("=")
+        builds[name] = with_lines(name, spec, args.out)
     if args.ref:
         builds["reference"] = Path(args.ref)
+    package = None
+    if args.walk:  # the package's kernels (the forwards, the generic walk)
+        import threading
+        sys.path.insert(0, str(ROOT))
+        from convolutionalencdec_tpu_torch.kernels import _build
+        package = threading.Thread(target=_build.build)
+        package.start()
     libs, failed = build_all(builds, args.out)
+    if package is not None:
+        package.join()
     if args.sass:
         dump_sass(libs, args.out)
     if "reference" in failed:
@@ -298,6 +589,8 @@ def main() -> int:
                str(lib), "--source", str(builds[name]), "--calls",
                str(args.calls), "--ns", *map(str, args.ns),
                "--n", *map(str, args.n)] + (["--soft"] if args.soft else [])
+        if args.walk:
+            cmd += ["--walk", "--check-ns", *map(str, args.check_ns)]
         if ref_lib is not None:
             cmd += ["--ref-lib", str(ref_lib)]
         code = subprocess.run(cmd).returncode

@@ -9,11 +9,13 @@ bit for bit against the JAX package's scans on noisy, garbage (tie-heavy)
 and -128 inputs; the K11 names' layouts (`init_chunk` 0 / -1 / 1, the
 `gmask` prefix rule) against the port's plain forward and traceback; and
 one chain of the JAX package's fused kernels (forward, then traceback) in
-interpret mode against the port's names; and a numpy model of the hard
-wide forward's round schedule (csrc/acs_wide.cu) against the port's plain
-forward.
+interpret mode against the port's names; numpy models of the wide
+forwards' round schedules (csrc/acs_wide.cu) against the port's plain
+forwards; and a numpy model of the wide terminated and masked walks
+(csrc/traceback_wide.cu) against the port's plain walks.
 """
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -584,3 +586,259 @@ def test_soft_round_schedule_model_matches_plain_forward(NS, R, B, T, n,
                               (qlo, qclip))
     np.testing.assert_array_equal(words, words_p.numpy())
     np.testing.assert_array_equal(fm2, fm2_p.numpy())
+
+
+# --- The wide walk's schedule (csrc/traceback_wide.cu), modelled in numpy ----
+
+def _wide_walk_lines():
+    """[(NS, G's cap, warm-up steps, segments a window)] of each wide NS,
+    as chip_smoke.py reads them from csrc/traceback_wide.cu."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.wide_walk_lines()
+
+
+_WIDE_WALK = {ns: rest for ns, *rest in _wide_walk_lines()}
+
+
+def _segment_steps(t_top, spw, gcap):
+    """G, the steps of a segment: a multiple of 8, spw segments a window,
+    at most gcap (`launch_walk`)."""
+    per_lane = -(-t_top // spw)
+    return min(gcap, max(8, -(-per_lane // 8) * 8))
+
+
+def _wide_walk_model(NS, gcap, wu, spw, words, t_top, starts, live,
+                     lengths, rng):
+    """numpy model of csrc/traceback_wide.cu's `wide_walk_kernel`, done the
+    way the kernel does it.  A warp a channel; segments of G steps
+    (`_segment_steps`), one a lane, spw a window, so windows of spw G steps
+    on the grid of their multiples, the top one first; lane l owns the
+    segment [lo + l G, lo + l G + G) (lanes spw ... 31 none).  Each lane
+    guesses the state at its segment's top by a warm-up of `wu` steps from
+    state 0, or from the window's top state (`starts`, or 0) where the
+    warm-up reaches the window's top, and walks on through its segment,
+    all lanes in lock step, each step's word loaded for the state's bit
+    index, decision 0 at steps >= live.  A segment's bits go MSb first into
+    a byte stored at the group's lowest step, the state there beside it.
+    Then, in rounds, every lane whose start differs from the end of the
+    segment above (lane l + 1's) walks again from that state, until none
+    differs; a walk again stops where it meets its earlier walk's state at
+    a byte's lowest step.  The window's bytes (left as
+    they were in the shared buffer where no lane stores) are written out
+    for each row length in `lengths`, as bits or as bytes with the bits
+    past the length masked.  Asserts that each lane stores only bytes
+    of its own segment.  Returns ({length: (bits uint8 [B, length], bytes
+    uint8 [B, ceil(length / 8)])}, segments walked again)."""
+    B, T_stride, _ = words.shape
+    S = NS.bit_length() - 1
+    w64 = words.astype(np.int64) & 0xFFFFFFFF
+    G = _segment_steps(t_top, spw, gcap)
+    WS = spw * G
+    lanes = np.arange(32)
+    rows = np.arange(B)[:, None]
+
+    def index(s):
+        return (s >> 1) | ((s & 1) << (S - 1))
+
+    def load(t, i):
+        return w64[rows, np.clip(t, 0, T_stride - 1), i >> 5]
+
+    def walk(hi, lo, cur, on, emit_hi, got, wlo, again=None):
+        """Lanes `on` from step hi - 1 down to lo, in lock step; returns
+        (states at step lo - 1, states at step emit_hi - 1).  `again`: the
+        ends of the lanes' earlier walks, where a walk stops on meeting its
+        earlier walk's state at a byte's lowest step."""
+        cur, got, on = cur.copy(), got.copy(), on.copy()
+        acc = np.zeros_like(cur)
+        for s in range(int(np.max(np.where(on, hi - lo, 0), initial=0))):
+            t = hi - 1 - s
+            act = on & (t >= lo)
+            i = index(cur)
+            d = np.where(t < live, (load(t, i) >> (i & 31)) & 1, 0)
+            got = np.where(act & (t == emit_hi - 1), cur, got)
+            em = act & (t < emit_hi)
+            acc = np.where(em, acc | ((cur & 1) << (7 - (t & 7))), acc)
+            store = em & ((t & 7) == 0)
+            r, l = np.nonzero(store)
+            at = (t[l] - wlo) >> 3
+            assert np.all((l * G // 8 <= at) & (at < (l + 1) * G // 8))
+            stage[r, at] = acc[r, l]
+            acc = np.where(store, 0, acc)
+            if again is not None:
+                met = np.zeros_like(store)
+                met[r, l] = ck[r, at] == cur[r, l]
+                cur = np.where(met, again, cur)
+                act &= ~met
+                on &= ~met
+                r, l = np.nonzero(store & ~met)
+                at = (t[l] - wlo) >> 3
+            ck[r, at] = cur[r, l]
+            cur = np.where(act, (cur >> 1) | (d << (S - 1)), cur)
+        return cur, got
+
+    outs = {L: (np.zeros((B, L), np.uint8),
+                np.zeros((B, (L + 7) // 8), np.uint8)) for L in lengths}
+    stage = rng.integers(0, 256, (B, WS // 8)).astype(np.int64)
+    ck = rng.integers(0, NS, (B, WS // 8)).astype(np.int64)
+    top = np.asarray(starts, np.int64)
+    rewalks = 0
+    for j in reversed(range(-(-t_top // WS))):
+        wlo, whi = j * WS, min(j * WS + WS, t_top)
+        a = wlo + lanes * G
+        b = np.minimum(a + G, whi)
+        mine = np.broadcast_to(a < whi, (B, 32))
+        assert not mine[:, spw:].any()
+        top_seg = b == whi
+        t0 = np.minimum(b - 1 + wu, whi - 1)
+        x = np.where(t0 == whi - 1, top[:, None], 0)
+        start = np.broadcast_to(top[:, None], x.shape)
+        end, start = walk(t0 + 1, a, x, mine, b, start, wlo)
+        while True:
+            above = np.concatenate([end[:, 1:], end[:, -1:]], 1)
+            redo = mine & ~top_seg & (above != start)
+            if not redo.any():
+                break
+            rewalks += int(redo.sum())
+            start = np.where(redo, above, start)
+            again, _ = walk(b, a, start, redo, b, start, wlo, end)
+            end = np.where(redo, again, end)
+        top = end[:, 0]
+        staged = stage.astype(np.uint8)
+        for L, (bits, out_bytes) in outs.items():
+            bit_hi = min(whi, L)
+            if bit_hi <= wlo:
+                continue
+            bits[:, wlo:bit_hi] = np.unpackbits(staged,
+                                                axis=1)[:, :bit_hi - wlo]
+            m_lo, m_hi = wlo // 8, (bit_hi + 7) // 8
+            out_bytes[:, m_lo:m_hi] = staged[:, :m_hi - m_lo]
+            if bit_hi % 8:
+                out_bytes[:, m_hi - 1] &= 0xFF << (8 - bit_hi % 8) & 0xFF
+    return outs, rewalks
+
+
+def _wide_spec(NS, rng, n=2):
+    """A random poly-symmetric code with NS states and n generators."""
+    K = NS.bit_length()
+    return port.CodeSpec(K=K, g=tuple(
+        (1 << (K - 1)) | 1 | (int(rng.integers(0, 1 << (K - 2))) << 1)
+        for _ in range(n)))
+
+
+def _garbage_words(rng, B, T, NS):
+    """Uniform decision words: warm-up guesses go wrong."""
+    return rng.integers(-2 ** 31, 2 ** 31, (B, T, NS // 32)).astype(np.int32)
+
+
+def _sparse_words(rng, B, T, NS):
+    """Decision words with a bit set one time in 8: survivors merge within
+    a few steps, so most guesses are right and a few are walked again."""
+    return (_garbage_words(rng, B, T, NS) & _garbage_words(rng, B, T, NS)
+            & _garbage_words(rng, B, T, NS))
+
+
+def _cut(L):
+    """A row length below L and not a multiple of 8 (L itself if small)."""
+    c = max(L - 13, 0)
+    return c - 1 if c % 8 == 0 and c > 0 else c
+
+
+def _check_terminated(NS, words, t_actual, wu, rng):
+    """The model's terminated walk against `traceback_batch_plain` at the
+    whole message and a cut one, bits and bytes; returns re-walks."""
+    gcap, _, spw = _WIDE_WALK[NS]
+    spec = _wide_spec(NS, rng)
+    full = max(t_actual - spec.S, 0)
+    outs, rewalks = _wide_walk_model(
+        NS, gcap, wu, spw, words, t_actual, np.zeros(words.shape[0]),
+        t_actual, sorted({full, _cut(full)}), rng)
+    want = acs.traceback_batch_plain(spec, _t(words), t_actual, full, "bits")
+    for L, (bits, out_bytes) in outs.items():
+        np.testing.assert_array_equal(bits, want[:, :L].numpy())
+        np.testing.assert_array_equal(
+            out_bytes, port.ops.viterbi.pad_and_pack(want[:, :L]).numpy())
+    return rewalks
+
+
+def _check_masked(NS, words, starts, live, wu, rng):
+    """The model's masked walk against `traceback_batch_masked_plain` at
+    out_steps T and a cut one, bits and bytes; returns re-walks."""
+    gcap, _, spw = _WIDE_WALK[NS]
+    spec = _wide_spec(NS, rng)
+    T = words.shape[1]
+    outs, rewalks = _wide_walk_model(NS, gcap, wu, spw, words, T,
+                                     starts, live, sorted({T, _cut(T)}), rng)
+    want = acs.traceback_batch_masked_plain(
+        spec, _t(words), _t(starts.astype(np.int32)), live, T, "bits")
+    for L, (bits, out_bytes) in outs.items():
+        np.testing.assert_array_equal(bits, want[:, :L].numpy())
+        np.testing.assert_array_equal(
+            out_bytes, port.ops.viterbi.pad_and_pack(want[:, :L]).numpy())
+    return rewalks
+
+
+# At each wide NS, at its dispatch line's G cap, warm-up and segments a
+# window: "noisy" the forward's
+# words of a noisy packet (t_actual two below T_stride), with the line's
+# warm-up and with none (every guess from state 0, so segments are walked
+# again, asserted); "edges" T = 1 and T < 8 (masked) and t_actual = S + 5
+# (terminated); "garbage" uniform words at T not a multiple of G,
+# terminated and masked at live 0, S, T - 1 and T from random starts;
+# "windows" three windows of sparse words (a bit set one time in 8),
+# terminated, and masked with no warm-up.
+_WIDE_WALK_CASES = [(NS, which) for NS in sorted(_WIDE_WALK)
+                    for which in ("noisy", "edges", "garbage", "windows")]
+
+
+@pytest.mark.parametrize("NS,which", _WIDE_WALK_CASES,
+                         ids=[f"NS{ns}-{w}" for ns, w in _WIDE_WALK_CASES])
+def test_wide_walk_schedule_model_matches_plain_walks(NS, which):
+    """The wide walk's windows, segments a lane, warm-ups, guesses,
+    top-down check and re-walks and each lane's whole output bytes,
+    modelled in numpy, give the plain terminated and masked walks' bits
+    and bytes bit for bit."""
+    gcap, wu, spw = _WIDE_WALK[NS]
+    rng = np.random.default_rng(NS + len(which))
+    S = NS.bit_length() - 1
+    if which == "noisy":
+        spec = _wide_spec(NS, rng, 4)
+        seg = _segments(spec, "noisy", NS, B=2, L=120)
+        words = acs.acs_forward_batch_plain(spec, _t(seg))[0].numpy()
+        T = words.shape[1]
+        assert _check_terminated(NS, words, T - 2, wu, rng) >= 0
+        assert _check_terminated(NS, words, T - 2, 0, rng) > 0
+        _check_masked(NS, words, rng.integers(0, NS, 2), T, wu, rng)
+    elif which == "edges":
+        for T in (1, 5):
+            words = _garbage_words(rng, 3, T, NS)
+            _check_masked(NS, words, rng.integers(0, NS, 3), T, wu, rng)
+        words = _garbage_words(rng, 3, S + 7, NS)
+        _check_terminated(NS, words, S + 5, wu, rng)
+    elif which == "garbage":
+        T = spw * min(16, gcap) - 5        # spw segments, the top one short
+        words = _garbage_words(rng, 2, T, NS)
+        assert _check_terminated(NS, words, T, wu, rng) > 0
+        for live in (0, S, T - 1, T):
+            _check_masked(NS, words, rng.integers(0, NS, 2), live, wu, rng)
+    else:
+        T = 2 * spw * gcap + 37
+        words = _sparse_words(rng, 1, T, NS)
+        _check_terminated(NS, words, T - 3, wu, rng)
+        _check_masked(NS, words, rng.integers(0, NS, 1), T - 50, 0, rng)
+
+
+def test_wide_walk_dispatch_covers_every_wide_state_count():
+    """The wide walk's dispatch switch has exactly one line for each wide
+    NS, 512 ... 16384, each with segments of whole output bytes and at most
+    a warp's lanes a window; a segment walk's window of output bytes fits
+    a block's static shared memory (48 KB) and at (l)'s length a packet is
+    one window."""
+    lines = _wide_walk_lines()
+    assert [ns for ns, *_ in lines] == [512 << i for i in range(6)]
+    for ns, gcap, wu, spw in lines:
+        assert gcap % 8 == 0 and gcap >= 8 and wu >= 0 and 1 <= spw <= 32
+        assert spw * gcap // 8 * 3 <= 48 * 1024
+        assert spw * _segment_steps(2062, spw, gcap) >= 2062
