@@ -131,13 +131,20 @@ Phases (any failure exits non-zero and prints no result line):
      its own switch), n = 1..8 in turn and an n = 9 code, noisy and
      garbage int8 LLRs (-128 included) under the three conditionings
      (clamps [-7, 7], [-127, 127], [-128, 127]), fresh and carried
-     metrics; the two segment walks (`traceback_wide`,
-     `traceback_wide_masked`) at every line of their dispatch switch
+     metrics; the four segment walks (`traceback_wide`, `_masked`,
+     `_ragged`, `_multi`) at every line of their dispatch switch
      (NS = 512 ... 16384) on the forward's and on garbage words, B = 3,
-     T = 1, 5, S + 5, a window of 16-step segments less 5 and three
-     windows, terminated (t_actual = T, T - 2) and masked (live 0, S,
-     T - 1, T; random starts), whole and cut rows, bits and bytes; the JAX
-     names of the fused kernels
+     T = 1, 5, S + 5 and a window of 16-step segments less 5 at the 8
+     warps a walk these launches take, terminated (t_actual = T, T - 2)
+     and masked (live 0, S, T - 1, T; random starts), and on 8 rows
+     ragged (lengths 0, 1, S, S + 1, T - 1, T, past T, negative) and list
+     (NW = 1 from step 13, NW = 4 from T // 3 with live T - 9), whole and
+     cut rows, bits and bytes; then over more than one window: 1025
+     channels (one warp a walk, the main paths' launch shape) over three
+     windows of the forward's and of garbage words, and 8 channels (8
+     warps a walk) over two windows of garbage words, all four walks and
+     the ragged edge lengths, the plain walks on 32 rows; the JAX names
+     of the fused kernels
      (`kernels.fused`) at init_chunk 0, -1 and 1 against their plain routes
      and the block decode;
  17. small-state main path (k): K5_23_35 at bench.py's working set (B =
@@ -150,8 +157,12 @@ Phases (any failure exits non-zero and prints no result line):
      (hard forward + `traceback_batch_fused`, soft forward +
      `traceback_batch_fused_masked`), ragged hard bytes and the tail-biting
      list decode of 64 packets; each equal to its plain route on 64 rows
-     (the list on 8), launches of every wide kernel > 0; times of each
-     kernel and decode at (k) (20 calls) and (l) (5 calls);
+     (the list on 8), the ragged walk also with the edge lengths on its
+     first rows and the list walk also with one walk a packet and from a
+     step that is not a multiple of 8 (each walk over the whole batch, its
+     launch shape on the path), launches of every wide kernel > 0; times
+     of each kernel and decode (the ragged and list decodes too) at (k)
+     (20 calls) and (l) (5 calls);
  19. the single-pass block decode (`block_decode_1p`, csrc/block_1p.cu)
      against its plain version on the card: random poly-symmetric codes at
      NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
@@ -289,14 +300,14 @@ SOURCES = {
         "convolutionalencdec_tpu/kernels/acs_pallas.py:1069 and "
         "acs_swar.py:877 at NS >= 512"),
     "traceback_wide_ragged": (
-        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu_torch/csrc/traceback_wide.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:975 at NS >= 512"),
     "traceback_wide_masked": (
         "convolutionalencdec_tpu_torch/csrc/traceback_wide.cu",
         "convolutionalencdec_tpu/kernels/acs_pallas.py:1069 and "
         "acs_swar.py:920 at NS >= 512"),
     "traceback_wide_multi": (
-        "convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
+        "convolutionalencdec_tpu_torch/csrc/traceback_wide.cu",
         "convolutionalencdec_tpu/kernels/acs_swar.py:655 at NS >= 512"),
     "block_decode_1p": (
         "convolutionalencdec_tpu_torch/csrc/block_1p.cu",
@@ -418,6 +429,9 @@ SMALL_BER_LIMIT = 5e-3
 WIDE_MAIN = dict(K=15, g=(0o46321, 0o51271, 0o63667, 0o70535))
 WIDE_BER_LIMIT = 2e-3
 WIDE_PLAIN_ROWS = 64
+# The wide walks' checks over more than one window hold the plain walks'
+# result on this many rows of each batch.
+WIDE_WINDOW_ROWS = 32
 WIDE_LIST_B, WIDE_LIST_SIZE = 64, 4
 WIDE_TIMED_CALLS = 5
 # The wrappers the K11 names call.
@@ -2260,7 +2274,8 @@ def generic_times(fec, gk, inputs):
 # ---------------------------------------------------------------------------
 # Small and wide butterfly codes: TPU kernel K12 (NS < 64), K11 (the fused
 # int32 kernels) and the SWAR kernels at NS >= 512, on csrc/acs_small.cu,
-# csrc/acs_wide.cu and the one-word and wide walks of csrc/traceback_k1.cu.
+# csrc/acs_wide.cu, the one-word walks of csrc/traceback_k1.cu and the wide
+# walks of csrc/traceback_wide.cu.
 
 
 def nonzero(launches):
@@ -2422,6 +2437,17 @@ def wide_round_steps(source=None, soft=False):
         rf"case (\d+): return {launch}<(\d+), (\d+)>", src)}
 
 
+def wide_walk_consts(source=None):
+    """The wide walk's constants (`kGCap`, `kWarm`, `kSegs`, `kWarps`,
+    `kFill`) as csrc/traceback_wide.cu (or `source`, a copy of it) sets
+    them."""
+    import re
+    src = Path(source or ROOT / SOURCES["traceback_wide"][0]).read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("kGCap", "kWarm", "kSegs", "kWarps", "kFill")}
+
+
 def wide_walk_lines(source=None):
     """[(NS, G's cap, warm-up steps, segments a window)] of each wide NS:
     its line of the wide walk's dispatch switch in csrc/traceback_wide.cu
@@ -2429,52 +2455,79 @@ def wide_walk_lines(source=None):
     (`kGCap`, `kWarm`, `kSegs`), the same at every NS."""
     import re
     src = Path(source or ROOT / SOURCES["traceback_wide"][0]).read_text()
-    consts = tuple(int(re.search(rf"constexpr int {name} = (\d+);",
-                                 src).group(1))
-                   for name in ("kGCap", "kWarm", "kSegs"))
-    return [(int(ns), *consts) for ns, log in re.findall(
-        r"case (\d+): return launch_walk<(\d+), M>\(a, s\);", src)
-        if int(ns) == 1 << int(log)]
+    c = wide_walk_consts(source)
+    return [(int(ns), c["kGCap"], c["kWarm"], c["kSegs"])
+            for ns, log in re.findall(
+                r"case (\d+): return launch_walk<(\d+), M>\(a, s\);", src)
+            if int(ns) == 1 << int(log)]
 
 
-def wide_walk_lengths(S, spw, gcap):
-    """The step counts at which the wide walks are held to their plain
-    versions: 1, 5 (below a segment), S + 5, spw x 16 - 5 (segments of 16
-    steps, one short of a window) and two windows and 37 steps of the G cap
-    (three windows)."""
-    return (1, 5, S + 5, spw * 16 - 5, 2 * spw * gcap + 37)
+def wide_walk_warps(walks, source=None):
+    """P, the warps a block of the wide walk takes when a launch walks
+    `walks` (channel, walk) pairs: the most, up to the file's `kWarps`,
+    that keep walks x P within its `kFill` (`launch_walk` in
+    csrc/traceback_wide.cu, or in `source`, a copy of it): with kWarps 8
+    and kFill 2048, 8 up to 256 walks, 4 up to 512, 2 up to 1024 and 1
+    from 1025."""
+    c = wide_walk_consts(source)
+    warps = 1
+    while warps < c["kWarps"] and walks * warps * 2 <= c["kFill"]:
+        warps *= 2
+    return warps
+
+
+def wide_walk_lengths(S, spw, warps):
+    """The step counts, each within one window of a walk of `warps` warps,
+    at which the wide walks are held to their plain versions: 1, 5 (below
+    a segment), S + 5 and warps x spw x 16 - 5 (segments of 16 steps, 5
+    short of a window)."""
+    return (1, 5, S + 5, warps * spw * 16 - 5)
+
+
+def wide_walk_windows(spw, gcap, warps, windows):
+    """Steps that take a walk of `warps` warps over `windows` windows: the
+    G cap's windows (warps x spw x gcap steps each) but the top one, which
+    holds 37 steps."""
+    return (windows - 1) * warps * spw * gcap + 37
 
 
 def compare_wide_walks(fec, acs, dev, err, rng):
-    """The two redesigned wide walks (`traceback_wide` and
-    `traceback_wide_masked`, csrc/traceback_wide.cu) against their plain
-    versions at every line of their dispatch switch (NS = 512 ... 16384):
-    a random rate-1/4 code; the forward's words of 3%-corrupted packets
-    and uniform garbage words (which send the warm-up guesses wrong, so
-    segments are walked again); B = 3 at `wide_walk_lengths` (up to three
-    windows); terminated at t_actual = T and T - 2 (rows longer than the
-    packet), the whole message and a cut one; masked from random starts at
-    live 0, S, T - 1 and T, out_steps T and a cut one; bits and bytes."""
+    """The four wide walks (`traceback_wide`, `_masked`, `_ragged` and
+    `_multi`, csrc/traceback_wide.cu) against their plain versions at every
+    line of their dispatch switch (NS = 512 ... 16384): a random rate-1/4
+    code; the forward's words of 3%-corrupted packets and uniform garbage
+    words (which send the warm-up guesses wrong, so segments are walked
+    again); B = 3 at `wide_walk_lengths` of the warps its launches take
+    (one window: `compare_wide_windows` takes more); terminated at
+    t_actual = T and T - 2 (rows longer than the packet),
+    the whole message and a cut one; masked from random starts at live 0,
+    S, T - 1 and T, out_steps T and a cut one; ragged (`compare_wide_ragged`)
+    and list (`compare_wide_multi`) on 8 rows of the same kind; bits and
+    bytes."""
     import numpy as np
     import torch
     pad_and_pack = fec.ops.viterbi.pad_and_pack
+    warps = wide_walk_warps(3)  # 8 rows and 8 x 4 list walks take as many
     for NS, gcap, wu, spw in wide_walk_lines():
         spec = bfly_spec(fec, rng, NS, 4)
         S, cases = spec.S, 0
-        for T in wide_walk_lengths(S, spw, gcap):
+        for T in wide_walk_lengths(S, spw, warps):
             for kind in ("noisy", "garbage"):
                 if kind == "garbage":
-                    words = torch.from_numpy(rng.integers(
-                        -2 ** 31, 2 ** 31, (3, T, NS // 32)).astype(
+                    rows = torch.from_numpy(rng.integers(
+                        -2 ** 31, 2 ** 31, (8, T, NS // 32)).astype(
                             np.int32)).to(dev)
                 else:
-                    msgs = rng.integers(0, 2, (3, max(T - S, 1)),
+                    msgs = rng.integers(0, 2, (8, max(T - S, 1)),
                                         dtype=np.uint8)
                     seg = fec.encode_bits(spec, torch.from_numpy(msgs).to(
                         dev))[0][:, :T]
                     seg = torch.from_numpy(corrupt(
                         rng, seg.cpu().numpy(), NOISE[0], spec.n)).to(dev)
-                    words = acs.acs_forward_batch(spec, seg)[0]
+                    rows = acs.acs_forward_batch(spec, seg)[0]
+                cases += compare_wide_ragged(fec, acs, spec, rows, err, rng)
+                cases += compare_wide_multi(fec, acs, spec, rows, err, rng)
+                words = rows[:3]
                 for ta in sorted({T, T - 2} & set(range(S, T + 1))):
                     full = ta - S
                     want = acs.traceback_batch_plain(spec, words, ta, full,
@@ -2508,13 +2561,169 @@ def compare_wide_walks(fec, acs, dev, err, rng):
                                 err["traceback_wide_masked"],
                                 max_abs_diff(got, ref))
                             cases += 1
-                del words
+                del words, rows
         print(f"[compare] wide walks NS={NS}: G cap {gcap}, warm-up {wu}, "
-              f"{spw} segments a window; {cases} cases "
+              f"{spw} segments a warp, {warps} warps a walk; {cases} cases "
               "(forward and garbage words; B = 3: T = "
-              f"{', '.join(map(str, wide_walk_lengths(S, spw, gcap)))}; "
-              "terminated and masked, whole and cut rows): bits and bytes "
-              "equal to the plain walks")
+              f"{', '.join(map(str, wide_walk_lengths(S, spw, warps)))}; "
+              "terminated and masked, whole and cut rows; ragged and list "
+              "on 8 rows): bits and bytes equal to the plain walks")
+
+
+def compare_wide_windows(fec, acs, dev, err, rng):
+    """The four wide walks over more than one window, at every line of
+    their dispatch switch, against their plain versions on the first
+    WIDE_WINDOW_ROWS rows: a batch of one warp a walk (the main paths'
+    launch shape: B = 2048 at (l)), the smallest such B, over three
+    windows, on the forward's words of 3%-corrupted packets and on
+    garbage words; and 8 rows (8 warps a walk, as the checks of one
+    window take) over two windows of garbage words.  Terminated at
+    t_actual = T - 2, masked at live T - 1 from random starts, ragged and
+    list as `compare_wide_ragged` and `compare_wide_multi` (the edge
+    lengths, NW = 1 and 4 from steps 13 and T // 3); whole and cut rows,
+    bits and bytes."""
+    import numpy as np
+    import torch
+    one = wide_walk_consts()["kFill"] // 2 + 1
+    require(wide_walk_warps(one) == 1, f"{one} walks take one warp")
+    R = WIDE_WINDOW_ROWS
+    for NS, gcap, wu, spw in wide_walk_lines():
+        spec = bfly_spec(fec, rng, NS, 4)
+        S, cases, shapes = spec.S, 0, []
+        for B, windows, kind in ((one, 3, "noisy"), (one, 3, "garbage"),
+                                 (8, 2, "garbage")):
+            warps = wide_walk_warps(B)
+            T = wide_walk_windows(spw, gcap, warps, windows)
+            if kind == "garbage":
+                gen = torch.Generator(device=dev).manual_seed(
+                    int(rng.integers(1 << 62)))
+                words = torch.randint(0, 256, (B, T, NS // 8),
+                                      dtype=torch.uint8, device=dev,
+                                      generator=gen).view(torch.int32)
+            else:
+                msgs = rng.integers(0, 2, (B, T - S), dtype=np.uint8)
+                seg = fec.encode_bits(spec, torch.from_numpy(msgs).to(
+                    dev))[0]
+                seg = torch.from_numpy(corrupt(rng, seg.cpu().numpy(),
+                                               NOISE[0], spec.n)).to(dev)
+                words = acs.acs_forward_batch(spec, seg)[0]
+                del seg
+            cases += compare_wide_ragged(fec, acs, spec, words, err, rng,
+                                         rows=R)
+            cases += compare_wide_multi(fec, acs, spec, words, err, rng,
+                                        rows=R)
+            top = words[:R]
+            full = T - 2 - S
+            want = acs.traceback_batch_plain(spec, top, T - 2, full, "bits")
+            starts = torch.from_numpy(rng.integers(0, NS, B).astype(
+                np.int32)).to(dev)
+            want_m = acs.traceback_batch_masked_plain(spec, top, starts[:R],
+                                                      T - 1, T, "bits")
+            for L in (full, cut_bits(full)):
+                for out in ("bits", "bytes"):
+                    ref = want[:, :L]
+                    ref_m = want_m[:, :L]
+                    if out == "bytes":
+                        ref = fec.ops.viterbi.pad_and_pack(ref)
+                        ref_m = fec.ops.viterbi.pad_and_pack(ref_m)
+                    got = acs.traceback_batch(spec, words, T - 2, L, out)[:R]
+                    got_m = acs.traceback_batch_masked(spec, words, starts,
+                                                       T - 1, L, out)[:R]
+                    require(torch.equal(got, ref), f"{spec} traceback_wide "
+                            f"{kind} B={B} T={T} L={L} {out}")
+                    require(torch.equal(got_m, ref_m),
+                            f"{spec} traceback_wide_masked {kind} B={B} "
+                            f"T={T} L={L} {out}")
+                    err["traceback_wide"] = max(err["traceback_wide"],
+                                                max_abs_diff(got, ref))
+                    err["traceback_wide_masked"] = max(
+                        err["traceback_wide_masked"],
+                        max_abs_diff(got_m, ref_m))
+                    cases += 2
+            shapes.append(f"B={B} T={T} {kind}, a walk on {warps} warp(s)")
+            del words, top, want, want_m
+        print(f"[compare] wide walks NS={NS} over windows: {cases} cases "
+              f"({'; '.join(shapes)}; the plain walks on {R} rows): bits "
+              "and bytes equal")
+
+
+def compare_wide_ragged(fec, acs, spec, words, err, rng, lens=None,
+                        rows=None):
+    """`traceback_wide_ragged` against its plain version on one batch of
+    decision words: lengths 0, 1, S, S + 1, T - 1, T, T + 3 and -2 (clamped
+    to [0, T]) then random ones, or `lens`; row widths T - S and a cut one,
+    bits and bytes (none below S steps).  The walk takes the whole batch,
+    the plain version its first `rows` rows (default all).  Returns the
+    cases held."""
+    import numpy as np
+    import torch
+    B, T, _ = words.shape
+    S = spec.S
+    if T < S:
+        return 0
+    if lens is None:
+        edge = [0, 1, S, S + 1, T - 1, T, T + 3, -2]
+        lens = torch.from_numpy(np.concatenate(
+            [edge, rng.integers(0, T + 1, max(B - 8, 0))])[:B].astype(
+                np.int32)).to(words.device)
+    R = B if rows is None else rows
+    want = acs.traceback_batch_ragged_plain(spec, words[:R],
+                                            lens[:R].clamp(0, T), T - S,
+                                            "bits")
+    cases = 0
+    for L in sorted({T - S, cut_bits(T - S)}):
+        for out in ("bits", "bytes"):
+            ref = (fec.ops.viterbi.pad_and_pack(want[:, :L]) if out == "bytes"
+                   else want[:, :L])
+            got = acs.traceback_batch_ragged(spec, words, lens, L, out)[:R]
+            require(torch.equal(got, ref), f"{spec} traceback_wide_ragged "
+                    f"B={B} T={T} L={L} {out} lengths {lens.tolist()[:8]}")
+            err["traceback_wide_ragged"] = max(err["traceback_wide_ragged"],
+                                               max_abs_diff(got, ref))
+            cases += 1
+    return cases
+
+
+def compare_wide_multi(fec, acs, spec, words, err, rng, calls=None,
+                       rows=None):
+    """`traceback_wide_multi` against its plain version on one batch of
+    decision words: NW = 1 from out_start min(13, T) (not a multiple of 8)
+    with every step live, and NW = 4 from out_start T // 3 with live
+    T - 9, or `calls` [(starts [B, NW], live, out_start)]; random starts;
+    the window to step T and one 11 steps shorter, bits and bytes.  The
+    walk takes the whole batch, the plain version its first `rows` rows
+    (default all).  Returns the cases held."""
+    import numpy as np
+    import torch
+    B, T, _ = words.shape
+    NS = spec.num_states
+    R = B if rows is None else rows
+    if calls is None:
+        calls = [(rng.integers(0, NS, (B, nw)), live, start)
+                 for nw, live, start in ((1, T, min(13, T)),
+                                         (4, max(T - 9, 0), T // 3))]
+    cases = 0
+    for starts, live, start in calls:
+        starts = torch.as_tensor(starts, dtype=torch.int32,
+                                 device=words.device)
+        want = acs.traceback_batch_multi_plain(spec, words[:R], starts[:R],
+                                               live, start, T - start,
+                                               "bits")
+        for steps in sorted({T - start, max(T - start - 11, 0)}):
+            for out in ("bits", "bytes"):
+                ref = want[..., :steps]
+                if out == "bytes":
+                    ref = fec.ops.viterbi.pad_and_pack(ref)
+                got = acs.traceback_batch_multi(spec, words, starts, live,
+                                                start, steps, out)[:R]
+                require(torch.equal(got, ref),
+                        f"{spec} traceback_wide_multi B={B} T={T} "
+                        f"NW={starts.shape[1]} live={live} "
+                        f"out_start={start} out_steps={steps} {out}")
+                err["traceback_wide_multi"] = max(
+                    err["traceback_wide_multi"], max_abs_diff(got, ref))
+                cases += 1
+    return cases
 
 
 def compare_wide_rounds(fec, acs, dev, err, rng):
@@ -2699,6 +2908,7 @@ def phase_compare_butterfly(fec, acs, dev, err):
     compare_wide_rounds(fec, acs, dev, err, rng)
     compare_wide_soft_rounds(fec, acs, dev, err, rng)
     compare_wide_walks(fec, acs, dev, err, rng)
+    compare_wide_windows(fec, acs, dev, err, rng)
     # The K11 names, on an n = 6 code at NS = 64 and on (l)'s code.
     for spec in (bfly_spec(fec, rng, 64, 6), fec.CodeSpec(**WIDE_MAIN)):
         seg = segments(spec, SMALL_B, BFLY_WIDE_L + 3, "noisy")
@@ -2949,6 +3159,15 @@ def phase_wide(fec, acs, dev, err):
             f"(l) ragged bytes equal to the plain route ({R} rows)")
     err["traceback_wide_ragged"] = max(err["traceback_wide_ragged"],
                                        max_abs_diff(got, want))
+    # The edge lengths (0, 1, S, S + 1, T - 1, T, past T, negative) on the
+    # first rows, the walk over the whole batch (its launch shape on this
+    # path) and the plain one on R rows, bits and bytes, whole and cut rows.
+    edge = lens.clone()
+    edge[:8] = torch.tensor([0, 1, spec.S, spec.S + 1, T - 1, T, T + 3, -2],
+                            dtype=torch.int32)
+    del words
+    words, _ = acs.acs_forward_batch(spec, seg_r)
+    compare_wide_ragged(fec, acs, spec, words, err, rng_r, edge, rows=R)
     del words
     ragged_ber = ber_of_bytes(out_r, msgs_r, lens_np - spec.S)
 
@@ -2980,6 +3199,14 @@ def phase_wide(fec, acs, dev, err):
     require(torch.equal(got, want), "(l) multi walk (8 rows)")
     err["traceback_wide_multi"] = max(err["traceback_wide_multi"],
                                       max_abs_diff(got, want))
+    # One walk a packet (NW = 1), and a window from a step that is not a
+    # multiple of 8 with the last 9 steps masked, bits and bytes: the walk
+    # over all the packets (NW = 4: this path's launch shape), the plain
+    # one on 8.
+    odd = wl - wl % 8 + 5
+    compare_wide_multi(fec, acs, spec, words, err, rng,
+                       [(starts[:, :1], Te, wl), (starts, Te - 9, odd)],
+                       rows=8)
     list_ber = float((bits_t[:, 0].cpu().numpy() != msgs_t).mean())
     for path, used in (("wide hard", ("acs_wide_forward", "traceback_wide")),
                        ("wide soft", ("acs_soft_wide_forward",
@@ -3005,7 +3232,7 @@ def phase_wide(fec, acs, dev, err):
           f"candidates) candidate-0 BER {list_ber:.4e}; decision words "
           f"{dec_gb:.2f} GB per call; each equal to its plain route on "
           f"{R} rows (the list on 8); launches {nonzero(launches)}")
-    inputs = (spec, seg, q, lens, words, starts, Te, wl)
+    inputs = (spec, seg, q, lens, words, starts, Te, wl, seg_r, seg_t)
     return inputs, launches, plain_ms, summary
 
 
@@ -3044,7 +3271,7 @@ def butterfly_times(fec, acs, small_in, wide_in):
         qbufs)
     del qbufs
 
-    spec, seg, q, lens, list_words, starts, Te, wl = wide_in
+    spec, seg, q, lens, list_words, starts, Te, wl, seg_r, seg_t = wide_in
     T = seg.shape[1]
     n = WIDE_TIMED_CALLS
     bufs = [torch.roll(seg, r + 1, dims=0) for r in range(n)]
@@ -3077,6 +3304,16 @@ def butterfly_times(fec, acs, small_in, wide_in):
     runs["traceback_wide_multi"] = device_times(
         lambda st: acs.traceback_batch_multi(spec, list_words, st, Te, wl,
                                              MAIN_L), rolled)
+    rbufs = [torch.roll(seg_r, r + 1, dims=0) for r in range(n)]
+    runs["wide ragged"] = device_times(
+        lambda p: fec.viterbi_decode_batch_bytes_ragged(spec, p[0], p[1]),
+        list(zip(rbufs, lens_r)))
+    del rbufs
+    tbufs = [torch.roll(seg_t, r + 1, dims=0) for r in range(n)]
+    runs["wide list"] = device_times(
+        lambda x: fec.viterbi_decode_batch_tailbiting_list(
+            spec, x, WIDE_LIST_SIZE), tbufs)
+    del tbufs
     print(f"[time] (l) timed with {n} calls each (its forward takes tens of "
           f"ms); (k) with {TIMED_CALLS}")
     return runs
@@ -3625,7 +3862,8 @@ def main() -> int:
         plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
         code = key.rsplit(" ", 1)[-1]
         bits = (generic_bits[code] if code in generic_bits
-                else WIDE_LIST_B * MAIN_L if key == "traceback_wide_multi"
+                else WIDE_LIST_B * MAIN_L
+                if key in ("traceback_wide_multi", "wide list")
                 else dci_bits if "tailbiting c" in key or "rate-matched" in key
                 or key.endswith(("multi", "masked tailbiting"))
                 else turbo_bits if key.startswith("turbo")
@@ -3701,12 +3939,15 @@ def main() -> int:
     butterfly = {"small": dict(small_summary), "wide": dict(wide_summary)}
     for kind, paths in (("small", ("small hard", "small soft",
                                    "small ragged")),
-                        ("wide", ("wide hard", "wide soft"))):
+                        ("wide", ("wide hard", "wide soft", "wide ragged",
+                                  "wide list"))):
         for path in paths:
+            bits = WIDE_LIST_B * MAIN_L if path == "wide list" \
+                else bits_per_call
             butterfly[kind][path] = {
                 "ms": med[path], "min_ms": min(runs[path]),
                 "plain_ms": plain_ms.get(path),
-                "mbps": bits_per_call / (med[path] * 1e3)}
+                "mbps": bits / (med[path] * 1e3)}
     butterfly["wide"]["plain_rows"] = WIDE_PLAIN_ROWS
     k13 = kernels[KERNELS.index("block_decode_1p")]
     k13.update({f"{what}_{stat}": f(runs[key]) for what, key in (

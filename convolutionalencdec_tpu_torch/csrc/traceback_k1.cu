@@ -1,6 +1,7 @@
-// Block traceback of terminated packets over packed decision words.
+// Block traceback of terminated packets over packed decision words, at
+// NS <= 256 (W = ceil(NS / 32) <= 8 decision words a step).
 //
-// Eight entry points, one kernel template:
+// Four entry points, one kernel template:
 //   traceback_k1         replaces the TPU kernel `traceback_batch_swar` in
 //                        convolutionalencdec_tpu/kernels/acs_swar.py (its
 //                        pallas_call at :877, kernel body `_tb_kernel_swar`
@@ -22,12 +23,9 @@
 // network, no group masks, no padded steps; the walk starts at the real
 // last step of each channel.  At NS <= 32 (one word per step) traceback_k1
 // also replaces `traceback_batch` (acs_pallas.py, pallas_call at :308, body
-// `_tb_kernel`), the JAX package's traceback for NS < 64.  Two more entry
-// points, traceback_wide_ragged and traceback_wide_multi, are the ragged
-// and multi walks for NS >= 512 (the wide instantiation, W = 0).  The
-// terminated and masked walks for NS >= 512 (`traceback_wide`,
-// `traceback_wide_masked`, which also replace `traceback_batch_fused_masked`)
-// are segment walks of their own in traceback_wide.cu.
+// `_tb_kernel`), the JAX package's traceback for NS < 64.  The four walks
+// for NS >= 512 (`traceback_wide`, `_ragged`, `_masked`, `_multi`) are the
+// segment walks of traceback_wide.cu.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -83,15 +81,6 @@
 // same addresses, served by one transaction per warp, so the decisions are
 // read from memory once for all walks (the TPU kernel's "decisions DMA'd
 // once"), and each walk's start and window are its own.
-//
-// Wide (NS >= 512, W >= 16), the ragged and multi walks only: a step's
-// words are 64 bytes to 2 KB, of which the walk needs one bit, so the
-// register chunk would move W times the bytes it needs (and at W >= 32
-// holds under one step).  The wide instantiation (W = 0) loads only the
-// word that holds its state's bit: one dependent load, one 32-byte sector,
-// per step, one thread a channel, so its floor is T times the load
-// latency.  traceback_wide.cu's segment walks, a lane a segment from
-// guessed starts, are the template for these two as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,7 +91,7 @@ constexpr int kThreads = 32;
 
 enum class Walk { kTerminated, kRagged, kMasked, kMulti };
 
-template <int W, Walk MODE>  // W: decision words per step, ceil(NS/32); 0: wide
+template <int W, Walk MODE>  // W: decision words per step, ceil(NS/32)
 __global__ void __launch_bounds__(kThreads)
 traceback_k1_kernel(const int32_t* __restrict__ decs,
                     const int32_t* __restrict__ lengths,
@@ -110,7 +99,7 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
                     uint8_t* __restrict__ out,
                     int B, int T_stride, int t_actual, int S,
                     int message_bits, int emit_bytes, int live, int nw,
-                    int out_start, int wide_words) {
+                    int out_start) {
   // One thread per channel, or (Multi) per (channel, walk): walk index g,
   // channel g / nw, output row g.
   const int g = blockIdx.x * kThreads + threadIdx.x;
@@ -118,9 +107,8 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   const int ch = (MODE == Walk::kMulti) ? g / nw : g;
   // Multi: the walk stops at out_start and emits step t as bit t - t_lo.
   const int t_lo = (MODE == Walk::kMulti) ? out_start : 0;
-  const int words = (W > 0) ? W : wide_words;
 
-  const int32_t* row = decs + (size_t)ch * T_stride * words;
+  const int32_t* row = decs + (size_t)ch * T_stride * W;
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
   uint8_t* out_row = out + (size_t)g * row_len;
   int t_start = t_actual;
@@ -157,41 +145,31 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
     cur = (cur >> 1) | (d << top);
   };
 
-  if constexpr (W == 0) {
-    // Wide: only the word that holds the state's bit, one dependent load
-    // per step.
-    for (int t = t_start - 1; t >= t_lo; --t) {
-      const unsigned i = (cur >> 1) | ((cur & 1u) << top);
-      step(t, i, (unsigned)row[(size_t)t * words + (i >> 5)]);
+  constexpr int C = 32 / W;  // steps per register chunk
+  for (int t_hi = t_start - 1; t_hi >= t_lo; t_hi -= C) {
+    int32_t r[C][W];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int t = t_hi - k;
+#pragma unroll
+      for (int w = 0; w < W; ++w) r[k][w] = (t >= t_lo) ? row[(size_t)t * W + w] : 0;
     }
-  } else {
-    constexpr int C = 32 / W;  // steps per register chunk
-    for (int t_hi = t_start - 1; t_hi >= t_lo; t_hi -= C) {
-      int32_t r[C][W];
 #pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int t = t_hi - k;
+    for (int k = 0; k < C; ++k) {
+      const int t = t_hi - k;
+      if (t < t_lo) break;
+      const unsigned i = (cur >> 1) | ((cur & 1u) << top);
+      const unsigned wi = i >> 5;
+      unsigned word = (unsigned)r[k][0];
 #pragma unroll
-        for (int w = 0; w < W; ++w) r[k][w] = (t >= t_lo) ? row[(size_t)t * W + w] : 0;
-      }
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int t = t_hi - k;
-        if (t < t_lo) break;
-        const unsigned i = (cur >> 1) | ((cur & 1u) << top);
-        const unsigned wi = i >> 5;
-        unsigned word = (unsigned)r[k][0];
-#pragma unroll
-        for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
-        step(t, i, word);
-      }
+      for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
+      step(t, i, word);
     }
   }
 }
 
-// WIDE: the one-word-per-step instantiation (W = 0) at any NS, else the
-// register-chunk walk of NS's words.
-template <Walk MODE, bool WIDE = false>
+// The register-chunk walk of NS's words.
+template <Walk MODE>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
            int message_bits, int emit_bytes, int live, int nw, int out_start,
@@ -201,12 +179,7 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
 #define TB_LAUNCH(W)                                                    \
   traceback_k1_kernel<W, MODE><<<grid, block, 0, s>>>(                  \
       d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,    \
-      emit_bytes, live, nw, out_start, (NS + 31) / 32)
-  if constexpr (WIDE) {
-    if (NS < 2 || NS > 16384) return static_cast<int>(cudaErrorInvalidValue);
-    TB_LAUNCH(0);
-    return static_cast<int>(cudaGetLastError());
-  }
+      emit_bytes, live, nw, out_start)
   switch (NS) {
     case 2: case 4: case 8: case 16: case 32: TB_LAUNCH(1); break;
     case 64: TB_LAUNCH(2); break;
@@ -219,10 +192,7 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The entry points of one walk mode; WIDE picks the one-word-per-step
-// walk (traceback_wide_ragged, traceback_wide_multi; the wide terminated
-// and masked walks are in traceback_wide.cu), else the register-chunk
-// walk.
+// The entry points of one walk mode.
 int terminated(const void* decs, void* out, int B, int T_stride,
                int t_actual, int NS, int S, int message_bits, int emit_bytes,
                void* stream) {
@@ -232,11 +202,10 @@ int terminated(const void* decs, void* out, int B, int T_stride,
       emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
 }
 
-template <bool WIDE>
 int ragged(const void* decs, const void* lengths, void* out, int B, int T,
            int NS, int S, int message_bits_max, int emit_bytes,
            void* stream) {
-  return launch<Walk::kRagged, WIDE>(
+  return launch<Walk::kRagged>(
       static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
       nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
       emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
@@ -252,11 +221,10 @@ int masked(const void* decs, const void* starts, void* out, int B, int T,
       static_cast<cudaStream_t>(stream));
 }
 
-template <bool WIDE>
 int multi(const void* decs, const void* starts, void* out, int B, int T,
           int NS, int S, int NW, int live, int out_start, int out_steps,
           int emit_bytes, void* stream) {
-  return launch<Walk::kMulti, WIDE>(
+  return launch<Walk::kMulti>(
       static_cast<const int32_t*>(decs), nullptr,
       static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
       T, NS, S, out_steps, emit_bytes, live, NW, out_start,
@@ -278,8 +246,8 @@ extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
                                    void* out, int B, int T, int NS, int S,
                                    int message_bits_max, int emit_bytes,
                                    void* stream) {
-  return ragged<false>(decs, lengths, out, B, T, NS, S, message_bits_max,
-                       emit_bytes, stream);
+  return ragged(decs, lengths, out, B, T, NS, S, message_bits_max,
+                emit_bytes, stream);
 }
 
 // Walk from starts[b] at step T - 1, decision 0 at steps >= live; row width
@@ -300,26 +268,6 @@ extern "C" int traceback_k1_multi(const void* decs, const void* starts,
                                   int NW, int live, int out_start,
                                   int out_steps, int emit_bytes,
                                   void* stream) {
-  return multi<false>(decs, starts, out, B, T, NS, S, NW, live, out_start,
-                      out_steps, emit_bytes, stream);
-}
-
-// The wide ragged and multi walks (NS >= 512): the same modes and
-// signatures; the wide terminated and masked walks are in
-// traceback_wide.cu.
-extern "C" int traceback_wide_ragged(const void* decs, const void* lengths,
-                                     void* out, int B, int T, int NS, int S,
-                                     int message_bits_max, int emit_bytes,
-                                     void* stream) {
-  return ragged<true>(decs, lengths, out, B, T, NS, S, message_bits_max,
-                      emit_bytes, stream);
-}
-
-extern "C" int traceback_wide_multi(const void* decs, const void* starts,
-                                    void* out, int B, int T, int NS, int S,
-                                    int NW, int live, int out_start,
-                                    int out_steps, int emit_bytes,
-                                    void* stream) {
-  return multi<true>(decs, starts, out, B, T, NS, S, NW, live, out_start,
-                     out_steps, emit_bytes, stream);
+  return multi(decs, starts, out, B, T, NS, S, NW, live, out_start,
+               out_steps, emit_bytes, stream);
 }

@@ -29,13 +29,14 @@ convolutionalencdec_tpu/kernels/acs_swar.py and acs_pallas.py):
     (NW walks per channel, a window of steps out; replaces
     `traceback_batch_swar_masked_multi`).
 
-At NS >= 512 the four tracebacks launch the wide walks: `traceback_wide`
-and `traceback_wide_masked` in `csrc/traceback_wide.cu` (segment walks a
-lane; the masked one also replaces `traceback_batch_fused_masked`, K11),
-and `traceback_wide_ragged` and `_multi`, the one-word-a-step walk of
-`csrc/traceback_k1.cu`.  `kernels/fused.py` gives the JAX
-package's K11 names on these wrappers.  `kernels/stream.py` holds the
-streaming kernel's wrappers; their launches are counted here too.
+At NS >= 512 the four tracebacks launch the wide walks of
+`csrc/traceback_wide.cu`, `traceback_wide`, `_ragged`, `_masked` and
+`_multi`: one segment walk, a segment a lane and one to eight warps a
+walk (8 up to 256 walks a launch, 4 up to 512, 2 up to 1024, 1 from 1025;
+the masked one also replaces `traceback_batch_fused_masked`, K11).
+`kernels/fused.py` gives the JAX package's K11 names on these wrappers.
+`kernels/stream.py` holds the streaming kernel's wrappers; their launches
+are counted here too.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises: nothing falls back.  `LAUNCHES`

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The small and wide butterfly phases of chip_smoke.py alone, on one GPU.
 
-    python3 scripts/torch_butterfly.py
+    python3 scripts/torch_butterfly.py [--root TREE] [--no-compare]
 
 Builds the kernels, then runs chip_smoke.py's phases 16-18: the small
 (NS 2-32) and wide (NS 512-16384) butterfly kernels against their plain
@@ -11,10 +11,18 @@ median ms beside its plain version's ms and its bound, and the card's name
 and power limit.  About a minute of command where the whole chip_smoke.py
 takes three: the quick measurement of these kernels after a change to
 them.  Exits non-zero if a check fails or there is no CUDA device.
+
+`--root TREE` runs the package of another tree (e.g. the parent, unpacked
+by `git archive HEAD | tar -x -C _checkout/parent`) with this tree's
+chip_smoke.py: its inputs, checks and timing code, so that two trees are
+timed on the same inputs; run one process a tree in the order parent,
+change, change, parent in one call.  `--no-compare` skips phase 16 (the
+main paths are still held to their plain routes).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -25,22 +33,31 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the tree whose package runs")
+    ap.add_argument("--no-compare", action="store_true",
+                    help="skip phase 16's comparisons")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_butterfly: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    sys.path.insert(0, str(args.root.resolve()))
     import convolutionalencdec_tpu_torch as fec
+    print(f"[butterfly] package {Path(fec.__file__).parent}")
     from convolutionalencdec_tpu_torch.kernels import _build, acs
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     card = cs.phase_environment(_build)
     cs.phase_build(_build)
     err = dict.fromkeys(cs.KERNELS, 0)
-    t0 = time.perf_counter()
-    cs.phase_compare_butterfly(fec, acs, dev, err)
-    print(f"[butterfly] compare {time.perf_counter() - t0:.1f} s")
+    if not args.no_compare:
+        t0 = time.perf_counter()
+        cs.phase_compare_butterfly(fec, acs, dev, err)
+        print(f"[butterfly] compare {time.perf_counter() - t0:.1f} s")
     small_in, _, small_plain, small_summary = cs.phase_small(fec, acs, dev,
                                                              err)
     wide_in, _, wide_plain, wide_summary = cs.phase_wide(fec, acs, dev, err)

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Build-time variants of the wide forwards (`acs_wide_forward`, with
 `--soft` `acs_soft_wide_forward`, csrc/acs_wide.cu) or, with `--walk`, of
-the wide segment walks (`traceback_wide`, `traceback_wide_masked`,
+the wide segment walks (`traceback_wide`, `_masked`, `_ragged`, `_multi`,
 csrc/traceback_wide.cu) against a reference build of the same C entries, on
 one GPU.
 
     python3 scripts/torch_wide_variants.py [--soft [--n 4 6]] \\
         [--ref PATH.cu] [--variant NAME[=SOURCE.cu] ...] [--ns 512 16384] \\
         [--calls 5] [--sass] [--out DIR]
-    python3 scripts/torch_wide_variants.py --walk [--ref PATH.cu] \\
+    python3 scripts/torch_wide_variants.py --walk [--ref PATH.cu ...] \\
         [--variant NAME[=SOURCE.cu] ...] [--lines NAME=SPEC ...] \\
-        [--ns 512 2048 16384] [--check-ns ...] [--calls 7] [--out DIR]
+        [--ns 512 2048 16384] [--check-ns ...] [--modes ...] [--calls 7] \\
+        [--out DIR]
 
 Builds each variant, csrc/acs_wide.cu or a modified copy of it
 (`=SOURCE.cu`: other steps a round in its dispatch switch, another
@@ -35,21 +36,34 @@ limit.  Exits non-zero if a build fails or a variant differs.
 `--walk`: the variants are csrc/traceback_wide.cu, copies of it
 (`--variant NAME=SOURCE.cu`) and copies whose walk constants `--lines`
 rewrites: SPEC is `field=value,...` with the fields g (G's cap, `kGCap`),
-wu (warm-up steps, `kWarm`) and spw (segments a window, `kSegs`), e.g.
-`--lines wu16=wu=16`.  The reference (`--ref`) is another source that
-defines both C entries, e.g. an older tree's csrc/traceback_k1.cu (one
-thread a channel).  Each variant is held bit for bit against the reference at every
-NS of `--check-ns` (default all six) on the forward's words of
-3%-corrupted packets and on garbage words, B = 3, at
-`chip_smoke.wide_walk_lengths` of its own dispatch line (up to three
-windows), terminated (t_actual T and T - 2, whole and cut messages) and
-masked (live 0, S, T - 1, T from random starts, whole and cut rows), bits
-and bytes, and against the plain walks on the first rows; then timed at
-each `--ns` in turns with the reference, at B = 2048, T = 2062 on two
-forwards' words alternately (WALK_CODES with 3% of the segments hit;
-16384: (l)'s code and input, as `chip_smoke.py` times it): the terminated
-walk into bytes and the masked walk from state 0 into bits.  At NS <= 1024
-the run also times, in the same turns, the generic walk of
+wu (warm-up steps, `kWarm`), spw (segments a warp, `kSegs`), warps (the
+most warps a walk, `kWarps`) and fill (the warps a launch keeps within,
+`kFill`), e.g. `--lines wu16=wu=16` or `--lines one_warp=fill=1`.  The
+reference (`--ref`) is one or more sources that together define the four
+C entries, built into one library, e.g. an older tree's
+csrc/traceback_wide.cu and csrc/traceback_k1.cu.  Each variant is held
+bit for bit against the reference at every NS of `--check-ns` (default
+all six) on the forward's words of 3%-corrupted packets and on garbage
+words, B = 3, at `chip_smoke.wide_walk_lengths` of its own constants and
+the warps its launches take (one window), terminated (t_actual T and
+T - 2, whole and cut messages) and masked (live 0, S, T - 1, T from random
+starts, whole and cut rows), and on 8 rows ragged (lengths 0, 1, S, S + 1,
+T - 1, T, past T, negative, whole and cut rows) and list (NW = 1, 4 and
+8, live T and T - 9, out_start 0, 13 and T // 3, whole and cut windows),
+bits and bytes, and against the plain walks on the first rows; then over
+more than one window (`chip_smoke.wide_walk_windows`): the smallest batch
+of one warp a walk over three windows and 8 rows over two, both kinds of
+words, all four walks (the edge lengths, NW = 4 from step 13); then timed
+at each `--ns`
+in turns with the reference (WALK_CODES with 3% of the segments hit;
+16384: (l)'s code, as `chip_smoke.py` times it), each mode of `--modes`
+(default all four) on two forwards' words alternately: at B = 2048,
+T = 2062 the terminated walk into bytes, the masked walk from state 0
+into bits and the ragged walk into bytes at lengths uniform in
+[S + 1, T] ((l)'s); and the list walk of (l)'s tail-biting list decode:
+64 packets of 2048 bits, extended by `list_wrap`, NW = 4 walks from the
+four best end states, the window [wl, Te) as bits.  At NS <= 1024 the
+run also times, beside the terminated walk, the generic walk of
 csrc/acs_generic.cu (`traceback_generic`, the package's build: the staged
 windows over a k = 1 code's planes) on the generic forward's planes of a
 code of the same K and input.
@@ -71,7 +85,9 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "acs_wide.cu"
 WALK_SOURCE = (ROOT / "convolutionalencdec_tpu_torch" / "csrc"
                / "traceback_wide.cu")
-WALKS = ("traceback_wide", "traceback_wide_masked")
+WALKS = ("traceback_wide", "traceback_wide_masked", "traceback_wide_ragged",
+         "traceback_wide_multi")
+WALK_MODES = ("terminated", "masked", "ragged", "multi")
 # The walks' timed codes: rate-1/2 codes of K = 10 ... 14 with no common
 # factor (none catastrophic: a catastrophic code's survivors never merge,
 # so every warm-up guess is wrong), and (l)'s code at NS = 16384.
@@ -79,15 +95,19 @@ WALK_CODES = {512: (0o1167, 0o1545), 1024: (0o2365, 0o3173),
               2048: (0o4335, 0o5723), 4096: (0o10533, 0o17661),
               8192: (0o21675, 0o27123)}
 # --lines fields and the constants of csrc/traceback_wide.cu they set.
-WALK_FIELDS = {"g": "kGCap", "wu": "kWarm", "spw": "kSegs"}
+WALK_FIELDS = {"g": "kGCap", "wu": "kWarm", "spw": "kSegs",
+               "warps": "kWarps", "fill": "kFill"}
+# The list walk's timed size: (l)'s tail-biting list decode.
+LIST_B, LIST_L, LIST_NW = 64, 2048, 4
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "wide_variants"
 TIMED_B, TIMED_T = 2048, 2062
 CHECK_B, CHECK_T = 64, (1, 2, 3, 4, 5, 6, 7, 8, 9, 61, 62, 63, 64, 65)
 
 
-def build_all(builds: dict[str, Path], out: Path):
-    """name -> source: one nvcc each, in parallel; returns (name ->
-    library, names that failed).  Prints each build's register report."""
+def build_all(builds: dict[str, Path | list[Path]], out: Path):
+    """name -> source (or sources, one library): one nvcc each, in
+    parallel; returns (name -> library, names that failed).  Prints each
+    build's register report."""
     sys.path.insert(0, str(ROOT))
     from convolutionalencdec_tpu_torch.kernels import _build
     nvcc = _build.find_nvcc()
@@ -96,7 +116,9 @@ def build_all(builds: dict[str, Path], out: Path):
     jobs = {}
     for name, src in builds.items():
         lib = LIBS / f"{name}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
+        srcs = src if isinstance(src, list) else [src]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+               *map(str, srcs)]
         jobs[name] = (lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, failed = {}, []
@@ -315,19 +337,19 @@ def with_lines(name: str, spec: str, out: Path) -> Path:
 
 
 def load_walks(path: Path) -> dict:
+    """The four wide walks' C entries of a library, with the package's
+    argument types."""
+    from convolutionalencdec_tpu_torch.kernels import _build
     lib = ctypes.CDLL(str(path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fns = {"traceback_wide": lib.traceback_wide,
-           "traceback_wide_masked": lib.traceback_wide_masked}
-    fns["traceback_wide"].argtypes = [P, P, I, I, I, I, I, I, I, P]
-    fns["traceback_wide_masked"].argtypes = [P, P, P, I, I, I, I, I, I, I, P]
-    for fn in fns.values():
-        fn.restype = I
+    fns = {name: getattr(lib, name) for name in WALKS}
+    for name, fn in fns.items():
+        fn.argtypes = _build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
     return fns
 
 
 def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
-             timed_ns, calls: int) -> int:
+             timed_ns, calls: int, modes) -> int:
     """`--walk`: one variant's walks (built from `source`) against the
     reference build; prints its JSON line."""
     import numpy as np
@@ -336,6 +358,7 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
     import chip_smoke as cs
     import convolutionalencdec_tpu_torch as fec
     from convolutionalencdec_tpu_torch.kernels import _build, acs, generic
+    from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
     dev = torch.device("cuda", 0)
     fns = load_walks(Path(lib_path))
     refs = load_walks(Path(ref_path)) if ref_path else {
@@ -345,29 +368,46 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
     rng = np.random.default_rng(2060)
     lines = {ns: rest for ns, *rest in cs.wide_walk_lines(source)}
 
-    def terminated(f, spec, words, t_actual, L, out, res=None):
-        B, T = words.shape[:2]
+    def result_rows(shape, L, out, res):
         if res is None:
-            res = torch.full((B, (L + 7) // 8 if out == "bytes" else L),
+            res = torch.full((*shape, (L + 7) // 8 if out == "bytes" else L),
                              0xA5, dtype=torch.uint8, device=dev)
-        code = f(words.data_ptr(), res.data_ptr(), B, T, t_actual,
-                 spec.num_states, spec.S, L, int(out == "bytes"), stream)
-        if code:
-            raise RuntimeError(f"{spec}: traceback_wide, CUDA error {code}")
         return res
 
-    def masked(f, spec, words, starts, live, L, out, res=None):
-        B, T = words.shape[:2]
-        if res is None:
-            res = torch.full((B, (L + 7) // 8 if out == "bytes" else L),
-                             0xA5, dtype=torch.uint8, device=dev)
-        code = f(words.data_ptr(), starts.data_ptr(), res.data_ptr(), B, T,
-                 spec.num_states, spec.S, live, L, int(out == "bytes"),
-                 stream)
+    def launched(name, spec, code, res):
         if code:
-            raise RuntimeError(f"{spec}: traceback_wide_masked, CUDA error "
-                               f"{code}")
+            raise RuntimeError(f"{spec}: {name}, CUDA error {code}")
         return res
+
+    def terminated(lib, spec, words, t_actual, L, out, res=None):
+        B, T = words.shape[:2]
+        res = result_rows((B,), L, out, res)
+        return launched(WALKS[0], spec, lib[WALKS[0]](
+            words.data_ptr(), res.data_ptr(), B, T, t_actual,
+            spec.num_states, spec.S, L, int(out == "bytes"), stream), res)
+
+    def masked(lib, spec, words, starts, live, L, out, res=None):
+        B, T = words.shape[:2]
+        res = result_rows((B,), L, out, res)
+        return launched(WALKS[1], spec, lib[WALKS[1]](
+            words.data_ptr(), starts.data_ptr(), res.data_ptr(), B, T,
+            spec.num_states, spec.S, live, L, int(out == "bytes"), stream),
+            res)
+
+    def ragged(lib, spec, words, lens, L, out, res=None):
+        B, T = words.shape[:2]
+        res = result_rows((B,), L, out, res)
+        return launched(WALKS[2], spec, lib[WALKS[2]](
+            words.data_ptr(), lens.data_ptr(), res.data_ptr(), B, T,
+            spec.num_states, spec.S, L, int(out == "bytes"), stream), res)
+
+    def multi(lib, spec, words, starts, live, start, steps, out, res=None):
+        B, T = words.shape[:2]
+        res = result_rows(tuple(starts.shape), steps, out, res)
+        return launched(WALKS[3], spec, lib[WALKS[3]](
+            words.data_ptr(), starts.data_ptr(), res.data_ptr(), B, T,
+            spec.num_states, spec.S, starts.shape[1], live, start, steps,
+            int(out == "bytes"), stream), res)
 
     def noisy_segments(spec, B, T):
         msgs = rng.integers(0, 2, (B, max(T - spec.S, 1)), dtype=np.uint8)
@@ -387,28 +427,33 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
                 print(f"[wide-variants] {what}: differs at {d.tolist()}",
                       flush=True)
 
+    def both(walk, *args, what):
+        """The variant's rows against the reference's; returns them."""
+        got = walk(fns, *args)
+        same(got, walk(refs, *args), what)
+        return got
+
     for NS in check_ns:
         gcap, wu, spw = lines[NS]
         spec = cs.bfly_spec(fec, rng, NS, 4)
         S, cases = spec.S, 0
-        for T in cs.wide_walk_lengths(S, spw, gcap):
+        lengths = cs.wide_walk_lengths(S, spw, cs.wide_walk_warps(3, source))
+        for T in lengths:
             for kind in ("noisy", "garbage"):
                 if kind == "garbage":
-                    words = torch.from_numpy(rng.integers(
-                        -2 ** 31, 2 ** 31, (3, T, NS // 32)).astype(
+                    rows = torch.from_numpy(rng.integers(
+                        -2 ** 31, 2 ** 31, (8, T, NS // 32)).astype(
                             np.int32)).to(dev)
                 else:
-                    words = acs.acs_forward_batch(
-                        spec, noisy_segments(spec, 3, T))[0]
+                    rows = acs.acs_forward_batch(
+                        spec, noisy_segments(spec, 8, T))[0]
+                words = rows[:3]
                 for ta in sorted({T, T - 2} & set(range(S, T + 1))):
                     full = ta - S
                     for L in sorted({full, cs.cut_bits(full)}):
                         for out in ("bits", "bytes"):
-                            same(terminated(fns[WALKS[0]], spec, words, ta,
-                                            L, out),
-                                 terminated(refs[WALKS[0]], spec, words, ta,
-                                            L, out),
-                                 f"NS={NS} {kind} T={T} t_actual={ta} "
+                            both(terminated, spec, words, ta, L, out,
+                                 what=f"NS={NS} {kind} T={T} t_actual={ta} "
                                  f"L={L} {out}")
                             cases += 1
                 starts = torch.from_numpy(rng.integers(0, NS, 3).astype(
@@ -416,31 +461,94 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
                 for live in sorted({0, min(S, T), T - 1, T}):
                     for L in sorted({T, cs.cut_bits(T)}):
                         for out in ("bits", "bytes"):
-                            same(masked(fns[WALKS[1]], spec, words, starts,
-                                        live, L, out),
-                                 masked(refs[WALKS[1]], spec, words, starts,
-                                        live, L, out),
-                                 f"NS={NS} {kind} T={T} masked live={live} "
+                            both(masked, spec, words, starts, live, L, out,
+                                 what=f"NS={NS} {kind} T={T} masked "
+                                 f"live={live} L={L} {out}")
+                            cases += 1
+                if T >= S:
+                    lens = torch.from_numpy(np.array(
+                        [0, 1, S, S + 1, T - 1, T, T + 3, -2],
+                        np.int32)).to(dev)
+                    for L in sorted({T - S, cs.cut_bits(T - S)}):
+                        for out in ("bits", "bytes"):
+                            both(ragged, spec, rows, lens, L, out,
+                                 what=f"NS={NS} {kind} T={T} ragged "
                                  f"L={L} {out}")
                             cases += 1
-                if T == spw * 16 - 5:
+                    want = acs.traceback_batch_ragged_plain(
+                        spec, rows, lens.clamp(0, T), T - S, "bytes")
+                    same(ragged(fns, spec, rows, lens, T - S, "bytes"),
+                         want, f"NS={NS} {kind} T={T} ragged plain")
+                for nw, live, start in ((1, T, min(13, T)),
+                                        (4, max(T - 9, 0), 0),
+                                        (8, T, T // 3)):
+                    starts = torch.from_numpy(rng.integers(
+                        0, NS, (8, nw)).astype(np.int32)).to(dev)
+                    for steps in sorted({T - start,
+                                         max(T - start - 11, 0)}):
+                        for out in ("bits", "bytes"):
+                            both(multi, spec, rows, starts, live, start,
+                                 steps, out, what=f"NS={NS} {kind} T={T} "
+                                 f"multi NW={nw} live={live} "
+                                 f"out_start={start} steps={steps} {out}")
+                            cases += 1
+                    want = acs.traceback_batch_multi_plain(
+                        spec, rows[:2], starts[:2], live, start, T - start,
+                        "bits")
+                    same(multi(fns, spec, rows[:2], starts[:2], live, start,
+                               T - start, "bits"), want,
+                         f"NS={NS} {kind} T={T} multi NW={nw} plain")
+                if T == lengths[-1]:
                     want = acs.traceback_batch_plain(spec, words[:2], T,
                                                      T - S, "bits")
-                    same(terminated(fns[WALKS[0]], spec, words[:2], T,
-                                    T - S, "bits"), want, f"NS={NS} plain")
-                    same(terminated(fns[WALKS[0]], spec, words[:2], T,
-                                    T - S, "bytes"), pad_and_pack(want),
+                    same(terminated(fns, spec, words[:2], T, T - S, "bits"),
+                         want, f"NS={NS} plain")
+                    same(terminated(fns, spec, words[:2], T, T - S,
+                                    "bytes"), pad_and_pack(want),
                          f"NS={NS} plain bytes")
+                    starts = torch.from_numpy(rng.integers(0, NS, 3).astype(
+                        np.int32)).to(dev)
                     want = acs.traceback_batch_masked_plain(
                         spec, words[:2], starts[:2], T - 7, T, "bits")
-                    same(masked(fns[WALKS[1]], spec, words[:2], starts[:2],
-                                T - 7, T, "bits"), want,
-                         f"NS={NS} masked plain")
+                    same(masked(fns, spec, words[:2], starts[:2], T - 7, T,
+                                "bits"), want, f"NS={NS} masked plain")
+                del words, rows
+        # Over more than one window: the smallest batch of one warp a walk
+        # over three, and 8 rows (the most warps) over two.
+        one = cs.wide_walk_consts(source)["kFill"] // 2 + 1
+        for B, windows in ((one, 3), (8, 2)):
+            T = cs.wide_walk_windows(spw, gcap, cs.wide_walk_warps(B, source),
+                                     windows)
+            for kind in ("noisy", "garbage"):
+                if kind == "garbage":
+                    gen = torch.Generator(device=dev).manual_seed(
+                        int(rng.integers(1 << 62)))
+                    words = torch.randint(0, 256, (B, T, NS // 8),
+                                          dtype=torch.uint8, device=dev,
+                                          generator=gen).view(torch.int32)
+                else:
+                    words = acs.acs_forward_batch(
+                        spec, noisy_segments(spec, B, T))[0]
+                lens = torch.from_numpy(np.concatenate(
+                    [[0, 1, S, S + 1, T - 1, T, T + 3, -2],
+                     rng.integers(0, T + 1, B - 8)]).astype(np.int32)).to(dev)
+                starts = torch.from_numpy(rng.integers(
+                    0, NS, (B, 4)).astype(np.int32)).to(dev)
+                what = f"NS={NS} {kind} B={B} T={T}"
+                both(terminated, spec, words, T - 2, T - 2 - S, "bytes",
+                     what=f"{what} terminated")
+                both(masked, spec, words, starts[:, 0].contiguous(), T - 1, T,
+                     "bits", what=f"{what} masked")
+                both(ragged, spec, words, lens, T - S, "bytes",
+                     what=f"{what} ragged")
+                both(multi, spec, words, starts, T - 9, 13, T - 13, "bytes",
+                     what=f"{what} multi")
+                cases += 4
                 del words
         torch.cuda.synchronize()
         result["checked"][NS] = cases
         print(f"[wide-variants] {result['lib']} NS={NS} (G cap {gcap}, "
-              f"warm-up {wu}, {spw} segments a window): "
+              f"warm-up {wu}, {spw} segments a warp): "
               f"{cases} cases against the reference", flush=True)
 
     rng = np.random.default_rng(2061)  # the same inputs in every variant
@@ -452,16 +560,46 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
         decs = [acs.acs_forward_batch(spec, torch.roll(seg, r, dims=0))[0]
                 for r in range(2)]
         zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+        lens = [torch.from_numpy(rng.integers(spec.S + 1, T + 1, B).astype(
+            np.int32)).to(dev) for _ in range(2)]
         res = {"bytes": torch.empty((B, (T - spec.S + 7) // 8),
                                     dtype=torch.uint8, device=dev),
-               "bits": torch.empty((B, T), dtype=torch.uint8, device=dev)}
+               "bits": torch.empty((B, T), dtype=torch.uint8, device=dev),
+               "list": torch.empty((LIST_B, LIST_NW, LIST_L),
+                                   dtype=torch.uint8, device=dev)}
+        lists = None
+        if "multi" in modes:
+            # (l)'s list decode: the circularly extended packets' forward
+            # from all-zero metrics, the four best end states.
+            wl = ktb.list_wrap(spec, LIST_L)
+            msgs = torch.from_numpy(rng.integers(
+                0, 2, (LIST_B, LIST_L), dtype=np.uint8)).to(dev)
+            seg_t = torch.from_numpy(cs.corrupt(
+                rng, fec.encode_tailbiting(spec, msgs).cpu().numpy(),
+                cs.MAIN_NOISE, spec.n)).to(dev)
+            lists = []
+            for r in range(2):
+                ext = fec.tailbiting.circular_extend(
+                    torch.roll(seg_t, r, dims=0), wl, 0, axis=1)
+                words, fm = acs.acs_forward_batch(spec, ext, torch.zeros(
+                    (LIST_B, spec.num_states), dtype=torch.int32,
+                    device=dev))
+                lists.append((words, torch.argsort(
+                    fm, dim=1, stable=True)[:, :LIST_NW].to(torch.int32)))
+            Te = lists[0][0].shape[1]
         runs = {
             "terminated": lambda lib, d: terminated(
-                lib[WALKS[0]], spec, d, T, T - spec.S, "bytes", res["bytes"]),
+                lib, spec, decs[d], T, T - spec.S, "bytes", res["bytes"]),
             "masked": lambda lib, d: masked(
-                lib[WALKS[1]], spec, d, zeros, T, T, "bits", res["bits"])}
+                lib, spec, decs[d], zeros, T, T, "bits", res["bits"]),
+            "ragged": lambda lib, d: ragged(
+                lib, spec, decs[d], lens[d], T - spec.S, "bytes",
+                res["bytes"]),
+            "multi": lambda lib, d: multi(
+                lib, spec, lists[d][0], lists[d][1], Te, wl, LIST_L, "bits",
+                res["list"])}
         staged = None
-        if NS <= 1024:
+        if NS <= 1024 and "terminated" in modes:
             # The generic kernels take the k = 1 codes that are not
             # butterflies: the timed code with its second generator's
             # oldest tap moved (still no common factor).
@@ -472,11 +610,12 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
             del gseg
             staged = lambda _, d: generic.traceback_batch_generic(
                 gspec, planes[d], T, T - gspec.S, "bytes")
-        for mode, fn in runs.items():
-            same(fn(fns, decs[0]).clone(), fn(refs, decs[0]),
+        for mode in modes:
+            fn = runs[mode]
+            same(fn(fns, 0).clone(), fn(refs, 0),
                  f"NS={NS} timed input {mode}")
             times = {"var": [], "ref": [], "staged": []}
-            launched = {"walk": 0, "staged": 0}
+            launches = {"walk": 0, "staged": 0}
             for i in range(calls):
                 order = [("var", fns), ("ref", refs)]
                 if staged is not None and mode == "terminated":
@@ -487,8 +626,8 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
                     # Each build reads the other forward's words than the
                     # launch before it: no sector comes from L2.
                     kind = "staged" if key == "staged" else "walk"
-                    d = launched[kind] % 2
-                    launched[kind] += 1
+                    d = launches[kind] % 2
+                    launches[kind] += 1
                     torch.cuda.synchronize()
                     torch.cuda._sleep(10_000_000)
                     e0 = torch.cuda.Event(enable_timing=True)
@@ -497,22 +636,24 @@ def run_walk(lib_path: str, source: str, ref_path: str | None, check_ns,
                     if key == "staged":
                         staged(None, d)
                     else:
-                        fn(lib, decs[d])
+                        fn(lib, d)
                     e1.record()
                     torch.cuda.synchronize()
                     times[key].append(e0.elapsed_time(e1))
             key = f"{NS} {mode}"
             result["ms"][key] = statistics.median(times["var"])
             result["ref_ms"][key] = statistics.median(times["ref"])
+            size = (f"B={LIST_B} NW={LIST_NW} Te={Te} out_start={wl}"
+                    if mode == "multi" else f"B={B} T={T}")
             line = (f"[wide-variants] {result['lib']} NS={NS} {mode} "
-                    f"(B={B} T={T}): {result['ms'][key]:.4f} ms, reference "
+                    f"({size}): {result['ms'][key]:.4f} ms, reference "
                     f"{result['ref_ms'][key]:.4f} ms")
             if times["staged"]:
                 result["staged_ms"][key] = statistics.median(times["staged"])
                 line += (f", staged generic walk "
                          f"{result['staged_ms'][key]:.4f} ms")
             print(line, flush=True)
-        del decs, res
+        del decs, res, lists
         if staged is not None:
             del planes
         torch.cuda.empty_cache()
@@ -527,7 +668,10 @@ def main() -> int:
                     help="the soft C entry, acs_soft_wide_forward")
     ap.add_argument("--n", type=int, nargs="+", default=[4],
                     help="soft: the codes' n in the bit-for-bit checks")
-    ap.add_argument("--ref", help="a reference acs_wide.cu")
+    ap.add_argument("--ref", type=Path, nargs="+",
+                    help="the reference's source(s), one library: an "
+                         "acs_wide.cu, or with --walk sources defining the "
+                         "four walks")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME[=SOURCE.cu], e.g. r4=/tmp/r4.cu (repeatable)")
     ap.add_argument("--ns", type=int, nargs="+", default=[16384])
@@ -537,7 +681,11 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=LIBS,
                     help="directory of the build logs and SASS")
     ap.add_argument("--walk", action="store_true",
-                    help="the wide walks (traceback_wide, _masked)")
+                    help="the wide walks (traceback_wide, _masked, "
+                         "_ragged, _multi)")
+    ap.add_argument("--modes", nargs="+", choices=WALK_MODES,
+                    default=list(WALK_MODES),
+                    help="--walk: the walks timed")
     ap.add_argument("--lines", action="append", default=[],
                     help="--walk: NAME=SPEC, walk constants rewritten "
                          "(repeatable; see the module docstring)")
@@ -551,7 +699,7 @@ def main() -> int:
     if args.run:
         if args.walk:
             return run_walk(args.run, args.source, args.ref_lib,
-                            args.check_ns, args.ns, args.calls)
+                            args.check_ns, args.ns, args.calls, args.modes)
         return run(args.run, args.source, args.ref_lib, args.ns, args.calls,
                    args.soft, args.n)
     import torch
@@ -567,7 +715,7 @@ def main() -> int:
         name, _, spec = item.partition("=")
         builds[name] = with_lines(name, spec, args.out)
     if args.ref:
-        builds["reference"] = Path(args.ref)
+        builds["reference"] = args.ref
     package = None
     if args.walk:  # the package's kernels (the forwards, the generic walk)
         import threading
@@ -590,7 +738,8 @@ def main() -> int:
                str(args.calls), "--ns", *map(str, args.ns),
                "--n", *map(str, args.n)] + (["--soft"] if args.soft else [])
         if args.walk:
-            cmd += ["--walk", "--check-ns", *map(str, args.check_ns)]
+            cmd += ["--walk", "--check-ns", *map(str, args.check_ns),
+                    "--modes", *args.modes]
         if ref_lib is not None:
             cmd += ["--ref-lib", str(ref_lib)]
         code = subprocess.run(cmd).returncode

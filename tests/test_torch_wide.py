@@ -11,8 +11,8 @@ and -128 inputs; the K11 names' layouts (`init_chunk` 0 / -1 / 1, the
 one chain of the JAX package's fused kernels (forward, then traceback) in
 interpret mode against the port's names; numpy models of the wide
 forwards' round schedules (csrc/acs_wide.cu) against the port's plain
-forwards; and a numpy model of the wide terminated and masked walks
-(csrc/traceback_wide.cu) against the port's plain walks.
+forwards; and a numpy model of the four wide walks (terminated, masked,
+ragged and list; csrc/traceback_wide.cu) against the port's plain walks.
 """
 
 import importlib.util
@@ -590,17 +590,28 @@ def test_soft_round_schedule_model_matches_plain_forward(NS, R, B, T, n,
 
 # --- The wide walk's schedule (csrc/traceback_wide.cu), modelled in numpy ----
 
-def _wide_walk_lines():
-    """[(NS, G's cap, warm-up steps, segments a window)] of each wide NS,
-    as chip_smoke.py reads them from csrc/traceback_wide.cu."""
+def _smoke():
+    """chip_smoke.py, whose readers of csrc/traceback_wide.cu the model
+    shares."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.wide_walk_lines()
+    return smoke
+
+
+_SMOKE = _smoke()
+
+
+def _wide_walk_lines():
+    """[(NS, G's cap, warm-up steps, segments a window)] of each wide NS,
+    as chip_smoke.py reads them from csrc/traceback_wide.cu."""
+    return _SMOKE.wide_walk_lines()
 
 
 _WIDE_WALK = {ns: rest for ns, *rest in _wide_walk_lines()}
+#: walks -> P, the warps a walk takes in a launch of that many walks.
+_WIDE_WARPS = _SMOKE.wide_walk_warps
 
 
 def _segment_steps(t_top, spw, gcap):
@@ -610,41 +621,63 @@ def _segment_steps(t_top, spw, gcap):
     return min(gcap, max(8, -(-per_lane // 8) * 8))
 
 
-def _wide_walk_model(NS, gcap, wu, spw, words, t_top, starts, live,
-                     lengths, rng):
+def _wide_walk_model(NS, gcap, wu, spw, words, tops, starts, live, widths,
+                     rng, warps=1, base=0, chans=None, ragged=False):
     """numpy model of csrc/traceback_wide.cu's `wide_walk_kernel`, done the
-    way the kernel does it.  A warp a channel; segments of G steps
-    (`_segment_steps`), one a lane, spw a window, so windows of spw G steps
-    on the grid of their multiples, the top one first; lane l owns the
-    segment [lo + l G, lo + l G + G) (lanes spw ... 31 none).  Each lane
-    guesses the state at its segment's top by a warm-up of `wu` steps from
-    state 0, or from the window's top state (`starts`, or 0) where the
-    warm-up reaches the window's top, and walks on through its segment,
-    all lanes in lock step, each step's word loaded for the state's bit
-    index, decision 0 at steps >= live.  A segment's bits go MSb first into
-    a byte stored at the group's lowest step, the state there beside it.
-    Then, in rounds, every lane whose start differs from the end of the
-    segment above (lane l + 1's) walks again from that state, until none
-    differs; a walk again stops where it meets its earlier walk's state at
-    a byte's lowest step.  The window's bytes (left as
-    they were in the shared buffer where no lane stores) are written out
-    for each row length in `lengths`, as bits or as bytes with the bits
-    past the length masked.  Asserts that each lane stores only bytes
-    of its own segment.  Returns ({length: (bits uint8 [B, length], bytes
-    uint8 [B, ceil(length / 8)])}, segments walked again)."""
-    B, T_stride, _ = words.shape
+    way the kernel does it.  A block of `warps` warps a walk: walk g reads
+    channel chans[g] (g itself if None) from state starts[g] at step
+    tops[g] - 1 down to step `base`.  Segments of G steps
+    (`_segment_steps` of the launch's steps above base, the walks' top or
+    for a `ragged` launch T, warps x spw segments a window), lane l of warp
+    p owning segment p spw + l (lanes spw ... 31 none), so windows of
+    warps spw G steps on the grid of their multiples above base, the top
+    one first.  Each lane guesses the state at its
+    segment's top by a warm-up of `wu` steps from state 0, or from the
+    window's top state where the warm-up reaches the window's top, and
+    walks on through its segment, all lanes in lock step, each step's word
+    loaded for the state's bit index, decision 0 at steps >= live.  A
+    segment's bits go MSb first into a byte stored at its lowest step (on
+    the grid of 8 steps above base), the state there beside it.  Then, in
+    rounds, every segment whose start differs from the end of the segment
+    above walks again from that state, until none differs; a walk again
+    stops where it meets its earlier walk's state at a byte's lowest step.
+    For each row width L in `widths` a walk emits msg bits: L, or for a
+    `ragged` walk min(max(tops[g] - S, 0), L); a walk whose msg is 0 at
+    every width reads nothing.  The window's bytes (left as they were in
+    the shared buffer where no lane stores) are written out as bits or as
+    bytes with the bits past msg masked, and the row past msg is written
+    0 (the rows start as 0xA5).  Asserts that each lane stores only bytes
+    of its own segment.  Returns ({L: (bits uint8 [N, L], bytes uint8
+    [N, ceil(L / 8)])}, segments walked again)."""
+    _, T_stride, _ = words.shape
     S = NS.bit_length() - 1
     w64 = words.astype(np.int64) & 0xFFFFFFFF
-    G = _segment_steps(t_top, spw, gcap)
-    WS = spw * G
-    lanes = np.arange(32)
-    rows = np.arange(B)[:, None]
+    tops = np.asarray(tops, np.int64)
+    N = tops.shape[0]
+    chans = np.arange(N) if chans is None else np.asarray(chans)
+    segs = warps * spw
+    lane = np.arange(32 * warps) % 32
+    seg = np.arange(32 * warps) // 32 * spw + lane
+    valid = lane < spw
+    col = {int(s): c for c, s in enumerate(seg) if valid[c]}
+    above_col = np.array([col.get(int(s) + 1, c) for c, s in enumerate(seg)])
+
+    def msg_of(L):
+        return (np.minimum(np.maximum(tops - S, 0), L) if ragged
+                else np.full(N, L))
+
+    walks = np.max([msg_of(L) for L in widths], axis=0) > 0
+    launch_top = T_stride if ragged else int(tops.max(initial=0))
+    G = np.full(N, _segment_steps(max(launch_top - base, 1), segs, gcap))
+    steps = np.where(walks, tops - base, 0)
+    WS = segs * G
+    n_win = -(-steps // WS)
 
     def index(s):
         return (s >> 1) | ((s & 1) << (S - 1))
 
     def load(t, i):
-        return w64[rows, np.clip(t, 0, T_stride - 1), i >> 5]
+        return w64[chans[:, None], np.clip(t, 0, T_stride - 1), i >> 5]
 
     def walk(hi, lo, cur, on, emit_hi, got, wlo, again=None):
         """Lanes `on` from step hi - 1 down to lo, in lock step; returns
@@ -660,11 +693,13 @@ def _wide_walk_model(NS, gcap, wu, spw, words, t_top, starts, live,
             d = np.where(t < live, (load(t, i) >> (i & 31)) & 1, 0)
             got = np.where(act & (t == emit_hi - 1), cur, got)
             em = act & (t < emit_hi)
-            acc = np.where(em, acc | ((cur & 1) << (7 - (t & 7))), acc)
-            store = em & ((t & 7) == 0)
+            rel = t - wlo
+            acc = np.where(em, acc | ((cur & 1) << (7 - (rel & 7))), acc)
+            store = em & ((rel & 7) == 0)
             r, l = np.nonzero(store)
-            at = (t[l] - wlo) >> 3
-            assert np.all((l * G // 8 <= at) & (at < (l + 1) * G // 8))
+            at = rel[r, l] >> 3
+            g8 = G[r] // 8
+            assert np.all((seg[l] * g8 <= at) & (at < (seg[l] + 1) * g8))
             stage[r, at] = acc[r, l]
             acc = np.where(store, 0, acc)
             if again is not None:
@@ -674,49 +709,55 @@ def _wide_walk_model(NS, gcap, wu, spw, words, t_top, starts, live,
                 act &= ~met
                 on &= ~met
                 r, l = np.nonzero(store & ~met)
-                at = (t[l] - wlo) >> 3
+                at = rel[r, l] >> 3
             ck[r, at] = cur[r, l]
             cur = np.where(act, (cur >> 1) | (d << (S - 1)), cur)
         return cur, got
 
-    outs = {L: (np.zeros((B, L), np.uint8),
-                np.zeros((B, (L + 7) // 8), np.uint8)) for L in lengths}
-    stage = rng.integers(0, 256, (B, WS // 8)).astype(np.int64)
-    ck = rng.integers(0, NS, (B, WS // 8)).astype(np.int64)
+    outs = {L: (np.full((N, L), 0xA5, np.uint8),
+                np.full((N, (L + 7) // 8), 0xA5, np.uint8)) for L in widths}
+    for L, (bits, out_bytes) in outs.items():
+        for g, m in enumerate(msg_of(L)):
+            bits[g, m:] = 0
+            out_bytes[g, -(-m // 8):] = 0
+    stage = rng.integers(0, 256, (N, segs * gcap // 8)).astype(np.int64)
+    ck = rng.integers(0, NS, (N, segs * gcap // 8)).astype(np.int64)
     top = np.asarray(starts, np.int64)
     rewalks = 0
-    for j in reversed(range(-(-t_top // WS))):
-        wlo, whi = j * WS, min(j * WS + WS, t_top)
-        a = wlo + lanes * G
-        b = np.minimum(a + G, whi)
-        mine = np.broadcast_to(a < whi, (B, 32))
-        assert not mine[:, spw:].any()
+    for j in reversed(range(int(n_win.max(initial=0)))):
+        live_row = (j < n_win)[:, None]
+        wlo = (base + j * WS)[:, None]
+        whi = np.minimum(wlo + WS[:, None], tops[:, None])
+        a = wlo + seg * G[:, None]
+        b = np.minimum(a + G[:, None], whi)
+        mine = live_row & valid & (a < whi)
         top_seg = b == whi
         t0 = np.minimum(b - 1 + wu, whi - 1)
         x = np.where(t0 == whi - 1, top[:, None], 0)
         start = np.broadcast_to(top[:, None], x.shape)
         end, start = walk(t0 + 1, a, x, mine, b, start, wlo)
         while True:
-            above = np.concatenate([end[:, 1:], end[:, -1:]], 1)
-            redo = mine & ~top_seg & (above != start)
+            above = np.where(mine & ~top_seg, end[:, above_col], start)
+            redo = above != start
             if not redo.any():
                 break
             rewalks += int(redo.sum())
             start = np.where(redo, above, start)
             again, _ = walk(b, a, start, redo, b, start, wlo, end)
             end = np.where(redo, again, end)
-        top = end[:, 0]
+        top = np.where(live_row[:, 0], end[:, 0], top)
         staged = stage.astype(np.uint8)
         for L, (bits, out_bytes) in outs.items():
-            bit_hi = min(whi, L)
-            if bit_hi <= wlo:
-                continue
-            bits[:, wlo:bit_hi] = np.unpackbits(staged,
-                                                axis=1)[:, :bit_hi - wlo]
-            m_lo, m_hi = wlo // 8, (bit_hi + 7) // 8
-            out_bytes[:, m_lo:m_hi] = staged[:, :m_hi - m_lo]
-            if bit_hi % 8:
-                out_bytes[:, m_hi - 1] &= 0xFF << (8 - bit_hi % 8) & 0xFF
+            for g, m in enumerate(msg_of(L)):
+                r_lo, r_hi = int(wlo[g, 0]) - base, min(int(whi[g, 0]) - base,
+                                                        int(m))
+                if not live_row[g, 0] or r_hi <= r_lo:
+                    continue
+                bits[g, r_lo:r_hi] = np.unpackbits(staged[g])[:r_hi - r_lo]
+                m_lo, m_hi = r_lo // 8, (r_hi + 7) // 8
+                out_bytes[g, m_lo:m_hi] = staged[g, :m_hi - m_lo]
+                if r_hi % 8:
+                    out_bytes[g, m_hi - 1] &= 0xFF << (8 - r_hi % 8) & 0xFF
     return outs, rewalks
 
 
@@ -746,37 +787,80 @@ def _cut(L):
     return c - 1 if c % 8 == 0 and c > 0 else c
 
 
+def _assert_rows(outs, want):
+    """Each width's model bits and bytes against the plain walk's bits
+    `want` (uint8 [..., >= L])."""
+    for L, (bits, out_bytes) in outs.items():
+        w = want[..., :L].reshape(bits.shape[0], L)
+        np.testing.assert_array_equal(bits, w.numpy())
+        np.testing.assert_array_equal(
+            out_bytes, port.ops.viterbi.pad_and_pack(w).numpy())
+
+
 def _check_terminated(NS, words, t_actual, wu, rng):
-    """The model's terminated walk against `traceback_batch_plain` at the
-    whole message and a cut one, bits and bytes; returns re-walks."""
+    """The model's terminated walk (one warp a walk) against
+    `traceback_batch_plain` at the whole message and a cut one, bits and
+    bytes; returns re-walks."""
     gcap, _, spw = _WIDE_WALK[NS]
     spec = _wide_spec(NS, rng)
+    B, T = words.shape[:2]
     full = max(t_actual - spec.S, 0)
     outs, rewalks = _wide_walk_model(
-        NS, gcap, wu, spw, words, t_actual, np.zeros(words.shape[0]),
-        t_actual, sorted({full, _cut(full)}), rng)
-    want = acs.traceback_batch_plain(spec, _t(words), t_actual, full, "bits")
-    for L, (bits, out_bytes) in outs.items():
-        np.testing.assert_array_equal(bits, want[:, :L].numpy())
-        np.testing.assert_array_equal(
-            out_bytes, port.ops.viterbi.pad_and_pack(want[:, :L]).numpy())
+        NS, gcap, wu, spw, words, np.full(B, t_actual), np.zeros(B), T,
+        sorted({full, _cut(full)}), rng)
+    _assert_rows(outs, acs.traceback_batch_plain(spec, _t(words), t_actual,
+                                                 full, "bits"))
     return rewalks
 
 
 def _check_masked(NS, words, starts, live, wu, rng):
-    """The model's masked walk against `traceback_batch_masked_plain` at
-    out_steps T and a cut one, bits and bytes; returns re-walks."""
+    """The model's masked walk (one warp a walk) against
+    `traceback_batch_masked_plain` at out_steps T and a cut one, bits and
+    bytes; returns re-walks."""
     gcap, _, spw = _WIDE_WALK[NS]
     spec = _wide_spec(NS, rng)
-    T = words.shape[1]
-    outs, rewalks = _wide_walk_model(NS, gcap, wu, spw, words, T,
+    B, T = words.shape[:2]
+    outs, rewalks = _wide_walk_model(NS, gcap, wu, spw, words, np.full(B, T),
                                      starts, live, sorted({T, _cut(T)}), rng)
-    want = acs.traceback_batch_masked_plain(
-        spec, _t(words), _t(starts.astype(np.int32)), live, T, "bits")
-    for L, (bits, out_bytes) in outs.items():
-        np.testing.assert_array_equal(bits, want[:, :L].numpy())
-        np.testing.assert_array_equal(
-            out_bytes, port.ops.viterbi.pad_and_pack(want[:, :L]).numpy())
+    _assert_rows(outs, acs.traceback_batch_masked_plain(
+        spec, _t(words), _t(starts.astype(np.int32)), live, T, "bits"))
+    return rewalks
+
+
+def _check_ragged(NS, words, lengths, wu, rng, warps):
+    """The model's ragged walk (each channel from state 0 at its own top,
+    clamped to [0, T]) against `traceback_batch_ragged_plain` at the row
+    widths T - S and a cut one, bits and bytes; returns re-walks."""
+    gcap, _, spw = _WIDE_WALK[NS]
+    spec = _wide_spec(NS, rng)
+    B, T = words.shape[:2]
+    lengths = np.asarray(lengths, np.int32)
+    widths = sorted({T - spec.S, _cut(T - spec.S)})
+    outs, rewalks = _wide_walk_model(
+        NS, gcap, wu, spw, words, np.clip(lengths, 0, T), np.zeros(B), T,
+        widths, rng, warps, ragged=True)
+    _assert_rows(outs, acs.traceback_batch_ragged_plain(
+        spec, _t(words), _t(lengths), T - spec.S, "bits"))
+    return rewalks
+
+
+def _check_multi(NS, words, starts, live, out_start, wu, rng):
+    """The model's list walk (walk (b, w) from starts[b, w], a block of the
+    kernel's warps for B NW walks each, the byte grid from out_start)
+    against `traceback_batch_multi_plain` at the window [out_start, T) and
+    a cut one, bits and bytes; returns re-walks."""
+    gcap, _, spw = _WIDE_WALK[NS]
+    spec = _wide_spec(NS, rng)
+    B, T = words.shape[:2]
+    NW = starts.shape[1]
+    steps = T - out_start
+    outs, rewalks = _wide_walk_model(
+        NS, gcap, wu, spw, words, np.full(B * NW, T), starts.reshape(-1),
+        live, sorted({steps, _cut(steps)}), rng, _WIDE_WARPS(B * NW),
+        out_start, np.repeat(np.arange(B), NW))
+    _assert_rows(outs, acs.traceback_batch_multi_plain(
+        spec, _t(words), _t(starts.astype(np.int32)), live, out_start, steps,
+        "bits"))
     return rewalks
 
 
@@ -788,18 +872,25 @@ def _check_masked(NS, words, starts, live, wu, rng):
 # (terminated); "garbage" uniform words at T not a multiple of G,
 # terminated and masked at live 0, S, T - 1 and T from random starts;
 # "windows" three windows of sparse words (a bit set one time in 8),
-# terminated, and masked with no warm-up.
+# terminated, and masked with no warm-up; "ragged" lengths 0, 1, S, S + 1,
+# T - 1, T, past T, negative and random ones in one batch of garbage words
+# (re-walks asserted) at one warp a walk (the main paths' B = 2048) and at
+# the kernel's warps for the batch, and three windows of sparse words;
+# "multi" NW = 1, 4 and 8 walks from random starts at the kernel's warps,
+# out_start 0, 13 (not a multiple of 8) and a third of T, live T and below
+# T, garbage words (re-walks asserted) and two windows of sparse words.
 _WIDE_WALK_CASES = [(NS, which) for NS in sorted(_WIDE_WALK)
-                    for which in ("noisy", "edges", "garbage", "windows")]
+                    for which in ("noisy", "edges", "garbage", "windows",
+                                  "ragged", "multi")]
 
 
 @pytest.mark.parametrize("NS,which", _WIDE_WALK_CASES,
                          ids=[f"NS{ns}-{w}" for ns, w in _WIDE_WALK_CASES])
 def test_wide_walk_schedule_model_matches_plain_walks(NS, which):
-    """The wide walk's windows, segments a lane, warm-ups, guesses,
-    top-down check and re-walks and each lane's whole output bytes,
-    modelled in numpy, give the plain terminated and masked walks' bits
-    and bytes bit for bit."""
+    """The wide walk's windows, segments a lane, warps a walk, warm-ups,
+    guesses, top-down check and re-walks and each lane's whole output
+    bytes, modelled in numpy, give the plain terminated, masked, ragged and
+    list walks' bits and bytes bit for bit."""
     gcap, wu, spw = _WIDE_WALK[NS]
     rng = np.random.default_rng(NS + len(which))
     S = NS.bit_length() - 1
@@ -823,6 +914,29 @@ def test_wide_walk_schedule_model_matches_plain_walks(NS, which):
         assert _check_terminated(NS, words, T, wu, rng) > 0
         for live in (0, S, T - 1, T):
             _check_masked(NS, words, rng.integers(0, NS, 2), live, wu, rng)
+    elif which == "ragged":
+        T = spw * min(16, gcap) - 5
+        words = _garbage_words(rng, 12, T, NS)
+        lengths = [0, 1, S, S + 1, T - 1, T, T + 4, -3,
+                   *rng.integers(S + 1, T, 4)]
+        for warps in sorted({1, _WIDE_WARPS(len(lengths))}):
+            assert _check_ragged(NS, words, lengths, wu, rng, warps) > 0
+        T = 2 * spw * gcap + 37
+        words = _sparse_words(rng, 2, T, NS)
+        _check_ragged(NS, words, [T - 1, spw * gcap + 3], wu, rng, 1)
+    elif which == "multi":
+        T = spw * min(16, gcap) + 17
+        words = _garbage_words(rng, 2, T, NS)
+        rewalks = 0
+        for nw, live, out_start in ((1, T, 13), (4, T - 9, 0),
+                                    (8, T, T // 3)):
+            rewalks += _check_multi(NS, words, rng.integers(0, NS, (2, nw)),
+                                    live, out_start, wu, rng)
+        assert rewalks > 0
+        T = _WIDE_WARPS(4) * spw * gcap + 42  # two windows above step 13
+        words = _sparse_words(rng, 1, T, NS)
+        _check_multi(NS, words, rng.integers(0, NS, (1, 4)), T - 40, 13, 0,
+                     rng)
     else:
         T = 2 * spw * gcap + 37
         words = _sparse_words(rng, 1, T, NS)
@@ -833,12 +947,16 @@ def test_wide_walk_schedule_model_matches_plain_walks(NS, which):
 def test_wide_walk_dispatch_covers_every_wide_state_count():
     """The wide walk's dispatch switch has exactly one line for each wide
     NS, 512 ... 16384, each with segments of whole output bytes and at most
-    a warp's lanes a window; a segment walk's window of output bytes fits
-    a block's static shared memory (48 KB) and at (l)'s length a packet is
-    one window."""
+    a warp's lanes a window; a segment walk's window of output bytes and
+    its ends fit a block's static shared memory (48 KB) at the most warps
+    a walk, at (l)'s length a packet is one window, and the warps a walk
+    fall from the most for a few walks to one for the main paths' 2048."""
     lines = _wide_walk_lines()
     assert [ns for ns, *_ in lines] == [512 << i for i in range(6)]
+    most = _WIDE_WARPS(1)
+    assert most in (1, 2, 4, 8, 16, 32) and _WIDE_WARPS(2048) == 1
+    assert all(_WIDE_WARPS(n) >= _WIDE_WARPS(n + 1) for n in range(4096))
     for ns, gcap, wu, spw in lines:
         assert gcap % 8 == 0 and gcap >= 8 and wu >= 0 and 1 <= spw <= 32
-        assert spw * gcap // 8 * 3 <= 48 * 1024
+        assert most * spw * (gcap // 8 * 3 + 4) <= 48 * 1024
         assert spw * _segment_steps(2062, spw, gcap) >= 2062
