@@ -167,8 +167,12 @@ Phases (any failure exits non-zero and prints no result line):
      against its plain version on the card: random poly-symmetric codes at
      NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
      NS = 512, 1024, 4096 (n = 5..8) at their longest single-pass T and at
-     T = 1, S, S + 1; noisy and garbage segments, four LLR draws, bits and
-     bytes; B = 1, 0; each case on the SINGLE_PASS route, each launch
+     T = 1, S, S + 1; at NS = 64, 128, 256 also the warp kernel's edges:
+     T = 20, 31, 32, 33, 97 at B = 37 and 6, and the longest single-pass
+     T (4080, 2016, 1008) with garbage segments of a random and of a
+     catastrophic code (the walk's guesses wrong, counted); noisy and
+     garbage segments, four LLR draws, bits and bytes of whole and cut
+     messages; B = 1, 0; each case on the SINGLE_PASS route, each launch
      counted;
  20. single-pass main path (m): the rate-1/6 K = 7 code at bench.py's
      working set (3% segment corruption; AWGN at 3 dB, qmax 7) through
@@ -3326,10 +3330,11 @@ def butterfly_times(fec, acs, small_in, wide_in):
 
 def compare_single_pass(fec, sp, spec, x, soft, err, T=None):
     """`block_decode_1p` against its plain version on the card at T steps
-    (default all of x's): bits, and the MSb-first bytes of a cut message
-    (the plain version packs its bits, so one plain run serves both); the
-    route says SINGLE_PASS wherever `use_single_pass` holds, and each
-    launch counts.  Returns the plain version's bits."""
+    (default all of x's): bits and MSb-first bytes, each of the whole
+    message and of a cut one (the plain version packs and cuts its bits,
+    so one plain run serves all four); the route says SINGLE_PASS wherever
+    `use_single_pass` holds, and each launch counts.  Returns the plain
+    version's bits."""
     import torch
     T = x.shape[1] if T is None else T
     B = x.shape[0]
@@ -3340,26 +3345,117 @@ def compare_single_pass(fec, sp, spec, x, soft, err, T=None):
     full = max(T - spec.S, 0)
     cut = cut_bits(full)
     want = sp.block_decode_1p_plain(spec, x, T, soft)
-    for out, L, expect in (("bits", full, want), ("bytes", cut,
-                           fec.ops.viterbi.pad_and_pack(want[:, :cut]))):
+    pack = fec.ops.viterbi.pad_and_pack
+    for out, L, expect in (("bits", full, want),
+                           ("bytes", cut, pack(want[:, :cut])),
+                           ("bits", cut, want[:, :cut]),
+                           ("bytes", full, pack(want))):
         before = sp.LAUNCHES["block_decode_1p"]
         got = sp.block_decode_1p(spec, x, T, soft, out, L)
         torch.cuda.synchronize()
         require(sp.LAUNCHES["block_decode_1p"] == before + (B > 0),
                 f"{spec} {mode} T={T} B={B}: one launch counted")
         require(torch.equal(got, expect), f"{spec} {mode} T={T} B={B} {out} "
-                "equal to the plain version")
+                f"L={L} equal to the plain version")
         err["block_decode_1p"] = max(err["block_decode_1p"],
                                      max_abs_diff(got, expect))
     return want
+
+
+def walk_guesses_wrong(words, T, S) -> int:
+    """How many of csrc/block_1p.cu's walk guesses are wrong on these
+    words, over all rows: lane l guesses the state at the top of its
+    segment [l G, (l + 1) G) by walking from state 0 64 steps above
+    (`walk`, kWarmup); each wrong guess makes lane 0 walk that segment
+    again."""
+    import numpy as np
+    w = words.cpu().numpy().view(np.uint32)
+    rows = np.arange(w.shape[0])
+    top = S - 1
+
+    def step(t, cur):
+        i = (cur >> 1) | ((cur & 1) << top)
+        return (cur >> 1) | (((w[rows, t, i >> 5] >> (i & 31)) & 1) << top)
+
+    truth = np.empty((T, w.shape[0]), np.int64)
+    cur = np.zeros(w.shape[0], np.int64)
+    for t in range(T - 1, -1, -1):
+        truth[t] = cur
+        cur = step(t, cur)
+    G = (((T + 31) >> 5) + 7) & ~7
+    wrong = 0
+    for lane in range(32):
+        hi = min(min(lane * G, T) + G, T)
+        if hi < T:
+            x = np.zeros(w.shape[0], np.int64)
+            for t in range(min(hi - 1 + 64, T - 1), hi - 1, -1):
+                x = step(t, x)
+            wrong += int((x != truth[hi - 1]).sum())
+    return wrong
+
+
+#: Catastrophic poly-symmetric codes at NS = 64, 128, 256 (each generator of
+#: even weight: all share the factor 1 + D), whose survivors never merge.
+SP_CATASTROPHIC = {64: (0o161, 0o107, 0o145), 128: (0o305, 0o231, 0o353),
+                   256: (0o603, 0o445, 0o707)}
+#: The warp kernel's edge lengths (its steps run in unrolled blocks of 32,
+#: the last block a loop), besides each NS's longest single-pass T.
+SP_EDGE_T = (20, 31, 32, 33, 97)
+SP_EDGE_B = (SMALL_B, 6)
+
+
+def compare_single_pass_edges(fec, sp, err, rng, segments, llrs):
+    """The warp kernel (NS = 64, 128, 256) at its edges against its plain
+    version: T < 32, a multiple of 32, between, and the longest
+    single-pass T (4080, 2016, 1008); B odd, and B not a multiple of
+    a block's 4 channels; noisy and garbage segments, LLRs over the whole
+    int8 range; at the longest T garbage segments of a random and of a
+    catastrophic code, on which the walk's guesses are wrong (counted on
+    the plain words), so that its segments are walked again; whole and
+    cut messages, bits and bytes."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import acs
+    for NS in SP_MID_NS:
+        spec = bfly_spec(fec, rng, NS, 6)
+        g = SP_CATASTROPHIC[NS]
+        catastrophic = fec.CodeSpec(K=NS.bit_length(), g=g + g)
+        top = 32768 * 8 // NS // 48 * 48
+        require(sp.use_single_pass(spec, top)
+                and not sp.use_single_pass(spec, top + 1),
+                f"NS={NS}: {top} is the longest single-pass T")
+        for T in SP_EDGE_T:
+            for B in SP_EDGE_B:
+                for kind in ("noisy", "garbage"):
+                    compare_single_pass(fec, sp, spec,
+                                        segments(spec, B, T, kind), False,
+                                        err)
+                compare_single_pass(fec, sp, spec, llrs(spec, B, T, 1), True,
+                                    err)
+        wrong = {}
+        for name, code in (("random", spec), ("catastrophic", catastrophic)):
+            seg = segments(code, SMALL_B, top, "garbage")
+            compare_single_pass(fec, sp, code, seg, False, err)
+            words, _ = acs.acs_forward_batch_plain(code, seg)
+            wrong[name] = walk_guesses_wrong(words, top, code.S)
+            require(wrong[name] > 0, f"NS={NS} {name} garbage T={top}: the "
+                    "walk's guesses are wrong somewhere")
+        compare_single_pass(fec, sp, spec, llrs(spec, SMALL_B, top, 1), True,
+                            err)
+        print(f"[compare] K13 NS={NS:5d} edges T={SP_EDGE_T} x B={SP_EDGE_B}"
+              f" (noisy, garbage, int8 LLRs) and T={top} (garbage: "
+              f"{wrong['random']} / {wrong['catastrophic']} wrong walk "
+              f"guesses of {32 * SMALL_B}, random / catastrophic code; "
+              "LLRs): whole and cut bits and bytes equal, each launch "
+              "counted")
 
 
 def phase_compare_single_pass(fec, dev, err):
     """K13 against its plain version on the card: random poly-symmetric
     codes at NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
     NS = 512, 1024, 4096 (n = 5..8) at their longest single-pass T and at
-    T = 1, S, S + 1; noisy and garbage segments, four LLR draws; B = 1, 0;
-    each decode entry on those inputs equal to the plain version."""
+    T = 1, S, S + 1; noisy and garbage segments, four LLR draws; the warp
+    kernel's edges (`compare_single_pass_edges`); B = 1, 0; each decode
+    entry on those inputs equal to the plain version."""
     import numpy as np
     import torch
     from convolutionalencdec_tpu_torch.kernels import single_pass as sp
@@ -3405,6 +3501,7 @@ def phase_compare_single_pass(fec, dev, err):
         print(f"[compare] K13 NS={NS:5d} n={n} {str(spec.g):42s} B={SMALL_B} "
               f"T={lengths}: {'hard and ' if n <= 8 else ''}soft bits and "
               "bytes equal, routes SINGLE_PASS")
+    compare_single_pass_edges(fec, sp, err, rng, segments, llrs)
     # Edge batches, and one input padded past t_actual.
     for NS in (64, 512):
         spec = bfly_spec(fec, rng, NS, 6)

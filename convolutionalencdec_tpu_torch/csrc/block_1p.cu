@@ -28,11 +28,16 @@
 //   cb    int32 [NS/2]   coded segment of edge (src b, input 0)
 //   out   uint8 [B, message_bits] bits, or [B, ceil(message_bits / 8)]
 //         bytes, MSb-first, the trailing byte zero-padded
-//   shared memory per channel: T * NS/8 bytes of decision words, the layout
-//   of acs_k1.cu (W = NS/32 words per step; the decision of state
-//   s = 2b + p is bit i % 32 of word i / 32, i = p*NS/2 + b), then 64
-//   words of the walk's scratch and its decoded bits, ceil(T / 32) words
-//   (`channel_bytes`).
+//   shared memory per channel: T * NS/8 bytes of decision words, then 64
+//   words of the walk's scratch (NS 64-256: first the forward's staged
+//   inputs) and its decoded bits, ceil(T / 32) words (`channel_bytes`).
+//   Rows, the layout of acs_k1.cu: W = NS/32 words per step, the decision
+//   of state s = 2b + p at step t bit i % 32 of word t W + i / 32,
+//   i = p*NS/2 + b.  NS 64-256 keeps its steps below T - T % 32 as
+//   columns instead, NS words per block of 32 steps: the decision of
+//   state 2b + p at step t is bit t % 32 of word
+//   (t / 32) NS + 64 (b / 32) + 32 h + b % 32, h = p XOR (b % 32 >= 16);
+//   the last T % 32 steps are rows, at the same words as above.
 //
 // What bounds it on this card: NS/2 butterflies per step (6 int32
 // operations each) in a recurrence that is sequential in T, and then a
@@ -40,18 +45,39 @@
 // decoded output: the two-pass route writes and reads back T * NS/8 bytes
 // of decisions per channel (33.7 MB at NASA_K7, B = 2048, T = 2054), this
 // kernel none.  What it pays instead is shared memory: a channel holds
-// T * NS/8 bytes (16.4 KB at NS = 64, T = 2054), so an SM holds about 13
-// channels where the two-pass forward holds 16 or more.
+// T * NS/8 bytes (16.4 KB at NS = 64, T = 2054), so an SM holds 12
+// channels (a block also takes 1 KB of the SM's 228 KB) where the two-pass
+// forward holds 16 or more: at B = 2048 the batch runs in two waves, the
+// second too short of warps to hide the step's dependent chain.
 //
 // What the design does about that:
-//   NS 64-256 (`block_1p_warp`): one warp per channel, acs_k1.cu's forward
-//   (metrics in registers, the butterfly permutation by __shfl_sync, the
-//   step's decision words by __ballot_sync), each word stored by lane 0 to
-//   the channel's shared-memory region.  Inputs come in 32 steps at a time,
-//   one per lane; a soft lane also sums the step's relu(-q) and |q| once,
-//   so a step costs a few shuffles whatever n is.  Four warps per block
-//   while a channel's decisions take at most 4 KB, else one, so that blocks
-//   pack the SM's 227 KB as finely as its decisions allow.
+//   NS 64-256 (`block_1p_warp`): one warp per channel, metrics in
+//   registers.  The steps run in blocks of 32, fully unrolled (a plain
+//   loop for the last, shorter block).  In a whole block a lane keeps its
+//   own decisions, one bit a step, in a register per butterfly and
+//   destination (a column), and after the block stores those words once:
+//   a step takes no ballot and stores nothing.  The last block takes the
+//   step's words by __ballot_sync instead, lane s keeping step s's, and
+//   stores them as rows (one vector store a lane).  A block's inputs are
+//   loaded a block ahead, one step a lane, and staged in the walk's
+//   scratch, from which every lane reads the step's input by a broadcast
+//   load: no shuffle carries an input (but the soft sum of the coded bits
+//   past the eighth, for n > 8).
+//   The butterfly permutation takes two shuffles per butterfly a lane, not
+//   four: lanes 0-15 send the metric of their even destination, lanes
+//   16-31 that of their odd one, in the first shuffle, and the other in the
+//   second, so that no two lanes pull the same lane in one shuffle; which
+//   of em and emc a lane adds to which source is fixed per lane (its edge
+//   codes are complemented where needed), so no select precedes a shuffle,
+//   and a lane picks its two sources from the two shuffles by its parity.
+//   A soft step adds no relu(-q) sums: every state's metric moves by the
+//   same sum(relu(-q)) a step, which changes no comparison, so em is the
+//   sum of the step's LLRs over the edge's 1 bits (one or two __dp4a of the
+//   packed LLR bytes against 0/1 byte masks) and emc the step's LLR sum
+//   less em: the same decisions, metrics offset by a constant a step.
+//   Four warps per block while a channel's decisions take at most 4 KB,
+//   else one, so that blocks pack the SM's 227 KB as finely as its
+//   decisions allow; each channel's region starts on 16 bytes.
 //   NS 512-4096 (`block_1p_wide`): one block per channel, acs_wide.cu's
 //   forward (NS/2 butterflies over min(NS/2, 1024) threads, metrics
 //   double-buffered in shared memory, one __syncthreads per step), each
@@ -66,6 +92,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -87,24 +115,38 @@ constexpr int kChunk = 64;             // wide: steps staged at a time
 // above reached, the top segment's start is exact) and walks again, from
 // the right state, each segment whose guess was wrong.  `xy` is 64 words
 // of scratch: the guesses, then the states each segment's walk reached.
+// With COLS, steps t < tcol are stored as columns, the rest as rows (see
+// the header); without, every step is a row (the wide template).
 constexpr int kWarmup = 64;
 
+template <bool COLS>
 __device__ __forceinline__ unsigned walk_step(const uint32_t* dec, int W,
-                                              int top, int t, unsigned cur) {
-  const unsigned i = (cur >> 1) | ((cur & 1u) << top);
-  const unsigned d = (dec[(size_t)t * W + (i >> 5)] >> (i & 31u)) & 1u;
-  return (cur >> 1) | (d << top);
+                                              int top, int t, unsigned cur,
+                                              int tcol) {
+  unsigned d;
+  // State cur = 2b + p: lane b % 32's column h, bit t % 32.
+  if (COLS && t < tcol) {
+    const unsigned b = cur >> 1;
+    const unsigned h = (cur & 1u) ^ ((b >> 4) & 1u);
+    d = dec[(size_t)(t >> 5) * (32 * W) + ((b >> 5) << 6) + (h << 5) +
+            (b & 31u)] >> (t & 31);
+  } else {
+    const unsigned i = (cur >> 1) | ((cur & 1u) << top);
+    d = dec[(size_t)t * W + (i >> 5)] >> (i & 31u);
+  }
+  return (cur >> 1) | ((d & 1u) << top);
 }
 
 // Walk steps hi - 1 down to lo from state `cur` at step hi - 1, writing the
 // bits of the steps < message_bits; returns the state at step lo - 1.
+template <bool COLS>
 __device__ unsigned walk_segment(const uint32_t* dec, uint8_t* bits, int W,
                                  int top, int lo, int hi, int message_bits,
-                                 unsigned cur) {
+                                 unsigned cur, int tcol) {
   unsigned acc = 0u;
   for (int t = hi - 1; t >= lo; --t) {
     if (t < message_bits) acc |= (cur & 1u) << (t & 7);
-    cur = walk_step(dec, W, top, t, cur);
+    cur = walk_step<COLS>(dec, W, top, t, cur, tcol);
     if ((t & 7) == 0) {
       bits[t >> 3] = (uint8_t)acc;
       acc = 0u;
@@ -113,8 +155,9 @@ __device__ unsigned walk_segment(const uint32_t* dec, uint8_t* bits, int W,
   return cur;
 }
 
+template <bool COLS>
 __device__ void walk(const uint32_t* dec, uint8_t* bits, uint32_t* xy, int T,
-                     int W, int S, int message_bits, int lane) {
+                     int W, int S, int message_bits, int lane, int tcol) {
   const int top = S - 1;
   const int G = (((T + 31) >> 5) + 7) & ~7;
   const int lo = min(lane * G, T);
@@ -124,18 +167,19 @@ __device__ void walk(const uint32_t* dec, uint8_t* bits, uint32_t* xy, int T,
   // kernel with an illegal-instruction error whenever it runs.
 #pragma unroll 1
   for (int t = min(hi - 1 + kWarmup, T - 1); t >= hi; --t) {
-    x = walk_step(dec, W, top, t, x);
+    x = walk_step<COLS>(dec, W, top, t, x, tcol);
   }
   xy[lane] = x;
-  xy[32 + lane] = walk_segment(dec, bits, W, top, lo, hi, message_bits, x);
+  xy[32 + lane] =
+      walk_segment<COLS>(dec, bits, W, top, lo, hi, message_bits, x, tcol);
   __syncwarp();
   if (lane == 0) {
     for (int l = 30; l >= 0; --l) {
       const int l_lo = min(l * G, T), l_hi = min(l_lo + G, T);
       const unsigned start = xy[32 + l + 1];
       if (l_hi < T && xy[l] != start) {
-        xy[32 + l] = walk_segment(dec, bits, W, top, l_lo, l_hi,
-                                  message_bits, start);
+        xy[32 + l] = walk_segment<COLS>(dec, bits, W, top, l_lo, l_hi,
+                                        message_bits, start, tcol);
       }
     }
   }
@@ -162,128 +206,251 @@ __host__ __device__ inline size_t channel_bytes(int T, int NS) {
   return (size_t)T * (NS / 8) + 4 * (size_t)((T + 31) / 32) + 4 * 64;
 }
 
-template <int BPL, int NQ, bool SOFT>  // NS = 64 BPL; NQ = min(n, 8), soft
-__global__ void __launch_bounds__(128)
+// The distance between two channels' regions in a block: channel_bytes
+// rounded up to 16 bytes, so that every region takes vector stores.  It
+// never exceeds the 227 KB that channel_bytes fits in, itself a multiple
+// of 16.
+__host__ __device__ inline size_t channel_stride(int T, int NS) {
+  return (channel_bytes(T, NS) + 15) & ~(size_t)15;
+}
+
+template <int BPL, int NQ, bool SOFT, bool REST>  // NS = 64 BPL; soft:
+__global__ void __launch_bounds__(128)            // NQ = min(n, 8), REST n > 8
 block_1p_warp(const uint8_t* __restrict__ in, const int32_t* __restrict__ cb,
               uint8_t* __restrict__ out, int B, int T, int n, int S,
               int message_bits, int emit_bytes, int init_value) {
   constexpr int NS = 64 * BPL;
   constexpr int W = NS / 32;
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int ch = blockIdx.x * (blockDim.x >> 5) + warp;
   if (ch >= B) return;  // uniform across the warp; no block barrier below
-  uint32_t* dec = smem + warp * channel_bytes(T, NS) / 4;
+  uint32_t* dec = smem + warp * channel_stride(T, NS) / 4;
   uint32_t* xy = dec + (size_t)T * W;
   uint8_t* bits = reinterpret_cast<uint8_t*>(xy + 64);
+  // The forward stages a block's inputs in the walk's scratch: soft, the
+  // packed LLRs of step t0 + l at uint2 l (32 x 8 bytes); hard, the
+  // segment of step t0 + l at byte l of the first 16-byte line of it.
+  uint2* stage_soft = reinterpret_cast<uint2*>(xy);
+  uint8_t* stage_hard = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(xy) + 15) & ~(uintptr_t)15);
 
+  // Lane l owns butterflies b = 32 j + l (j < BPL): sources b and b + NS/2
+  // (metrics lo, hi), destinations 2b and 2b + 1.  The first shuffle
+  // carries the metric of the even destination from lanes 0-15 and of the
+  // odd one from lanes 16-31, the second the other; so f1, the branch
+  // metric added to lo in the destination sent first, is em on lanes 0-15
+  // and emc on lanes 16-31 (whose edge codes are complemented), f2 the
+  // other.
+  const bool upper = lane & 16;
+  const bool odd = lane & 1;
   const int nmask = (1 << min(n, 8)) - 1;
-  int cbl[BPL];
-  int sel[BPL][SOFT ? NQ : 1];  // all ones where coded bit i of the edge is 1
-  int lo[BPL], hi[BPL];         // metrics of sources b and b + NS/2
+  unsigned code[BPL];           // hard: coded segment of f1's edge
+  unsigned mlo[BPL], mhi[BPL];  // soft: f1's coded bits 0-3, 4-7, 0/1 bytes
+  int lo[BPL], hi[BPL];
 #pragma unroll
   for (int j = 0; j < BPL; ++j) {
     const int b = 32 * j + lane;
-    cbl[j] = cb[b];
-    if constexpr (SOFT) {
+    const unsigned c = upper ? ~(unsigned)cb[b] : (unsigned)cb[b];
+    code[j] = c;
+    mlo[j] = mhi[j] = 0u;
 #pragma unroll
-      for (int i = 0; i < NQ; ++i) sel[j][i] = -((cbl[j] >> i) & 1);
+    for (int i = 0; i < NQ; ++i) {
+      if (i < 4) {
+        mlo[j] |= ((c >> i) & 1u) << (8 * i);
+      } else {
+        mhi[j] |= ((c >> i) & 1u) << (8 * (i - 4));
+      }
     }
     lo[j] = (b == 0) ? 0 : init_value;
     hi[j] = init_value;
   }
-  // Next-step sources, as in acs_k1.cu: state x = 32 m + lane comes from
-  // lane 16 (m & 1) + lane / 2, slot m >> 1, its even or odd destination by
-  // the parity of lane.
-  const int half_lane = lane >> 1;
-  const bool odd = lane & 1;
+  const int rest_sel = upper ? -1 : 0;  // REST: emc holds the bits past 8
+  // The first shuffle's metrics come to lane r from lane r / 2 (even r)
+  // or 16 + r / 2 (odd r), the second's from the other: from pair i, x1
+  // is the metric of state 64 i + r + 32 odd, x2 that of the other one.
+  const int src1 = (odd ? 16 : 0) + (lane >> 1);
+  const int src2 = src1 ^ 16;
 
+  // Raw inputs of step t0 + lane, loaded a block ahead and first used by
+  // the next block (a lane past T keeps what it had: its stage entry is
+  // never read).  No value is chosen for t >= T: a select would wait for
+  // the load where it is issued.
   const uint8_t* row = in + (size_t)ch * T * (SOFT ? n : 1);
-  for (int t0 = 0; t0 < T; t0 += 32) {
-    const int steps = min(32, T - t0);
-    // Step t0 + lane's input: the segment, or the first NQ LLRs packed
-    // four to a register with the step's sums of relu(-q) and |q|.
-    unsigned my_a = 0u, my_b = 0u;
-    int my_base = 0, my_q = 0;
-    if (lane < steps) {
-      if constexpr (SOFT) {
-        const int8_t* src =
-            reinterpret_cast<const int8_t*>(row) + (size_t)(t0 + lane) * n;
+  unsigned raw[SOFT ? NQ : 1] = {};  // bytes as loaded
+  auto fetch = [&](int t) {
+    if (t < T) {
 #pragma unroll
-        for (int i = 0; i < NQ; ++i) {
-          const int q = max((int)src[i], -127);
-          my_base += max(-q, 0);
-          my_q += abs(q);
-          if (i < 4) {
-            my_a |= ((unsigned)q & 0xffu) << (8 * i);
-          } else {
-            my_b |= ((unsigned)q & 0xffu) << (8 * (i - 4));
-          }
-        }
-        for (int i = NQ; i < n; ++i) {  // coded bits past the eighth
-          const int q = max((int)src[i], -127);
-          my_base += max(-q, 0);
-          my_q += abs(q);
-        }
-      } else {
-        my_a = row[t0 + lane];
+      for (int i = 0; i < (SOFT ? NQ : 1); ++i) {
+        raw[i] = row[(size_t)t * (SOFT ? n : 1) + i];
       }
     }
-    for (int s = 0; s < steps; ++s) {
-      const unsigned a = __shfl_sync(kFullMask, my_a, s);
-      int q[SOFT ? NQ : 1];
-      int base = 0, Q = 0;
-      if constexpr (SOFT) {
-        const unsigned bq = (NQ > 4) ? __shfl_sync(kFullMask, my_b, s) : 0u;
-        base = __shfl_sync(kFullMask, my_base, s);
-        Q = __shfl_sync(kFullMask, my_q, s);
-#pragma unroll
-        for (int i = 0; i < NQ; ++i) {
-          const unsigned v = (i < 4) ? a : bq;
-          q[i] = (int)(v << (24 - 8 * (i & 3))) >> 24;  // sign-extend
-        }
-      }
-      const int t = t0 + s;
-      int ne[BPL], no[BPL];
+  };
+  fetch(lane);
+
+  unsigned col[2 * BPL];  // whole blocks: bit s, the lane's decisions at s
+  unsigned buf[2 * BPL];  // the last block: lane s, step s's ballots
+  // One step: x the segment (hard) or LLRs 0-3 and y LLRs 4-7 (soft), r the
+  // sum of the LLRs past the eighth (REST); `whole`: a step of a block of 32.
+  auto step = [&](int s, unsigned x, unsigned y, int r, auto whole) {
+    int f1[BPL], f2[BPL];
+    if constexpr (SOFT) {
+      const int ones = 0x01010101;
+      const int sum = NQ > 4 ? __dp4a((int)x, ones, __dp4a((int)y, ones, r))
+                             : __dp4a((int)x, ones, r);
 #pragma unroll
       for (int j = 0; j < BPL; ++j) {
-        int em, emc;
-        if constexpr (SOFT) {
-          em = base;
-#pragma unroll
-          for (int i = 0; i < NQ; ++i) em += q[i] & sel[j][i];
-          emc = Q - em;
-        } else {
-          em = __popc(((int)a ^ cbl[j]) & nmask);
-          emc = n - em;
-        }
-        const int a0 = lo[j] + em, a1 = hi[j] + emc;
-        const int b0 = lo[j] + emc, b1 = hi[j] + em;
-        const unsigned da = __ballot_sync(kFullMask, a0 > a1);
-        const unsigned db = __ballot_sync(kFullMask, b0 > b1);
-        if (lane == 0) {
-          dec[(size_t)t * W + j] = da;        // even states: i = b
-          dec[(size_t)t * W + BPL + j] = db;  // odd states:  i = NS/2 + b
-        }
-        ne[j] = min(a0, a1);
-        no[j] = min(b0, b1);
+        const int rs = REST ? (r & rest_sel) : 0;
+        f1[j] = NQ > 4 ? __dp4a((int)x, (int)mlo[j],
+                                __dp4a((int)y, (int)mhi[j], rs))
+                       : __dp4a((int)x, (int)mlo[j], rs);
+        f2[j] = sum - f1[j];
       }
+    } else {
 #pragma unroll
-      for (int m = 0; m < 2 * BPL; ++m) {
-        const int src = 16 * (m & 1) + half_lane;
-        const int e = __shfl_sync(kFullMask, ne[m >> 1], src);
-        const int o = __shfl_sync(kFullMask, no[m >> 1], src);
-        if (m < BPL) {
-          lo[m] = odd ? o : e;
+      for (int j = 0; j < BPL; ++j) {
+        f1[j] = __popc((x ^ code[j]) & nmask);
+        f2[j] = n - f1[j];
+      }
+    }
+    int v1[BPL], v2[BPL];
+#pragma unroll
+    for (int j = 0; j < BPL; ++j) {
+      const int u1 = lo[j] + f1[j], w1 = hi[j] + f2[j];
+      const int u2 = lo[j] + f2[j], w2 = hi[j] + f1[j];
+      const bool g1 = u1 > w1, g2 = u2 > w2;  // ties keep the low source
+      if constexpr (decltype(whole)::value) {
+        if (g1) col[j] |= 1u << s;
+        if (g2) col[BPL + j] |= 1u << s;
+      } else {
+        const unsigned d1 = __ballot_sync(kFullMask, g1);
+        const unsigned d2 = __ballot_sync(kFullMask, g2);
+        if (lane == s) {
+          buf[j] = d1;
+          buf[BPL + j] = d2;
+        }
+      }
+      v1[j] = min(u1, w1);
+      v2[j] = min(u2, w2);
+    }
+    int next[2 * BPL];  // next-step metric of state 32 m + lane
+#pragma unroll
+    for (int i = 0; i < BPL; ++i) {
+      const int x1 = __shfl_sync(kFullMask, v1[i], src1);
+      const int x2 = __shfl_sync(kFullMask, v2[i], src2);
+      next[2 * i] = odd ? x2 : x1;
+      next[2 * i + 1] = odd ? x1 : x2;
+    }
+#pragma unroll
+    for (int j = 0; j < BPL; ++j) {
+      lo[j] = next[j];
+      hi[j] = next[BPL + j];
+    }
+  };
+
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int steps = min(32, T - t0);
+    unsigned x = 0u, y = 0u;
+    int r_mine = 0;
+    if constexpr (SOFT) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const unsigned q = (unsigned)max((int)(int8_t)raw[i], -127) & 0xffu;
+        if (i < 4) {
+          x |= q << (8 * i);
         } else {
-          hi[m - BPL] = odd ? o : e;
+          y |= q << (8 * (i - 4));
+        }
+      }
+      if constexpr (REST) {
+        if (lane < steps) {
+          const int8_t* src = reinterpret_cast<const int8_t*>(row) +
+                              (size_t)(t0 + lane) * n;
+          for (int i = 8; i < n; ++i) r_mine += max((int)src[i], -127);
+        }
+      }
+    } else {
+      x = raw[0];
+    }
+    __syncwarp();  // the last block's reads of the stage are done
+    if constexpr (SOFT) {
+      stage_soft[lane] = make_uint2(x, y);
+    } else {
+      stage_hard[lane] = (uint8_t)x;
+    }
+    __syncwarp();
+    fetch(t0 + 32 + lane);
+    if (steps == 32) {
+#pragma unroll
+      for (int w = 0; w < 2 * BPL; ++w) col[w] = 0u;
+      uint4 line = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int s = 0; s < 32; ++s) {
+        unsigned a = 0u, b = 0u;
+        if constexpr (SOFT) {
+          const uint2 v = stage_soft[s];
+          a = v.x;
+          b = v.y;
+        } else {
+          if ((s & 15) == 0) {
+            line = reinterpret_cast<const uint4*>(stage_hard)[s >> 4];
+          }
+          const unsigned word = (s & 12) == 0 ? line.x : (s & 12) == 4 ? line.y
+                                : (s & 12) == 8 ? line.z : line.w;
+          a = word >> (8 * (s & 3));
+        }
+        step(s, a, b, REST ? __shfl_sync(kFullMask, r_mine, s) : 0,
+             std::true_type{});
+      }
+      // The block's columns: word 64 j + 32 h + lane, h = 1 for the
+      // second shuffle's destination.
+#pragma unroll
+      for (int j = 0; j < BPL; ++j) {
+        dec[(size_t)t0 * W + 64 * j + lane] = col[j];
+        dec[(size_t)t0 * W + 64 * j + 32 + lane] = col[BPL + j];
+      }
+    } else {
+#pragma unroll
+      for (int w = 0; w < 2 * BPL; ++w) buf[w] = 0u;
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s) {
+        unsigned a = 0u, b = 0u;
+        if constexpr (SOFT) {
+          const uint2 v = stage_soft[s];
+          a = v.x;
+          b = v.y;
+        } else {
+          a = stage_hard[s];
+        }
+        step(s, a, b, REST ? __shfl_sync(kFullMask, r_mine, s) : 0,
+             std::false_type{});
+      }
+      // Lane s's ballots into step t0 + s's row: the even states (i = b)
+      // from d1 on lanes 0-15 and d2 on lanes 16-31, the odd ones the
+      // other way round.
+      if (lane < steps) {
+        uint32_t wd[W];
+#pragma unroll
+        for (int j = 0; j < BPL; ++j) {
+          wd[j] = __byte_perm(buf[j], buf[BPL + j], 0x7610);
+          wd[BPL + j] = __byte_perm(buf[BPL + j], buf[j], 0x7610);
+        }
+        uint32_t* dst = dec + (size_t)(t0 + lane) * W;
+        if constexpr (W == 2) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(wd[0], wd[1]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < W / 4; ++k) {
+            reinterpret_cast<uint4*>(dst)[k] = make_uint4(
+                wd[4 * k], wd[4 * k + 1], wd[4 * k + 2], wd[4 * k + 3]);
+          }
         }
       }
     }
   }
   __syncwarp();
-  walk(dec, bits, xy, T, W, S, message_bits, lane);
+  walk<true>(dec, bits, xy, T, W, S, message_bits, lane, T & ~31);
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
   emit(bits, out + (size_t)ch * row_len, message_bits, emit_bytes, lane, 32);
 }
@@ -385,7 +552,7 @@ block_1p_wide(const uint8_t* __restrict__ in, const int32_t* __restrict__ cb,
     m_cur = m_nxt;
     m_nxt = swap;
   }
-  if (tid < 32) walk(dec, bits, xy, T, W, S, message_bits, lane);
+  if (tid < 32) walk<false>(dec, bits, xy, T, W, S, message_bits, lane, 0);
   __syncthreads();
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
   emit(bits, out + (size_t)ch * row_len, message_bits, emit_bytes, tid,
@@ -413,18 +580,19 @@ int allow_smem(Kernel kernel, size_t smem) {
       cudaSharedmemCarveoutMaxShared));
 }
 
-template <int BPL, int NQ, bool SOFT>
+template <int BPL, int NQ, bool SOFT, bool REST>
 int launch_warp(const Args& a, cudaStream_t s) {
-  const size_t per_channel = channel_bytes(a.T, a.NS);
+  const size_t per_channel = channel_stride(a.T, a.NS);
   const int warps = per_channel <= kSmallChannel ? 4 : 1;
   const size_t smem = per_channel * warps;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int e = allow_smem(block_1p_warp<BPL, NQ, SOFT>, smem);
+  const auto kernel = block_1p_warp<BPL, NQ, SOFT, REST>;
+  const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
   const dim3 grid((a.B + warps - 1) / warps);
-  block_1p_warp<BPL, NQ, SOFT><<<grid, 32 * warps, smem, s>>>(
-      a.in, a.cb, a.out, a.B, a.T, a.n, a.S, a.message_bits, a.emit_bytes,
-      a.init_value);
+  kernel<<<grid, 32 * warps, smem, s>>>(a.in, a.cb, a.out, a.B, a.T, a.n,
+                                        a.S, a.message_bits, a.emit_bytes,
+                                        a.init_value);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,13 +611,14 @@ int launch_wide(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of `a.NS` (64 ... 4096, a power of two) at NQ.
-template <int NQ, bool SOFT>
+// The instantiation of `a.NS` (64 ... 4096, a power of two) at NQ; REST:
+// soft with n > 8.
+template <int NQ, bool SOFT, bool REST = false>
 int launch_ns(const Args& a, cudaStream_t s) {
   switch (a.NS) {
-    case 64: return launch_warp<1, NQ, SOFT>(a, s);
-    case 128: return launch_warp<2, NQ, SOFT>(a, s);
-    case 256: return launch_warp<4, NQ, SOFT>(a, s);
+    case 64: return launch_warp<1, NQ, SOFT, REST>(a, s);
+    case 128: return launch_warp<2, NQ, SOFT, REST>(a, s);
+    case 256: return launch_warp<4, NQ, SOFT, REST>(a, s);
     case 512: case 1024: case 2048: return launch_wide<1, NQ, SOFT>(a, s);
     case 4096: return launch_wide<2, NQ, SOFT>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -482,6 +651,7 @@ extern "C" int block_decode_1p(const void* in, int soft, const void* cb,
     case 5: return launch_ns<5, true>(a, s);
     case 6: return launch_ns<6, true>(a, s);
     case 7: return launch_ns<7, true>(a, s);
-    default: return launch_ns<8, true>(a, s);
+    default:
+      return n > 8 ? launch_ns<8, true, true>(a, s) : launch_ns<8, true>(a, s);
   }
 }

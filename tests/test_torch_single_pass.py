@@ -9,7 +9,10 @@ rate-1/6 K = 7 code); the decode entries that now route to it, against the
 JAX scan decoders on that code and on an NS = 512, n = 5 code; and
 `use_single_pass` / `select_kernel(..., T)` against the JAX package's rule
 and branch choice on every preset, on test_torch_wide.py's codes and at the
-32 KiB boundary.
+32 KiB boundary.  A numpy model of the CUDA warp kernel's schedule (NS 64
+... 256: lanes, shuffles, decision columns and rows, the shared-memory
+layout the walk reads) is held against the plain forward's words and
+`block_decode_1p_plain`.
 """
 
 import numpy as np
@@ -236,3 +239,211 @@ def test_cpu_route_launches_nothing():
     kernels.viterbi_decode_batch_soft(
         spec, torch.ones(seg.shape + (spec.n,), dtype=torch.int8))
     assert single_pass.LAUNCHES == {"block_decode_1p": 0}
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of csrc/block_1p.cu's warp kernel (`block_1p_warp`, NS 64 ...
+# 256), held against the plain forward's words and `block_decode_1p_plain`.
+
+def _ballot(pred):
+    """[B, 32] bool -> [B] uint32, bit l from lane l."""
+    return (pred.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        axis=1).astype(np.uint32)
+
+
+def _channel_region(T, NS):
+    """(stride, walk scratch offset, hard stage offset) in bytes: the
+    kernel's `channel_stride`, `xy` and `stage_hard`."""
+    size = T * NS // 8 + 4 * -(-T // 32) + 4 * 64
+    xy = T * NS // 8
+    return -(-size // 16) * 16, xy, -(-xy // 16) * 16
+
+
+def _model_block_1p(spec, x, T, soft):
+    """The warp kernel's schedule on every channel of x, lanes as a numpy
+    axis: returns each channel's shared-memory region as the walk reads it
+    (uint32 [B, stride / 4]: whole blocks of 32 steps as columns, the last
+    T % 32 steps as rows)."""
+    NS, n = spec.num_states, spec.n
+    BPL, W = NS // 64, NS // 32
+    NQ = min(n, 8)
+    B = x.shape[0]
+    lane = np.arange(32)
+    upper = lane >= 16
+    odd = (lane & 1).astype(bool)
+    iv = port.ops.viterbi.init_metric_value(spec)
+    cb = port.ops.trellis.butterfly_coded_bits(spec).astype(np.uint32)
+    code = np.stack([np.where(upper, ~cb[32 * j + lane], cb[32 * j + lane])
+                     for j in range(BPL)])                    # [BPL, 32]
+    bits = np.stack([(code >> i) & 1 for i in range(NQ)], -1).astype(
+        np.int64)                                             # [BPL, 32, NQ]
+    lo = np.broadcast_to(np.stack([np.where(32 * j + lane == 0, 0, iv)
+                                   for j in range(BPL)]), (B, BPL, 32))
+    hi = np.full((B, BPL, 32), iv)
+    src1 = np.where(odd, 16, 0) + (lane >> 1)
+    src2 = src1 ^ 16
+    stride, xy, stage_hard = _channel_region(T, NS)
+    assert stride % 16 == 0 and stage_hard + 32 <= xy + 256
+    region = np.zeros((B, stride), np.uint8)
+    words = region.view(np.uint32)
+    for t0 in range(0, T, 32):
+        steps = min(32, T - t0)
+        # Step t0 + l's input, staged at lane l's place in the scratch.
+        x_blk = np.zeros((B, 32) + x.shape[2:], x.dtype)
+        x_blk[:, :steps] = x[:, t0:t0 + steps]
+        if soft:
+            q = np.maximum(x_blk.astype(np.int64), -127)
+            packed = np.zeros((B, 32, 8), np.int64)
+            packed[..., :NQ] = q[..., :NQ]
+            region[:, xy:xy + 256] = packed.astype(np.int8).view(
+                np.uint8).reshape(B, 256)
+            rest = q[..., 8:].sum(-1)                         # [B, 32]
+        else:
+            region[:, stage_hard:stage_hard + 32] = x_blk
+        col = np.zeros((B, 2, BPL, 32), np.uint32)
+        buf = np.zeros((B, 32, 2, BPL), np.uint32)
+        for s in range(steps):
+            if soft:
+                q8 = region[:, xy + 8 * s:xy + 8 * s + 8].view(np.int8)
+                q8 = q8.astype(np.int64)[:, None, None, :NQ]   # [B, 1, 1, NQ]
+                r = rest[:, s, None, None]
+                f1 = (q8 * bits).sum(-1) + np.where(upper, r, 0)
+                f2 = q8.sum(-1) + r - f1
+            else:
+                seg = region[:, stage_hard + s].astype(np.uint32)
+                f1 = np.bitwise_count((seg[:, None, None] ^ code) & (
+                    (1 << n) - 1)).astype(np.int64)
+                f2 = n - f1
+            u1, w1, u2, w2 = lo + f1, hi + f2, lo + f2, hi + f1
+            g = np.stack([u1 > w1, u2 > w2], 1)              # [B, 2, BPL, 32]
+            if steps == 32:
+                col |= g.astype(np.uint32) << np.uint32(s)
+            else:
+                for h in range(2):
+                    for j in range(BPL):
+                        buf[:, s, h, j] = _ballot(g[:, h, j])
+            x1 = np.minimum(u1, w1)[..., src1]
+            x2 = np.minimum(u2, w2)[..., src2]
+            nxt = np.stack([np.where(odd, x2, x1), np.where(odd, x1, x2)],
+                           2).reshape(B, 2 * BPL, 32)
+            lo, hi = nxt[:, :BPL], nxt[:, BPL:]
+        if steps == 32:   # word 64 j + 32 h + lane of the block's NS
+            words[:, t0 * W:(t0 + 32) * W] = col.transpose(0, 2, 1, 3).reshape(
+                B, NS)
+        else:             # rows: d1's low half and d2's high half, and back
+            lo16, hi16 = np.uint32(0xFFFF), np.uint32(0xFFFF0000)
+            d1, d2 = buf[:, :steps, 0], buf[:, :steps, 1]
+            rows = np.concatenate([(d1 & lo16) | (d2 & hi16),
+                                   (d2 & lo16) | (d1 & hi16)], -1)
+            words[:, t0 * W:T * W] = rows.reshape(B, -1)
+    return words
+
+
+def _decision(spec, region, T, t, state, per_channel):
+    """Decisions at step t as `walk_step` reads them (columns below
+    T - T % 32, rows from there): per_channel, of state[c] on channel c
+    ([B]); else of each state on every channel ([B, len(state)])."""
+    NS, W, top = spec.num_states, spec.num_states // 32, spec.S - 1
+    b, p = state >> 1, state & 1
+    if t < T & ~31:
+        h = p ^ ((b >> 4) & 1)
+        idx, shift = (t >> 5) * NS + (b >> 5) * 64 + h * 32 + (b & 31), t & 31
+    else:
+        i = b | (p << top)
+        idx, shift = t * W + (i >> 5), i & 31
+    shift = np.asarray(shift, np.uint32)
+    if per_channel:
+        return (region[np.arange(len(state)), idx] >> shift) & 1
+    return (region[:, idx] >> shift) & 1
+
+
+def _walk_region(spec, region, T, L):
+    """The terminated walk from state 0 at step T - 1 over the region:
+    bits [B, L]."""
+    top = spec.S - 1
+    cur = np.zeros(region.shape[0], np.int64)
+    out = np.zeros((region.shape[0], L), np.uint8)
+    for t in range(T - 1, -1, -1):
+        if t < L:
+            out[:, t] = cur & 1
+        d = _decision(spec, region, T, t, cur, True)
+        cur = (cur >> 1) | (d.astype(np.int64) << top)
+    return out
+
+
+def _region_rows(spec, region, T):
+    """Every state's decision at every step, read as the walk reads them,
+    packed as the plain forward's words: uint32 [B, T, W]."""
+    NS, W, top = spec.num_states, spec.num_states // 32, spec.S - 1
+    state = np.arange(NS)
+    i = (state >> 1) | ((state & 1) << top)
+    rows = np.zeros((region.shape[0], T, W), np.uint32)
+    for t in range(T):
+        d = _decision(spec, region, T, t, state, False).astype(np.uint32)
+        for w in range(W):
+            sel = (i >> 5) == w
+            rows[:, t, w] = (d[:, sel] << (i[sel] & 31).astype(
+                np.uint32)).sum(1, dtype=np.uint32)
+    return rows
+
+
+MODEL_CASES = [(NS, mode) for NS in (64, 128, 256)
+               for mode in ("hard", "soft", "soft_n9")]
+
+
+@pytest.mark.parametrize("NS,mode", MODEL_CASES,
+                         ids=[f"NS{c[0]}_{c[1]}" for c in MODEL_CASES])
+def test_block_1p_schedule_model(NS, mode):
+    """The model of the warp kernel's schedule (lanes' butterflies, the
+    first/second shuffle's destinations, em or emc by lane, a whole block's
+    decisions as columns and the last block's as ballots in lane s put
+    right by the byte permute, the region's layout, the staged inputs in
+    the walk's scratch, soft metrics offset by sum(relu(-q)) a step) gives
+    the plain forward's decisions, read as the walk reads them, at T < 32,
+    at multiples of 32 and between; the walk over the region gives
+    `block_decode_1p_plain`'s bits, whole and cut."""
+    rng = np.random.default_rng(NS + len(mode))
+    n = {"hard": 6, "soft": 6, "soft_n9": 9}[mode]
+    K = NS.bit_length()
+    spec = port.CodeSpec(**ROUTE_CODES["K7_R16"]) if (NS, n) == (64, 6) \
+        else _bfly_code(rng, K, n)
+    soft = mode != "hard"
+    for T in (1, 5, 31, 32, 33, 64, 97):
+        B = 3
+        if soft:
+            x = rng.integers(-128, 128, (B, T, n)).astype(np.int8)
+            words, _ = kernels.acs.acs_forward_batch_soft_plain(spec, _t(x),
+                                                                127)
+        else:
+            x = rng.integers(0, 1 << n, (B, T)).astype(np.uint8)
+            words, _ = kernels.acs.acs_forward_batch_plain(spec, _t(x))
+        region = _model_block_1p(spec, x, T, soft)
+        np.testing.assert_array_equal(_region_rows(spec, region, T),
+                                      words.numpy().view(np.uint32),
+                                      err_msg=f"T={T}")
+        for L in {max(T - spec.S, 0), max(T - spec.S - 5, 0)}:
+            got = _walk_region(spec, region, T, L)
+            want = single_pass.block_decode_1p_plain(spec, _t(x), T, soft,
+                                                     "bits", L)
+            np.testing.assert_array_equal(got, want.numpy(), err_msg=f"T={T}")
+
+
+def _bfly_code(rng, K, n):
+    """A random poly-symmetric rate-1/n code of constraint length K."""
+    top = 1 << (K - 1)
+    g = tuple(int(top | 1 | (rng.integers(0, top >> 1) << 1))
+              for _ in range(n))
+    return port.CodeSpec(K=K, g=g)
+
+
+def test_channel_regions_fit_as_before():
+    """Rounding a channel's region up to 16 bytes never takes a T past the
+    227 KB (a multiple of 16) that `smem_bytes` admits: at NS 64 ... 256
+    the stride fits exactly where the region does."""
+    for NS in (64, 128, 256):
+        spec = port.CodeSpec(K=NS.bit_length(), g=(0o1 | 1 << (
+            NS.bit_length() - 1),) * 2)
+        for T in range(1, 232448 * 8 // NS + 64, 7):
+            stride = _channel_region(T, NS)[0]
+            fits = single_pass.smem_bytes(spec, T) <= single_pass.SMEM_BYTES
+            assert (stride <= single_pass.SMEM_BYTES) == fits, (NS, T)
