@@ -188,6 +188,17 @@ Phases (any failure exits non-zero and prints no result line):
      berTestK7's acceptance run (`run_reference_ber_test`, NASA_K7, 65,536
      packets a point) within its 10% gate at all three points; one
      `bench_decode` tick; `kernel_traffic` at (a) and (m).
+ 22. the narrow walk (`traceback_k1`, `traceback_k1_masked` at NS = 64,
+     128, 256: `narrow_walk_kernel`) against the plain walks on the card at
+     every line of its dispatch switch: the forward's words of a random
+     code's noisy packets, garbage words and a catastrophic code's words
+     (its guesses wrong, counted), B = 37 over one to four windows (T = 1,
+     5, 9, S + 3, G + 1, 32 G - 5, 32 G, 32 G + 1, 96 G + 37, 96 G + 38)
+     and B = 1, terminated (t_actual T, T - 2) and masked (live 0, S,
+     T - 1, T, random starts), whole and cut rows, bits and bytes, each
+     launch counted;
+     slices of a batch (odd and even T) and a base 4 bytes past a 16-byte
+     line; the K11 names against their plain routes.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -3324,6 +3335,277 @@ def butterfly_times(fec, acs, small_in, wide_in):
 
 
 # ---------------------------------------------------------------------------
+# The narrow walk: the terminated and masked walks at NS = 64, 128 and 256
+# (TPU kernels K2, K2m and K11's walk), `narrow_walk_kernel` in
+# csrc/traceback_k1.cu.
+
+#: The narrow walk's checks: the batch, not a multiple of any channel count
+#: a warp holds.
+NARROW_B = 37
+
+
+def narrow_walk_lines(source=None):
+    """[(NS, G, warm-up steps)] of each line of the narrow walk's dispatch
+    switch (`launch_narrow_walk` in csrc/traceback_k1.cu, or in `source`, a
+    copy of it): segments of G steps, a lane's guess a warm-up of that many
+    steps."""
+    import re
+    src = Path(source or ROOT / SOURCES["traceback_k1"][0]).read_text()
+    return [(int(ns), 1 << int(lg), int(wu))
+            for ns, log, lg, wu in re.findall(
+                r"case (\d+): return launch_narrow<(\d+), (\d+), (\d+)>"
+                r"\(a, s\);", src)
+            if int(ns) == 1 << int(log)]
+
+
+def narrow_walk_smem(NS, G, source=None):
+    """(pitch in words, shared bytes a block) of the narrow walk at NS with
+    segments of G steps, from the pad and the window count of `NarrowShape`
+    in csrc/traceback_k1.cu (or `source`): NB windows of 32 segments at a
+    pitch of G W + pad words, a window's output bytes and their states, NB
+    mbarriers, rounded up to 16 bytes."""
+    import re
+    src = Path(source or ROOT / SOURCES["traceback_k1"][0]).read_text()
+    pad = int(re.search(r"int P = SEGW \+ (\d+);", src).group(1))
+    nb = int(re.search(r"int NB = (\d+);", src).group(1))
+    pitch = G * (NS // 32) + pad
+    smem = nb * 32 * pitch * 4 + 2 * 32 * (G // 8) + 8 * nb
+    return pitch, (smem + 15) & ~15
+
+
+def narrow_walk_lanes(t_top, G):
+    """C, the lanes a channel of a narrow walk whose top step is t_top - 1:
+    the fewest, a power of two up to 32, whose segments of G steps hold the
+    walk in one window (`launch_narrow_kernel`); 32 / C channels share a
+    warp."""
+    segs, C = -(-t_top // G), 1
+    while C < 32 and C < segs:
+        C *= 2
+    return C
+
+
+def narrow_walk_lengths(S, G):
+    """The step counts at which the narrow walk is held to the plain walks:
+    1, 5, 9 (a byte and a step), S + 3, G + 1 (a step past a segment),
+    32 G - 5, 32 G and 32 G + 1 (about a window of 32 lanes) and 96 G + 37
+    and 96 G + 38 (four windows), in rising order, each once."""
+    return tuple(sorted({1, 5, 9, S + 3, G + 1, 32 * G - 5, 32 * G,
+                         32 * G + 1, 96 * G + 37, 96 * G + 38}))
+
+
+def narrow_walk_guesses_wrong(words, T, t_top, starts, G, WU) -> int:
+    """How many of the narrow walk's first-pass segment starts are wrong on
+    these words, over all rows (each such segment is walked again): the
+    walk from `starts` (None: state 0) at step T - 1, decision 0 at steps
+    >= t_top, in windows of C G steps (`narrow_walk_lanes`) top down; a
+    segment's guess is a warm-up of WU steps from state 0 above it, or from
+    the window's top state where the warm-up reaches it."""
+    import numpy as np
+    w = words.cpu().numpy().view(np.uint32)
+    B, NS = w.shape[0], w.shape[2] * 32
+    S = NS.bit_length() - 1
+    rows = np.arange(B)
+
+    def step(t, cur):
+        i = (cur >> 1) | ((cur & 1) << (S - 1))
+        return (cur >> 1) | (((w[rows, t, i >> 5] >> (i & 31)) & 1)
+                             << (S - 1))
+
+    s0 = (np.zeros(B, np.int64) if starts is None
+          else starts.cpu().numpy().astype(np.int64) & (NS - 1))
+    cur = s0 >> (T - t_top) if T - t_top < S else np.zeros(B, np.int64)
+    truth = np.empty((max(t_top, 1), B), np.int64)
+    for t in range(t_top - 1, -1, -1):
+        truth[t] = cur
+        cur = step(t, cur)
+    WS = narrow_walk_lanes(t_top, G) * G
+    wrong = 0
+    for lo in range(0, t_top, WS):
+        hi = min(lo + WS, t_top)
+        for b in range(lo + G, hi, G):  # each segment top but the window's
+            t0 = min(b - 1 + WU, hi - 1)
+            x = truth[hi - 1] if t0 == hi - 1 else np.zeros(B, np.int64)
+            for t in range(t0, b - 1, -1):
+                x = step(t, x)
+            wrong += int((x != truth[b - 1]).sum())
+    return wrong
+
+
+def narrow_walk_cases(S, T):
+    """The walks at which the narrow walk is held on one batch of T steps:
+    ("terminated", t_actual, L, out) at t_actual T and T - 2 (rows longer
+    than the packet), L the whole message and a cut one; ("masked", live,
+    L, out) at live 0, S, T - 1 and T, L = T and a cut one; out "bits" and
+    "bytes"."""
+    for ta in sorted({T, T - 2} & set(range(S, T + 1))):
+        for L in sorted({ta - S, cut_bits(ta - S)}):
+            for out in ("bits", "bytes"):
+                yield "terminated", ta, L, out
+    for live in sorted({0, min(S, T), T - 1, T}):
+        for L in sorted({T, cut_bits(T)}):
+            for out in ("bits", "bytes"):
+                yield "masked", live, L, out
+
+
+def narrow_walk_words(fec, acs, code, rng, dev, kind, B, T):
+    """B rows of T steps of decision words at `code`'s NS: "noisy" the
+    forward's words of `code`'s 3%-corrupted packets, "garbage" uniform
+    words, "catastrophic" the forward's words of the catastrophic code of
+    that NS (`SP_CATASTROPHIC`: survivors that never merge) over garbage
+    segments."""
+    import numpy as np
+    import torch
+    NS = code.num_states
+    if kind == "garbage":
+        return torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (B, T, NS // 32)).astype(np.int32)).to(dev)
+    if kind == "catastrophic":
+        g = SP_CATASTROPHIC[NS]
+        code = fec.CodeSpec(K=NS.bit_length(), g=g + g)
+        seg = rng.integers(0, 1 << code.n, (B, T)).astype(np.uint8)
+    else:
+        msgs = rng.integers(0, 2, (B, max(T - code.S, 1)), dtype=np.uint8)
+        seg = corrupt(rng, encode_reference_np(code, msgs)[:, :T], NOISE[0],
+                      code.n)
+    return acs.acs_forward_batch(code, torch.from_numpy(
+        np.ascontiguousarray(seg)).to(dev))[0]
+
+
+def narrow_walk_batches(fec, acs, spec, rng, dev, G):
+    """The batches of decision words on which the narrow walk at `spec`'s
+    NS, segments of G steps, is held: yields (what, words, guessed),
+    `guessed` where the walk's wrong first-pass guesses are counted.
+    B = NARROW_B at `narrow_walk_lengths` (one to four windows; a short walk
+    packs channels into a warp), noisy and garbage words; at the longest,
+    garbage and catastrophic words (guessed) and B = 1; the offset bases at
+    32 G + 1 and 32 G + 2 steps: a slice of a batch (`words[1:]`, odd T: 8
+    bytes past a 16-byte line at NS = 64) and a base 4 bytes past one (a
+    word a step)."""
+    import torch
+    W = spec.num_states // 32
+    lengths = narrow_walk_lengths(spec.S, G)
+
+    def words(kind, B, T):
+        return narrow_walk_words(fec, acs, spec, rng, dev, kind, B, T)
+
+    for T in lengths:
+        for kind in ("noisy", "garbage"):
+            yield kind, words(kind, NARROW_B, T), False
+    top = lengths[-1]
+    for kind in ("garbage", "catastrophic"):
+        yield kind, words(kind, NARROW_B, top), True
+    yield "noisy", words("noisy", 1, top), False
+    for T in (32 * G + 1, 32 * G + 2):
+        big = words("noisy", NARROW_B + 1, T)
+        flat = torch.empty(NARROW_B * T * W + 1, dtype=torch.int32,
+                           device=dev)
+        flat[1:] = big[1:].reshape(-1)
+        for what, x in (("slice", big[1:]),
+                        ("4-byte base", flat[1:].view(NARROW_B, T, W))):
+            require(x.is_contiguous(), f"{what} contiguous")
+            yield what, x, False
+
+
+def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
+    """`traceback_batch` and `traceback_batch_masked` on one batch of
+    decision words at NS 64-256 against their plain versions at each of
+    `narrow_walk_cases`, masked from random starts; each call one launch
+    counted.  Returns the cases."""
+    import numpy as np
+    import torch
+    pad_and_pack = fec.ops.viterbi.pad_and_pack
+    B, T = words.shape[:2]
+    starts = torch.from_numpy(rng.integers(0, spec.num_states, B).astype(
+        np.int32)).to(words.device)
+    plain, cases = {}, 0
+    for mode, t, L, out in narrow_walk_cases(spec.S, T):
+        if (mode, t) not in plain:
+            plain[mode, t] = (
+                acs.traceback_batch_plain(spec, words, t, t - spec.S, "bits")
+                if mode == "terminated" else acs.traceback_batch_masked_plain(
+                    spec, words, starts, t, T, "bits"))
+        ref = plain[mode, t][:, :L]
+        if out == "bytes":
+            ref = pad_and_pack(ref)
+        if mode == "terminated":
+            key, case = "traceback_k1", f"t_actual={t}"
+            call = lambda: acs.traceback_batch(spec, words, t, L, out)
+        else:
+            key, case = "traceback_k1_masked", f"live={t}"
+            call = lambda: acs.traceback_batch_masked(spec, words, starts, t,
+                                                      L, out)
+        case = f"{spec} {key} {what} B={B} T={T} {case} L={L} {out}"
+        before = acs.LAUNCHES[key]
+        got = call()
+        require(acs.LAUNCHES[key] == before + 1, f"{case}: a launch counted")
+        require(torch.equal(got, ref), f"{case}: equal to the plain walk")
+        err[key] = max(err[key], max_abs_diff(got, ref))
+        cases += 1
+    return cases
+
+
+def phase_compare_narrow_walks(fec, acs, dev, err):
+    """The narrow walk (`traceback_k1`, `traceback_k1_masked` at NS = 64,
+    128, 256) against the plain walks on the card, at every line of its
+    dispatch switch: a random rate-1/4 code's batches of
+    `narrow_walk_batches` (noisy, garbage and catastrophic-code words, one
+    to four windows, B = 1, the offset bases), each at every case of
+    `compare_narrow_walk`, the wrong first-pass guesses counted on the
+    garbage and catastrophic words; the K11 names
+    (`kernels.fused.traceback_batch_fused`, `_masked` from one-hot starts
+    over a live prefix) against their plain routes."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import fused
+    rng = np.random.default_rng(2051)
+    for NS, G, WU in narrow_walk_lines():
+        spec = bfly_spec(fec, rng, NS, 4)
+        S = spec.S
+        cases, wrong = 0, []
+        for what, words, guessed in narrow_walk_batches(fec, acs, spec, rng,
+                                                        dev, G):
+            cases += compare_narrow_walk(fec, acs, spec, words, err, rng,
+                                         what)
+            if guessed:
+                T = words.shape[1]
+                wrong.append(narrow_walk_guesses_wrong(words, T, T, None, G,
+                                                       WU))
+                require(wrong[-1] > 0, f"NS={NS} {what} T={T}: the walk's "
+                        "guesses are wrong somewhere")
+        # The K11 names at T a multiple of 8, over two windows.
+        T = 32 * G + 8
+        words = narrow_walk_words(fec, acs, spec, rng, dev, "noisy", NARROW_B,
+                                  T)
+        rows = fused.traceback_batch_fused(spec, words, T - 3)
+        with plain_routes(fused, acs, FUSED_WRAPPERS):
+            rows_p = fused.traceback_batch_fused(spec, words, T - 3)
+        require(torch.equal(rows, rows_p), f"{spec} traceback_batch_fused")
+        live = int(rng.integers(S, T + 1))
+        gmask = np.zeros((T // 8, 1), np.int32)
+        gmask[:live // 8] = 0xFF
+        if live % 8:
+            gmask[live // 8] = (1 << (live % 8)) - 1
+        h = torch.zeros((NS, NARROW_B), dtype=torch.uint8, device=dev)
+        h[torch.from_numpy(rng.integers(0, NS, NARROW_B)).to(dev),
+          torch.arange(NARROW_B, device=dev)] = 1
+        rows = fused.traceback_batch_fused_masked(spec, words, gmask, h)
+        with plain_routes(fused, acs, FUSED_WRAPPERS):
+            rows_p = fused.traceback_batch_fused_masked(spec, words, gmask, h)
+        require(torch.equal(rows, rows_p),
+                f"{spec} traceback_batch_fused_masked live={live}")
+        err["traceback_k1_masked"] = max(err["traceback_k1_masked"],
+                                         max_abs_diff(rows, rows_p))
+        lengths = narrow_walk_lengths(S, G)
+        print(f"[compare] narrow walk NS={NS}: G {G}, warm-up {WU}; {cases} "
+              f"cases (B={NARROW_B}: T = {', '.join(map(str, lengths))}, "
+              f"noisy and garbage words; T={lengths[-1]} garbage and "
+              f"catastrophic words: {' / '.join(map(str, wrong))} wrong "
+              "first-pass guesses; B=1; slice and 4-byte bases; terminated "
+              "and masked, whole and cut rows, bits and bytes) equal to the "
+              "plain walks; the K11 names equal to their plain routes")
+
+
+# ---------------------------------------------------------------------------
 # The single-pass block decode: TPU kernel K13 on csrc/block_1p.cu, the
 # main path (m) and the harness path (n).
 
@@ -3933,6 +4215,9 @@ def main() -> int:
     t0 = time.perf_counter()
     harness_launches, harness_summary = phase_harness(fec, acs, dev, seg)
     print(f"[harness] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_compare_narrow_walks(fec, acs, dev, err)
+    print(f"[compare] narrow walks {time.perf_counter() - t0:.1f} s")
 
     # Launch counts: the sum over the main-path runs, each read just after.
     # A one-word row counts its walk's launches at (k) only.

@@ -1,7 +1,8 @@
-// Block traceback of terminated packets over packed decision words, at
-// NS <= 256 (W = ceil(NS / 32) <= 8 decision words a step).
+// Block tracebacks over packed decision words at NS <= 256 (W =
+// ceil(NS / 32) <= 8 decision words a step): the terminated, ragged,
+// masked and list (multi) walks.
 //
-// Four entry points, one kernel template:
+// Four entry points:
 //   traceback_k1         replaces the TPU kernel `traceback_batch_swar` in
 //                        convolutionalencdec_tpu/kernels/acs_swar.py (its
 //                        pallas_call at :877, kernel body `_tb_kernel_swar`
@@ -13,7 +14,9 @@
 //                        epilogue `_bytes_epilogue_ragged` (:1113);
 //   traceback_k1_masked  replaces `traceback_batch_swar_masked` (pallas_call
 //                        at :920, the same body with a one-hot walk start,
-//                        `with_hinit`, and a byte mask per 8-step group);
+//                        `with_hinit`, and a byte mask per 8-step group) and,
+//                        at NS 64-256, `traceback_batch_fused_masked`
+//                        (acs_pallas.py, pallas_call at :1069);
 //   traceback_k1_multi   replaces `traceback_batch_swar_masked_multi`
 //                        (pallas_call at :655, body `_tb_kernel_swar_multi`:
 //                        NW one-hot walk starts per channel over one
@@ -24,8 +27,15 @@
 // last step of each channel.  At NS <= 32 (one word per step) traceback_k1
 // also replaces `traceback_batch` (acs_pallas.py, pallas_call at :308, body
 // `_tb_kernel`), the JAX package's traceback for NS < 64.  The four walks
-// for NS >= 512 (`traceback_wide`, `_ragged`, `_masked`, `_multi`) are the
-// segment walks of traceback_wide.cu.
+// for NS >= 512 are the segment walks of traceback_wide.cu.
+//
+// Two kernels:
+//   narrow_walk_kernel   the terminated and masked walks at NS = 64, 128
+//                        and 256: staged segment walks, a lane a segment
+//                        (below);
+//   traceback_k1_kernel  a thread a channel (or a (channel, walk) pair):
+//                        the ragged and list walks at every NS <= 256, and
+//                        the terminated and masked walks at NS <= 32.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -58,7 +68,8 @@
 //   decs  int32 [B, T_stride, W]  as written by the forward kernels
 //                                 (W = ceil(NS/32); the decision of state
 //                                 s = 2b + p is bit i % 32 of word i / 32,
-//                                 i = p*NS/2 + b)
+//                                 i = p*NS/2 + b, so state s's bit is at
+//                                 i = (s >> 1) | ((s & 1) << (S - 1)))
 //   lengths int32 [B]             ragged only
 //   starts  int32 [B]             masked only, states in [0, NS)
 //           int32 [B, NW]         multi
@@ -67,25 +78,554 @@
 //
 // What bounds it on this card: the walk is a chain of dependent reads, one
 // decision bit per step, through NS/8 bytes of decisions per step per
-// channel (2048 * 2054 * 8 B = 33.7 MB at the main-path size, the same
-// bytes the forward kernel wrote).  Read one word at a time, each step
-// would wait a full memory latency.
+// channel (2048 * 2054 * 8 B = 33.7 MB at the main-path size, 0.0102 ms at
+// 3.35 TB/s: the same bytes the forward kernel wrote).  At NS <= 256 a
+// step's row is 8-32 bytes, within one 32-byte sector, so reading whole
+// rows moves no byte the walk does not need.  A thread a channel
+// (`traceback_k1_kernel`) loads 128 bytes of rows at a time and walks them
+// in registers: 2048 channels are 64 warps, so most of the card's 132 SMs
+// sit idle, and each thread's chain holds T W / 32 dependent DRAM round
+// trips and T serial steps (19x the bound at the main-path size).
 //
-// What the design does about that: one thread per channel.  Which word a
-// step needs depends on the state, but which steps come next does not, so
-// the thread loads the next 32 / W steps' words (128 contiguous bytes) into
-// registers with independent loads, then walks them in registers; the word
-// is picked by a select chain, never by a dynamic register index.  Multi
-// runs one thread per (channel, walk) with the NW walks of a channel in
-// adjacent lanes: their loads of the channel's 128-byte word runs are the
-// same addresses, served by one transaction per warp, so the decisions are
-// read from memory once for all walks (the TPU kernel's "decisions DMA'd
-// once"), and each walk's start and window are its own.
+// What the narrow walk does about that (`narrow_walk_kernel`, one warp a
+// block; the generic walk of acs_generic.cu applied to the butterfly
+// words; the choices below were measured in turns with each other and
+// with the thread-a-channel walk by scripts/torch_narrow_walk.py, PERF.md
+// §6):
+//   * Segments a lane: a channel's steps are cut into segments of G steps,
+//     one a lane, C lanes a channel and 32 / C channels a warp, C the
+//     fewest (a power of two, at most 32) whose segments hold the launch's
+//     top step in one window, so a short walk (the tail-biting decode's
+//     192 steps) packs channels into a warp rather than idling lanes.  The
+//     lanes walk the segments of a window of C G steps at once, windows
+//     top down on the grid of multiples of C G.  A lane's chain is a
+//     warm-up and G steps a window, not T.
+//   * Exact on any input: a lane guesses the state at its segment's top by
+//     a warm-up of WU steps from state 0 above it, or from the window's
+//     known top state where the warm-up reaches the window's top, so the
+//     top segment's start is exact.  Then, in rounds of one shuffle and
+//     one warp vote, each segment whose start differs from the state the
+//     segment above ended in is walked again from that state, until none
+//     differs: the serial walk's result on any input (noisy, garbage, a
+//     catastrophic code), at most a window's chain more.  A walk again
+//     stops where it meets its earlier walk: at each byte's lowest step a
+//     lane keeps the state (a byte: NS <= 256) beside the output byte;
+//     where a walk again meets it, the bytes below and the segment's end
+//     stand.
+//   * Staging: two windows of each channel in shared memory, the next one
+//     landing while the walk takes this one, each segment at its own row
+//     of P words (an odd number of 16-byte chunks, so that the lanes' rows
+//     start in different banks), by one bulk copy a segment
+//     (cp.async.bulk on one mbarrier a buffer) of the 16-byte chunks that
+//     hold its words.  A base that is not 16-byte aligned (a slice of a
+//     batch at W = 2 and odd T starts on 8 bytes) stages the chunk that
+//     holds its first word and reads at its word phase.  No step waits on
+//     device memory.  Where the base is aligned to a step's row (8 bytes
+//     at W = 2, 16 at W = 4 and 8; every channel's rows then are too), a
+//     step loads its whole row as vectors whose addresses do not depend on
+//     the state and selects the word with the state, so its chain is ALU
+//     work only; else a step loads the one word its state needs (1-7%
+//     slower).  Loading two 8-byte rows at once at W = 2 read 2% faster
+//     alone and 0.3% of a whole decode, inside its noise: not kept.
+//   * Masked steps load nothing: the steps at or beyond `live` shift the
+//     start right one bit a step, so the walk starts at step live - 1 from
+//     starts[b] >> (T - live) (0 from S masked steps on), and the bits of
+//     the masked steps, (starts[b] >> (T - 1 - t)) & 1, are written
+//     without a walk (the byte that holds step live - 1 gets them from the
+//     top segment's first byte).
+//   * Output: segments are multiples of 8 steps, so a lane owns whole
+//     bytes: it gathers its steps' bits MSb first in a register and stores
+//     each byte to the window's bytes in shared memory; the warp then
+//     writes each channel's part of the window with consecutive lanes on
+//     consecutive bytes (bits: a byte a bit), the bits past the row's
+//     length masked.
+//   * G and WU are template arguments, one dispatch line an
+//     NS (`launch_narrow_walk`): G 16 / WU 32 at NS 64, G 8 / WU 16 at 128,
+//     G 16 / WU 16 at 256.  The copies, not the steps, take most of a
+//     warp's time (at the main-path size 56% of its cycles wait for a
+//     window, a step takes ~48 cycles), so warm-ups of 0-32 steps read
+//     within 2% at NS 64; G 16 / WU 16 at NS 256 read 22% below G 8 /
+//     WU 48; a third staged window lost 27% (fewer warps an SM fit); a G
+//     chosen from the walk's length (a channel in one window at the
+//     main-path size, fewer lanes a channel at 192 and 288 steps) read
+//     within 3% at the main-path size and lost 19% at 288 steps.  A
+//     step and a block of 8 steps unroll, the loops over blocks stay
+//     `#pragma unroll 1` (nvcc 12.9 miscompiled block_1p.cu's unrolled
+//     warm-up).  A plain compare, no DPX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+
+// ---- The narrow segment walk: terminated and masked, NS = 64 ... 256 ----
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The constants of one instantiation: NS = 2^LOGNS states, W words a step,
+// segments of G = 2^LOGG steps (GB output bytes), staged at a pitch of P
+// words (an odd number of 16-byte chunks); NB windows staged; a warp's
+// window holds 32 segments (C lanes a channel, 32 / C channels).
+template <int LOGNS, int LOGG>
+struct NarrowShape {
+  static constexpr int S = LOGNS;
+  static constexpr int NS = 1 << LOGNS;
+  static constexpr int W = NS / 32;
+  static constexpr int G = 1 << LOGG;
+  static constexpr int GB = G / 8;
+  static constexpr int SEGW = G * W;
+  static constexpr int P = SEGW + 4;
+  static constexpr int NB = 2;
+  static constexpr int STAGE = 32 * GB;  // a warp's window of output bytes
+  // [NB][32][P] words, [STAGE] output bytes, [STAGE] states beside them,
+  // NB mbarriers.
+  static constexpr size_t kSmem =
+      ((size_t)NB * 32 * P * sizeof(int32_t) + 2 * STAGE + 8 * NB + 15) &
+      ~(size_t)15;
+  static_assert(LOGNS >= 6 && LOGNS <= 8, "the narrow walk's NS");
+  static_assert(G % 8 == 0, "whole output bytes a lane");
+  static_assert(SEGW % 8 == 0, "a pitch of an odd number of chunks");
+};
+
+struct NarrowArgs {
+  const int32_t* decs;
+  const int32_t* starts;  // masked: [B]; terminated: null (state 0)
+  uint8_t* out;
+  // t_top: the walk's top step + 1 (t_actual, or live); T: the step below
+  // which the start state stands (T, or t_actual); msg: the row's bits.
+  int B, T_stride, t_top, T, msg, emit_bytes;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// that completes on the mbarrier at `bar`, whose phase this lane's arrival
+// also expects them.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait for the mbarrier's phase of parity `parity` to complete; a copy that
+// never lands stops the kernel with an error rather than spinning forever.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  for (long long tries = 0;; ++tries) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1ll << 28)) __trap();
+  }
+}
+
+// The bit of masked step t (>= live) of a walk from state s0 at step T - 1:
+// each masked step shifts the state right by one.
+template <int S>
+__device__ __forceinline__ unsigned masked_bit(unsigned s0, int T, int t) {
+  const int k = T - 1 - t;
+  return (k >= 0 && k < S) ? (s0 >> k) & 1u : 0u;
+}
+
+// How a step reads its words from the staged window: the one word its
+// state needs (kWord), or its whole row as 8- or 16-byte vector loads whose
+// addresses do not depend on the state, the state selecting among them
+// (kRow).
+enum Load { kWord, kRow };
+
+// One lane's walk over the staged window [lo, lo + C G) of its channel.
+// `base`: the channel's staged window plus its word phase.
+template <int LOGNS, int LOGG, int LD>
+struct NarrowWalker {
+  using Sh = NarrowShape<LOGNS, LOGG>;
+  static constexpr int W = Sh::W;
+  const int32_t* base;
+  int lo;
+
+  // The words of step t.
+  __device__ __forceinline__ const int32_t* row(int t) const {
+    const int r = t - lo;
+    return base + (r >> LOGG) * Sh::P + (r & (Sh::G - 1)) * W;
+  }
+
+  // The state at step t - 1 from the state at step t and step t's words
+  // `x`.  State s's decision is bit (s >> 1) & 31 of word
+  // ((s >> 1) | ((s & 1) << (S - 1))) >> 5.
+  static __device__ __forceinline__ unsigned step_row(const unsigned* x,
+                                                      unsigned cur) {
+    unsigned word;
+    if constexpr (W == 2) {
+      word = (cur & 1u) ? x[1] : x[0];
+    } else if constexpr (W == 4) {
+      const unsigned even = (cur & 64u) ? x[1] : x[0];
+      const unsigned odd = (cur & 64u) ? x[3] : x[2];
+      word = (cur & 1u) ? odd : even;
+    } else {
+      const unsigned e0 = (cur & 64u) ? x[1] : x[0];
+      const unsigned e1 = (cur & 64u) ? x[3] : x[2];
+      const unsigned o0 = (cur & 64u) ? x[5] : x[4];
+      const unsigned o1 = (cur & 64u) ? x[7] : x[6];
+      const unsigned even = (cur & 128u) ? e1 : e0;
+      const unsigned odd = (cur & 128u) ? o1 : o0;
+      word = (cur & 1u) ? odd : even;
+    }
+    return (cur >> 1) | (((word >> ((cur >> 1) & 31u)) & 1u) << (Sh::S - 1));
+  }
+
+  // Step t's row `w` into registers.
+  static __device__ __forceinline__ void load_row(const int32_t* w,
+                                                  unsigned* x) {
+    if constexpr (W == 2) {
+      const int2 v = *reinterpret_cast<const int2*>(w);
+      x[0] = v.x, x[1] = v.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; i += 4) {
+        const int4 v = *reinterpret_cast<const int4*>(w + i);
+        x[i] = v.x, x[i + 1] = v.y, x[i + 2] = v.z, x[i + 3] = v.w;
+      }
+    }
+  }
+
+  // The state at step t - 1 from the state at step t, `w` step t's words.
+  static __device__ __forceinline__ unsigned step(const int32_t* w,
+                                                  unsigned cur) {
+    if constexpr (LD == kWord) {
+      const unsigned word =
+          (unsigned)w[((cur >> 1) | ((cur & 1u) << (Sh::S - 1))) >> 5];
+      return (cur >> 1) |
+             (((word >> ((cur >> 1) & 31u)) & 1u) << (Sh::S - 1));
+    } else {
+      unsigned x[W];
+      load_row(w, x);
+      return step_row(x, cur);
+    }
+  }
+
+  // The rows of the block of steps t ... t - 7 (t + 1 a multiple of 8; `w`
+  // step t's words) into registers, x[s] step t - s's (kWord: none).
+  static __device__ __forceinline__ void load_block(const int32_t* w,
+                                                    unsigned (&x)[8][W]) {
+    if constexpr (LD == kRow) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) load_row(w - s * W, x[s]);
+    }
+  }
+
+  // Step s of a block (step t - s).
+  static __device__ __forceinline__ unsigned block_step(
+      const int32_t* w, const unsigned (&x)[8][W], int s, unsigned cur) {
+    if constexpr (LD == kWord) {
+      return step(w - s * W, cur);
+    } else {
+      return step_row(x[s], cur);
+    }
+  }
+
+  // Walk steps hi - 1 down to lo_t (a multiple of 8) from `cur`, the state
+  // at step hi - 1, emitting nothing; returns the state at step lo_t - 1.
+  __device__ unsigned warm(int hi, int lo_t, unsigned cur) const {
+    int t = hi - 1;
+    // The steps above a multiple of 8, one at a time (kept a loop: see
+    // block_1p.cu's warm-up).
+#pragma unroll 1
+    for (; t >= lo_t && ((t + 1) & 7); --t) cur = step(row(t), cur);
+#pragma unroll 1
+    for (; t >= lo_t; t -= 8) {
+      const int32_t* w = row(t);  // a block lies in one segment
+      unsigned x[8][W];
+      load_block(w, x);
+#pragma unroll
+      for (int s = 0; s < 8; ++s) cur = block_step(w, x, s, cur);
+    }
+    return cur;
+  }
+
+  // Walk steps hi - 1 down to lo_t (a multiple of 8) from `cur`, the state
+  // at step hi - 1: each step's bit MSb first into byte (t - lo) / 8 of
+  // the window's bytes `st`, the state at each byte's lowest step into
+  // `ck` beside it; `acc` holds the bits of hi's byte above hi.  Returns
+  // the state at step lo_t - 1.  AGAIN: a walk again, which stops where the
+  // state at a byte's lowest step equals the earlier walk's there, and
+  // returns the earlier walk's end `end`.
+  template <bool AGAIN>
+  __device__ unsigned walk(int hi, int lo_t, unsigned cur, unsigned acc,
+                           uint8_t* st, uint8_t* ck, unsigned end) const {
+    int t = hi - 1;
+#pragma unroll 1
+    for (; t >= lo_t && ((t + 1) & 7); --t) {
+      acc |= (cur & 1u) << (7 - (t & 7));
+      if ((t & 7) == 0) {
+        const int m = (t - lo) >> 3;
+        st[m] = (uint8_t)acc;
+        acc = 0u;
+        if (AGAIN && ck[m] == cur) return end;
+        ck[m] = (uint8_t)cur;
+      }
+      cur = step(row(t), cur);
+    }
+#pragma unroll 1
+    for (; t >= lo_t; t -= 8) {
+      const int32_t* w = row(t);  // steps t ... t - 7: one byte, one segment
+      unsigned x[8][W];
+      load_block(w, x);
+      unsigned byte = 0u;
+#pragma unroll
+      for (int s = 0; s < 7; ++s) {
+        byte |= (cur & 1u) << s;
+        cur = block_step(w, x, s, cur);
+      }
+      byte |= (cur & 1u) << 7;
+      const int m = (t - 7 - lo) >> 3;
+      st[m] = (uint8_t)byte;
+      if (AGAIN && ck[m] == cur) return end;
+      ck[m] = (uint8_t)cur;
+      cur = block_step(w, x, 7, cur);
+    }
+    return cur;
+  }
+};
+
+// The walk: channel b from state starts[b] >> (T - t_top) (0 without
+// starts) at step t_top - 1 down to step 0, in windows of C G steps on the
+// grid of their multiples, top window first; C = 2^logc lanes a channel,
+// 32 / C channels a warp, one warp a block.  The bits of steps >= t_top
+// (masked steps) are the start's, shifted.
+template <int LOGNS, int LOGG, int WU, int LD>
+__global__ void __launch_bounds__(32)
+narrow_walk_kernel(const NarrowArgs a, const int logc) {
+  using Sh = NarrowShape<LOGNS, LOGG>;
+  constexpr int S = Sh::S, W = Sh::W, G = Sh::G, GB = Sh::GB, P = Sh::P;
+  constexpr int NB = Sh::NB;
+  static_assert(WU % 8 == 0, "whole blocks of warm-up");
+  extern __shared__ __align__(16) int32_t wsm[];
+  uint8_t* const st_all = reinterpret_cast<uint8_t*>(wsm + NB * 32 * P);
+  uint8_t* const ck_all = st_all + Sh::STAGE;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(ck_all + Sh::STAGE);
+  if (a.msg <= 0) return;
+  const int lane = threadIdx.x;
+  const int C = 1 << logc, CPW = 32 >> logc;
+  const int c = lane >> logc;  // the lane's channel in the warp
+  const int l = lane & (C - 1);
+  const int ch = blockIdx.x * CPW + c;
+  const bool live = ch < a.B;
+  const int t_top = a.t_top;
+  const int top8 = (t_top + 7) & ~7;
+
+  // The masked steps' bits: the row's bytes (bits) from step top8 on.
+  if (a.starts != nullptr && top8 < a.msg) {
+    for (int cc = 0; cc < CPW; ++cc) {
+      const int chn = blockIdx.x * CPW + cc;
+      if (chn >= a.B) break;
+      const unsigned s0 = (unsigned)a.starts[chn] & (Sh::NS - 1);
+      if (a.emit_bytes) {
+        uint8_t* orow = a.out + (size_t)chn * ((a.msg + 7) >> 3);
+        for (int m = (top8 >> 3) + lane; m * 8 < a.msg; m += 32) {
+          unsigned v = 0u;
+          for (int q = 0; q < 8 && m * 8 + q < a.msg; ++q) {
+            v |= masked_bit<S>(s0, a.T, m * 8 + q) << (7 - q);
+          }
+          orow[m] = (uint8_t)v;
+        }
+      } else {
+        uint8_t* orow = a.out + (size_t)chn * a.msg;
+        for (int p = top8 + lane; p < a.msg; p += 32) {
+          orow[p] = (uint8_t)masked_bit<S>(s0, a.T, p);
+        }
+      }
+    }
+  }
+  if (t_top <= 0) return;
+
+  // The lane's channel: its start, the state at step t_top - 1 and the
+  // bits of the steps [t_top, top8) of the byte that holds step t_top - 1.
+  const unsigned s0 =
+      (a.starts != nullptr && live) ? (unsigned)a.starts[ch] & (Sh::NS - 1)
+                                    : 0u;
+  const int drop = a.T - t_top;  // masked steps above the walk
+  unsigned top = drop >= S ? 0u : s0 >> drop;
+  unsigned head = 0u;
+  for (int t = t_top; t < top8; ++t) {
+    head |= masked_bit<S>(s0, a.T, t) << (7 - (t & 7));
+  }
+  const size_t chan_words = (size_t)a.T_stride * W;
+  const int32_t* const chb = a.decs + (size_t)(live ? ch : 0) * chan_words;
+  // The word phase of the channel's rows: every segment starts a multiple
+  // of 4 words (G W) from the channel's first word, so at this phase.
+  const int ph = (int)((reinterpret_cast<uintptr_t>(chb) >> 2) & 3);
+  const int WS = C * G;
+  const int n_win = (t_top + WS - 1) / WS;
+
+  // Stage window j into buffer `buf`: the lane's segment as one bulk copy
+  // of the 16-byte chunks that hold its words, to its own row of P words;
+  // every lane arrives on the buffer's mbarrier.
+  auto fetch = [&](int j, int buf) {
+    const int sa = j * WS + l * G;
+    const int hi = min(j * WS + WS, t_top);
+    if (j >= 0 && live && sa < hi) {
+      const uintptr_t g0 = reinterpret_cast<uintptr_t>(chb + (size_t)sa * W);
+      const uintptr_t g1 =
+          reinterpret_cast<uintptr_t>(chb + (size_t)min(sa + G, hi) * W);
+      const uintptr_t src = g0 & ~uintptr_t(15);
+      // The buffer's earlier reads (generic proxy) before the copy's
+      // writes (async proxy).
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_copy(wsm + (buf * 32 + lane) * P,
+                reinterpret_cast<const void*>(src),
+                (unsigned)(((g1 + 15) & ~uintptr_t(15)) - src), bars + buf);
+    } else {
+      bar_arrive(bars + buf);
+    }
+  };
+
+  if (lane == 0) {
+    for (int b = 0; b < NB; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;\n" ::"r"(
+                       smem_addr(bars + b))
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  // Window n_win - 1 - i goes to buffer i % NB, NB - 1 windows ahead.
+#pragma unroll 1
+  for (int i = 0; i < NB - 1; ++i) fetch(n_win - 1 - i, i);
+#pragma unroll 1
+  for (int i = 0; i < n_win; ++i) {
+    const int j = n_win - 1 - i;
+    const int buf = i % NB;
+    if (j >= NB - 1) fetch(j - (NB - 1), (i + NB - 1) % NB);
+    bar_wait(bars + buf, (unsigned)(i / NB) & 1u);
+    __syncwarp();
+    const int lo = j * WS;
+    const int hi = min(lo + WS, t_top);
+    const NarrowWalker<LOGNS, LOGG, LD> wk{
+        wsm + (buf * 32 + (c << logc)) * P + ph, lo};
+    uint8_t* const st = st_all + (c << logc) * GB;
+    uint8_t* const ck = ck_all + (c << logc) * GB;
+    const int sa = lo + l * G;
+    const int sb = min(sa + G, hi);
+    const bool mine = live && sa < hi;
+    const bool top_seg = sb == hi;  // its start is the window's top state
+    // The guess: a warm-up of WU steps from state 0 above the segment, or
+    // from the window's top state where the warm-up reaches the top.
+    unsigned start = top;
+    if (mine && !top_seg) {
+      const int t0 = min(sb - 1 + WU, hi - 1);
+      start = wk.warm(t0 + 1, sb, t0 == hi - 1 ? top : 0u);
+    }
+    unsigned end = mine ? wk.template walk<false>(
+                              sb, sa, start, sb == t_top ? head : 0u, st, ck,
+                              0u)
+                        : 0u;
+    // Top down: a segment whose start differs from the state the segment
+    // above ended in walks again from that state, until none differs.
+    for (;;) {
+      const unsigned above = __shfl_down_sync(kFullMask, end, 1);
+      const bool redo = mine && !top_seg && above != start;
+      if (!__any_sync(kFullMask, redo)) break;
+      if (redo) {
+        start = above;
+        end = wk.template walk<true>(sb, sa, start, 0u, st, ck, end);
+      }
+    }
+    top = __shfl_sync(kFullMask, end, c << logc);  // the state at lo - 1
+    __syncwarp();
+    // The window's bits, each channel's part written by the whole warp; the
+    // top window's byte that holds step t_top - 1 carries the masked bits.
+    const int bit_hi = min(hi == t_top ? top8 : hi, a.msg);
+    for (int cc = 0; cc < CPW; ++cc) {
+      const int chn = blockIdx.x * CPW + cc;
+      if (chn >= a.B || bit_hi <= lo) break;
+      const uint8_t* sc = st_all + (cc << logc) * GB;
+      if (a.emit_bytes) {
+        uint8_t* orow = a.out + (size_t)chn * ((a.msg + 7) >> 3);
+        const int byte_lo = lo >> 3;
+        for (int m = byte_lo + lane; m * 8 < bit_hi; m += 32) {
+          unsigned v = sc[m - byte_lo];
+          const int rem = bit_hi - m * 8;  // bits of the byte kept
+          if (rem < 8) v &= 0xffu << (8 - rem);
+          orow[m] = (uint8_t)v;
+        }
+      } else {
+        uint8_t* orow = a.out + (size_t)chn * a.msg;
+        for (int p = lo + lane; p < bit_hi; p += 32) {
+          orow[p] = (uint8_t)((sc[(p - lo) >> 3] >> (7 - (p & 7))) & 1u);
+        }
+      }
+    }
+    __syncwarp();  // the buffer and the bytes are free for window j - NB
+  }
+}
+
+template <int LOGNS, int LOGG, int WU, int LD>
+int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
+  using Sh = NarrowShape<LOGNS, LOGG>;
+  auto* kernel = narrow_walk_kernel<LOGNS, LOGG, WU, LD>;
+  if constexpr (Sh::kSmem > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  // C: the fewest lanes (a power of two, at most 32) whose segments hold
+  // the walk in one window.
+  const int segs = (a.t_top + Sh::G - 1) >> LOGG;
+  int logc = 0;
+  while (logc < 5 && (1 << logc) < segs) ++logc;
+  const int cpw = 32 >> logc;
+  kernel<<<(a.B + cpw - 1) / cpw, 32, Sh::kSmem, s>>>(a, logc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk at one NS: with row loads where the decisions' base is aligned
+// to a step's row (8 bytes at W = 2, 16 at W = 4 and 8; every channel's
+// rows then are too), else a word a step.
+template <int LOGNS, int LOGG, int WU>
+int launch_narrow(const NarrowArgs& a, cudaStream_t s) {
+  if (a.B == 0) return static_cast<int>(cudaSuccess);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(a.decs);
+  if (base % (LOGNS == 6 ? 8 : 16) == 0) {
+    return launch_narrow_kernel<LOGNS, LOGG, WU, kRow>(a, s);
+  }
+  return launch_narrow_kernel<LOGNS, LOGG, WU, kWord>(a, s);
+}
+
+// The narrow walk at each NS: launch_narrow<log2 NS, log2 steps a segment,
+// warm-up steps>, as measured fastest (PERF.md §6).
+// tests/test_torch_narrow_walk.py, chip_smoke.py and
+// scripts/torch_narrow_walk.py read this switch.
+int launch_narrow_walk(const NarrowArgs& a, int NS, cudaStream_t s) {
+  switch (NS) {
+    case 64: return launch_narrow<6, 4, 32>(a, s);
+    case 128: return launch_narrow<7, 3, 16>(a, s);
+    case 256: return launch_narrow<8, 4, 16>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---- The thread-a-channel walk: ragged and list walks, and NS <= 32 ----
 
 constexpr int kThreads = 32;
 
@@ -168,12 +708,14 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
   }
 }
 
-// The register-chunk walk of NS's words.
+// The register-chunk walk of NS's words: every mode at NS <= 32 (one word
+// a step), the ragged and list walks at 64, 128 and 256.
 template <Walk MODE>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
            int message_bits, int emit_bytes, int live, int nw, int out_start,
            cudaStream_t s) {
+  constexpr bool kWide = MODE == Walk::kRagged || MODE == Walk::kMulti;
   const dim3 block(kThreads);
   const dim3 grid((B * nw + kThreads - 1) / kThreads);
 #define TB_LAUNCH(W)                                                    \
@@ -182,10 +724,16 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
       emit_bytes, live, nw, out_start)
   switch (NS) {
     case 2: case 4: case 8: case 16: case 32: TB_LAUNCH(1); break;
-    case 64: TB_LAUNCH(2); break;
-    case 128: TB_LAUNCH(4); break;
-    case 256: TB_LAUNCH(8); break;
     default:
+      if constexpr (kWide) {
+        switch (NS) {
+          case 64: TB_LAUNCH(2); break;
+          case 128: TB_LAUNCH(4); break;
+          case 256: TB_LAUNCH(8); break;
+          default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+        break;
+      }
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TB_LAUNCH
@@ -196,6 +744,12 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
 int terminated(const void* decs, void* out, int B, int T_stride,
                int t_actual, int NS, int S, int message_bits, int emit_bytes,
                void* stream) {
+  if (NS >= 64) {
+    const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr,
+                       static_cast<uint8_t*>(out), B, T_stride, t_actual,
+                       t_actual, message_bits, emit_bytes};
+    return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
+  }
   return launch<Walk::kTerminated>(
       static_cast<const int32_t*>(decs), nullptr, nullptr,
       static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
@@ -214,6 +768,13 @@ int ragged(const void* decs, const void* lengths, void* out, int B, int T,
 int masked(const void* decs, const void* starts, void* out, int B, int T,
            int NS, int S, int live, int out_steps, int emit_bytes,
            void* stream) {
+  if (NS >= 64) {
+    const NarrowArgs a{static_cast<const int32_t*>(decs),
+                       static_cast<const int32_t*>(starts),
+                       static_cast<uint8_t*>(out), B, T, live, T, out_steps,
+                       emit_bytes};
+    return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
+  }
   return launch<Walk::kMasked>(
       static_cast<const int32_t*>(decs), nullptr,
       static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,

@@ -64,7 +64,7 @@ REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "turbo_rsc_map", "traceback_generic", "traceback_generic_k2",
               "traceback_wide", "traceback_wide_masked",
               "traceback_wide_ragged", "traceback_wide_multi",
-              "block_decode_1p"}
+              "block_decode_1p", "traceback_k1", "traceback_k1_masked"}
 MAIN_T = 2054  # (a)'s steps, at which stream_k1_decode's bound is given
 
 

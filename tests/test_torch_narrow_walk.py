@@ -1,0 +1,370 @@
+"""The narrow walk's schedule (csrc/traceback_k1.cu, `narrow_walk_kernel`:
+the terminated and masked walks of `traceback_k1` and `traceback_k1_masked`
+at NS = 64, 128 and 256, TPU kernels K2, K2m and K11's walk), modelled in
+numpy, against the port's plain walks; the plain walks against the JAX
+package's traceback on the same words; and the walk's dispatch lines.
+
+The kernel runs only on the card, where chip_smoke.py holds it to the plain
+walks; here a model done the way the kernel does it (windows, a segment a
+lane, warm-up guesses, the top-down check and its walks again, the masked
+steps' shifted bits, each lane's whole output bytes) is held bit for bit to
+them.  The walk's constants are read from the source by chip_smoke.py's
+helpers, never copied here.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import convolutionalencdec_tpu as ref
+from convolutionalencdec_tpu.ops import viterbi as ref_viterbi
+
+import convolutionalencdec_tpu_torch as port
+from convolutionalencdec_tpu_torch.kernels import acs
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "traceback_k1.cu"
+
+
+def _smoke():
+    """chip_smoke.py, whose readers of csrc/traceback_k1.cu the model
+    shares."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+_SMOKE = _smoke()
+#: NS -> (G, warm-up steps), as chip_smoke.py reads them.
+_LINES = {ns: rest for ns, *rest in _SMOKE.narrow_walk_lines()}
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _spec(NS, rng, n=2):
+    """A random poly-symmetric code with NS states and n generators."""
+    K = NS.bit_length()
+    return port.CodeSpec(K=K, g=tuple(
+        (1 << (K - 1)) | 1 | (int(rng.integers(0, 1 << (K - 2))) << 1)
+        for _ in range(n)))
+
+
+def _garbage(rng, B, T, NS):
+    """Uniform decision words: warm-up guesses go wrong."""
+    return rng.integers(-2 ** 31, 2 ** 31, (B, T, NS // 32)).astype(np.int32)
+
+
+def _sparse(rng, B, T, NS):
+    """Words with a bit set one time in 8: survivors merge within a few
+    steps, so most guesses hold and a few segments are walked again."""
+    return _garbage(rng, B, T, NS) & _garbage(rng, B, T, NS) & \
+        _garbage(rng, B, T, NS)
+
+
+def _noisy(rng, spec, B, T):
+    """The plain forward's words of 3%-corrupted packets of T steps."""
+    msgs = rng.integers(0, 2, (B, max(T - spec.S, 1)), dtype=np.uint8)
+    seg = _SMOKE.corrupt(rng, _SMOKE.encode_reference_np(spec, msgs)[:, :T],
+                         0.03, spec.n)
+    return acs.acs_forward_batch_plain(spec, _t(seg))[0].numpy()
+
+
+def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
+    """numpy model of `narrow_walk_kernel`, done the way the kernel does it.
+
+    Channel b walks from state starts[b] (None: 0) at step T - 1; the steps
+    [t_top, T) are masked (decision 0: the start shifts right a step each),
+    so the walk proper starts at step t_top - 1 from starts[b] >> (T -
+    t_top).  C = `narrow_walk_lanes(t_top, G)` lanes a channel, lane l
+    owning the segment [lo + l G, lo + l G + G) of each window [lo, lo +
+    C G) on the grid of multiples of C G, the top window first.  A lane
+    guesses the state at its segment's top by a warm-up of WU steps from
+    state 0, or from the window's top state where the warm-up reaches it;
+    then walks its segment, all lanes in lock step, each step's bit MSb
+    first into a byte stored to the window's bytes at the byte's lowest
+    step, the state there beside it.  In rounds, each lane whose start
+    differs from the end of the segment above walks again from that state,
+    stopping where the state at a byte's lowest step equals its earlier
+    walk's (its end is then the earlier end).  The top segment's first
+    byte starts with the masked steps' bits above t_top.  For each row
+    width L in `widths`: the masked steps' bits from the byte boundary
+    above t_top on are written first (only with starts), then each
+    window's bits below min(L, its top, or the byte boundary above t_top in
+    the top window), as bits or as bytes with the bits past L masked; the
+    rows start as 0xA5 and the shared bytes as random.  Asserts that each
+    lane stores only bytes of its own segment.  Returns ({L: (bits uint8
+    [B, L], bytes uint8 [B, ceil(L / 8)])}, segments walked again)."""
+    B, T_stride, _ = words.shape
+    S = NS.bit_length() - 1
+    w64 = words.astype(np.int64) & 0xFFFFFFFF
+    rows = np.arange(B)[:, None]
+    C = _SMOKE.narrow_walk_lanes(t_top, G)
+    WS, GB = C * G, G // 8
+    lanes = np.arange(C)
+    s0 = (np.zeros(B, np.int64) if starts is None
+          else np.asarray(starts, np.int64) & (NS - 1))
+
+    def masked_bit(t):
+        k = T - 1 - t
+        return (s0 >> k) & 1 if 0 <= k < S else np.zeros(B, np.int64)
+
+    top = s0 >> (T - t_top) if T - t_top < S else np.zeros(B, np.int64)
+    top8 = (t_top + 7) & ~7
+    head = np.zeros(B, np.int64)
+    for t in range(t_top, top8):
+        head |= masked_bit(t) << (7 - (t & 7))
+
+    def step(t, cur):
+        i = (cur >> 1) | ((cur & 1) << (S - 1))
+        d = (w64[rows, np.clip(t, 0, T_stride - 1)[None, :], i >> 5]
+             >> (i & 31)) & 1
+        return (cur >> 1) | (d << (S - 1))
+
+    stage = rng.integers(0, 256, (B, C * GB)).astype(np.int64)
+    ck = rng.integers(0, NS, (B, C * GB)).astype(np.int64)
+    outs = {L: (np.full((B, L), 0xA5, np.uint8),
+                np.full((B, (L + 7) // 8), 0xA5, np.uint8)) for L in widths}
+    if starts is not None:
+        for L, (bits, out_bytes) in outs.items():
+            for p in range(top8, L):
+                bits[:, p] = masked_bit(p)
+            for m in range(top8 // 8, (L + 7) // 8):
+                v = np.zeros(B, np.int64)
+                for q in range(8):
+                    if m * 8 + q < L:
+                        v |= masked_bit(m * 8 + q) << (7 - q)
+                out_bytes[:, m] = v
+
+    def walk(hi, lo_t, cur, on, acc, lo, emit, again=None):
+        """Lanes `on` from step hi - 1 down to lo_t (per lane), in lock
+        step; returns the states at step lo_t - 1.  `again`: the earlier
+        walks' ends, where a walk stops on meeting its earlier walk."""
+        cur, on, acc = cur.copy(), on.copy(), acc.copy()
+        for s in range(int(np.max(np.where(on, hi - lo_t, 0), initial=0))):
+            t = hi - 1 - s
+            act = on & (t >= lo_t)
+            if emit:
+                acc = np.where(act, acc | ((cur & 1) << (7 - (t & 7))), acc)
+                store = act & ((t & 7) == 0)
+                r, l = np.nonzero(store)
+                m = (t[l] - lo) >> 3
+                assert np.all((l * GB <= m) & (m < (l + 1) * GB))
+                stage[r, m] = acc[r, l]
+                acc = np.where(store, 0, acc)
+                if again is not None:
+                    met = np.zeros_like(store)
+                    met[r, l] = ck[r, m] == cur[r, l]
+                    cur = np.where(met, again, cur)
+                    act &= ~met
+                    on &= ~met
+                    r, l = np.nonzero(store & ~met)
+                    m = (t[l] - lo) >> 3
+                ck[r, m] = cur[r, l]
+            cur = np.where(act, step(t, cur), cur)
+        return cur
+
+    rewalks = 0
+    zeros = np.zeros((B, C), np.int64)
+    for j in reversed(range(-(-t_top // WS))):
+        lo = j * WS
+        hi = min(lo + WS, t_top)
+        a = lo + lanes * G
+        b = np.minimum(a + G, hi)
+        mine = np.broadcast_to(a < hi, (B, C))
+        top_seg = b == hi
+        guessing = mine & ~top_seg
+        t0 = np.minimum(b - 1 + WU, hi - 1)
+        x = np.where(t0 == hi - 1, top[:, None], 0)
+        start = np.where(guessing, walk(t0 + 1, b, x, guessing, zeros, lo,
+                                        False), top[:, None])
+        acc = np.where(b == t_top, head[:, None], 0)
+        end = np.where(mine, walk(b, a, start, mine, acc, lo, True), 0)
+        while True:
+            above = np.concatenate([end[:, 1:], end[:, -1:]], axis=1)
+            redo = mine & ~top_seg & (above != start)
+            if not redo.any():
+                break
+            rewalks += int(redo.sum())
+            start = np.where(redo, above, start)
+            end = np.where(redo, walk(b, a, start, redo, zeros, lo, True,
+                                      end), end)
+        top = end[:, 0]
+        staged = stage.astype(np.uint8)
+        for L, (bits, out_bytes) in outs.items():
+            bit_hi = min(top8 if hi == t_top else hi, L)
+            if bit_hi <= lo:
+                continue
+            bits[:, lo:bit_hi] = np.unpackbits(staged, axis=1)[:, :bit_hi - lo]
+            m_lo, m_hi = lo // 8, (bit_hi + 7) // 8
+            out_bytes[:, m_lo:m_hi] = staged[:, :m_hi - m_lo]
+            if bit_hi % 8:
+                out_bytes[:, m_hi - 1] &= 0xFF << (8 - bit_hi % 8) & 0xFF
+    return outs, rewalks
+
+
+def _assert_rows(outs, want):
+    """Each width's model bits and bytes against the plain walk's bits."""
+    for L, (bits, out_bytes) in outs.items():
+        np.testing.assert_array_equal(bits, want[:, :L].numpy())
+        np.testing.assert_array_equal(
+            out_bytes, port.ops.viterbi.pad_and_pack(want[:, :L]).numpy())
+
+
+def _terminated(NS, words, t_actual, rng, wu=None):
+    """The model's terminated walk against `traceback_batch_plain`, whole
+    and cut messages; returns the segments walked again."""
+    G, WU = _LINES[NS]
+    spec = _spec(NS, rng)
+    full = t_actual - spec.S
+    outs, rewalks = _narrow_walk_model(
+        NS, G, WU if wu is None else wu, words, t_actual, t_actual, None,
+        sorted({full, _SMOKE.cut_bits(full)}), rng)
+    _assert_rows(outs, acs.traceback_batch_plain(spec, _t(words), t_actual,
+                                                 full, "bits"))
+    return rewalks
+
+
+def _masked(NS, words, starts, live, rng, wu=None):
+    """The model's masked walk against `traceback_batch_masked_plain`,
+    out_steps T and a cut one; returns the segments walked again."""
+    G, WU = _LINES[NS]
+    spec = _spec(NS, rng)
+    T = words.shape[1]
+    outs, rewalks = _narrow_walk_model(
+        NS, G, WU if wu is None else wu, words, live, T, starts,
+        sorted({T, _SMOKE.cut_bits(T)}), rng)
+    _assert_rows(outs, acs.traceback_batch_masked_plain(
+        spec, _t(words), _t(np.asarray(starts, np.int32)), live, T, "bits"))
+    return rewalks
+
+
+# At each NS of the dispatch switch, at its line's G and warm-up:
+# "noisy" the forward's words of noisy packets over two windows, the walk
+# from t_actual two below the rows' length, and with no warm-up (every
+# guess from state 0: segments walked again, asserted); "edges" T = 1, 5
+# and 9 masked at every live and t_actual = S + 3 (a short walk packs
+# channels into a warp); "garbage" uniform words over a window and a step,
+# terminated (re-walks asserted) and masked at live 0, S, T - 1 and T from
+# random starts; "windows" four windows of sparse words, terminated, and
+# masked at a live a window below T with no warm-up.
+_CASES = [(NS, which) for NS in sorted(_LINES)
+          for which in ("noisy", "edges", "garbage", "windows")]
+
+
+@pytest.mark.parametrize("NS,which", _CASES,
+                         ids=[f"NS{ns}-{w}" for ns, w in _CASES])
+def test_narrow_walk_schedule_model_matches_plain_walks(NS, which):
+    """The narrow walk's windows, lanes a channel, warm-ups, guesses,
+    top-down check and walks again, masked steps and whole output bytes,
+    modelled in numpy, give the plain terminated and masked walks' bits
+    and bytes bit for bit."""
+    G, WU = _LINES[NS]
+    rng = np.random.default_rng(NS + 7 * len(which))
+    S = NS.bit_length() - 1
+    if which == "noisy":
+        spec = _spec(NS, rng, 4)
+        words = _noisy(rng, spec, 3, 32 * G + 21)
+        T = words.shape[1]
+        _terminated(NS, words, T - 2, rng)
+        assert _terminated(NS, words, T - 2, rng, wu=0) > 0
+        _masked(NS, words, rng.integers(0, NS, 3), T, rng)
+    elif which == "edges":
+        for T in (1, 5, 9):
+            words = _garbage(rng, 3, T, NS)
+            for live in sorted({0, min(S, T), T - 1, T}):
+                _masked(NS, words, rng.integers(0, NS, 3), live, rng)
+        _terminated(NS, _garbage(rng, 3, S + 5, NS), S + 3, rng)
+    elif which == "garbage":
+        T = 32 * G + 1
+        words = _garbage(rng, 2, T, NS)
+        assert _terminated(NS, words, T, rng) > 0
+        for live in (0, S, T - 1, T):
+            _masked(NS, words, rng.integers(0, NS, 2), live, rng)
+    else:
+        T = 96 * G + 37
+        words = _sparse(rng, 1, T, NS)
+        _terminated(NS, words, T - 3, rng)
+        _masked(NS, words, rng.integers(0, NS, 1), T - 32 * G, rng, wu=0)
+
+
+@pytest.mark.parametrize("NS", sorted(_LINES))
+def test_narrow_walk_plain_walks_match_the_jax_traceback(NS):
+    """The plain walks the model is held to give the JAX package's
+    traceback on the same words (unpacked to decisions): terminated from
+    state 0, and masked (decisions past `live` zeroed, no padding dropped)
+    from random starts."""
+    rng = np.random.default_rng(NS + 99)
+    G = _LINES[NS][0]
+    spec = _spec(NS, rng, 4)
+    rspec = ref.CodeSpec(K=spec.K, g=spec.g)
+    words = _noisy(rng, spec, 3, G + 29)
+    T = words.shape[1]
+    dec = acs.unpack_decisions(spec, _t(words)).numpy()
+    want = jax.vmap(lambda d: ref_viterbi.traceback_terminated(rspec, d))(
+        jnp.asarray(dec))
+    got = acs.traceback_batch_plain(spec, _t(words), T, T - spec.S, "bits")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    starts = rng.integers(0, NS, 3)
+    live = T - 5
+    dec[:, live:] = 0
+    want = jax.vmap(lambda d, s: ref_viterbi.traceback_terminated(
+        rspec, d, num_pad=0, start_state=s))(jnp.asarray(dec),
+                                              jnp.asarray(starts))
+    got = acs.traceback_batch_masked_plain(
+        spec, _t(words), _t(starts.astype(np.int32)), live, T, "bits")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_narrow_walk_dispatch_covers_64_to_256():
+    """The narrow walk's dispatch switch has exactly one line for each of
+    NS = 64, 128, 256, each with segments of whole output bytes and whole
+    blocks of warm-up; each segment's staged rows at a pitch of an odd
+    number of 16-byte chunks; the staged windows, the output bytes and
+    their states (as the source sizes them) within a block's shared memory
+    on the card (227 KiB); and the ragged and list walks, and every walk at
+    NS <= 32, stay on `traceback_k1_kernel`."""
+    lines = _SMOKE.narrow_walk_lines()
+    assert [ns for ns, *_ in lines] == [64, 128, 256]
+    for NS, G, WU in lines:
+        assert G % 8 == 0 and WU % 8 == 0 and WU >= 0
+        pitch, smem = _SMOKE.narrow_walk_smem(NS, G)
+        assert pitch % 4 == 0 and (pitch // 4) % 2 == 1
+        assert smem <= 227 * 1024
+        # A main-path walk (2054 steps) takes 32 lanes a channel; the
+        # tail-biting decode's 192 steps fewer, with channels sharing a warp.
+        assert _SMOKE.narrow_walk_lanes(2054, G) == 32
+        C = _SMOKE.narrow_walk_lanes(192, G)
+        assert C * G >= 192 and (C == 1 or (C // 2) * G < 192)
+    src = SOURCE.read_text()
+
+    def body(name):
+        start = src.index(f"\nint {name}(")
+        return src[start:src.index("\n}\n", start)]
+
+    for name in ("terminated", "masked"):
+        text = body(name)
+        assert "if (NS >= 64)" in text and "launch_narrow_walk(" in text
+    assert "launch<Walk::kRagged>" in body("ragged")
+    assert "launch<Walk::kMulti>" in body("multi")
+    launch = src[src.index("int launch(const int32_t* d"):]
+    launch = launch[:launch.index("\n}\n")]
+    wide = launch[launch.index("if constexpr (kWide)"):]
+    assert ("kWide = MODE == Walk::kRagged || MODE == Walk::kMulti"
+            in launch)
+    for w, ns in ((2, 64), (4, 128), (8, 256)):
+        assert f"case {ns}: TB_LAUNCH({w})" in wide
+        assert f"TB_LAUNCH({w})" not in launch[:launch.index(
+            "if constexpr (kWide)")]
+    # The wrappers' kernel names are those of the C entries.
+    assert acs._walk_kernel(port.NASA_K7) == "traceback_k1"
+    assert acs._walk_kernel(port.NASA_K7, "_masked") == "traceback_k1_masked"
