@@ -45,7 +45,8 @@ Phases (any failure exits non-zero and prints no result line):
      `BlockStreamingDecoderBatch`; each equal to its plain route on the
      card, within the BER gates, launches of both new kernels > 0;
   9. times: median and minimum of 20 calls on distinct inputs, CUDA events,
-     for each kernel, the whole hard and soft byte decodes and the whole
+     for each kernel, the whole hard and soft byte decodes, the soft and
+     hard ragged and the punctured soft decodes of phase 6 and the whole
      9-call packet through each streaming class (also its wall time to the
      card's finish and the host's time to enqueue it), beside the plain
      version's time and the kernel's bound;
@@ -64,8 +65,9 @@ Phases (any failure exits non-zero and prints no result line):
      decode's, the wrap decode's in [0.016, 0.030], false accepts <= 1e-3;
      (b) the tail-biting hard byte decode at bench.py's size (BER < 2e-3)
      and (c) its soft twin over AWGN at 3 dB (BER <= 1.3e-3), each equal to
-     its plain route on the card; launches of K1, K4, K2m and K6 > 0; times
-     of K6 and K2m at (a)'s size, of each whole call, and (a)'s wall and
+     its plain route on the card; launches of K1, K4, K2m and K6 > 0; the
+     wrap decode's K4 at (a)'s size against its plain version; times of K6,
+     K2m and that K4 at (a)'s size, of each whole call, and (a)'s wall and
      host-enqueue times;
  12. max-log-MAP and turbo kernels against plain versions on the card,
      small sizes: `maxlogmap_k1` on NASA_K7, NASA_K7_R13, K9_561_753 and a
@@ -198,7 +200,20 @@ Phases (any failure exits non-zero and prints no result line):
      T - 1, T, random starts), whole and cut rows, bits and bytes, each
      launch counted;
      slices of a batch (odd and even T) and a base 4 bytes past a 16-byte
-     line; the K11 names against their plain routes.
+     line; the K11 names against their plain routes; the ragged walk
+     (`traceback_k1_ragged`, the same kernel, each channel from its own
+     top) on the same batches where T >= S, lengths 0, 1, S, S + 1, T - 1,
+     T, past T and negative, then random, rows of T - S bits and a cut
+     one, bits and bytes, by the wrapper and by the C entry into rows
+     first filled with 0xA5;
+ 23. the narrow soft forward (`acs_soft_k1_forward` at NS = 64, 128, 256,
+     csrc/acs_soft_k1.cu) against its plain version on the card at every
+     line of its dispatch, n = 1 ... 8 each: B = 37 at T = 0, 1, 31, 32,
+     33, 192, 288, 2054 and B = 1 at T = 33, LLRs over the whole int8
+     range, qclip 7 and 127 with the -127 floor and the -128 route, from
+     the default start and from carried metrics; words and final metrics,
+     each launch counted.  Phase 11 also holds it at (f)'s wrap decode
+     and times it there.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -889,8 +904,9 @@ def phase_soft(fec, acs, dev, err, msgs):
 
 
 def phase_ragged_punctured(fec, acs, dev, err):
-    """Ragged and punctured decodes at full size.  Returns (int8 LLRs,
-    lengths on the card, launches of the runs, plain ms)."""
+    """Ragged and punctured decodes at full size.  Returns ((the ragged
+    decodes' int8 LLRs and hard segments, their lengths on the card, the
+    punctured decode's LLRs), launches of the runs, plain ms)."""
     import numpy as np
     import torch
     spec = fec.NASA_K7
@@ -914,8 +930,9 @@ def phase_ragged_punctured(fec, acs, dev, err):
 
     out, launches["soft ragged"] = drive(
         acs, lambda: fec.viterbi_decode_batch_soft_bytes_ragged(spec, q, lens))
-    want = fec.ops.viterbi.pad_and_pack(fec.viterbi_decode_ragged_soft(
-        spec, acs.condition_qllrs(q, QMAX), lens))
+    want, plain_ms["soft ragged decode"] = time_once(
+        lambda: fec.ops.viterbi.pad_and_pack(fec.viterbi_decode_ragged_soft(
+            spec, acs.condition_qllrs(q, QMAX), lens)))
     require(torch.equal(out, want), "soft ragged bytes equal to the plain "
             "route on the card")
     soft_ber = ber_of_bytes(out, msgs, lens_np - spec.S)
@@ -932,8 +949,9 @@ def phase_ragged_punctured(fec, acs, dev, err):
     out, launches["hard ragged"] = drive(
         acs, lambda: fec.viterbi_decode_batch_bytes_ragged(spec, hard_seg,
                                                            lens))
-    want = fec.ops.viterbi.pad_and_pack(fec.viterbi_decode_ragged(
-        spec, hard_seg, lens))
+    want, plain_ms["hard ragged decode"] = time_once(
+        lambda: fec.ops.viterbi.pad_and_pack(fec.viterbi_decode_ragged(
+            spec, hard_seg, lens)))
     require(torch.equal(out, want), "hard ragged bytes equal to the plain "
             "route on the card")
     hard_ber = ber_of_bytes(out, msgs, lens_np - spec.S)
@@ -951,8 +969,9 @@ def phase_ragged_punctured(fec, acs, dev, err):
         acs, lambda: fec.viterbi_decode_batch_punctured_soft(spec, qp,
                                                              pattern, T))
     full = fec.depuncture_llrs(qp.to(torch.int8), pattern, T)
-    want = fec.viterbi_decode_soft(spec, acs.condition_qllrs(
-        full.reshape(MAIN_B, T, spec.n), QMAX))
+    want, plain_ms["punctured soft decode"] = time_once(
+        lambda: fec.viterbi_decode_soft(spec, acs.condition_qllrs(
+            full.reshape(MAIN_B, T, spec.n), QMAX)))
     require(torch.equal(out, want), "punctured soft bits equal to the plain "
             "route on the card")
     punct_ber = float((out.cpu().numpy() != msgs_p).mean())
@@ -970,7 +989,7 @@ def phase_ragged_punctured(fec, acs, dev, err):
           f"L={MAIN_L}, AWGN Eb/N0 {EBN0_DB} dB: BER {punct_ber:.4e}, equal "
           "to the plain route on the card")
     print(f"[ragged/punctured] launches {launches}")
-    return q, lens, launches, plain_ms
+    return (q, hard_seg, lens, qp), launches, plain_ms
 
 
 def stream_draws(rng, spec, B, T):
@@ -1234,10 +1253,11 @@ def host_times(fn, inputs) -> list[float]:
     return out
 
 
-def phase_times(fec, acs, seg, q, q_ragged, lens):
+def phase_times(fec, acs, seg, q, rp_in):
     """Device ms of TIMED_CALLS calls on distinct inputs (row rotations of
-    the main-path inputs)."""
+    the main-path inputs; `rp_in` those of phase 6)."""
     import torch
+    q_ragged, hard_ragged, lens, qp = rp_in
     spec = fec.NASA_K7
     T = seg.shape[1]
     bufs = [torch.roll(seg, r + 1, dims=0) for r in range(TIMED_CALLS)]
@@ -1266,6 +1286,21 @@ def phase_times(fec, acs, seg, q, q_ragged, lens):
         lambda p: acs.traceback_batch_ragged(spec, p[0], p[1], MAIN_L,
                                              "bytes"), pairs)
     del decs, pairs
+    # The whole ragged (c) and punctured (d) decodes.
+    pairs = [(torch.roll(q_ragged, r + 1, dims=0), lens_r[r])
+             for r in range(TIMED_CALLS)]
+    runs["soft ragged decode"] = device_times(
+        lambda p: fec.viterbi_decode_batch_soft_bytes_ragged(spec, *p), pairs)
+    pairs = [(torch.roll(hard_ragged, r + 1, dims=0), lens_r[r])
+             for r in range(TIMED_CALLS)]
+    runs["hard ragged decode"] = device_times(
+        lambda p: fec.viterbi_decode_batch_bytes_ragged(spec, *p), pairs)
+    del pairs
+    T = seg.shape[1]
+    runs["punctured soft decode"] = device_times(
+        lambda x: fec.viterbi_decode_batch_punctured_soft(
+            spec, x, fec.PUNCTURE_3_4, T),
+        [torch.roll(qp, r + 1, dims=0) for r in range(TIMED_CALLS)])
     from convolutionalencdec_tpu_torch.kernels import stream
     B = seg.shape[0]
     fresh = stream.stream_state_init(spec, B, seg.device)
@@ -1435,24 +1470,34 @@ def phase_compare_tailbiting(fec, acs, dev, err):
                   f"(soft CRC-list blocks right {float(right):.3f})")
 
 
+def tb_forward_inputs(fec, ktb, spec, q):
+    """The arguments after `spec` of K4 in the soft wrap decode of int8
+    LLRs `q` [B, T, n]: (the LLRs extended by the wraps, qclip, the uniform
+    start, floor)."""
+    import torch
+    B, T = q.shape[:2]
+    wl, wr = ktb.kernel_wraps(spec, T)
+    zeros = torch.zeros((B, spec.num_states), dtype=torch.int32,
+                        device=q.device)
+    qclip, floor = ktb._soft_route(spec, QMAX)
+    return (fec.ops.tailbiting.circular_extend(q, wl, wr, axis=1), qclip,
+            zeros, floor)
+
+
 def tb_kernel_inputs(fec, ktb, acs, spec, q):
     """The inputs of K2m in the soft wrap decode and of K6 in the soft list
     decode of int8 LLRs `q`: ((words, starts, live, out_steps),
     (words, starts [B, DCI_LIST], live, out_start, out_steps))."""
     import torch
-    B, T = q.shape[:2]
-    extend = fec.ops.tailbiting.circular_extend
-    zeros = torch.zeros((B, spec.num_states), dtype=torch.int32,
-                        device=q.device)
-    qclip, floor = ktb._soft_route(spec, QMAX)
-    wl, wr = ktb.kernel_wraps(spec, T)
-    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, wr, axis=1),
-                                           qclip, zeros, floor)
+    T = q.shape[1]
+    ext, qclip, zeros, floor = tb_forward_inputs(fec, ktb, spec, q)
+    words, fm = acs.acs_forward_batch_soft(spec, ext, qclip, zeros, floor)
     start = torch.argmin(fm, dim=1).to(torch.int32)
-    masked = (words, start, words.shape[1], wl + T)
+    masked = (words, start, words.shape[1], ktb.kernel_wraps(spec, T)[0] + T)
     wl = ktb.list_wrap(spec, T)
-    words, fm = acs.acs_forward_batch_soft(spec, extend(q, wl, 0, axis=1),
-                                           qclip, zeros, floor)
+    words, fm = acs.acs_forward_batch_soft(
+        spec, fec.ops.tailbiting.circular_extend(q, wl, 0, axis=1), qclip,
+        zeros, floor)
     states, _ = fec.ops.tailbiting.list_candidates(fm, DCI_LIST)
     return masked, (words, states, words.shape[1], wl, T)
 
@@ -1555,6 +1600,15 @@ def phase_tailbiting(fec, acs, dev, err):
     require(torch.equal(got, want), "masked traceback at (a)'s size")
     err["traceback_k1_masked"] = max(err["traceback_k1_masked"],
                                      max_abs_diff(got, want))
+    fwd = tb_forward_inputs(fec, ktb, spec, q)
+    got = acs.acs_forward_batch_soft(spec, *fwd)
+    want, plain_ms["acs_soft_k1_forward (f)"] = time_once(
+        lambda: acs.acs_forward_batch_soft_plain(spec, *fwd))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "the wrap decode's soft forward at (a)'s size: words and final "
+            "metrics")
+    err["acs_soft_k1_forward"] = max(err["acs_soft_k1_forward"],
+                                     *map(max_abs_diff, got, want))
 
     # (b) and (c): bench.py's messages, tail-biting encoded.
     spec = fec.NASA_K7
@@ -1605,8 +1659,8 @@ def phase_tailbiting(fec, acs, dev, err):
 
 def tailbiting_times(fec, acs, inputs):
     """Device ms of TIMED_CALLS calls on distinct inputs (row rotations)
-    of K6 and K2m at (a)'s size and of each whole tail-biting call; (a)'s
-    wall and host-enqueue ms too."""
+    of K6, K2m and the wrap decode's K4 at (a)'s size and of each whole
+    tail-biting call; (a)'s wall and host-enqueue ms too."""
     import torch
     from convolutionalencdec_tpu_torch.kernels import tailbiting as ktb
     q, qr, seg, qb = inputs
@@ -1620,6 +1674,11 @@ def tailbiting_times(fec, acs, inputs):
     runs["traceback_k1_masked tailbiting"] = device_times(
         lambda p: acs.traceback_batch_masked(spec, *p[0]), pend)
     del pend
+    fwd = [tb_forward_inputs(fec, ktb, spec, torch.roll(q, r + 1, 0))
+           for r in range(TIMED_CALLS)]
+    runs["acs_soft_k1_forward (f)"] = device_times(
+        lambda a: acs.acs_forward_batch_soft(spec, *a), fwd)
+    del fwd
     qbufs = [torch.roll(q, r + 1, 0) for r in range(TIMED_CALLS)]
 
     def chain(x):
@@ -3544,13 +3603,64 @@ def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
     return cases
 
 
+def narrow_ragged_lengths(rng, B, T, S):
+    """Lengths of a ragged batch of B channels of T steps: 0, 1, S, S + 1,
+    T - 1, T, past T and negative, then random ones in [-3, T + 3]."""
+    import numpy as np
+    edge = [0, 1, S, S + 1, T - 1, T, T + 5, -4]
+    return np.concatenate([edge, rng.integers(-3, T + 4, max(B - 8, 0))])[
+        :B].astype(np.int32)
+
+
+def compare_narrow_ragged(fec, acs, spec, words, err, rng, what) -> int:
+    """`traceback_batch_ragged` on one batch of decision words at NS 64-256
+    against its plain version: `narrow_ragged_lengths`, rows of T - S bits
+    and a cut one, bits and bytes, each call one launch counted; and the
+    same walks by the C entry into rows first filled with 0xA5, so that a
+    byte the walk leaves unwritten shows.  Returns the cases."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import _build
+    B, T = words.shape[:2]
+    S, NS = spec.S, spec.num_states
+    if T < S:
+        return 0
+    lens = torch.from_numpy(narrow_ragged_lengths(rng, B, T, S)).to(
+        words.device)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    key, cases = "traceback_k1_ragged", 0
+    full = T - S
+    for L in sorted({full, cut_bits(full)}):
+        want_bits = acs.traceback_batch_ragged_plain(spec, words, lens, L,
+                                                     "bits")
+        for out in ("bits", "bytes"):
+            ref = want_bits if out == "bits" else \
+                fec.ops.viterbi.pad_and_pack(want_bits)
+            case = f"{spec} {key} {what} B={B} T={T} L={L} {out}"
+            before = acs.LAUNCHES[key]
+            got = acs.traceback_batch_ragged(spec, words, lens, L, out)
+            require(acs.LAUNCHES[key] == before + 1,
+                    f"{case}: a launch counted")
+            require(torch.equal(got, ref), f"{case}: equal to the plain walk")
+            filled = torch.full_like(ref, 0xA5)
+            _build.check(key, _build.library().traceback_k1_ragged(
+                words.data_ptr(), lens.data_ptr(), filled.data_ptr(), B, T,
+                NS, S, L, int(out == "bytes"), stream))
+            require(torch.equal(filled, ref),
+                    f"{case}: every byte of 0xA5-filled rows written")
+            err[key] = max(err[key], max_abs_diff(got, ref),
+                           max_abs_diff(filled, ref))
+            cases += 1
+    return cases
+
+
 def phase_compare_narrow_walks(fec, acs, dev, err):
-    """The narrow walk (`traceback_k1`, `traceback_k1_masked` at NS = 64,
-    128, 256) against the plain walks on the card, at every line of its
-    dispatch switch: a random rate-1/4 code's batches of
-    `narrow_walk_batches` (noisy, garbage and catastrophic-code words, one
-    to four windows, B = 1, the offset bases), each at every case of
-    `compare_narrow_walk`, the wrong first-pass guesses counted on the
+    """The narrow walk (`traceback_k1`, `traceback_k1_masked`,
+    `traceback_k1_ragged` at NS = 64, 128, 256) against the plain walks on
+    the card, at every line of its dispatch switch: a random rate-1/4
+    code's batches of `narrow_walk_batches` (noisy, garbage and
+    catastrophic-code words, one to four windows, B = 1, the offset bases),
+    each at every case of `compare_narrow_walk` and, where T >= S, of
+    `compare_narrow_ragged`, the wrong first-pass guesses counted on the
     garbage and catastrophic words; the K11 names
     (`kernels.fused.traceback_batch_fused`, `_masked` from one-hot starts
     over a live prefix) against their plain routes."""
@@ -3561,11 +3671,13 @@ def phase_compare_narrow_walks(fec, acs, dev, err):
     for NS, G, WU in narrow_walk_lines():
         spec = bfly_spec(fec, rng, NS, 4)
         S = spec.S
-        cases, wrong = 0, []
+        cases, ragged, wrong = 0, 0, []
         for what, words, guessed in narrow_walk_batches(fec, acs, spec, rng,
                                                         dev, G):
             cases += compare_narrow_walk(fec, acs, spec, words, err, rng,
                                          what)
+            ragged += compare_narrow_ragged(fec, acs, spec, words, err, rng,
+                                            what)
             if guessed:
                 T = words.shape[1]
                 wrong.append(narrow_walk_guesses_wrong(words, T, T, None, G,
@@ -3601,8 +3713,88 @@ def phase_compare_narrow_walks(fec, acs, dev, err):
               f"noisy and garbage words; T={lengths[-1]} garbage and "
               f"catastrophic words: {' / '.join(map(str, wrong))} wrong "
               "first-pass guesses; B=1; slice and 4-byte bases; terminated "
-              "and masked, whole and cut rows, bits and bytes) equal to the "
-              "plain walks; the K11 names equal to their plain routes")
+              "and masked, whole and cut rows, bits and bytes) and "
+              f"{ragged} ragged cases (the edge lengths, also into 0xA5 "
+              "rows) equal to the plain walks; the K11 names equal to their "
+              "plain routes")
+
+
+# ---------------------------------------------------------------------------
+# The narrow soft forward (TPU kernels K4 and K3 at NS 64-256,
+# csrc/acs_soft_k1.cu) at every line of its dispatch.
+
+#: Its checks' step counts (below a block, a block's edges, (f)'s wrap
+#: steps, 288 and (a)'s T) and conditionings (qclip, floor, initial metrics
+#: given): the 8-bit route's clip, the block routes' -127 floor, the
+#: tail-biting route's -128, from the default start and carried metrics.
+SOFT_FORWARD_T = (0, 1, 31, 32, 33, 192, 288, 2054)
+SOFT_FORWARD_CONDITIONS = ((QMAX, True, False), (QMAX, True, True),
+                           (127, True, False), (127, False, False),
+                           (127, False, True))
+
+
+def soft_forward_lines(source=None):
+    """[(NS, butterflies a lane)] of the narrow soft forward's NS switch
+    (`acs_soft_k1_forward` in csrc/acs_soft_k1.cu, or in `source`); each
+    line launches one template for n <= 4 and one for n = 5..8."""
+    import re
+    src = Path(source or ROOT / SOURCES["acs_soft_k1_forward"][0]).read_text()
+    return [(int(ns), int(bpl)) for ns, bpl in re.findall(
+        r"case (\d+): ok = launch_n<(\d+)>\(a, s\);", src)]
+
+
+def compare_soft_forward(acs, spec, q, qclip, floor, init, err, what):
+    """`acs_forward_batch_soft` on one batch against its plain version:
+    words and final metrics, one launch counted."""
+    import torch
+    key = "acs_soft_k1_forward"
+    before = acs.LAUNCHES[key]
+    got = acs.acs_forward_batch_soft(spec, q, qclip, init, floor)
+    want = acs.acs_forward_batch_soft_plain(spec, q, qclip, init, floor)
+    case = f"{spec} {key} {what} qclip={qclip} floor={floor} " \
+           f"init={init is not None}"
+    require(acs.LAUNCHES[key] == before + (q.shape[0] > 0),
+            f"{case}: a launch counted")
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"{case}: words and final metrics equal to the plain version")
+    err[key] = max(err[key], *map(max_abs_diff, got, want))
+
+
+def phase_compare_soft_forward(fec, acs, dev, err):
+    """The narrow soft forward against its plain version on the card at
+    every line of its dispatch: NS = 64, 128, 256, each n = 1 ... 8 (one and
+    two packed registers), a random code, int8 LLRs over the whole range
+    (-128 and 127 among them), B = NARROW_B (not a multiple of the warps a
+    block) at every SOFT_FORWARD_T under every SOFT_FORWARD_CONDITIONS
+    (T = 2054: the first and the last), and B = 1 at T = 33."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2067)
+    cases = 0
+    for NS, _ in soft_forward_lines():
+        for n in range(1, 9):
+            spec = bfly_spec(fec, rng, NS, n)
+            for B, T in [(NARROW_B, T) for T in SOFT_FORWARD_T] + [(1, 33)]:
+                draw = rng.integers(-128, 128, (B, T, n))
+                draw.reshape(-1)[::13] = -128
+                draw.reshape(-1)[5::17] = 127
+                q = torch.from_numpy(draw.astype(np.int8)).to(dev)
+                conditions = SOFT_FORWARD_CONDITIONS
+                if T == SOFT_FORWARD_T[-1]:
+                    conditions = conditions[:1] + conditions[-1:]
+                for qclip, floor, given in conditions:
+                    init = None
+                    if given:
+                        init = torch.from_numpy(rng.integers(
+                            0, 6000, (B, NS)).astype(np.int32)).to(dev)
+                    compare_soft_forward(acs, spec, q, qclip, floor, init,
+                                         err, f"B={B} T={T}")
+                    cases += 1
+        print(f"[compare] narrow soft forward NS={NS}: n = 1..8, B = "
+              f"{NARROW_B} at T = {', '.join(map(str, SOFT_FORWARD_T))} "
+              "and B = 1, qclip 7 / 127 / -128 route, default and carried "
+              "metrics: words and final metrics equal to the plain version")
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -4115,6 +4307,12 @@ def bounds(lens_sum: int, generic_shapes, bfly_shapes):
         B * walks * D * TRACEBACK_OPS)
     work["traceback_k1_masked tailbiting"] = (
         B * Te * NS // 8 + 4 * B + B * (wl + D), B * Te * TRACEBACK_OPS)
+    # K4 in the wrap decode: its LLRs and the uniform start in, the words
+    # and the final metrics out.
+    n = LTE_TBCC_K7.n
+    work["acs_soft_k1_forward (f)"] = (
+        B * Te * n + B * Te * NS // 8 + 2 * B * NS * 4,
+        B * Te * NS // 2 * ACS_OPS)
     out = {}
     for name, (nbytes, ops) in work.items():
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4149,8 +4347,8 @@ def main() -> int:
     print(f"[compare] {time.perf_counter() - t0:.1f} s")
     msgs, seg, hard_launches, plain_ms = phase_main(fec, acs, dev, err)
     q, soft_launches, soft_plain = phase_soft(fec, acs, dev, err, msgs)
-    q_ragged, lens, rp_launches, rp_plain = phase_ragged_punctured(
-        fec, acs, dev, err)
+    rp_in, rp_launches, rp_plain = phase_ragged_punctured(fec, acs, dev, err)
+    lens = rp_in[2]
     plain_ms.update(soft_plain, **rp_plain)
     t0 = time.perf_counter()
     phase_compare_stream(fec, acs, stream, dev, err)
@@ -4193,7 +4391,7 @@ def main() -> int:
         fec, acs, dev, err)
     plain_ms.update(small_plain, **wide_plain)
     print(f"[small/wide] main paths {time.perf_counter() - t0:.1f} s")
-    runs = phase_times(fec, acs, seg, q, q_ragged, lens)
+    runs = phase_times(fec, acs, seg, q, rp_in)
     runs.update(tailbiting_times(fec, acs, tb_in))
     runs.update(soft_output_times(fec, q, q_turbo))
     runs.update(generic_times(fec, gk, gen_in))
@@ -4218,6 +4416,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_compare_narrow_walks(fec, acs, dev, err)
     print(f"[compare] narrow walks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases = phase_compare_soft_forward(fec, acs, dev, err)
+    print(f"[compare] narrow soft forward: {cases} cases "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # Launch counts: the sum over the main-path runs, each read just after.
     # A one-word row counts its walk's launches at (k) only.
@@ -4247,7 +4449,7 @@ def main() -> int:
                 else WIDE_LIST_B * MAIN_L
                 if key in ("traceback_wide_multi", "wide list")
                 else dci_bits if "tailbiting c" in key or "rate-matched" in key
-                or key.endswith(("multi", "masked tailbiting"))
+                or key.endswith(("multi", "masked tailbiting", "(f)"))
                 else turbo_bits if key.startswith("turbo")
                 else bits_per_call)
         print(f"[time] {key:22s} median {ms:.4f} ms, min {min(runs[key]):.4f}"
@@ -4351,6 +4553,11 @@ def main() -> int:
         soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
         soft_plain_ms=plain_ms[soft_stream],
         ms_256_steps=med["stream_k1_decode 256"])
+    f_soft = "acs_soft_k1_forward (f)"
+    kernels[KERNELS.index("acs_soft_k1_forward")].update(
+        f_ms=med[f_soft], f_min_ms=min(runs[f_soft]),
+        f_plain_ms=plain_ms[f_soft], f_bound_ms=bound[f_soft][0],
+        f_bound_by=bound[f_soft][1])
     tb_masked = "traceback_k1_masked tailbiting"
     kernels[KERNELS.index("traceback_k1_masked")].update(
         tailbiting_ms=med[tb_masked], tailbiting_min_ms=min(runs[tb_masked]),
@@ -4399,6 +4606,11 @@ def main() -> int:
         "soft_decode_min_ms": min(runs["soft_decode"]),
         "soft_decode_plain_ms": plain_ms["soft_decode"],
         "soft_decode_mbps": bits_per_call / (med["soft_decode"] * 1e3),
+        "ragged_punctured": {
+            path: {"ms": med[path], "min_ms": min(runs[path]),
+                   "plain_ms": plain_ms[path]}
+            for path in ("soft ragged decode", "hard ragged decode",
+                         "punctured soft decode")},
         "streams": streams, "tailbiting": tailbiting,
         "maxlogmap": maxlogmap, "turbo": turbo, "generic": generic,
         "butterfly": butterfly, "single_pass": single_pass}))

@@ -26,30 +26,69 @@
 //   checks it).
 //
 // Layouts:
-//   qllrs          int8  [B, T, n]
+//   qllrs          int8  [B, T, n]   n = 1..8
 //   cb             int32 [NS/2]      coded segment of edge (src b, input 0)
 //   init           int32 [B, NS]     optional (nullptr: 0 at state 0,
 //                                    init_value elsewhere)
-//   decs           int32 [B, T, W]   W = NS/32, the layout of acs_k1.cu
+//   decs           int32 [B, T, W]   W = NS/32, the layout of acs_k1.cu:
+//                                    the decision of state 2b + p at step t
+//                                    is bit i % 32 of word t W + i / 32,
+//                                    i = p NS/2 + b
 //   final_metrics  int32 [B, NS]     natural state order
 //
-// What bounds it on this card: as the hard kernel, each step of each
-// channel is NS/2 butterflies (4 adds, 2 compares, 2 minima each) that
-// depend on the step before, and NS/8 bytes of decisions written; n LLR
-// bytes come in per step instead of one segment byte.  The recurrence is
-// sequential in T, so the kernel is bound by one step's latency times T
-// unless enough channels are in flight to hide it.
+// What bounds it on this card: each step of each channel is NS/2
+// butterflies (4 adds, 2 compares, 2 minima each) that depend on the step
+// before, and NS/8 bytes of decisions written; n LLR bytes come in per
+// step.  With a warp a channel and enough channels in flight the forward
+// is bound by the card's integer issue: an SM sub-partition runs a warp's
+// 32-bit integer instruction (add, multiply-add, dp4a, compare, min,
+// select) every second cycle, so a step costs about two cycles per such
+// instruction per warp (scripts/torch_soft_forward.py: at the main-path
+// size, 2048 channels, twice the channels take 1.8 times as long; one
+// warp an SM, two thirds as long).  What counts is the integer
+// instructions a step takes beyond the butterflies' six operations.
 //
-// What the design does about that: the hard kernel's shape (one warp per
-// channel, metrics in registers, __ballot_sync decision words, the
-// butterfly permutation by __shfl_sync), with two changes:
-//   - a step's n LLRs are not one aligned value: every 32 steps, lane l
-//     loads step t0 + l's n bytes (the warp reads 32 n contiguous bytes),
-//     conditions them once, and keeps them packed in ceil(n/4) registers;
-//     each step takes them from lane s by ceil(n/4) shuffles;
-//   - em = sum_j relu(-q_j) + sum_{j: bit j of cb[b] is 1} q_j, because
-//     relu(q) - relu(-q) = q: the first sum and Q are per step and shared
-//     by all butterflies, the second is one masked add per coded bit.
+// What the design does about that (block_1p.cu's warp forward with the
+// decisions going to device memory as rows; each piece measured in turns
+// with the parent's build, PERF.md §6):
+//   - One warp per channel, metrics in registers; lane l owns butterflies
+//     32 j + l (j < NS/64).  The steps run in blocks of 32, fully unrolled
+//     (a plain loop for the last, shorter block): a loop of one step each
+//     took 27% longer.
+//   - Staged inputs: a block's LLRs are loaded a block ahead, step t0 + l
+//     by lane l; that lane clamps them once, packs the n bytes into one or
+//     two registers and stores them with the step's LLR sum in the warp's
+//     32-entry stage in shared memory.  Every lane reads a step by one
+//     broadcast load: no shuffle carries an input (shuffles from the
+//     staging lane read within 2%).
+//   - The soft metric without the relu(-q) sums: since relu(q) - relu(-q)
+//     = q, em = sum(relu(-q)) + (the sum of the q_j over the edge's 1 bits)
+//     and emc = sum(relu(-q)) + (the sum over its 0 bits).  The kernel
+//     drops sum(relu(-q)), the same for every state of a step, so every
+//     comparison is unchanged.  For n <= 4 each of a butterfly's four
+//     candidates is one __dp4a of the packed bytes against the lane's 0/1
+//     byte masks of the edge's 1 or 0 bits, with the source metric as its
+//     accumulator (em and emc first, then four adds, took 6% longer); for
+//     n = 5..8, em is two __dp4a and emc the step's LLR sum less em.  The
+//     metrics run offset by the running sum of the dropped terms; each
+//     staging lane adds up its steps' sums and the warp adds the total
+//     back before storing the final metrics, which are an output
+//     (tail-biting starts, stream carry-over, initial_metrics chains), so
+//     they are the parent's exactly.
+//   - Two shuffles per butterfly: lanes 0-15 send the metric of their even
+//     destination first, lanes 16-31 that of their odd one (whose edge
+//     codes are complemented, so which of em and emc a lane adds to which
+//     source is fixed per lane and no select precedes a shuffle); a lane
+//     picks its two sources from the two shuffles by its parity.  Four
+//     shuffles and two selects took 13% longer.
+//   - Decisions by ballot: each destination's decisions of a step are one
+//     __ballot_sync, which lane 0 stores to the warp's 32-step row buffer
+//     in shared memory; after the block lane s reads step t0 + s's words,
+//     puts the halves of the two ballots in place and stores the row as
+//     one or two vectors.  Keeping the ballots in lane s (a select a
+//     destination and step) took 8% longer, and columns (a bit a step in
+//     each lane, a 32 x 32 transpose across the warp a block) 11%.
+//   - 4 warps a block; 8 measured within 1% at the main-path size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,32 +98,54 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int BPL, int N>  // butterflies per lane = NS / 64; n coded bits
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+template <int BPL, int NP>  // butterflies per lane = NS / 64; NP = 1 for
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)  // n <= 4, else 2
 acs_soft_k1_forward_kernel(const int8_t* __restrict__ qllrs,
                            const int32_t* __restrict__ cb,
                            const int32_t* __restrict__ init,
                            int32_t* __restrict__ decs,
                            int32_t* __restrict__ final_metrics,
-                           int B, int T, int qlo, int qclip,
+                           int B, int T, int n, int qlo, int qclip,
                            int init_value) {
   constexpr int NS = 64 * BPL;
   constexpr int HALF = NS / 2;
   constexpr int W = NS / 32;
-  constexpr int NP = (N + 3) / 4;  // registers holding one step's LLRs
+  // Each warp's stage of a block's inputs and row buffer of its ballots.
+  __shared__ int4 stage_all[kWarpsPerBlock][32];
+  __shared__ unsigned rows_all[kWarpsPerBlock][32][2 * BPL];
   const int lane = threadIdx.x & 31;
-  const int ch = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (ch >= B) return;  // uniform across the warp: the ragged B edge
+  const int warp = threadIdx.x >> 5;
+  const int ch = blockIdx.x * kWarpsPerBlock + warp;
+  if (ch >= B) return;  // uniform across the warp; no block barrier below
+  int4* const stage = stage_all[warp];
+  unsigned (*const rowbuf)[2 * BPL] = rows_all[warp];
 
-  int sel[BPL][N];  // all ones where coded bit i of butterfly 32 j + lane is 1
-  int lo[BPL];      // metric of source state b = 32 j + lane
-  int hi[BPL];      // metric of source state b + NS/2
+  // f1, the branch metric added to lo in the destination sent first, is
+  // em on lanes 0-15 and emc on lanes 16-31 (whose edge codes are
+  // complemented), f2 the other: the sums of the LLRs over f1's edge's 1
+  // bits and over its 0 bits.
+  const bool upper = lane & 16;
+  const bool odd = lane & 1;
+  unsigned m1[BPL], m2[BPL];  // f1's and f2's bits 0-3, as 0/1 bytes
+  unsigned h1[BPL];           // f1's bits 4-7 (n > 4)
+  int lo[BPL], hi[BPL];  // metrics of source states 32 j + lane, + NS/2
 #pragma unroll
   for (int j = 0; j < BPL; ++j) {
     const int b = 32 * j + lane;
-    const int c = cb[b];
+    const unsigned c = upper ? ~(unsigned)cb[b] : (unsigned)cb[b];
+    m1[j] = m2[j] = h1[j] = 0u;
 #pragma unroll
-    for (int i = 0; i < N; ++i) sel[j][i] = -((c >> i) & 1);
+    for (int i = 0; i < 4 * NP; ++i) {
+      if (i < n) {
+        const unsigned one = (c >> i) & 1u;
+        if (i < 4) {
+          m1[j] |= one << (8 * i);
+          m2[j] |= (one ^ 1u) << (8 * i);
+        } else {
+          h1[j] |= one << (8 * (i - 4));
+        }
+      }
+    }
     if (init != nullptr) {
       lo[j] = init[(size_t)ch * NS + b];
       hi[j] = init[(size_t)ch * NS + HALF + b];
@@ -93,89 +154,136 @@ acs_soft_k1_forward_kernel(const int8_t* __restrict__ qllrs,
       hi[j] = init_value;
     }
   }
+  // The first shuffle's metrics come to lane r from lane r / 2 (even r)
+  // or 16 + r / 2 (odd r), the second's from the other: from pair i, x1
+  // is the metric of state 64 i + r + 32 odd, x2 that of the other one.
+  const int src1 = (odd ? 16 : 0) + (lane >> 1);
+  const int src2 = src1 ^ 16;
 
-  // Next-step sources, as in acs_k1.cu: state x = 32 m + lane comes from
-  // lane 16 (m & 1) + lane / 2, slot m >> 1, its even or odd destination by
-  // the parity of lane.
-  const int half_lane = lane >> 1;
-  const bool odd = lane & 1;
+  // Raw LLRs of step t0 + lane, loaded a block ahead and first used by the
+  // next block (a lane past T keeps what it had: its stage entry is never
+  // read).  No value is chosen for t >= T: a select would wait for the
+  // load where it is issued.
+  const int8_t* q_row = qllrs + (size_t)ch * T * n;
+  int raw[4 * NP] = {};
+  auto fetch = [&](int t) {
+    if (t < T) {
+#pragma unroll
+      for (int i = 0; i < 4 * NP; ++i) {
+        if (i < n) raw[i] = q_row[(size_t)t * n + i];
+      }
+    }
+  };
+  fetch(lane);
 
-  const int8_t* q_row = qllrs + (size_t)ch * T * N;
+  unsigned d1s[BPL], d2s[BPL];  // lane s: step t0 + s's ballots
+  int drop = 0;  // the lane's staged steps' sum(relu(-q)), dropped
+  // One step s of a block, `in` its staged input {LLRs 0-3, 4-7, sum}.
+  auto step = [&](int s, int4 in) {
+    int v1[BPL], v2[BPL];
+#pragma unroll
+    for (int j = 0; j < BPL; ++j) {
+      int u1, w1, u2, w2;  // a source's metric plus f1 or f2
+      if constexpr (NP == 1) {
+        u1 = __dp4a(in.x, (int)m1[j], lo[j]);
+        w1 = __dp4a(in.x, (int)m2[j], hi[j]);
+        u2 = __dp4a(in.x, (int)m2[j], lo[j]);
+        w2 = __dp4a(in.x, (int)m1[j], hi[j]);
+      } else {
+        const int f1 = __dp4a(in.x, (int)m1[j], __dp4a(in.y, (int)h1[j], 0));
+        const int f2 = in.z - f1;
+        u1 = lo[j] + f1, w1 = hi[j] + f2;
+        u2 = lo[j] + f2, w2 = hi[j] + f1;
+      }
+      const unsigned d1 = __ballot_sync(kFullMask, u1 > w1);  // ties keep
+      const unsigned d2 = __ballot_sync(kFullMask, u2 > w2);  // the low one
+      if (lane == 0) {  // the row buffer: step s's ballots
+        rowbuf[s][j] = d1;
+        rowbuf[s][BPL + j] = d2;
+      }
+      v1[j] = min(u1, w1);
+      v2[j] = min(u2, w2);
+    }
+    int next[2 * BPL];  // next-step metric of state 32 m + lane
+#pragma unroll
+    for (int i = 0; i < BPL; ++i) {
+      const int x1 = __shfl_sync(kFullMask, v1[i], src1);
+      const int x2 = __shfl_sync(kFullMask, v2[i], src2);
+      next[2 * i] = odd ? x2 : x1;
+      next[2 * i + 1] = odd ? x1 : x2;
+    }
+#pragma unroll
+    for (int j = 0; j < BPL; ++j) {
+      lo[j] = next[j];
+      hi[j] = next[BPL + j];
+    }
+  };
+
   int32_t* dec_row = decs + (size_t)ch * T * W;
   for (int t0 = 0; t0 < T; t0 += 32) {
     const int steps = min(32, T - t0);
-    unsigned mine[NP];  // step t0 + lane's conditioned LLRs, byte i = q_i
+    unsigned x = 0u, y = 0u;
+    int sum = 0, neg = 0;
 #pragma unroll
-    for (int p = 0; p < NP; ++p) mine[p] = 0;
-    if (lane < steps) {
-      const int8_t* src = q_row + (size_t)(t0 + lane) * N;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const int q = min(max((int)src[i], qlo), qclip);
-        mine[i >> 2] |= ((unsigned)q & 0xffu) << (8 * (i & 3));
+    for (int i = 0; i < 4 * NP; ++i) {
+      if (i < n) {
+        const int q = min(max(raw[i], qlo), qclip);
+        sum += q;
+        neg += max(-q, 0);
+        if (i < 4) {
+          x |= ((unsigned)q & 0xffu) << (8 * i);
+        } else {
+          y |= ((unsigned)q & 0xffu) << (8 * (i - 4));
+        }
       }
     }
-    int buf[W];  // decision words of step t0 + lane
+    if (lane < steps) drop += neg;
+    __syncwarp();  // the last block's reads of the stage are done
+    stage[lane] = make_int4((int)x, (int)y, sum, 0);
+    __syncwarp();
+    fetch(t0 + 32 + lane);
+    if (steps == 32) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) buf[w] = 0;
-
-    for (int s = 0; s < steps; ++s) {
-      int q[N];
+      for (int s = 0; s < 32; ++s) step(s, stage[s]);
+    } else {
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s) step(s, stage[s]);
+    }
+    __syncwarp();  // lane 0's stores of the block's ballots are done
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const unsigned v = __shfl_sync(kFullMask, mine[p], s);
+    for (int j = 0; j < BPL; ++j) {
+      d1s[j] = rowbuf[lane][j];
+      d2s[j] = rowbuf[lane][BPL + j];
+    }
+    // Lane s's ballots into step t0 + s's row: word j holds the even
+    // destinations (d1 on lanes 0-15, d2 on lanes 16-31), word BPL + j
+    // the odd ones.
+    uint32_t wd[W];
 #pragma unroll
-        for (int i = 4 * p; i < N && i < 4 * p + 4; ++i) {
-          q[i] = (int)(v << (24 - 8 * (i & 3))) >> 24;  // sign-extend byte
-        }
-      }
-      int base = 0, Q = 0;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        base += max(-q[i], 0);
-        Q += abs(q[i]);
-      }
-      int ne[BPL], no[BPL];
-#pragma unroll
-      for (int j = 0; j < BPL; ++j) {
-        int em = base;
-#pragma unroll
-        for (int i = 0; i < N; ++i) em += q[i] & sel[j][i];
-        const int emc = Q - em;
-        const int a0 = lo[j] + em, a1 = hi[j] + emc;
-        const int b0 = lo[j] + emc, b1 = hi[j] + em;
-        const unsigned da = __ballot_sync(kFullMask, a0 > a1);
-        const unsigned db = __ballot_sync(kFullMask, b0 > b1);
-        if (lane == s) {
-          buf[j] = (int)da;        // even states: i = b
-          buf[BPL + j] = (int)db;  // odd states:  i = NS/2 + b
-        }
-        ne[j] = min(a0, a1);
-        no[j] = min(b0, b1);
-      }
-#pragma unroll
-      for (int m = 0; m < 2 * BPL; ++m) {
-        const int src = 16 * (m & 1) + half_lane;
-        const int e = __shfl_sync(kFullMask, ne[m >> 1], src);
-        const int o = __shfl_sync(kFullMask, no[m >> 1], src);
-        if (m < BPL) {
-          lo[m] = odd ? o : e;
-        } else {
-          hi[m - BPL] = odd ? o : e;
-        }
-      }
+    for (int j = 0; j < BPL; ++j) {
+      wd[j] = __byte_perm(d1s[j], d2s[j], 0x7610);
+      wd[BPL + j] = __byte_perm(d2s[j], d1s[j], 0x7610);
     }
     if (lane < steps) {
       int32_t* dst = dec_row + (size_t)(t0 + lane) * W;
+      if constexpr (W == 2) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(wd[0], wd[1]);
+      } else {
 #pragma unroll
-      for (int w = 0; w < W; ++w) dst[w] = buf[w];
+        for (int k = 0; k < W / 4; ++k) {
+          reinterpret_cast<uint4*>(dst)[k] = make_uint4(
+              wd[4 * k], wd[4 * k + 1], wd[4 * k + 2], wd[4 * k + 3]);
+        }
+      }
     }
   }
 
+  // The final metrics with the dropped sums added back.
+  const int dropped = __reduce_add_sync(kFullMask, drop);
 #pragma unroll
   for (int j = 0; j < BPL; ++j) {
-    final_metrics[(size_t)ch * NS + 32 * j + lane] = lo[j];
-    final_metrics[(size_t)ch * NS + HALF + 32 * j + lane] = hi[j];
+    final_metrics[(size_t)ch * NS + 32 * j + lane] = lo[j] + dropped;
+    final_metrics[(size_t)ch * NS + HALF + 32 * j + lane] = hi[j] + dropped;
   }
 }
 
@@ -185,31 +293,27 @@ struct Args {
   const int32_t* init;
   int32_t* decs;
   int32_t* final_metrics;
-  int B, T, qlo, qclip, init_value;
+  int B, T, n, qlo, qclip, init_value;
 };
 
-template <int BPL, int N>
+template <int BPL, int NP>
 void launch(const Args& a, cudaStream_t s) {
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((a.B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  acs_soft_k1_forward_kernel<BPL, N><<<grid, block, 0, s>>>(
-      a.qllrs, a.cb, a.init, a.decs, a.final_metrics, a.B, a.T, a.qlo,
+  acs_soft_k1_forward_kernel<BPL, NP><<<grid, block, 0, s>>>(
+      a.qllrs, a.cb, a.init, a.decs, a.final_metrics, a.B, a.T, a.n, a.qlo,
       a.qclip, a.init_value);
 }
 
 template <int BPL>
-bool launch_n(int n, const Args& a, cudaStream_t s) {
-  switch (n) {
-    case 1: launch<BPL, 1>(a, s); return true;
-    case 2: launch<BPL, 2>(a, s); return true;
-    case 3: launch<BPL, 3>(a, s); return true;
-    case 4: launch<BPL, 4>(a, s); return true;
-    case 5: launch<BPL, 5>(a, s); return true;
-    case 6: launch<BPL, 6>(a, s); return true;
-    case 7: launch<BPL, 7>(a, s); return true;
-    case 8: launch<BPL, 8>(a, s); return true;
-    default: return false;
+bool launch_n(const Args& a, cudaStream_t s) {
+  if (a.n < 1 || a.n > 8) return false;
+  if (a.n <= 4) {
+    launch<BPL, 1>(a, s);
+  } else {
+    launch<BPL, 2>(a, s);
   }
+  return true;
 }
 
 }  // namespace
@@ -224,13 +328,13 @@ extern "C" int acs_soft_k1_forward(const void* qllrs, const void* cb,
                static_cast<const int32_t*>(init),
                static_cast<int32_t*>(decs),
                static_cast<int32_t*>(final_metrics),
-               B, T, qlo, qclip, init_value};
+               B, T, n, qlo, qclip, init_value};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (NS) {
-    case 64: ok = launch_n<1>(n, a, s); break;
-    case 128: ok = launch_n<2>(n, a, s); break;
-    case 256: ok = launch_n<4>(n, a, s); break;
+    case 64: ok = launch_n<1>(a, s); break;
+    case 128: ok = launch_n<2>(a, s); break;
+    case 256: ok = launch_n<4>(a, s); break;
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

@@ -30,12 +30,12 @@
 // for NS >= 512 are the segment walks of traceback_wide.cu.
 //
 // Two kernels:
-//   narrow_walk_kernel   the terminated and masked walks at NS = 64, 128
-//                        and 256: staged segment walks, a lane a segment
-//                        (below);
+//   narrow_walk_kernel   the terminated, masked and ragged walks at
+//                        NS = 64, 128 and 256: staged segment walks, a
+//                        lane a segment (below);
 //   traceback_k1_kernel  a thread a channel (or a (channel, walk) pair):
-//                        the ragged and list walks at every NS <= 256, and
-//                        the terminated and masked walks at NS <= 32.
+//                        the list walk at every NS <= 256, and the
+//                        terminated, masked and ragged walks at NS <= 32.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -127,6 +127,13 @@
 //     work only; else a step loads the one word its state needs (1-7%
 //     slower).  Loading two 8-byte rows at once at W = 2 read 2% faster
 //     alone and 0.3% of a whole decode, inside its noise: not kept.
+//   * Ragged: each channel walks from its own top, t_b - 1, on the
+//     launch's window grid, whose C comes from T (the lengths stay on the
+//     card: no host sync), so a short channel leaves its top windows idle
+//     and the warp runs the windows of its longest channel; a channel that
+//     emits nothing (t_b <= S) reads nothing, and the warp writes zeros
+//     past each channel's bits.  The same G and warm-ups as the
+//     terminated walk.
 //   * Masked steps load nothing: the steps at or beyond `live` shift the
 //     start right one bit a step, so the walk starts at step live - 1 from
 //     starts[b] >> (T - live) (0 from S masked steps on), and the bits of
@@ -190,10 +197,12 @@ struct NarrowShape {
 
 struct NarrowArgs {
   const int32_t* decs;
-  const int32_t* starts;  // masked: [B]; terminated: null (state 0)
+  const int32_t* starts;   // masked: [B]; else null (state 0)
+  const int32_t* lengths;  // ragged: [B]; else null
   uint8_t* out;
-  // t_top: the walk's top step + 1 (t_actual, or live); T: the step below
-  // which the start state stands (T, or t_actual); msg: the row's bits.
+  // t_top: the walk's top step + 1 (t_actual, or live; ragged: T, each
+  // channel's own from its length); T: the step below which the start
+  // state stands (T, or t_actual); msg: the row's bits.
   int B, T_stride, t_top, T, msg, emit_bytes;
 };
 
@@ -412,8 +421,12 @@ struct NarrowWalker {
 // starts) at step t_top - 1 down to step 0, in windows of C G steps on the
 // grid of their multiples, top window first; C = 2^logc lanes a channel,
 // 32 / C channels a warp, one warp a block.  The bits of steps >= t_top
-// (masked steps) are the start's, shifted.
-template <int LOGNS, int LOGG, int WU, int LD>
+// (masked steps) are the start's, shifted.  Ragged: channel b's t_top is
+// t_b = clamp(lengths[b], 0, T) and its row's bits msg_b = min(max(t_b -
+// S, 0), msg) (0 bits: it walks nothing); the warp runs the windows of its
+// longest channel, a window wholly above a channel's top is nothing to
+// that channel, and the bytes (bits) of a row past msg_b are written 0.
+template <int LOGNS, int LOGG, int WU, int LD, bool RAGGED>
 __global__ void __launch_bounds__(32)
 narrow_walk_kernel(const NarrowArgs a, const int logc) {
   using Sh = NarrowShape<LOGNS, LOGG>;
@@ -424,14 +437,31 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
   uint8_t* const st_all = reinterpret_cast<uint8_t*>(wsm + NB * 32 * P);
   uint8_t* const ck_all = st_all + Sh::STAGE;
   uint64_t* const bars = reinterpret_cast<uint64_t*>(ck_all + Sh::STAGE);
-  if (a.msg <= 0) return;
+  if (a.msg <= 0) return;  // rows of no bits
   const int lane = threadIdx.x;
   const int C = 1 << logc, CPW = 32 >> logc;
   const int c = lane >> logc;  // the lane's channel in the warp
   const int l = lane & (C - 1);
   const int ch = blockIdx.x * CPW + c;
   const bool live = ch < a.B;
-  const int t_top = a.t_top;
+  int t_top = a.t_top, msg = a.msg;  // the lane's channel's
+  if constexpr (RAGGED) {
+    const int len = live ? min(max(a.lengths[ch], 0), a.T_stride) : 0;
+    msg = min(max(len - S, 0), a.msg);
+    t_top = msg > 0 ? len : 0;
+    // The row past the channel's bits: zeros, each channel's by the warp.
+    for (int cc = 0; cc < CPW; ++cc) {
+      const int chn = blockIdx.x * CPW + cc;
+      if (chn >= a.B) break;
+      const int m_c = __shfl_sync(kFullMask, msg, cc << logc);
+      const int row_len = a.emit_bytes ? (a.msg + 7) >> 3 : a.msg;
+      uint8_t* orow = a.out + (size_t)chn * row_len;
+      for (int m = (a.emit_bytes ? (m_c + 7) >> 3 : m_c) + lane; m < row_len;
+           m += 32) {
+        orow[m] = 0;
+      }
+    }
+  }
   const int top8 = (t_top + 7) & ~7;
 
   // The masked steps' bits: the row's bytes (bits) from step top8 on.
@@ -457,7 +487,9 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
       }
     }
   }
-  if (t_top <= 0) return;
+  // The warp's longest walk (ragged; else every channel's).
+  const int t_max = RAGGED ? __reduce_max_sync(kFullMask, t_top) : t_top;
+  if (t_max <= 0) return;
 
   // The lane's channel: its start, the state at step t_top - 1 and the
   // bits of the steps [t_top, top8) of the byte that holds step t_top - 1.
@@ -476,7 +508,7 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
   // of 4 words (G W) from the channel's first word, so at this phase.
   const int ph = (int)((reinterpret_cast<uintptr_t>(chb) >> 2) & 3);
   const int WS = C * G;
-  const int n_win = (t_top + WS - 1) / WS;
+  const int n_win = (t_max + WS - 1) / WS;
 
   // Stage window j into buffer `buf`: the lane's segment as one bulk copy
   // of the 16-byte chunks that hold its words, to its own row of P words;
@@ -555,23 +587,29 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
     __syncwarp();
     // The window's bits, each channel's part written by the whole warp; the
     // top window's byte that holds step t_top - 1 carries the masked bits.
-    const int bit_hi = min(hi == t_top ? top8 : hi, a.msg);
+    const int bit_hi = min(hi == t_top ? top8 : hi, msg);
     for (int cc = 0; cc < CPW; ++cc) {
       const int chn = blockIdx.x * CPW + cc;
-      if (chn >= a.B || bit_hi <= lo) break;
+      if (chn >= a.B) break;
+      const int bh =
+          RAGGED ? __shfl_sync(kFullMask, bit_hi, cc << logc) : bit_hi;
+      if (bh <= lo) {  // the channel's bits end below the window
+        if (RAGGED) continue;
+        break;
+      }
       const uint8_t* sc = st_all + (cc << logc) * GB;
       if (a.emit_bytes) {
         uint8_t* orow = a.out + (size_t)chn * ((a.msg + 7) >> 3);
         const int byte_lo = lo >> 3;
-        for (int m = byte_lo + lane; m * 8 < bit_hi; m += 32) {
+        for (int m = byte_lo + lane; m * 8 < bh; m += 32) {
           unsigned v = sc[m - byte_lo];
-          const int rem = bit_hi - m * 8;  // bits of the byte kept
+          const int rem = bh - m * 8;  // bits of the byte kept
           if (rem < 8) v &= 0xffu << (8 - rem);
           orow[m] = (uint8_t)v;
         }
       } else {
         uint8_t* orow = a.out + (size_t)chn * a.msg;
-        for (int p = lo + lane; p < bit_hi; p += 32) {
+        for (int p = lo + lane; p < bh; p += 32) {
           orow[p] = (uint8_t)((sc[(p - lo) >> 3] >> (7 - (p & 7))) & 1u);
         }
       }
@@ -580,10 +618,10 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
   }
 }
 
-template <int LOGNS, int LOGG, int WU, int LD>
+template <int LOGNS, int LOGG, int WU, int LD, bool RAGGED>
 int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
   using Sh = NarrowShape<LOGNS, LOGG>;
-  auto* kernel = narrow_walk_kernel<LOGNS, LOGG, WU, LD>;
+  auto* kernel = narrow_walk_kernel<LOGNS, LOGG, WU, LD, RAGGED>;
   if constexpr (Sh::kSmem > 48 * 1024) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
@@ -601,15 +639,24 @@ int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
 
 // The walk at one NS: with row loads where the decisions' base is aligned
 // to a step's row (8 bytes at W = 2, 16 at W = 4 and 8; every channel's
-// rows then are too), else a word a step.
+// rows then are too), else a word a step; the ragged walk as its own
+// instantiation, so that the others compile as they would without it.
+template <int LOGNS, int LOGG, int WU, int LD>
+int launch_narrow_mode(const NarrowArgs& a, cudaStream_t s) {
+  if (a.lengths != nullptr) {
+    return launch_narrow_kernel<LOGNS, LOGG, WU, LD, true>(a, s);
+  }
+  return launch_narrow_kernel<LOGNS, LOGG, WU, LD, false>(a, s);
+}
+
 template <int LOGNS, int LOGG, int WU>
 int launch_narrow(const NarrowArgs& a, cudaStream_t s) {
   if (a.B == 0) return static_cast<int>(cudaSuccess);
   const uintptr_t base = reinterpret_cast<uintptr_t>(a.decs);
   if (base % (LOGNS == 6 ? 8 : 16) == 0) {
-    return launch_narrow_kernel<LOGNS, LOGG, WU, kRow>(a, s);
+    return launch_narrow_mode<LOGNS, LOGG, WU, kRow>(a, s);
   }
-  return launch_narrow_kernel<LOGNS, LOGG, WU, kWord>(a, s);
+  return launch_narrow_mode<LOGNS, LOGG, WU, kWord>(a, s);
 }
 
 // The narrow walk at each NS: launch_narrow<log2 NS, log2 steps a segment,
@@ -709,13 +756,13 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
 }
 
 // The register-chunk walk of NS's words: every mode at NS <= 32 (one word
-// a step), the ragged and list walks at 64, 128 and 256.
+// a step), the list walk at 64, 128 and 256.
 template <Walk MODE>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
            int message_bits, int emit_bytes, int live, int nw, int out_start,
            cudaStream_t s) {
-  constexpr bool kWide = MODE == Walk::kRagged || MODE == Walk::kMulti;
+  constexpr bool kWide = MODE == Walk::kMulti;
   const dim3 block(kThreads);
   const dim3 grid((B * nw + kThreads - 1) / kThreads);
 #define TB_LAUNCH(W)                                                    \
@@ -745,7 +792,7 @@ int terminated(const void* decs, void* out, int B, int T_stride,
                int t_actual, int NS, int S, int message_bits, int emit_bytes,
                void* stream) {
   if (NS >= 64) {
-    const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr,
+    const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr, nullptr,
                        static_cast<uint8_t*>(out), B, T_stride, t_actual,
                        t_actual, message_bits, emit_bytes};
     return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
@@ -759,6 +806,13 @@ int terminated(const void* decs, void* out, int B, int T_stride,
 int ragged(const void* decs, const void* lengths, void* out, int B, int T,
            int NS, int S, int message_bits_max, int emit_bytes,
            void* stream) {
+  if (NS >= 64) {
+    const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr,
+                       static_cast<const int32_t*>(lengths),
+                       static_cast<uint8_t*>(out), B, T, T, T,
+                       message_bits_max, emit_bytes};
+    return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
+  }
   return launch<Walk::kRagged>(
       static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
       nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
@@ -770,7 +824,7 @@ int masked(const void* decs, const void* starts, void* out, int B, int T,
            void* stream) {
   if (NS >= 64) {
     const NarrowArgs a{static_cast<const int32_t*>(decs),
-                       static_cast<const int32_t*>(starts),
+                       static_cast<const int32_t*>(starts), nullptr,
                        static_cast<uint8_t*>(out), B, T, live, T, out_steps,
                        emit_bytes};
     return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));

@@ -25,7 +25,10 @@ RULES = {
     "traceback_k1": [("(a)", ("hard", "soft", "punctured soft"), "ms",
                       "bound_ms")],
     "acs_soft_k1_forward": [("(a)", ("soft", "soft ragged", "punctured soft"),
-                             "ms", "bound_ms")],
+                             "ms", "bound_ms"),
+                            ("(f)", ("tailbiting crc soft",
+                                     "tailbiting rate-matched"), "f_ms",
+                             "f_bound_ms")],
     "traceback_k1_ragged": [("(a)", ("soft ragged", "hard ragged"), "ms",
                              "bound_ms")],
     # The streaming packets: 8 calls of 256 steps and one of 6 a packet;
@@ -64,7 +67,8 @@ REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "turbo_rsc_map", "traceback_generic", "traceback_generic_k2",
               "traceback_wide", "traceback_wide_masked",
               "traceback_wide_ragged", "traceback_wide_multi",
-              "block_decode_1p", "traceback_k1", "traceback_k1_masked"}
+              "block_decode_1p", "traceback_k1", "traceback_k1_masked",
+              "acs_soft_k1_forward", "traceback_k1_ragged"}
 MAIN_T = 2054  # (a)'s steps, at which stream_k1_decode's bound is given
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build-time variants of the narrow walk (`traceback_k1` and
-`traceback_k1_masked` at NS = 64, 128 and 256: `narrow_walk_kernel` in
-csrc/traceback_k1.cu) against a reference build of the same C entries, on
-one GPU.
+"""Build-time variants of the narrow walk (`traceback_k1`,
+`traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and 256:
+`narrow_walk_kernel` in csrc/traceback_k1.cu) against a reference build of
+the same C entries, on one GPU.
 
     python3 scripts/torch_narrow_walk.py --ref PARENT.cu \\
         [--variant NAME=SOURCE.cu ...] [--lines NAME=NS:G:WU,... ...] \\
@@ -22,8 +22,10 @@ and cases of the narrow walk (`narrow_walk_batches` at its own G:
 noisy, garbage and catastrophic-code words over one to four windows,
 B = 1, a slice of a batch and a base 4 bytes past a 16-byte line; each
 at every `narrow_walk_cases`: terminated and masked, whole and cut rows,
-bits and bytes) and on 2048 channels at 2054 steps, every byte of the
-rows (both builds write into rows filled with 0xA5); its wrong
+bits and bytes; and, where T >= S, ragged at `narrow_ragged_lengths`,
+rows of T - S bits and a cut one, bits and bytes) and on 2048 channels
+at 2054 steps, every byte of the rows (both builds write into rows
+filled with 0xA5); its wrong
 first-pass guesses on the garbage and catastrophic words are counted.
 Then each build is timed in turns with the reference (CUDA events after a sleep that queues the launch, median of
 `--calls`, two inputs alternately):
@@ -31,6 +33,8 @@ Then each build is timed in turns with the reference (CUDA events after a sleep 
               3%-corrupted segments, the terminated walk into bytes;
   (a) soft    the same messages over AWGN at 3 dB, quantized to 7: the soft
               forward's words, the same walk;
+  (c)         the ragged walk over those words, lengths uniform in
+              [S + 1, T] (the ragged decodes' lengths), bytes of L bits;
   288 steps   the block stream's interior pending buffer (48 kept + 240 new
               steps from the argmin state): the masked walk, 240 bits out;
   (f)         LTE_TBCC_K7, 16384 DCI blocks of 56 bits at 2 dB: the soft
@@ -65,7 +69,7 @@ import _torch_variants  # noqa: E402
 
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "traceback_k1.cu"
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "narrow_walk"
-WALKS = ("traceback_k1", "traceback_k1_masked")
+WALKS = ("traceback_k1", "traceback_k1_masked", "traceback_k1_ragged")
 SLEEP_CYCLES = 10_000_000
 # The timed code at NS = 128 (no common factor: a catastrophic code's
 # survivors never merge, so every warm-up guess would be wrong); NS = 256
@@ -162,7 +166,7 @@ def traced(source: Path, out: Path) -> Path:
 
 
 def load_walks(path: Path) -> dict:
-    """The two C entries of a library, with the package's argument
+    """The three C entries of a library, with the package's argument
     types."""
     from convolutionalencdec_tpu_torch.kernels import _build
     lib = ctypes.CDLL(str(path))
@@ -218,6 +222,13 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
             spec.num_states, spec.S, live, L, int(out == "bytes"), stream),
             res)
 
+    def ragged(lib, spec, words, lens, L, out, res=None):
+        B, T = words.shape[:2]
+        res = rows(B, L, out, res)
+        return launched(WALKS[2], lib[WALKS[2]](
+            words.data_ptr(), lens.data_ptr(), res.data_ptr(), B, T,
+            spec.num_states, spec.S, L, int(out == "bytes"), stream), res)
+
     def same(walk, *args, what):
         got, want = walk(fns, *args), walk(refs, *args)
         torch.cuda.synchronize()
@@ -246,6 +257,14 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
             else:
                 n += same(masked, spec, words, starts, t, L, out,
                           what=f"{what} masked T={T} live={t} L={L} {out}")
+        if T >= spec.S:
+            lens = torch.from_numpy(cs.narrow_ragged_lengths(
+                rng, B, T, spec.S)).to(dev)
+            full = T - spec.S
+            for L in sorted({full, cs.cut_bits(full)}):
+                for out in ("bits", "bytes"):
+                    n += same(ragged, spec, words, lens, L, out,
+                              what=f"{what} ragged T={T} L={L} {out}")
         return n
 
     diagnostic = result["lib"].startswith("diag_")
@@ -291,6 +310,8 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
         soft.append(acs.acs_forward_batch_soft(spec, q.to(torch.int8),
                                                cs.QMAX)[0])
     hard = [acs.acs_forward_batch(spec, s)[0] for s in segs]
+    lens = [torch.from_numpy(rng.integers(spec.S + 1, T + 1, B).astype(
+        np.int32)).to(dev) for _ in range(2)]
     pend = [cs.interior_buffer(acs, spec, s) for s in segs]
     lte = fec.LTE_TBCC_K7
     D = cs.DCI_PAYLOAD + 16
@@ -316,6 +337,8 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
                                               "bytes", res["bytes"]),
         "(a) soft": lambda lib, d: terminated(lib, spec, soft[d], T, L,
                                               "bytes", res["bytes"]),
+        "(c)": lambda lib, d: ragged(lib, spec, soft[d], lens[d], L, "bytes",
+                                     res["bytes"]),
         "288 steps": lambda lib, d: masked(lib, spec, pend[d][0], pend[d][1],
                                            288, 240, "bits", res["bits240"]),
         "(f)": lambda lib, d: masked(lib, lte, tb[d][0], tb[d][1], tb[d][2],

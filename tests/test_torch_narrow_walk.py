@@ -1,14 +1,16 @@
 """The narrow walk's schedule (csrc/traceback_k1.cu, `narrow_walk_kernel`:
-the terminated and masked walks of `traceback_k1` and `traceback_k1_masked`
-at NS = 64, 128 and 256, TPU kernels K2, K2m and K11's walk), modelled in
-numpy, against the port's plain walks; the plain walks against the JAX
-package's traceback on the same words; and the walk's dispatch lines.
+the terminated, masked and ragged walks of `traceback_k1`,
+`traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and 256,
+TPU kernels K2, K2m, K2r and K11's walk), modelled in numpy, against the
+port's plain walks; the plain walks against the JAX package's traceback
+and ragged epilogue on the same words; and the walk's dispatch lines.
 
 The kernel runs only on the card, where chip_smoke.py holds it to the plain
 walks; here a model done the way the kernel does it (windows, a segment a
 lane, warm-up guesses, the top-down check and its walks again, the masked
-steps' shifted bits, each lane's whole output bytes) is held bit for bit to
-them.  The walk's constants are read from the source by chip_smoke.py's
+steps' shifted bits, each ragged channel from its own top with its row
+past its bits zeroed, each lane's whole output bytes) is held bit for bit
+to them.  The walk's constants are read from the source by chip_smoke.py's
 helpers, never copied here.
 """
 
@@ -79,31 +81,38 @@ def _noisy(rng, spec, B, T):
     return acs.acs_forward_batch_plain(spec, _t(seg))[0].numpy()
 
 
-def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
+def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng,
+                       lengths=None):
     """numpy model of `narrow_walk_kernel`, done the way the kernel does it.
 
     Channel b walks from state starts[b] (None: 0) at step T - 1; the steps
     [t_top, T) are masked (decision 0: the start shifts right a step each),
     so the walk proper starts at step t_top - 1 from starts[b] >> (T -
-    t_top).  C = `narrow_walk_lanes(t_top, G)` lanes a channel, lane l
-    owning the segment [lo + l G, lo + l G + G) of each window [lo, lo +
-    C G) on the grid of multiples of C G, the top window first.  A lane
-    guesses the state at its segment's top by a warm-up of WU steps from
-    state 0, or from the window's top state where the warm-up reaches it;
-    then walks its segment, all lanes in lock step, each step's bit MSb
-    first into a byte stored to the window's bytes at the byte's lowest
-    step, the state there beside it.  In rounds, each lane whose start
-    differs from the end of the segment above walks again from that state,
-    stopping where the state at a byte's lowest step equals its earlier
-    walk's (its end is then the earlier end).  The top segment's first
-    byte starts with the masked steps' bits above t_top.  For each row
-    width L in `widths`: the masked steps' bits from the byte boundary
-    above t_top on are written first (only with starts), then each
-    window's bits below min(L, its top, or the byte boundary above t_top in
-    the top window), as bits or as bytes with the bits past L masked; the
-    rows start as 0xA5 and the shared bytes as random.  Asserts that each
-    lane stores only bytes of its own segment.  Returns ({L: (bits uint8
-    [B, L], bytes uint8 [B, ceil(L / 8)])}, segments walked again)."""
+    t_top).  Ragged (`lengths`, with t_top = T): channel b walks from state
+    0 at step t_b - 1, t_b = clamp(lengths[b], 0, T), and keeps msg_b =
+    min(max(t_b - S, 0), L) bits of a row of L; a channel with none walks
+    nothing.  C = `narrow_walk_lanes(t_top, G)` lanes a channel (ragged:
+    from T, never from the lengths), lane l owning the segment [lo + l G,
+    lo + l G + G) of each window [lo, lo + C G) on the grid of multiples of
+    C G, the top window first; a window wholly above a channel's top is
+    nothing to it.  A lane guesses the state at its segment's top by a
+    warm-up of WU steps from state 0, or from the window's top state where
+    the warm-up reaches it; then walks its segment, all lanes in lock step,
+    each step's bit MSb first into a byte stored to the window's bytes at
+    the byte's lowest step, the state there beside it.  In rounds, each
+    lane whose start differs from the end of the segment above walks again
+    from that state, stopping where the state at a byte's lowest step
+    equals its earlier walk's (its end is then the earlier end).  The top
+    segment's first byte starts with the masked steps' bits above t_top.
+    For each row width L in `widths`: ragged, the bytes (bits) past each
+    channel's bits are written 0 first; with starts, the masked steps' bits
+    from the byte boundary above t_top on; then each window's bits below
+    min(the channel's bits, its top, or the byte boundary above t_top in
+    the top window), as bits or as bytes with the bits past them masked;
+    the rows start as 0xA5 and the shared bytes as random.  Asserts that
+    each lane stores only bytes of its own segment.  Returns ({L: (bits
+    uint8 [B, L], bytes uint8 [B, ceil(L / 8)])}, segments walked
+    again)."""
     B, T_stride, _ = words.shape
     S = NS.bit_length() - 1
     w64 = words.astype(np.int64) & 0xFFFFFFFF
@@ -113,20 +122,27 @@ def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
     lanes = np.arange(C)
     s0 = (np.zeros(B, np.int64) if starts is None
           else np.asarray(starts, np.int64) & (NS - 1))
+    if lengths is None:
+        tops = np.full(B, t_top, np.int64)
+    else:
+        t_b = np.clip(np.asarray(lengths, np.int64), 0, T_stride)
+        tops = np.where(t_b > S, t_b, 0)
+    hi_all = tops[:, None]
 
     def masked_bit(t):
         k = T - 1 - t
         return (s0 >> k) & 1 if 0 <= k < S else np.zeros(B, np.int64)
 
     top = s0 >> (T - t_top) if T - t_top < S else np.zeros(B, np.int64)
-    top8 = (t_top + 7) & ~7
+    top8 = (tops + 7) & ~7
     head = np.zeros(B, np.int64)
-    for t in range(t_top, top8):
-        head |= masked_bit(t) << (7 - (t & 7))
+    if lengths is None:
+        for t in range(t_top, top8[0]):
+            head |= masked_bit(t) << (7 - (t & 7))
 
     def step(t, cur):
         i = (cur >> 1) | ((cur & 1) << (S - 1))
-        d = (w64[rows, np.clip(t, 0, T_stride - 1)[None, :], i >> 5]
+        d = (w64[rows, np.clip(t, 0, T_stride - 1), i >> 5]
              >> (i & 31)) & 1
         return (cur >> 1) | (d << (S - 1))
 
@@ -134,11 +150,18 @@ def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
     ck = rng.integers(0, NS, (B, C * GB)).astype(np.int64)
     outs = {L: (np.full((B, L), 0xA5, np.uint8),
                 np.full((B, (L + 7) // 8), 0xA5, np.uint8)) for L in widths}
+    msgs = {L: (np.full(B, L) if lengths is None
+                else np.minimum(np.maximum(t_b - S, 0), L)) for L in widths}
+    if lengths is not None:
+        for L, (bits, out_bytes) in outs.items():
+            for b in range(B):
+                bits[b, msgs[L][b]:] = 0
+                out_bytes[b, (msgs[L][b] + 7) // 8:] = 0
     if starts is not None:
         for L, (bits, out_bytes) in outs.items():
-            for p in range(top8, L):
+            for p in range(top8[0], L):
                 bits[:, p] = masked_bit(p)
-            for m in range(top8 // 8, (L + 7) // 8):
+            for m in range(top8[0] // 8, (L + 7) // 8):
                 v = np.zeros(B, np.int64)
                 for q in range(8):
                     if m * 8 + q < L:
@@ -149,6 +172,7 @@ def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
         """Lanes `on` from step hi - 1 down to lo_t (per lane), in lock
         step; returns the states at step lo_t - 1.  `again`: the earlier
         walks' ends, where a walk stops on meeting its earlier walk."""
+        hi, lo_t = np.broadcast_to(hi, (B, C)), np.broadcast_to(lo_t, (B, C))
         cur, on, acc = cur.copy(), on.copy(), acc.copy()
         for s in range(int(np.max(np.where(on, hi - lo_t, 0), initial=0))):
             t = hi - 1 - s
@@ -157,7 +181,7 @@ def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
                 acc = np.where(act, acc | ((cur & 1) << (7 - (t & 7))), acc)
                 store = act & ((t & 7) == 0)
                 r, l = np.nonzero(store)
-                m = (t[l] - lo) >> 3
+                m = (t[r, l] - lo) >> 3
                 assert np.all((l * GB <= m) & (m < (l + 1) * GB))
                 stage[r, m] = acc[r, l]
                 acc = np.where(store, 0, acc)
@@ -168,26 +192,26 @@ def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
                     act &= ~met
                     on &= ~met
                     r, l = np.nonzero(store & ~met)
-                    m = (t[l] - lo) >> 3
+                    m = (t[r, l] - lo) >> 3
                 ck[r, m] = cur[r, l]
             cur = np.where(act, step(t, cur), cur)
         return cur
 
     rewalks = 0
     zeros = np.zeros((B, C), np.int64)
-    for j in reversed(range(-(-t_top // WS))):
+    for j in reversed(range(-(-int(tops.max(initial=0)) // WS))):
         lo = j * WS
-        hi = min(lo + WS, t_top)
+        hi = np.minimum(lo + WS, hi_all)                      # [B, 1]
         a = lo + lanes * G
-        b = np.minimum(a + G, hi)
-        mine = np.broadcast_to(a < hi, (B, C))
+        b = np.minimum(a + G, hi)                             # [B, C]
+        mine = a < hi
         top_seg = b == hi
         guessing = mine & ~top_seg
         t0 = np.minimum(b - 1 + WU, hi - 1)
         x = np.where(t0 == hi - 1, top[:, None], 0)
         start = np.where(guessing, walk(t0 + 1, b, x, guessing, zeros, lo,
                                         False), top[:, None])
-        acc = np.where(b == t_top, head[:, None], 0)
+        acc = np.where(b == hi_all, head[:, None], 0)
         end = np.where(mine, walk(b, a, start, mine, acc, lo, True), 0)
         while True:
             above = np.concatenate([end[:, 1:], end[:, -1:]], axis=1)
@@ -201,14 +225,15 @@ def _narrow_walk_model(NS, G, WU, words, t_top, T, starts, widths, rng):
         top = end[:, 0]
         staged = stage.astype(np.uint8)
         for L, (bits, out_bytes) in outs.items():
-            bit_hi = min(top8 if hi == t_top else hi, L)
-            if bit_hi <= lo:
-                continue
-            bits[:, lo:bit_hi] = np.unpackbits(staged, axis=1)[:, :bit_hi - lo]
-            m_lo, m_hi = lo // 8, (bit_hi + 7) // 8
-            out_bytes[:, m_lo:m_hi] = staged[:, :m_hi - m_lo]
-            if bit_hi % 8:
-                out_bytes[:, m_hi - 1] &= 0xFF << (8 - bit_hi % 8) & 0xFF
+            h = hi[:, 0]
+            bit_hi = np.minimum(np.where(h == tops, top8, h), msgs[L])
+            for c in np.nonzero(bit_hi > lo)[0]:
+                bh = int(bit_hi[c])
+                bits[c, lo:bh] = np.unpackbits(staged[c])[:bh - lo]
+                m_lo, m_hi = lo // 8, (bh + 7) // 8
+                out_bytes[c, m_lo:m_hi] = staged[c, :m_hi - m_lo]
+                if bh % 8:
+                    out_bytes[c, m_hi - 1] &= 0xFF << (8 - bh % 8) & 0xFF
     return outs, rewalks
 
 
@@ -245,6 +270,23 @@ def _masked(NS, words, starts, live, rng, wu=None):
         sorted({T, _SMOKE.cut_bits(T)}), rng)
     _assert_rows(outs, acs.traceback_batch_masked_plain(
         spec, _t(words), _t(np.asarray(starts, np.int32)), live, T, "bits"))
+    return rewalks
+
+
+def _ragged(NS, words, lengths, rng, wu=None):
+    """The model's ragged walk against `traceback_batch_ragged_plain`, rows
+    of T - S bits and a cut one; returns the segments walked again."""
+    G, WU = _LINES[NS]
+    spec = _spec(NS, rng)
+    T = words.shape[1]
+    full = max(T - spec.S, 0)
+    widths = sorted({full, _SMOKE.cut_bits(full)} - {0})
+    outs, rewalks = _narrow_walk_model(
+        NS, G, WU if wu is None else wu, words, T, T, None, widths, rng,
+        lengths)
+    lens = _t(np.asarray(lengths, np.int32))
+    _assert_rows(outs, acs.traceback_batch_ragged_plain(spec, _t(words), lens,
+                                                        full, "bits"))
     return rewalks
 
 
@@ -298,6 +340,31 @@ def test_narrow_walk_schedule_model_matches_plain_walks(NS, which):
 
 
 @pytest.mark.parametrize("NS", sorted(_LINES))
+def test_narrow_walk_ragged_model_matches_plain_walk(NS):
+    """The ragged walk's schedule (each channel from its own top on the
+    launch's window grid, lanes a channel from T, a channel with no bits
+    walking nothing, its row past its bits written 0), modelled in numpy,
+    gives the plain ragged walk's bits and bytes into rows first filled
+    with 0xA5: the edge lengths and random ones over one window (a short
+    walk packs channels into a warp), over four windows of the forward's
+    words and of garbage words (re-walks asserted), and without warm-ups."""
+    G, WU = _LINES[NS]
+    rng = np.random.default_rng(NS + 3)
+    S = NS.bit_length() - 1
+    spec = _spec(NS, rng, 4)
+    T = S + 5
+    words = _garbage(rng, 9, T, NS)
+    _ragged(NS, words, _SMOKE.narrow_ragged_lengths(rng, 9, T, S), rng)
+    T = 96 * G + 37
+    words = _noisy(rng, spec, 12, T)
+    _ragged(NS, words, _SMOKE.narrow_ragged_lengths(rng, 12, T, S), rng)
+    lens = _SMOKE.narrow_ragged_lengths(rng, 12, T, S)
+    assert _ragged(NS, words, lens, rng, wu=0) > 0
+    words = _garbage(rng, 12, T, NS)
+    assert _ragged(NS, words, lens, rng) > 0
+
+
+@pytest.mark.parametrize("NS", sorted(_LINES))
 def test_narrow_walk_plain_walks_match_the_jax_traceback(NS):
     """The plain walks the model is held to give the JAX package's
     traceback on the same words (unpacked to decisions): terminated from
@@ -323,6 +390,16 @@ def test_narrow_walk_plain_walks_match_the_jax_traceback(NS):
     got = acs.traceback_batch_masked_plain(
         spec, _t(words), _t(starts.astype(np.int32)), live, T, "bits")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # Ragged, at the edge lengths (the JAX epilogue takes them clamped, as
+    # its decoders pass them).
+    lens = np.clip(_SMOKE.narrow_ragged_lengths(rng, 8, T, spec.S)[[0, 3, 5]],
+                   0, T)
+    dec = acs.unpack_decisions(spec, _t(words)).numpy()
+    want = ref_viterbi.ragged_epilogue(rspec, jnp.asarray(dec),
+                                       jnp.asarray(lens.astype(np.int32)), T)
+    got = acs.traceback_batch_ragged_plain(
+        spec, _t(words), _t(lens.astype(np.int32)), T - spec.S, "bits")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_narrow_walk_dispatch_covers_64_to_256():
@@ -331,8 +408,10 @@ def test_narrow_walk_dispatch_covers_64_to_256():
     blocks of warm-up; each segment's staged rows at a pitch of an odd
     number of 16-byte chunks; the staged windows, the output bytes and
     their states (as the source sizes them) within a block's shared memory
-    on the card (227 KiB); and the ragged and list walks, and every walk at
-    NS <= 32, stay on `traceback_k1_kernel`."""
+    on the card (227 KiB); the terminated, masked and ragged walks take
+    it at NS >= 64, the ragged one with its lengths and the launch's T for
+    its lanes a channel; and the list walk, and every walk at NS <= 32,
+    stay on `traceback_k1_kernel`."""
     lines = _SMOKE.narrow_walk_lines()
     assert [ns for ns, *_ in lines] == [64, 128, 256]
     for NS, G, WU in lines:
@@ -351,16 +430,19 @@ def test_narrow_walk_dispatch_covers_64_to_256():
         start = src.index(f"\nint {name}(")
         return src[start:src.index("\n}\n", start)]
 
-    for name in ("terminated", "masked"):
+    for name in ("terminated", "masked", "ragged"):
         text = body(name)
         assert "if (NS >= 64)" in text and "launch_narrow_walk(" in text
-    assert "launch<Walk::kRagged>" in body("ragged")
+    ragged = body("ragged")
+    assert "static_cast<const int32_t*>(lengths)" in ragged
+    # The ragged launch's t_top and T are the rows' T: C comes from T.
+    assert "B, T, T, T," in ragged
+    assert "launch<Walk::kRagged>" in ragged  # NS <= 32
     assert "launch<Walk::kMulti>" in body("multi")
     launch = src[src.index("int launch(const int32_t* d"):]
     launch = launch[:launch.index("\n}\n")]
     wide = launch[launch.index("if constexpr (kWide)"):]
-    assert ("kWide = MODE == Walk::kRagged || MODE == Walk::kMulti"
-            in launch)
+    assert "kWide = MODE == Walk::kMulti;" in launch
     for w, ns in ((2, 64), (4, 128), (8, 256)):
         assert f"case {ns}: TB_LAUNCH({w})" in wide
         assert f"TB_LAUNCH({w})" not in launch[:launch.index(
@@ -368,3 +450,4 @@ def test_narrow_walk_dispatch_covers_64_to_256():
     # The wrappers' kernel names are those of the C entries.
     assert acs._walk_kernel(port.NASA_K7) == "traceback_k1"
     assert acs._walk_kernel(port.NASA_K7, "_masked") == "traceback_k1_masked"
+    assert acs._walk_kernel(port.NASA_K7, "_ragged") == "traceback_k1_ragged"
