@@ -70,9 +70,13 @@ Phases (any failure exits non-zero and prints no result line):
      K2m and that K4 at (a)'s size, of each whole call, and (a)'s wall and
      host-enqueue times;
  12. max-log-MAP and turbo kernels against plain versions on the card,
-     small sizes: `maxlogmap_k1` on NASA_K7, NASA_K7_R13, K9_561_753 and a
-     K=8 code (T = S + 1, 32, 48, 203; +-7, int8 with -128, 20% erasures;
-     terminated and not; B = 1), `turbo_rsc_map` at L = 40, 47, 61, 104,
+     small sizes: `maxlogmap_k1` on NASA_K7, NASA_K7_R13, K9_561_753, a
+     K=8 code and random codes at NS = 128 and 256 with n = 5..8 (T = S +
+     1, 32, 48, 203 at B = 37; +-7, int8 with -128, 20% erasures;
+     terminated and not; B = 1; and at the kernel's 32-step blocks and
+     checkpoints: T = 1, S + 1, 31, 32, 33, 63, 64, 65 at B = 1 and 5 with
+     those LLRs and with +-127 and -128 among 20% erasures, T = 2054 at
+     B = 5), `turbo_rsc_map` at L = 40, 47, 61, 104,
      1024, 6144 (a-priori +-31 and +-4000), the LA_CLAMP contract case and
      B = 1, at its round edges (L = 1, 2, 7, 8, 9, 63, 64, 65, 2047; B = 5
      and 3) and on codes of 4 and 2 states and an 8-state code whose edges
@@ -153,7 +157,10 @@ Phases (any failure exits non-zero and prints no result line):
      2048 x L = 2048, 3% segment corruption, seed 9865): hard bytes (BER <
      5e-3), soft bytes over AWGN at 3 dB (qmax 7), ragged hard bytes; each
      equal to its plain route on the card, launches of the small kernels
-     and the one-word walks > 0;
+     and the one-word walks > 0; at the end of the run (after the timing
+     phases) the CUDA kernels of one call of each under torch.profiler:
+     the hard and soft decodes' walk is `narrow_walk_kernel`, the ragged
+     one's `traceback_k1_kernel`;
  18. wide main path (l): the K=15 rate-1/4 Galileo code (NS = 16384) at the
      same size: hard bytes (BER < 2e-3), soft bytes at 3 dB, the K11 names
      (hard forward + `traceback_batch_fused`, soft forward +
@@ -190,22 +197,25 @@ Phases (any failure exits non-zero and prints no result line):
      berTestK7's acceptance run (`run_reference_ber_test`, NASA_K7, 65,536
      packets a point) within its 10% gate at all three points; one
      `bench_decode` tick; `kernel_traffic` at (a) and (m).
- 22. the narrow walk (`traceback_k1`, `traceback_k1_masked` at NS = 64,
-     128, 256: `narrow_walk_kernel`) against the plain walks on the card at
-     every line of its dispatch switch: the forward's words of a random
-     code's noisy packets, garbage words and a catastrophic code's words
-     (its guesses wrong, counted), B = 37 over one to four windows (T = 1,
+ 22. the narrow walk (`traceback_k1` at NS = 2 ... 256 and
+     `traceback_k1_masked` at NS = 64, 128, 256: `narrow_walk_kernel`)
+     against the plain walks on the card at every line of its dispatch
+     switch (below 64 states the terminated walk): the forward's
+     words of a random code's noisy packets, garbage words and a
+     catastrophic code's words (below 64 states words whose decisions
+     rotate the state, 10% of the steps garbage; its guesses wrong,
+     counted), B = 37 over one to four windows (T = 1,
      5, 9, S + 3, G + 1, 32 G - 5, 32 G, 32 G + 1, 96 G + 37, 96 G + 38)
      and B = 1, terminated (t_actual T, T - 2) and masked (live 0, S,
      T - 1, T, random starts), whole and cut rows, bits and bytes, each
      launch counted;
      slices of a batch (odd and even T) and a base 4 bytes past a 16-byte
-     line; the K11 names against their plain routes; the ragged walk
-     (`traceback_k1_ragged`, the same kernel, each channel from its own
-     top) on the same batches where T >= S, lengths 0, 1, S, S + 1, T - 1,
-     T, past T and negative, then random, rows of T - S bits and a cut
-     one, bits and bytes, by the wrapper and by the C entry into rows
-     first filled with 0xA5;
+     line; the K11 names against their plain routes; at NS >= 64 the
+     ragged walk (`traceback_k1_ragged`, the same kernel, each channel from
+     its own top) on the same batches where T >= S, lengths 0, 1, S,
+     S + 1, T - 1, T, past T and negative, then random, rows of T - S
+     bits and a cut one, bits and bytes, by the wrapper and by the C
+     entry into rows first filled with 0xA5;
  23. the narrow soft forward (`acs_soft_k1_forward` at NS = 64, 128, 256,
      csrc/acs_soft_k1.cu) against its plain version on the card at every
      line of its dispatch, n = 1 ... 8 each: B = 37 at T = 0, 1, 31, 32,
@@ -373,6 +383,13 @@ BLOCK_STREAM_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
 # and sequence ML err on the same bursts, not always on the same bits.
 MAP_PRESETS = ["NASA_K7", "NASA_K7_R13", "K9_561_753"]
 MAP_LENGTHS = (32, 48, 203)
+# The kernel's edges: its steps run in unrolled blocks of 32, one a
+# checkpoint, the last a loop (T around one and two blocks, one step);
+# B = 1 and 5 (a block's warps partly empty); the n = 5..8 kernels at the
+# larger NS; and the main path's T at B = 5.
+MAP_EDGE_T = (1, 31, 32, 33, 63, 64, 65)
+MAP_EDGE_B = (1, 5)
+MAP_WIDE_NS = (128, 256)
 MAP_VITERBI_DIFFER_LIMIT = 2.6e-3
 # Turbo: the comparison phase's block lengths (every L mod 3, the largest
 # LTE block), the serving point of bench.py --turbo (B code blocks of 1000
@@ -609,6 +626,22 @@ def drive(acs, fn):
     result = fn()
     torch.cuda.synchronize()
     return result, {k: v for counts in counters for k, v in counts.items()}
+
+
+def cuda_kernel_names(fn) -> set:
+    """The names of the CUDA kernels one call of `fn` runs, as
+    torch.profiler records them (CUPTI)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    require(bool(names), "the profiler recorded the call's kernels")
+    return names
 
 
 def ber_of_bytes(out, msgs, lengths=None) -> float:
@@ -1711,6 +1744,25 @@ def map_draws(rng, shape):
             "+-7, 20% zeros": np.where(rng.random(shape) < 0.2, 0, pm7)}
 
 
+def map_edge_cases(rng, spec):
+    """Yields (B, T, label, int LLRs [B, T, n]) of the max-log-MAP kernel's
+    edges at `spec`: T in MAP_EDGE_T and S + 1 at each B of MAP_EDGE_B,
+    each of `map_draws` and the extremes (+-127 and -128, 20% erasures);
+    the main path's T (MAIN_L + S) at B = 5 over the whole int8 range."""
+    import numpy as np
+    for T in sorted(set(MAP_EDGE_T) | {spec.S + 1}):
+        for B in MAP_EDGE_B:
+            shape = (B, T, spec.n)
+            draws = map_draws(rng, shape)
+            draws["+-127, -128, 20% zeros"] = np.where(
+                rng.random(shape) < 0.2, 0,
+                rng.choice(np.array([-128, -127, 127]), shape))
+            for label, draw in draws.items():
+                yield B, T, label, draw
+    T = MAIN_L + spec.S
+    yield 5, T, "int8", rng.integers(-128, 128, (5, T, spec.n))
+
+
 def compare_map(km, spec, q, terminated, err):
     """`maxlogmap_k1` against its plain version on one batch of LLRs."""
     import torch
@@ -1772,6 +1824,8 @@ def phase_compare_soft_output(fec, dev, err):
     rng = np.random.default_rng(2029)
     cases = [(name, fec.PRESETS[name]) for name in MAP_PRESETS]
     cases.append(("K8_247_371", fec.CodeSpec(K=8, g=(0o247, 0o371))))
+    cases += [(f"NS{NS}_n{n}", bfly_spec(fec, rng, NS, n))
+              for NS in MAP_WIDE_NS for n in range(5, 9)]
     for name, spec in cases:
         require(km.maxlogmap_supported(spec), f"{name} on the MAP kernel")
         for T in (spec.S + 1,) + MAP_LENGTHS:
@@ -1779,9 +1833,19 @@ def phase_compare_soft_output(fec, dev, err):
                 q = torch.from_numpy(draw.astype(np.int8)).to(dev)
                 for terminated in (True, False):
                     compare_map(km, spec, q, terminated, err)
+        edges = 0
+        for B, T, label, draw in map_edge_cases(rng, spec):
+            q = torch.from_numpy(draw.astype(np.int8)).to(dev)
+            for terminated in (True, False):
+                compare_map(km, spec, q, terminated, err)
+                edges += 1
         print(f"[compare] {name:12s} max-log-MAP B={SMALL_B} T=S+1,"
               f"{','.join(map(str, MAP_LENGTHS))}: +-7, int8 with -128, 20% "
-              "erasures, terminated and not, equal to the plain version")
+              f"erasures, terminated and not; {edges} edge cases (T = "
+              f"{', '.join(map(str, MAP_EDGE_T))}, S + 1 at B = "
+              f"{', '.join(map(str, MAP_EDGE_B))}, also +-127 and -128 with "
+              f"erasures; T = {MAIN_L + spec.S} at B = 5): equal to the "
+              "plain version")
     for T in (1, 7, 40):
         q = torch.from_numpy(rng.integers(-128, 128, (1, T, 2)).astype(
             np.int8)).to(dev)
@@ -3102,6 +3166,32 @@ def phase_small(fec, acs, dev, err):
     return (spec, seg, q, seg_r, lens), launches, plain_ms, summary
 
 
+def small_walk_kernels(fec, small_in) -> dict:
+    """(k)'s walks by CUDA kernel, from one call of each decode under
+    torch.profiler (after the timing phases, which it would disturb): the
+    hard and soft decodes' terminated walk is `narrow_walk_kernel`, the
+    ragged decode's walk `traceback_k1_kernel`.  Returns path -> the walk
+    kernels' names."""
+    import re
+    spec, seg, q, seg_r, lens = small_in
+    walks = {}
+    for path, call, kernel in (
+            ("small hard", lambda: fec.viterbi_decode_batch_bytes(spec, seg),
+             "narrow_walk_kernel"),
+            ("small soft", lambda: fec.viterbi_decode_batch_soft_bytes(
+                spec, q, qmax=QMAX), "narrow_walk_kernel"),
+            ("small ragged", lambda: fec.viterbi_decode_batch_bytes_ragged(
+                spec, seg_r, lens), "traceback_k1_kernel")):
+        names = cuda_kernel_names(call)
+        walks[path] = sorted({m.group(0) for m in (
+            re.search(r"\w*(?:walk|traceback)\w*<[^>]*>", n) for n in names)
+            if m})
+        require(any(kernel in n for n in names),
+                f"{path}: {kernel} ran: {sorted(names)}")
+    print(f"[small] (k) walk kernels by path: {walks}")
+    return walks
+
+
 def phase_wide(fec, acs, dev, err):
     """(l): WIDE_MAIN at bench.py's working set through the hard and soft
     byte decodes, the K11 names, the ragged hard byte decode and the
@@ -3394,9 +3484,9 @@ def butterfly_times(fec, acs, small_in, wide_in):
 
 
 # ---------------------------------------------------------------------------
-# The narrow walk: the terminated and masked walks at NS = 64, 128 and 256
-# (TPU kernels K2, K2m and K11's walk), `narrow_walk_kernel` in
-# csrc/traceback_k1.cu.
+# The narrow walk: the terminated walk at NS = 2 ... 256 and the masked and
+# ragged walks at NS = 64, 128 and 256 (TPU kernels K2, K12's walk, K2m, K2r
+# and K11's walk), `narrow_walk_kernel` in csrc/traceback_k1.cu.
 
 #: The narrow walk's checks: the batch, not a multiple of any channel count
 #: a warp holds.
@@ -3427,7 +3517,7 @@ def narrow_walk_smem(NS, G, source=None):
     src = Path(source or ROOT / SOURCES["traceback_k1"][0]).read_text()
     pad = int(re.search(r"int P = SEGW \+ (\d+);", src).group(1))
     nb = int(re.search(r"int NB = (\d+);", src).group(1))
-    pitch = G * (NS // 32) + pad
+    pitch = G * max(NS // 32, 1) + pad
     smem = nb * 32 * pitch * 4 + 2 * 32 * (G // 8) + 8 * nb
     return pitch, (smem + 15) & ~15
 
@@ -3452,16 +3542,18 @@ def narrow_walk_lengths(S, G):
                          32 * G + 1, 96 * G + 37, 96 * G + 38}))
 
 
-def narrow_walk_guesses_wrong(words, T, t_top, starts, G, WU) -> int:
+def narrow_walk_guesses_wrong(words, T, t_top, starts, G, WU,
+                              NS=None) -> int:
     """How many of the narrow walk's first-pass segment starts are wrong on
     these words, over all rows (each such segment is walked again): the
     walk from `starts` (None: state 0) at step T - 1, decision 0 at steps
     >= t_top, in windows of C G steps (`narrow_walk_lanes`) top down; a
     segment's guess is a warm-up of WU steps from state 0 above it, or from
-    the window's top state where the warm-up reaches it."""
+    the window's top state where the warm-up reaches it.  NS: the states
+    (default: 32 a word, as at NS >= 32)."""
     import numpy as np
     w = words.cpu().numpy().view(np.uint32)
-    B, NS = w.shape[0], w.shape[2] * 32
+    B, NS = w.shape[0], NS or w.shape[2] * 32
     S = NS.bit_length() - 1
     rows = np.arange(B)
 
@@ -3511,13 +3603,16 @@ def narrow_walk_words(fec, acs, code, rng, dev, kind, B, T):
     forward's words of `code`'s 3%-corrupted packets, "garbage" uniform
     words, "catastrophic" the forward's words of the catastrophic code of
     that NS (`SP_CATASTROPHIC`: survivors that never merge) over garbage
-    segments."""
+    segments, or below 64 states `rotating_words`."""
     import numpy as np
     import torch
     NS = code.num_states
     if kind == "garbage":
         return torch.from_numpy(rng.integers(
-            -2 ** 31, 2 ** 31, (B, T, NS // 32)).astype(np.int32)).to(dev)
+            -2 ** 31, 2 ** 31, (B, T, max(NS // 32, 1))).astype(
+                np.int32)).to(dev)
+    if kind == "catastrophic" and NS < 64:
+        return torch.from_numpy(rotating_words(rng, B, T, NS)).to(dev)
     if kind == "catastrophic":
         g = SP_CATASTROPHIC[NS]
         code = fec.CodeSpec(K=NS.bit_length(), g=g + g)
@@ -3528,6 +3623,21 @@ def narrow_walk_words(fec, acs, code, rng, dev, kind, B, T):
                       code.n)
     return acs.acs_forward_batch(code, torch.from_numpy(
         np.ascontiguousarray(seg)).to(dev))[0]
+
+
+def rotating_words(rng, B, T, NS):
+    """int32 [B, T, 1] one-word decisions (NS <= 32) under which 90% of
+    the steps rotate the state (each state's decision is the bit it shifts
+    out: no two survivors meet) and 10% are uniform garbage, which moves
+    the walk off state 0: most warm-up guesses are wrong and stay wrong."""
+    import numpy as np
+    S = NS.bit_length() - 1
+    # State s's decision is bit i = (s >> 1) | ((s & 1) << (S - 1)), and
+    # s & 1 is bit S - 1 of i: the bits i >= NS / 2 are set.
+    rot = np.int64(((1 << NS) - 1) ^ ((1 << (NS // 2)) - 1))
+    words = rng.integers(-2 ** 31, 2 ** 31, (B, T, 1))
+    words = np.where(rng.random((B, T, 1)) < 0.9, rot, words)
+    return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
 def narrow_walk_batches(fec, acs, spec, rng, dev, G):
@@ -3541,7 +3651,7 @@ def narrow_walk_batches(fec, acs, spec, rng, dev, G):
     bytes past a 16-byte line at NS = 64) and a base 4 bytes past one (a
     word a step)."""
     import torch
-    W = spec.num_states // 32
+    W = max(spec.num_states // 32, 1)
     lengths = narrow_walk_lengths(spec.S, G)
 
     def words(kind, B, T):
@@ -3567,9 +3677,11 @@ def narrow_walk_batches(fec, acs, spec, rng, dev, G):
 
 def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
     """`traceback_batch` and `traceback_batch_masked` on one batch of
-    decision words at NS 64-256 against their plain versions at each of
-    `narrow_walk_cases`, masked from random starts; each call one launch
-    counted.  Returns the cases."""
+    decision words at NS 2-256 against their plain versions at each of
+    `narrow_walk_cases` (below 64 states the terminated ones: the masked
+    walk there is phase 16's), masked from random starts; each call one
+    launch counted, each difference under its row of the kernels line
+    (`walk_key`).  Returns the cases."""
     import numpy as np
     import torch
     pad_and_pack = fec.ops.viterbi.pad_and_pack
@@ -3578,6 +3690,8 @@ def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
         np.int32)).to(words.device)
     plain, cases = {}, 0
     for mode, t, L, out in narrow_walk_cases(spec.S, T):
+        if mode == "masked" and spec.num_states < 64:
+            continue
         if (mode, t) not in plain:
             plain[mode, t] = (
                 acs.traceback_batch_plain(spec, words, t, t - spec.S, "bits")
@@ -3587,18 +3701,20 @@ def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
         if out == "bytes":
             ref = pad_and_pack(ref)
         if mode == "terminated":
-            key, case = "traceback_k1", f"t_actual={t}"
+            key, row, case = "traceback_k1", walk_key(acs, spec), \
+                f"t_actual={t}"
             call = lambda: acs.traceback_batch(spec, words, t, L, out)
         else:
-            key, case = "traceback_k1_masked", f"live={t}"
+            key, row, case = "traceback_k1_masked", "traceback_k1_masked", \
+                f"live={t}"
             call = lambda: acs.traceback_batch_masked(spec, words, starts, t,
                                                       L, out)
-        case = f"{spec} {key} {what} B={B} T={T} {case} L={L} {out}"
+        case = f"{spec} {row} {what} B={B} T={T} {case} L={L} {out}"
         before = acs.LAUNCHES[key]
         got = call()
         require(acs.LAUNCHES[key] == before + 1, f"{case}: a launch counted")
         require(torch.equal(got, ref), f"{case}: equal to the plain walk")
-        err[key] = max(err[key], max_abs_diff(got, ref))
+        err[row] = max(err[row], max_abs_diff(got, ref))
         cases += 1
     return cases
 
@@ -3654,14 +3770,17 @@ def compare_narrow_ragged(fec, acs, spec, words, err, rng, what) -> int:
 
 
 def phase_compare_narrow_walks(fec, acs, dev, err):
-    """The narrow walk (`traceback_k1`, `traceback_k1_masked`,
-    `traceback_k1_ragged` at NS = 64, 128, 256) against the plain walks on
-    the card, at every line of its dispatch switch: a random rate-1/4
-    code's batches of `narrow_walk_batches` (noisy, garbage and
-    catastrophic-code words, one to four windows, B = 1, the offset bases),
-    each at every case of `compare_narrow_walk` and, where T >= S, of
-    `compare_narrow_ragged`, the wrong first-pass guesses counted on the
-    garbage and catastrophic words; the K11 names
+    """The narrow walk (`traceback_k1` at NS = 2 ... 256,
+    `traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128, 256)
+    against the plain walks on the card, at every line of its dispatch
+    switch: a random rate-1/4 code's batches of `narrow_walk_batches`
+    (noisy, garbage and catastrophic-code words, one to four windows,
+    B = 1, the offset bases), each at every case of `compare_narrow_walk`
+    (below 64 states the terminated ones) and, at
+    NS >= 64 where T >= S, of `compare_narrow_ragged`, the wrong first-pass
+    guesses counted on the garbage and catastrophic words (required on
+    both at NS >= 64, on the rotating words below: garbage words merge a
+    small state's survivors within a few steps); at NS >= 64 the K11 names
     (`kernels.fused.traceback_batch_fused`, `_masked` from one-hot starts
     over a live prefix) against their plain routes."""
     import numpy as np
@@ -3676,14 +3795,26 @@ def phase_compare_narrow_walks(fec, acs, dev, err):
                                                         dev, G):
             cases += compare_narrow_walk(fec, acs, spec, words, err, rng,
                                          what)
-            ragged += compare_narrow_ragged(fec, acs, spec, words, err, rng,
-                                            what)
+            if NS >= 64:
+                ragged += compare_narrow_ragged(fec, acs, spec, words, err,
+                                                rng, what)
             if guessed:
                 T = words.shape[1]
                 wrong.append(narrow_walk_guesses_wrong(words, T, T, None, G,
-                                                       WU))
-                require(wrong[-1] > 0, f"NS={NS} {what} T={T}: the walk's "
-                        "guesses are wrong somewhere")
+                                                       WU, NS))
+                require(wrong[-1] > 0 or (NS < 64 and what == "garbage"),
+                        f"NS={NS} {what} T={T}: the walk's guesses are "
+                        "wrong somewhere")
+        lengths = narrow_walk_lengths(S, G)
+        if NS < 64:
+            print(f"[compare] narrow walk NS={NS}: G {G}, warm-up {WU}; "
+                  f"{cases} cases (B={NARROW_B}: T = "
+                  f"{', '.join(map(str, lengths))}, noisy and garbage words; "
+                  f"T={lengths[-1]} garbage and rotating words: "
+                  f"{' / '.join(map(str, wrong))} wrong first-pass guesses; "
+                  "B=1; slice and 4-byte bases; terminated, whole and cut "
+                  "rows, bits and bytes) equal to the plain walk")
+            continue
         # The K11 names at T a multiple of 8, over two windows.
         T = 32 * G + 8
         words = narrow_walk_words(fec, acs, spec, rng, dev, "noisy", NARROW_B,
@@ -3707,7 +3838,6 @@ def phase_compare_narrow_walks(fec, acs, dev, err):
                 f"{spec} traceback_batch_fused_masked live={live}")
         err["traceback_k1_masked"] = max(err["traceback_k1_masked"],
                                          max_abs_diff(rows, rows_p))
-        lengths = narrow_walk_lengths(S, G)
         print(f"[compare] narrow walk NS={NS}: G {G}, warm-up {WU}; {cases} "
               f"cases (B={NARROW_B}: T = {', '.join(map(str, lengths))}, "
               f"noisy and garbage words; T={lengths[-1]} garbage and "
@@ -4420,6 +4550,7 @@ def main() -> int:
     cases = phase_compare_soft_forward(fec, acs, dev, err)
     print(f"[compare] narrow soft forward: {cases} cases "
           f"{time.perf_counter() - t0:.1f} s")
+    small_summary["walk_kernels"] = small_walk_kernels(fec, small_in)
 
     # Launch counts: the sum over the main-path runs, each read just after.
     # A one-word row counts its walk's launches at (k) only.

@@ -30,12 +30,12 @@
 // for NS >= 512 are the segment walks of traceback_wide.cu.
 //
 // Two kernels:
-//   narrow_walk_kernel   the terminated, masked and ragged walks at
-//                        NS = 64, 128 and 256: staged segment walks, a
-//                        lane a segment (below);
+//   narrow_walk_kernel   the terminated walk at every NS <= 256 and the
+//                        masked and ragged walks at NS = 64, 128 and 256:
+//                        staged segment walks, a lane a segment (below);
 //   traceback_k1_kernel  a thread a channel (or a (channel, walk) pair):
-//                        the list walk at every NS <= 256, and the
-//                        terminated, masked and ragged walks at NS <= 32.
+//                        the list walk at every NS <= 256, and the masked
+//                        and ragged walks at NS <= 32.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -85,7 +85,11 @@
 // (`traceback_k1_kernel`) loads 128 bytes of rows at a time and walks them
 // in registers: 2048 channels are 64 warps, so most of the card's 132 SMs
 // sit idle, and each thread's chain holds T W / 32 dependent DRAM round
-// trips and T serial steps (19x the bound at the main-path size).
+// trips and T serial steps (19x the bound at the main-path size).  At
+// NS <= 32 a step is one word: NS/8 bytes of decision bits (the bound's),
+// 4 bytes as stored, 16.8 MB at the main-path size of the K = 5 code
+// (2048 channels of 2052 steps), 0.0050 ms at 3.35 TB/s for any walk that
+// reads them; the thread-a-channel walk took 0.1692 ms there (PERF.md §6).
 //
 // What the narrow walk does about that (`narrow_walk_kernel`, one warp a
 // block; the generic walk of acs_generic.cu applied to the butterfly
@@ -146,11 +150,21 @@
 //     writes each channel's part of the window with consecutive lanes on
 //     consecutive bytes (bits: a byte a bit), the bits past the row's
 //     length masked.
+//   * One word a step (NS = 2 ... 32, the terminated walk): state s's bit is
+//     bit (s >> 1) | ((s & 1) << (S - 1)) of the step's word; every base is
+//     4-byte aligned, so a step's row is its word, loaded whole.  The rest
+//     is the walk above, the top-down check included, which keeps it exact
+//     at NS = 2 and 4 (S = 1, 2), where survivors merge within a few steps
+//     and a guess is most often right, on any input.
 //   * G and WU are template arguments, one dispatch line an
-//     NS (`launch_narrow_walk`): G 16 / WU 32 at NS 64, G 8 / WU 16 at 128,
-//     G 16 / WU 16 at 256.  The copies, not the steps, take most of a
-//     warp's time (at the main-path size 56% of its cycles wait for a
-//     window, a step takes ~48 cycles), so warm-ups of 0-32 steps read
+//     NS (`launch_narrow_walk`): G 64 / WU 16 at NS 2, G 32 / WU 16 at NS
+//     4 ... 32, G 16 / WU 32 at NS 64, G 8 / WU 16 at 128, G 16 / WU 16
+//     at 256.  At the main-path size of the K = 5 code G 32 read 0.0146
+//     ms, G 16 0.0180, G 8 0.0259, G 64 0.0160; at NS 2 G 64 0.0232 and
+//     G 32 0.0279; warm-ups of 8, 16 and 32 steps within 6%.  The
+//     copies, not the steps, take most of a warp's time (at the
+//     main-path size of NASA_K7 56% of its cycles wait for a window, a
+//     step takes ~48 cycles), so warm-ups of 0-32 steps read
 //     within 2% at NS 64; G 16 / WU 16 at NS 256 read 22% below G 8 /
 //     WU 48; a third staged window lost 27% (fewer warps an SM fit); a G
 //     chosen from the walk's length (a channel in one window at the
@@ -170,15 +184,16 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// The constants of one instantiation: NS = 2^LOGNS states, W words a step,
-// segments of G = 2^LOGG steps (GB output bytes), staged at a pitch of P
-// words (an odd number of 16-byte chunks); NB windows staged; a warp's
-// window holds 32 segments (C lanes a channel, 32 / C channels).
+// The constants of one instantiation: NS = 2^LOGNS states, W words a step
+// (one at NS <= 32), segments of G = 2^LOGG steps (GB output bytes), staged
+// at a pitch of P words (an odd number of 16-byte chunks); NB windows
+// staged; a warp's window holds 32 segments (C lanes a channel, 32 / C
+// channels).
 template <int LOGNS, int LOGG>
 struct NarrowShape {
   static constexpr int S = LOGNS;
   static constexpr int NS = 1 << LOGNS;
-  static constexpr int W = NS / 32;
+  static constexpr int W = NS > 32 ? NS / 32 : 1;
   static constexpr int G = 1 << LOGG;
   static constexpr int GB = G / 8;
   static constexpr int SEGW = G * W;
@@ -190,7 +205,10 @@ struct NarrowShape {
   static constexpr size_t kSmem =
       ((size_t)NB * 32 * P * sizeof(int32_t) + 2 * STAGE + 8 * NB + 15) &
       ~(size_t)15;
-  static_assert(LOGNS >= 6 && LOGNS <= 8, "the narrow walk's NS");
+  // A step's row: its W words, loaded whole where the base is aligned to it
+  // (a word at W = 1).
+  static constexpr int ROW_ALIGN = W >= 4 ? 16 : 4 * W;
+  static_assert(LOGNS >= 1 && LOGNS <= 8, "the narrow walk's NS");
   static_assert(G % 8 == 0, "whole output bytes a lane");
   static_assert(SEGW % 8 == 0, "a pitch of an odd number of chunks");
 };
@@ -270,6 +288,7 @@ template <int LOGNS, int LOGG, int LD>
 struct NarrowWalker {
   using Sh = NarrowShape<LOGNS, LOGG>;
   static constexpr int W = Sh::W;
+  static_assert(W > 1 || LD == kRow, "a one-word step loads its row");
   const int32_t* base;
   int lo;
 
@@ -280,12 +299,16 @@ struct NarrowWalker {
   }
 
   // The state at step t - 1 from the state at step t and step t's words
-  // `x`.  State s's decision is bit (s >> 1) & 31 of word
-  // ((s >> 1) | ((s & 1) << (S - 1))) >> 5.
+  // `x`.  State s's decision is bit i % 32 of word i / 32, i = (s >> 1) |
+  // ((s & 1) << (S - 1)): at W >= 2 bit (s >> 1) & 31, at W = 1 bit i of
+  // the step's one word.
   static __device__ __forceinline__ unsigned step_row(const unsigned* x,
                                                       unsigned cur) {
     unsigned word;
-    if constexpr (W == 2) {
+    if constexpr (W == 1) {
+      const unsigned i = (cur >> 1) | ((cur & 1u) << (Sh::S - 1));
+      return (cur >> 1) | (((x[0] >> i) & 1u) << (Sh::S - 1));
+    } else if constexpr (W == 2) {
       word = (cur & 1u) ? x[1] : x[0];
     } else if constexpr (W == 4) {
       const unsigned even = (cur & 64u) ? x[1] : x[0];
@@ -306,7 +329,9 @@ struct NarrowWalker {
   // Step t's row `w` into registers.
   static __device__ __forceinline__ void load_row(const int32_t* w,
                                                   unsigned* x) {
-    if constexpr (W == 2) {
+    if constexpr (W == 1) {
+      x[0] = (unsigned)w[0];
+    } else if constexpr (W == 2) {
       const int2 v = *reinterpret_cast<const int2*>(w);
       x[0] = v.x, x[1] = v.y;
     } else {
@@ -644,7 +669,10 @@ int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
 template <int LOGNS, int LOGG, int WU, int LD>
 int launch_narrow_mode(const NarrowArgs& a, cudaStream_t s) {
   if (a.lengths != nullptr) {
-    return launch_narrow_kernel<LOGNS, LOGG, WU, LD, true>(a, s);
+    if constexpr (LOGNS >= 6) {
+      return launch_narrow_kernel<LOGNS, LOGG, WU, LD, true>(a, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);  // NS <= 32: not here
   }
   return launch_narrow_kernel<LOGNS, LOGG, WU, LD, false>(a, s);
 }
@@ -653,10 +681,13 @@ template <int LOGNS, int LOGG, int WU>
 int launch_narrow(const NarrowArgs& a, cudaStream_t s) {
   if (a.B == 0) return static_cast<int>(cudaSuccess);
   const uintptr_t base = reinterpret_cast<uintptr_t>(a.decs);
-  if (base % (LOGNS == 6 ? 8 : 16) == 0) {
+  if (base % NarrowShape<LOGNS, LOGG>::ROW_ALIGN == 0) {
     return launch_narrow_mode<LOGNS, LOGG, WU, kRow>(a, s);
   }
-  return launch_narrow_mode<LOGNS, LOGG, WU, kWord>(a, s);
+  if constexpr (LOGNS >= 6) {
+    return launch_narrow_mode<LOGNS, LOGG, WU, kWord>(a, s);
+  }
+  return static_cast<int>(cudaErrorMisalignedAddress);  // int32 words
 }
 
 // The narrow walk at each NS: launch_narrow<log2 NS, log2 steps a segment,
@@ -665,6 +696,11 @@ int launch_narrow(const NarrowArgs& a, cudaStream_t s) {
 // scripts/torch_narrow_walk.py read this switch.
 int launch_narrow_walk(const NarrowArgs& a, int NS, cudaStream_t s) {
   switch (NS) {
+    case 2: return launch_narrow<1, 6, 16>(a, s);
+    case 4: return launch_narrow<2, 5, 16>(a, s);
+    case 8: return launch_narrow<3, 5, 16>(a, s);
+    case 16: return launch_narrow<4, 5, 16>(a, s);
+    case 32: return launch_narrow<5, 5, 16>(a, s);
     case 64: return launch_narrow<6, 4, 32>(a, s);
     case 128: return launch_narrow<7, 3, 16>(a, s);
     case 256: return launch_narrow<8, 4, 16>(a, s);
@@ -676,7 +712,7 @@ int launch_narrow_walk(const NarrowArgs& a, int NS, cudaStream_t s) {
 
 constexpr int kThreads = 32;
 
-enum class Walk { kTerminated, kRagged, kMasked, kMulti };
+enum class Walk { kRagged, kMasked, kMulti };
 
 template <int W, Walk MODE>  // W: decision words per step, ceil(NS/32)
 __global__ void __launch_bounds__(kThreads)
@@ -789,18 +825,12 @@ int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
 
 // The entry points of one walk mode.
 int terminated(const void* decs, void* out, int B, int T_stride,
-               int t_actual, int NS, int S, int message_bits, int emit_bytes,
+               int t_actual, int NS, int message_bits, int emit_bytes,
                void* stream) {
-  if (NS >= 64) {
-    const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr, nullptr,
-                       static_cast<uint8_t*>(out), B, T_stride, t_actual,
-                       t_actual, message_bits, emit_bytes};
-    return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
-  }
-  return launch<Walk::kTerminated>(
-      static_cast<const int32_t*>(decs), nullptr, nullptr,
-      static_cast<uint8_t*>(out), B, T_stride, t_actual, NS, S, message_bits,
-      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
+  const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr, nullptr,
+                     static_cast<uint8_t*>(out), B, T_stride, t_actual,
+                     t_actual, message_bits, emit_bytes};
+  return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
 }
 
 int ragged(const void* decs, const void* lengths, void* out, int B, int T,
@@ -851,7 +881,8 @@ int multi(const void* decs, const void* starts, void* out, int B, int T,
 extern "C" int traceback_k1(const void* decs, void* out, int B, int T_stride,
                             int t_actual, int NS, int S, int message_bits,
                             int emit_bytes, void* stream) {
-  return terminated(decs, out, B, T_stride, t_actual, NS, S, message_bits,
+  (void)S;  // the walk's NS says it
+  return terminated(decs, out, B, T_stride, t_actual, NS, message_bits,
                     emit_bytes, stream);
 }
 

@@ -9,8 +9,9 @@ of `ops/maxlogmap.py`.  A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  `LAUNCHES` counts the launches.
 
 The kernel does the scan's arithmetic (BIG = 2^28, no renormalisation, beta
-anchored at `starting_state`), so it equals its plain version on every
-entry.  Against the JAX kernel it is equal on the message bits and on all
+anchored at `starting_state`) less each step's sum of relu(-q), the same
+for every edge of the step, whose total cancels in every LLR (the kernel
+source's header), so it equals its plain version on every entry.  Against the JAX kernel it is equal on the message bits and on all
 T entries when `terminated=False`; on the S termination steps of a
 terminated packet the JAX kernel's 2^20 input penalties give other values
 of the same sign.

@@ -68,7 +68,8 @@ REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "traceback_wide", "traceback_wide_masked",
               "traceback_wide_ragged", "traceback_wide_multi",
               "block_decode_1p", "traceback_k1", "traceback_k1_masked",
-              "acs_soft_k1_forward", "traceback_k1_ragged"}
+              "acs_soft_k1_forward", "traceback_k1_ragged", "maxlogmap_k1",
+              "traceback_k1 w1"}
 MAIN_T = 2054  # (a)'s steps, at which stream_k1_decode's bound is given
 
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Build-time variants of the narrow walk (`traceback_k1`,
-`traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and 256:
-`narrow_walk_kernel` in csrc/traceback_k1.cu) against a reference build of
-the same C entries, on one GPU.
+"""Build-time variants of the narrow walk (`traceback_k1` at NS = 2 ...
+256, `traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and
+256: `narrow_walk_kernel` in csrc/traceback_k1.cu) against a reference
+build of the same C entries, on one GPU.
 
     python3 scripts/torch_narrow_walk.py --ref PARENT.cu \\
         [--variant NAME=SOURCE.cu ...] [--lines NAME=NS:G:WU,... ...] \\
-        [--calls 15] [--trace] [--out DIR]
+        [--ns NS ...] [--timed KEY ...] [--no-time] [--calls 15] [--trace] \\
+        [--out DIR]
 
 Builds csrc/traceback_k1.cu (as "change"), each variant (a hand-edited copy
 of it, `NAME=SOURCE.cu`) and each `--lines` copy (csrc/traceback_k1.cu
@@ -16,19 +17,22 @@ and the reference (`--ref`, e.g. the parent tree's traceback_k1.cu: get it
 with `git show HEAD:convolutionalencdec_tpu_torch/csrc/traceback_k1.cu >
 _checkout/parent_traceback_k1.cu`); one nvcc each, all at once, with
 `-Xptxas -v` (the logs in `--out`).  Each build then runs in its own
-process (a kernel fault poisons the CUDA context): at NS = 64, 128 and 256
-it is held bit for bit against the reference on chip_smoke.py's batches
+process (a kernel fault poisons the CUDA context): at each NS of its
+dispatch switch (or of `--ns`) it is held bit for bit against the
+reference on chip_smoke.py's batches
 and cases of the narrow walk (`narrow_walk_batches` at its own G:
 noisy, garbage and catastrophic-code words over one to four windows,
 B = 1, a slice of a batch and a base 4 bytes past a 16-byte line; each
 at every `narrow_walk_cases`: terminated and masked, whole and cut rows,
-bits and bytes; and, where T >= S, ragged at `narrow_ragged_lengths`,
+bits and bytes; and, at NS >= 64 where T >= S, ragged at `narrow_ragged_lengths`,
 rows of T - S bits and a cut one, bits and bytes) and on 2048 channels
 at 2054 steps, every byte of the rows (both builds write into rows
 filled with 0xA5); its wrong
-first-pass guesses on the garbage and catastrophic words are counted.
+first-pass guesses on the garbage and catastrophic words (below 64 states
+`rotating_words`) are counted.
 Then each build is timed in turns with the reference (CUDA events after a sleep that queues the launch, median of
-`--calls`, two inputs alternately):
+`--calls`, two inputs alternately; `--timed` keeps the named ones,
+`--no-time` none):
   (a) hard    NASA_K7, B = 2048, T = 2054: the forward's words of bench.py's
               3%-corrupted segments, the terminated walk into bytes;
   (a) soft    the same messages over AWGN at 3 dB, quantized to 7: the soft
@@ -40,6 +44,13 @@ Then each build is timed in turns with the reference (CUDA events after a sleep 
   (f)         LTE_TBCC_K7, 16384 DCI blocks of 56 bits at 2 dB: the soft
               wrap decode's masked walk over 192 steps, 104 bits out;
   NS=128      a K = 8 code, and NS=256 K9_561_753, at (a)'s size, hard;
+  (k) hard    K5_23_35 (NS = 16, T = 2052) at (a)'s size: the forward's words
+              of 3%-corrupted segments, the terminated walk into bytes (the
+              one-word walk);
+  (k) soft    the same messages over AWGN at 3 dB, quantized to 7: the soft
+              forward's words, the same walk;
+  (k) NS=...  the terminated walk at (k)'s size at the other one-word NS
+              (`ONE_WORD_CODES`), hard;
 and beside (a) hard the generic walk of csrc/acs_generic.cu
 (`traceback_generic`, the package's build, k = 1, NS = 64) on the generic
 forward's planes of a code of the same K.  Prints one JSON line per build
@@ -75,6 +86,10 @@ SLEEP_CYCLES = 10_000_000
 # survivors never merge, so every warm-up guess would be wrong); NS = 256
 # times K9_561_753.
 TIMED_K8 = (0o247, 0o371)
+# The one-word walk's timed codes besides (k)'s (NS = 16): the standard
+# K = 3, 4 and 6 codes; at NS = 2 the only symmetric rate-1/2 code.
+ONE_WORD_CODES = {2: (0o3, 0o3), 4: (0o7, 0o5), 8: (0o17, 0o15),
+                  32: (0o65, 0o57)}
 
 
 def with_lines(name: str, spec: str, out: Path) -> Path:
@@ -177,7 +192,8 @@ def load_walks(path: Path) -> dict:
     return fns
 
 
-def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
+def run(lib_path: str, source: str, ref_path: str, calls: int,
+        ns: list[int] | None = None, timed: list[str] | None = None) -> int:
     """One build against the reference; prints its JSON line."""
     import numpy as np
     import torch
@@ -257,7 +273,7 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
             else:
                 n += same(masked, spec, words, starts, t, L, out,
                           what=f"{what} masked T={T} live={t} L={L} {out}")
-        if T >= spec.S:
+        if T >= spec.S and spec.num_states >= 64:
             lens = torch.from_numpy(cs.narrow_ragged_lengths(
                 rng, B, T, spec.S)).to(dev)
             full = T - spec.S
@@ -268,7 +284,7 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
         return n
 
     diagnostic = result["lib"].startswith("diag_")
-    for NS in () if diagnostic else (64, 128, 256):
+    for NS in () if diagnostic else sorted(ns or lines):
         G, WU = lines[NS]
         spec = cs.bfly_spec(fec, rng, NS, 4)
         n, wrong = 0, []
@@ -280,7 +296,7 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
             n += check(spec, words, f"NS={NS} {what}")
             if guessed:
                 wrong.append(cs.narrow_walk_guesses_wrong(words, T, T, None,
-                                                          G, WU))
+                                                          G, WU, NS))
         result["checked"][NS], result["wrong_guesses"][NS] = n, wrong
         print(f"[narrow-walk] {result['lib']} NS={NS} (G {G}, warm-up {WU}): "
               f"{n} cases against the reference, "
@@ -326,6 +342,23 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
                      (256, fec.K9_561_753)):
         wide[NS] = (code, [noisy_words(code, B, code.S + L) for _ in
                            range(2)])
+    small = fec.PRESETS[cs.SMALL_MAIN]
+    Tk = L + small.S
+    k_hard, k_soft = [], []
+    for m in msgs:
+        seg = fec.encode_bits(small, m)[0]
+        seg = torch.from_numpy(cs.corrupt(rng, seg.cpu().numpy(),
+                                          cs.MAIN_NOISE, small.n)).to(dev)
+        k_hard.append(acs.acs_forward_batch(small, seg)[0])
+        _, llr = cs.soft_channel(fec, small, m, gen, small.rate)
+        q = fec.quantize_llrs(llr, qmax=cs.QMAX).reshape(B, Tk, small.n)
+        k_soft.append(acs.acs_forward_batch_soft(small, q.to(torch.int8),
+                                                 127)[0])
+    one_word = {}
+    for NS, g in ONE_WORD_CODES.items():
+        code = fec.CodeSpec(K=NS.bit_length(), g=g)
+        one_word[NS] = (code, [noisy_words(code, B, code.S + L)
+                               for _ in range(2)])
     gspec = fec.CodeSpec(K=spec.K, g=(spec.g[0], spec.g[1] ^ 1))
     planes = [generic.acs_forward_batch_generic(gspec, s)[0] for s in segs]
     res = {"bytes": torch.empty((B, L // 8), dtype=torch.uint8, device=dev),
@@ -346,7 +379,17 @@ def run(lib_path: str, source: str, ref_path: str, calls: int) -> int:
         "NS=128": lambda lib, d: terminated(lib, wide[128][0], wide[128][1][d],
                                             T + 1, L, "bytes", res["bytes"]),
         "NS=256": lambda lib, d: terminated(lib, wide[256][0], wide[256][1][d],
-                                            T + 2, L, "bytes", res["bytes"])}
+                                            T + 2, L, "bytes", res["bytes"]),
+        "(k) hard": lambda lib, d: terminated(lib, small, k_hard[d], Tk, L,
+                                              "bytes", res["bytes"]),
+        "(k) soft": lambda lib, d: terminated(lib, small, k_soft[d], Tk, L,
+                                              "bytes", res["bytes"])}
+    for NS, (code, words) in one_word.items():
+        cases[f"(k) NS={NS}"] = (
+            lambda lib, d, code=code, words=words: terminated(
+                lib, code, words[d], code.S + L, L, "bytes", res["bytes"]))
+    if timed is not None:
+        cases = {key: cases[key] for key in timed}
     for key, fn in cases.items():
         for d in range(0 if diagnostic else 2):
             same(lambda lib, *_: fn(lib, d).clone(), what=f"timed {key}")
@@ -400,12 +443,19 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=LIBS)
     ap.add_argument("--trace", action="store_true",
                     help="each build with the walk's clock64 stamps")
+    ap.add_argument("--ns", type=int, nargs="*",
+                    help="the NS checked (default: every dispatch line)")
+    ap.add_argument("--timed", nargs="*",
+                    help="the timed cases kept, e.g. '(k) hard'")
+    ap.add_argument("--no-time", action="store_true",
+                    help="the builds and the checks only")
     ap.add_argument("--run", help=argparse.SUPPRESS)
     ap.add_argument("--source", help=argparse.SUPPRESS)
     ap.add_argument("--ref-lib", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.run:
-        return run(args.run, args.source, args.ref_lib, args.calls)
+        return run(args.run, args.source, args.ref_lib, args.calls, args.ns,
+                   [] if args.no_time else args.timed)
     if args.ref is None:
         raise SystemExit("--ref PATH.cu is required")
     builds = {"change": SOURCE}
@@ -434,6 +484,12 @@ def main() -> int:
         cmd = [sys.executable, __file__, "--run", str(lib), "--source",
                str(builds[name]), "--ref-lib", str(libs["reference"]),
                "--calls", str(args.calls)]
+        if args.ns:
+            cmd += ["--ns", *map(str, args.ns)]
+        if args.timed:
+            cmd += ["--timed", *args.timed]
+        if args.no_time:
+            cmd.append("--no-time")
         proc = subprocess.run(cmd)
         if proc.returncode:
             print(f"[narrow-walk] {name}: exit {proc.returncode}",

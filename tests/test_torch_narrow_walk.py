@@ -1,9 +1,11 @@
 """The narrow walk's schedule (csrc/traceback_k1.cu, `narrow_walk_kernel`:
 the terminated, masked and ragged walks of `traceback_k1`,
 `traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and 256,
-TPU kernels K2, K2m, K2r and K11's walk), modelled in numpy, against the
-port's plain walks; the plain walks against the JAX package's traceback
-and ragged epilogue on the same words; and the walk's dispatch lines.
+TPU kernels K2, K2m, K2r and K11's walk, and the terminated walk of
+`traceback_k1` at NS = 2 ... 32, one word a step, TPU kernel K12's walk),
+modelled in numpy, against the port's plain walks; the plain walks against
+the JAX package's traceback and ragged epilogue on the same words; and the
+walk's dispatch lines.
 
 The kernel runs only on the card, where chip_smoke.py holds it to the plain
 walks; here a model done the way the kernel does it (windows, a segment a
@@ -47,6 +49,10 @@ def _smoke():
 _SMOKE = _smoke()
 #: NS -> (G, warm-up steps), as chip_smoke.py reads them.
 _LINES = {ns: rest for ns, *rest in _SMOKE.narrow_walk_lines()}
+#: The lines of several words a step (every walk) and of one word a step
+#: (the terminated walk only).
+_WIDE = sorted(ns for ns in _LINES if ns >= 64)
+_ONE_WORD = sorted(ns for ns in _LINES if ns < 64)
 
 
 def _t(x):
@@ -62,8 +68,9 @@ def _spec(NS, rng, n=2):
 
 
 def _garbage(rng, B, T, NS):
-    """Uniform decision words: warm-up guesses go wrong."""
-    return rng.integers(-2 ** 31, 2 ** 31, (B, T, NS // 32)).astype(np.int32)
+    """Uniform decision words: warm-up guesses go wrong (at NS >= 64)."""
+    return rng.integers(-2 ** 31, 2 ** 31,
+                        (B, T, max(NS // 32, 1))).astype(np.int32)
 
 
 def _sparse(rng, B, T, NS):
@@ -299,7 +306,7 @@ def _ragged(NS, words, lengths, rng, wu=None):
 # terminated (re-walks asserted) and masked at live 0, S, T - 1 and T from
 # random starts; "windows" four windows of sparse words, terminated, and
 # masked at a live a window below T with no warm-up.
-_CASES = [(NS, which) for NS in sorted(_LINES)
+_CASES = [(NS, which) for NS in _WIDE
           for which in ("noisy", "edges", "garbage", "windows")]
 
 
@@ -339,7 +346,47 @@ def test_narrow_walk_schedule_model_matches_plain_walks(NS, which):
         _masked(NS, words, rng.integers(0, NS, 1), T - 32 * G, rng, wu=0)
 
 
-@pytest.mark.parametrize("NS", sorted(_LINES))
+# At each NS of one word a step, the terminated walk only: "edges" the
+# shortest walks (t_actual = S + 1: one bit, S + 3, 9) and t_actual = G + 1
+# and 32 G - 3 on random words; "noisy" the forward's words over two
+# windows from t_actual two below the rows' length (not a multiple of 8),
+# also with no warm-up (walks again asserted); "random" uniform words over
+# four windows, and words whose decisions rotate the state (no two
+# survivors meet: guesses from state 0 go wrong, walks again asserted).
+_ONE_WORD_CASES = [(NS, which) for NS in _ONE_WORD
+                   for which in ("edges", "noisy", "random")]
+
+
+@pytest.mark.parametrize("NS,which", _ONE_WORD_CASES,
+                         ids=[f"NS{ns}-{w}" for ns, w in _ONE_WORD_CASES])
+def test_narrow_walk_one_word_model_matches_plain_walk(NS, which):
+    """The narrow walk at one decision word a step (the state's bit at i =
+    (s >> 1) | ((s & 1) << (S - 1)) of the word; S = 1 and 2 included,
+    where a warm-up from state 0 is most often right and the top-down
+    check carries the rest), modelled in numpy at its line's G and
+    warm-up, gives the plain terminated walk's bits and bytes bit for
+    bit."""
+    G, WU = _LINES[NS]
+    rng = np.random.default_rng(NS + 11 * len(which))
+    S = NS.bit_length() - 1
+    if which == "edges":
+        for t_actual in sorted({S + 1, S + 3, 9, G + 1, 32 * G - 3}):
+            _terminated(NS, _garbage(rng, 3, t_actual + 2, NS), t_actual,
+                        rng)
+    elif which == "noisy":
+        spec = _spec(NS, rng, 3)
+        words = _noisy(rng, spec, 3, 32 * G + 21)
+        T = words.shape[1]
+        _terminated(NS, words, T - 2, rng)
+        assert _terminated(NS, words, T - 2, rng, wu=0) > 0
+    else:
+        T = 96 * G + 37
+        _terminated(NS, _garbage(rng, 2, T, NS), T, rng)
+        words = _SMOKE.rotating_words(rng, 2, T, NS)
+        assert _terminated(NS, words, T - 3, rng) > 0
+
+
+@pytest.mark.parametrize("NS", _WIDE)
 def test_narrow_walk_ragged_model_matches_plain_walk(NS):
     """The ragged walk's schedule (each channel from its own top on the
     launch's window grid, lanes a channel from T, a channel with no bits
@@ -364,7 +411,7 @@ def test_narrow_walk_ragged_model_matches_plain_walk(NS):
     assert _ragged(NS, words, lens, rng) > 0
 
 
-@pytest.mark.parametrize("NS", sorted(_LINES))
+@pytest.mark.parametrize("NS", _WIDE)
 def test_narrow_walk_plain_walks_match_the_jax_traceback(NS):
     """The plain walks the model is held to give the JAX package's
     traceback on the same words (unpacked to decisions): terminated from
@@ -404,16 +451,16 @@ def test_narrow_walk_plain_walks_match_the_jax_traceback(NS):
 
 def test_narrow_walk_dispatch_covers_64_to_256():
     """The narrow walk's dispatch switch has exactly one line for each of
-    NS = 64, 128, 256, each with segments of whole output bytes and whole
+    NS = 2, 4, ..., 256, each with segments of whole output bytes and whole
     blocks of warm-up; each segment's staged rows at a pitch of an odd
     number of 16-byte chunks; the staged windows, the output bytes and
     their states (as the source sizes them) within a block's shared memory
-    on the card (227 KiB); the terminated, masked and ragged walks take
-    it at NS >= 64, the ragged one with its lengths and the launch's T for
-    its lanes a channel; and the list walk, and every walk at NS <= 32,
-    stay on `traceback_k1_kernel`."""
+    on the card (227 KiB); the terminated walk takes it at every NS, the
+    masked and ragged walks at NS >= 64, the ragged one with its lengths
+    and the launch's T for its lanes a channel; and the list walk, and the
+    masked and ragged walks at NS <= 32, stay on `traceback_k1_kernel`."""
     lines = _SMOKE.narrow_walk_lines()
-    assert [ns for ns, *_ in lines] == [64, 128, 256]
+    assert [ns for ns, *_ in lines] == [2, 4, 8, 16, 32, 64, 128, 256]
     for NS, G, WU in lines:
         assert G % 8 == 0 and WU % 8 == 0 and WU >= 0
         pitch, smem = _SMOKE.narrow_walk_smem(NS, G)
@@ -430,9 +477,12 @@ def test_narrow_walk_dispatch_covers_64_to_256():
         start = src.index(f"\nint {name}(")
         return src[start:src.index("\n}\n", start)]
 
-    for name in ("terminated", "masked", "ragged"):
+    for name in ("masked", "ragged"):
         text = body(name)
         assert "if (NS >= 64)" in text and "launch_narrow_walk(" in text
+    text = body("terminated")
+    assert "launch_narrow_walk(" in text and "launch<" not in text
+    assert "launch<Walk::kMasked>" in body("masked")  # NS <= 32
     ragged = body("ragged")
     assert "static_cast<const int32_t*>(lengths)" in ragged
     # The ragged launch's t_top and T are the rows' T: C comes from T.
@@ -447,6 +497,7 @@ def test_narrow_walk_dispatch_covers_64_to_256():
         assert f"case {ns}: TB_LAUNCH({w})" in wide
         assert f"TB_LAUNCH({w})" not in launch[:launch.index(
             "if constexpr (kWide)")]
+    assert "case 2: case 4: case 8: case 16: case 32: TB_LAUNCH(1)" in launch
     # The wrappers' kernel names are those of the C entries.
     assert acs._walk_kernel(port.NASA_K7) == "traceback_k1"
     assert acs._walk_kernel(port.NASA_K7, "_masked") == "traceback_k1_masked"
