@@ -34,9 +34,11 @@ Phases (any failure exits non-zero and prints no result line):
      on the card, launches > 0, BER printed;
   7. streaming kernels against plain versions on the card, small sizes:
      `stream_k1_decode` (hard at 3% and 25%, soft on +-7, full int8 with
-     -128 and 20% erasures; W = 7, 32, 33, 35, 64; fresh and carried
-     state; T = 1, T off every multiple of 8, B = 1) on NASA_K7,
-     NASA_K7_R13, K9_561_753 and a K=8 code, and `traceback_k1_masked`
+     -128 and 20% erasures; W = 2, 7, 32, 33, 35, 63, 64 on NASA_K7, one
+     of them and 2 or 63 on the others; fresh and carried state; T = 1,
+     T off every multiple of 8, B = 1) on NASA_K7, NASA_K7_R13 (NS = 64),
+     a K=8 code (NS = 128) and K9_561_753 (NS = 256), and
+     `traceback_k1_masked`
      with random start states and live steps 0, S, T - 1, T;
   8. streaming main path at full width: NASA_K7, B = 2048 packets of
      L = 2048 bits (T = 2054), W = 35, fed in 9 calls (8 x 256 steps, then
@@ -45,8 +47,10 @@ Phases (any failure exits non-zero and prints no result line):
      `BlockStreamingDecoderBatch`; each equal to its plain route on the
      card, within the BER gates, launches of both new kernels > 0;
   9. times: median and minimum of 20 calls on distinct inputs, CUDA events,
-     for each kernel, the whole hard and soft byte decodes, the soft and
-     hard ragged and the punctured soft decodes of phase 6 and the whole
+     for each kernel (the stream kernel also at one 256-step call of the
+     streaming feed, hard and soft), the whole hard and soft byte
+     decodes, the soft and hard ragged and the punctured soft decodes of
+     phase 6 and the whole
      9-call packet through each streaming class (also its wall time to the
      card's finish and the host's time to enqueue it), beside the plain
      version's time and the kernel's bound;
@@ -223,7 +227,16 @@ Phases (any failure exits non-zero and prints no result line):
      range, qclip 7 and 127 with the -127 floor and the -128 route, from
      the default start and from carried metrics; words and final metrics,
      each launch counted.  Phase 11 also holds it at (f)'s wrap decode
-     and times it there.
+     and times it there;
+ 24. the small-state forward (`acs_small_forward` and
+     `acs_soft_small_forward` at NS = 2, 4, 8, 16, 32, csrc/acs_small.cu)
+     against its plain versions on the card at every line of its
+     dispatch, n = 1 ... 8 hard and soft: B = 37 (no multiple of the
+     channels a warp) at T = 0, 1, 31, 33 and, at n = 2, 2054, and B = 1
+     at T = 33; noisy and garbage segments, LLRs over the whole int8 range
+     at qclip 7 and 127 with the -127 floor and the -128 route; from the
+     default start, and at two n an NS (one of each template) from carried
+     metrics; words and final metrics, each launch counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -356,7 +369,12 @@ SOURCES = {
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
 STREAM_PRESETS = ["NASA_K7", "NASA_K7_R13", "K9_561_753"]
-STREAM_WINDOWS = (7, 32, 33, 35, 64)
+STREAM_WINDOWS = (2, 7, 32, 33, 35, 63, 64)
+# The windows every other code (NS = 64, 128, 256) is also held at, one a
+# draw in turn (so each at hard and soft): the shortest and the longest but
+# one (the walk back W - 1 steps through the kernel's ring of decisions,
+# and into the carried registers).
+STREAM_EDGE_WINDOWS = (2, 63)
 MAIN_W = 35
 STREAM_FEED = (256,) * 8 + (6,)
 # Tail-biting: the comparison phase's presets and lengths (below the wrap,
@@ -518,10 +536,13 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 ACS_OPS = 6        # per butterfly and step: 4 adds, 2 compare-selects
 TRACEBACK_OPS = 4  # per step: bit select, shift, or, emit
-# Stream decode, per butterfly and step beyond the ACS: two 64-bit register
-# selects and two 64-bit shift-ins, as int32 operations; per state and
-# step: a compare and a select of the argmin.
-EXCHANGE_OPS = 8
+# Stream decode beyond the ACS: per state and step a compare and a select
+# of the argmin.  A step's symbol is bit W - 1 of the argmin state's
+# register, that is the input W - 1 steps back along its survivor: a walk
+# of W - 1 steps through the decisions at TRACEBACK_OPS a step (fewer
+# operations than moving every state's register, 8 int32 operations a
+# butterfly and step, once W - 1 < 2 NS: always, at W <= 64 and NS >= 64);
+# and each call's registers out, W bits a state, a walk of W steps each.
 ARGMIN_OPS = 2
 # Max-log-MAP: three butterfly passes (forward, replay, beta) of ACS_OPS
 # each, and per state and step an add and a min of the emit.  The RSC MAP:
@@ -1098,8 +1119,9 @@ def phase_compare_stream(fec, acs, stream, dev, err):
         draws = stream_draws(rng, spec, SMALL_B, T)
         for i, (label, soft, x) in enumerate(draws):
             x = x.to(dev)
-            windows = (STREAM_WINDOWS if name == "NASA_K7"
-                       else (STREAM_WINDOWS[i % len(STREAM_WINDOWS)],))
+            windows = (STREAM_WINDOWS if name == "NASA_K7" else tuple(sorted(
+                {STREAM_WINDOWS[i % len(STREAM_WINDOWS)],
+                 STREAM_EDGE_WINDOWS[i % len(STREAM_EDGE_WINDOWS)]})))
             for W in windows:
                 require(stream.stream_kernel_supports(spec, W),
                         f"{name} W={W} on the stream kernel")
@@ -1352,6 +1374,9 @@ def phase_times(fec, acs, seg, q, rp_in):
     runs["stream_k1_decode soft"] = device_times(
         lambda x: stream.stream_decode_batch_soft(spec, x, fresh, MAIN_W),
         qbufs)
+    runs["stream_k1_decode soft 256"] = device_times(
+        lambda x: stream.stream_decode_batch_soft(spec, x, fresh, MAIN_W),
+        [x[:, :STREAM_FEED[0]].contiguous() for x in qbufs])
     # The whole 9-call packet through each class, a new decoder per packet:
     # device time between events, and the host's wall time to the finish.
     for kind, xs in (("hard", bufs), ("soft", qbufs)):
@@ -3927,6 +3952,119 @@ def phase_compare_soft_forward(fec, acs, dev, err):
     return cases
 
 
+#: The small-state forward's checks (K12's forward, `acs_small_forward` and
+#: `acs_soft_small_forward` at NS = 2 ... 32, csrc/acs_small.cu): B, no
+#: multiple of the channels a warp holds (64/NS), at each T (no step, one, a
+#: 32-step block less one and a block and one; (k)'s T at the n of
+#: SMALL_FORWARD_LONG_N only), and B = 1 at T = 33; soft under each
+#: (qclip, floor) of SMALL_FORWARD_SOFT (the 8-bit route's clip, the block
+#: routes' -127 floor, the tail-biting route's -128) from the default
+#: start; at T < 2054 also from carried metrics (hard, and soft at the -127
+#: floor) at the n of `small_forward_carried_n`.
+SMALL_FORWARD_B = 37
+SMALL_FORWARD_T = (0, 1, 31, 33, 2054)
+SMALL_FORWARD_LONG_N = (2,)
+SMALL_FORWARD_SOFT = ((QMAX, True), (127, True), (127, False))
+
+
+def small_forward_carried_n(i: int) -> tuple:
+    """The n at which the i-th NS of the small forward's dispatch is held
+    from carried metrics: one of each template (n <= 4, n = 5 ... 8),
+    turning through n = 1 ... 8 over the NS."""
+    return 1 + i % 4, 5 + i % 4
+
+
+def small_forward_lines(source=None):
+    """The NS of the small forward's dispatch switch (`launch_ns` in
+    csrc/acs_small.cu, or in `source`)."""
+    import re
+    src = Path(source or ROOT / SOURCES["acs_small_forward"][0]).read_text()
+    lines = [int(ns) for ns in re.findall(
+        r"case (\d+): launch<\1, kHard, NP>\(a, s\); return true;", src)]
+    require(lines == list(BFLY_SMALL_NS),
+            f"the small forward's dispatch lines {lines} are NS 2 ... 32")
+    return lines
+
+
+def compare_small_forward(acs, spec, x, soft, qclip, floor, init, err,
+                          what):
+    """The small forward on one batch against its plain version: words and
+    final metrics, one launch counted."""
+    import torch
+    key = acs._forward_kernel(spec, soft)
+    before = acs.LAUNCHES[key]
+    if soft:
+        got = acs.acs_forward_batch_soft(spec, x, qclip, init, floor)
+        want = acs.acs_forward_batch_soft_plain(spec, x, qclip, init, floor)
+    else:
+        got = acs.acs_forward_batch(spec, x, init)
+        want = acs.acs_forward_batch_plain(spec, x, init)
+    case = (f"{spec} {key} {what} init={init is not None}"
+            + (f" qclip={qclip} floor={floor}" if soft else ""))
+    require(acs.LAUNCHES[key] == before + (x.shape[0] > 0),
+            f"{case}: a launch counted")
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"{case}: words and final metrics equal to the plain version")
+    err[key] = max(err[key], *map(max_abs_diff, got, want))
+
+
+def phase_compare_small_forward(fec, acs, dev, err):
+    """The small forward against its plain versions on the card at every
+    line of its dispatch (NS = 2, 4, 8, 16, 32), each n = 1 ... 8 hard and
+    soft, a random code: noisy segments (every third row garbage) and int8
+    LLRs over the whole range (-128 and 127 among them), at every
+    SMALL_FORWARD_T (2054 at n = 2) and B = 1 at T = 33; hard from the
+    default start, soft under every SMALL_FORWARD_SOFT from the default
+    start (2054: the -127 floor); below T = 2054 at the n of
+    `small_forward_carried_n` also hard and soft at the -127 floor from
+    carried metrics.  Returns the cases."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2075)
+    cases = 0
+    for i, NS in enumerate(small_forward_lines()):
+        for n in range(1, 9):
+            spec = bfly_spec(fec, rng, NS, n)
+            for B, T in ([(SMALL_FORWARD_B, T) for T in SMALL_FORWARD_T]
+                         + [(1, 33)]):
+                if T == SMALL_FORWARD_T[-1] and n not in SMALL_FORWARD_LONG_N:
+                    continue
+                msgs = rng.integers(0, 2, (B, max(T - spec.S, 0)),
+                                    dtype=np.uint8)
+                coded = encode_reference_np(spec, msgs)[:, :T]
+                coded = np.concatenate(
+                    [coded, np.zeros((B, T - coded.shape[1]), np.uint8)], 1)
+                coded = corrupt(rng, coded, NOISE[0], n)
+                coded[::3] = rng.integers(0, 1 << n, coded[::3].shape)
+                seg = torch.from_numpy(coded.astype(np.uint8)).to(dev)
+                draw = rng.integers(-128, 128, (B, T, n))
+                draw.reshape(-1)[::13] = -128
+                draw.reshape(-1)[5::17] = 127
+                q = torch.from_numpy(draw.astype(np.int8)).to(dev)
+                init = torch.from_numpy(rng.integers(0, 6000, (B, NS)).astype(
+                    np.int32)).to(dev)
+                what = f"B={B} T={T}"
+                starts = ((None, init) if n in small_forward_carried_n(i)
+                          and T != SMALL_FORWARD_T[-1] else (None,))
+                for given in starts:
+                    compare_small_forward(acs, spec, seg, False, 0, True,
+                                          given, err, what)
+                    soft = (SMALL_FORWARD_SOFT[1:2] if given is not None
+                            or T == SMALL_FORWARD_T[-1]
+                            else SMALL_FORWARD_SOFT)
+                    for qclip, floor in soft:
+                        compare_small_forward(acs, spec, q, True, qclip,
+                                              floor, given, err, what)
+                    cases += 1 + len(soft)
+        print(f"[compare] small forward NS={NS}: n = 1..8 hard and soft, B "
+              f"= {SMALL_FORWARD_B} at T = "
+              f"{', '.join(map(str, SMALL_FORWARD_T))} and B = 1, qclip 7 / "
+              "127 / -128 route, default metrics and carried ones at n = "
+              f"{small_forward_carried_n(i)}: words and final metrics equal "
+              "to the plain versions")
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # The single-pass block decode: TPU kernel K13 on csrc/block_1p.cu, the
 # main path (m) and the harness path (n).
@@ -4331,6 +4469,16 @@ def dataclass_dict(r) -> dict:
                 passed=r.passed)
 
 
+def stream_work(B: int, T: int, NS: int, W: int):
+    """(bytes, int32 operations) of one `stream_k1_decode` call of T
+    steps on B channels: the ACS and the argmin every step, the symbol's
+    walk of W - 1 steps, each state's register out (module constants)."""
+    return (2 * B * T + 2 * B * NS * 12,
+            B * T * (NS // 2 * ACS_OPS + NS * ARGMIN_OPS
+                     + (W - 1) * TRACEBACK_OPS)
+            + B * NS * W * TRACEBACK_OPS)
+
+
 def bounds(lens_sum: int, generic_shapes, bfly_shapes):
     """(bound ms, what bounds it) of each kernel on this run's main-path
     inputs: the larger of the bytes it must move (each input read once,
@@ -4405,10 +4553,10 @@ def bounds(lens_sum: int, generic_shapes, bfly_shapes):
         "traceback_k1_ragged": (lens_sum * NS // 8 + 4 * B + B * L // 8,
                                 lens_sum * TRACEBACK_OPS),
         # Hard segments in, one symbol byte per step out, the carried state
-        # (int32 metric + int64 register per state) in and out.
-        "stream_k1_decode": (
-            2 * B * T + 2 * B * NS * 12,
-            B * T * (NS // 2 * (ACS_OPS + EXCHANGE_OPS) + NS * ARGMIN_OPS)),
+        # (int32 metric + int64 register per state) in and out; at (a)'s
+        # size and at one 256-step call of the streaming feed.
+        "stream_k1_decode": stream_work(B, T, NS, MAIN_W),
+        "stream_k1_decode 256": stream_work(B, STREAM_FEED[0], NS, MAIN_W),
         # One interior call's pending buffer: 288 steps of words and the
         # start states in, the bits of 240 steps out.
         "traceback_k1_masked": (B * 288 * NS // 8 + 4 * B + B * 240,
@@ -4550,6 +4698,10 @@ def main() -> int:
     cases = phase_compare_soft_forward(fec, acs, dev, err)
     print(f"[compare] narrow soft forward: {cases} cases "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases = phase_compare_small_forward(fec, acs, dev, err)
+    print(f"[compare] small forward: {cases} cases "
+          f"{time.perf_counter() - t0:.1f} s")
     small_summary["walk_kernels"] = small_walk_kernels(fec, small_in)
 
     # Launch counts: the sum over the main-path runs, each read just after.
@@ -4683,7 +4835,10 @@ def main() -> int:
     kernels[KERNELS.index("stream_k1_decode")].update(
         soft_ms=med[soft_stream], soft_min_ms=min(runs[soft_stream]),
         soft_plain_ms=plain_ms[soft_stream],
-        ms_256_steps=med["stream_k1_decode 256"])
+        ms_256_steps=med["stream_k1_decode 256"],
+        soft_ms_256_steps=med["stream_k1_decode soft 256"],
+        bound_ms_256_steps=bound["stream_k1_decode 256"][0],
+        bound_by_256_steps=bound["stream_k1_decode 256"][1])
     f_soft = "acs_soft_k1_forward (f)"
     kernels[KERNELS.index("acs_soft_k1_forward")].update(
         f_ms=med[f_soft], f_min_ms=min(runs[f_soft]),

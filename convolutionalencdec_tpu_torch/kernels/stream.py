@@ -16,8 +16,9 @@ Carried state (`StreamState`): int32 metrics [B, NS] in natural state order,
 and one int64 survivor register per state, bit j the symbol decoded j steps
 ago along that state's survivor path, bits W and above zero (W <= 64).  One
 64-bit word per state, instead of the TPU kernel's two int32 planes, keeps
-a register in one value that one shuffle moves; the conversions to and from
-the JAX package's two layouts are `stream_state_from_reference` and
+a register in one value (the kernel reads the carried registers once and
+builds the new ones from its decisions); the conversions to and from the
+JAX package's two layouts are `stream_state_from_reference` and
 `stream_state_to_reference`.  Every call returns the metrics minus each
 channel's minimum, as the TPU kernel's renormalisation leaves them, so a
 stream of any length stays inside int32.

@@ -31,10 +31,12 @@ RULES = {
                              "f_bound_ms")],
     "traceback_k1_ragged": [("(a)", ("soft ragged", "hard ragged"), "ms",
                              "bound_ms")],
-    # The streaming packets: 8 calls of 256 steps and one of 6 a packet;
-    # only the hard kernel has a time at 256 steps.
+    # The streaming packets: 8 calls of 256 steps and one of 6 a packet,
+    # hard and soft, each at its own time at 256 steps.
     "stream_k1_decode": [("256 steps", ("stream hard",), "ms_256_steps",
-                          None)],
+                          "bound_ms_256_steps"),
+                         ("256 steps soft", ("stream soft",),
+                          "soft_ms_256_steps", "bound_ms_256_steps")],
     "traceback_k1_masked": [
         ("288 steps", ("block stream hard", "block stream soft"), "ms",
          "bound_ms"),
@@ -69,8 +71,8 @@ REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "traceback_wide_ragged", "traceback_wide_multi",
               "block_decode_1p", "traceback_k1", "traceback_k1_masked",
               "acs_soft_k1_forward", "traceback_k1_ragged", "maxlogmap_k1",
-              "traceback_k1 w1"}
-MAIN_T = 2054  # (a)'s steps, at which stream_k1_decode's bound is given
+              "traceback_k1 w1", "acs_small_forward",
+              "acs_soft_small_forward", "stream_k1_decode"}
 
 
 def terms(row):
@@ -91,12 +93,9 @@ def terms(row):
         for size, paths, ms_key, bound_key in RULES[name]:
             n = sum(by_path.get(p, 0) for p in paths)
             if name == "stream_k1_decode":
-                n -= 1  # the packet's last call: 6 steps
-                bound = row["bound_ms"] * 256 / MAIN_T
-            else:
-                bound = row[bound_key]
+                n -= 1  # each packet's last call: 6 steps
             if n:
-                out.append((size, n, row[ms_key], bound))
+                out.append((size, n, row[ms_key], row[bound_key]))
     counted = sum(t[1] for t in out)
     return out, row["launches"] - counted
 

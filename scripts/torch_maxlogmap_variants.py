@@ -55,7 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 import _torch_variants  # noqa: E402
-from torch_soft_forward import sass_functions  # noqa: E402
+from _torch_variants import BRANCH, sass_functions  # noqa: E402
 
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "maxlogmap_k1.cu"
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "maxlogmap"
@@ -66,7 +66,6 @@ SLEEP_CYCLES = 10_000_000
 SWEEP_B = (132, 1024, 4096)
 #: The timed code at NS = 128 (scripts/torch_narrow_walk.py's).
 TIMED_K8 = (0o247, 0o371)
-BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)")
 
 
 def passes(body: list, bpl: int) -> dict:

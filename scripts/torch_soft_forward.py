@@ -58,6 +58,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 import _torch_variants  # noqa: E402
+from _torch_variants import BRANCH, sass_functions  # noqa: E402
 
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "acs_soft_k1.cu"
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "soft_forward"
@@ -66,29 +67,6 @@ KERNEL = "acs_soft_k1_forward_kernel"
 SLEEP_CYCLES = 10_000_000
 #: Batch sizes of (a) soft's sweep: one warp an SM, half of (a), twice (a).
 SWEEP_B = (132, 1024, 4096)
-INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)")
-LABEL = re.compile(r"^\s*(\.L_x_\d+):")
-
-
-def sass_functions(text: str) -> dict[str, list]:
-    """cuobjdump -sass text -> {function name: [(address, instruction) or
-    ("label", name)]}."""
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        if "Function : " in line:
-            cur = funcs.setdefault(line.split("Function : ")[1].strip(), [])
-            continue
-        if cur is None:
-            continue
-        m = LABEL.match(line)
-        if m:
-            cur.append(("label", m.group(1)))
-            continue
-        m = INSTRUCTION.search(line)
-        if m:
-            cur.append((int(m.group(1), 16), m.group(2)))
-    return funcs
 
 
 def per_step(body: list, bpl: int) -> dict:
