@@ -56,11 +56,11 @@ Phases (any failure exits non-zero and prints no result line):
      version's time and the kernel's bound;
  10. tail-biting kernels against plain versions on the card, small sizes:
      `traceback_k1_multi` on NASA_K7, LTE_TBCC_K7, K9_561_753 and a K=8
-     code (NW = 1, 2, 8, NS; live steps 0, S, T - 1, T; windows from step 0
-     and from step 48; T = 1, B = 1, B = 0), the soft forward without the
-     -128 floor, and every tail-biting entry (wrap, bytes, soft, list,
-     CRC, rate-matched) against its plain route at L = 20 (below the wrap),
-     131 (L % 8 != 0) and 203;
+     code (NW = 1, 2, 8, NS; live steps 0, S, T - 1, T; windows from step
+     0, 3, 48, T - 56 and T - 1, from 3 also cut; T = 1, B = 1, B = 0), the
+     soft forward without the -128 floor, and every tail-biting entry
+     (wrap, bytes, soft, list, CRC, rate-matched) against its plain route
+     at L = 20 (below the wrap), 131 (L % 8 != 0) and 203;
  11. tail-biting main path at full size: (a) LTE_TBCC_K7 DCI-sized blocks
      (40-bit payload + CRC16, B = 16384) over AWGN at Eb/N0 = 2 dB through
      the soft CRC-list chain (list 8) and, rate-matched to E = 288 channel
@@ -236,7 +236,23 @@ Phases (any failure exits non-zero and prints no result line):
      at T = 33; noisy and garbage segments, LLRs over the whole int8 range
      at qclip 7 and 127 with the -127 floor and the -128 route; from the
      default start, and at two n an NS (one of each template) from carried
-     metrics; words and final metrics, each launch counted.
+     metrics; words and final metrics, each launch counted;
+ 25. the hard narrow forward (`acs_k1_forward` at NS = 64, 128, 256, the
+     hard entry of csrc/acs_soft_k1.cu's template) against its plain
+     version on the card at every line of its dispatch, n = 1 ... 8: B = 37
+     (no multiple of the 4 warps a block) at T = 0, 1, 31, 33 and, at
+     n = 2 and 6, 2054, and B = 1 at T = 33; uniform segments; from the
+     default start and from carried metrics; words and final metrics, each
+     launch counted;
+ 26. the list walk (`traceback_k1_multi` at NS = 2 ... 256, the narrow
+     walk's multi mode) against its plain version on the card at every
+     line of its dispatch switch: noisy and garbage words at the
+     tail-biting DCI trellis's 144 steps and garbage at S + 5 (B = 37),
+     catastrophic-code (below 64 states rotating) words over two windows
+     (B = 3), B = 1, and at NS >= 64 a base 4 bytes past a 16-byte line;
+     NW = 1, 2, 8, NS; live 0, S, T - 1, T; windows from step 0, 3, 48,
+     T - 56 and T - 1 to the end, and from 3 cut; bits and bytes; each
+     launch counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -289,7 +305,7 @@ KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
 W1_ROWS = {"traceback_k1 w1": "traceback_k1",
            "traceback_k1_ragged w1": "traceback_k1_ragged"}
 SOURCES = {
-    "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_k1.cu",
+    "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_soft_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
     "traceback_k1": ("convolutionalencdec_tpu_torch/csrc/traceback_k1.cu",
                      "convolutionalencdec_tpu/kernels/acs_swar.py:877"),
@@ -1398,28 +1414,63 @@ def phase_times(fec, acs, seg, q, rp_in):
     return runs
 
 
+def multi_windows(T):
+    """(out_start, out_steps) of the list walk's windows on T steps: from
+    step 0, 3, TB_WINDOW (a multiple of 8), T - 56 (the tail-biting DCI
+    window's start at 144 steps) and T - 1, each to the end, and from step
+    3 cut to a length that is not a multiple of 8."""
+    out = {(start, T - start) for start in (0, 3, TB_WINDOW, T - 56, T - 1)
+           if 0 <= start <= T}
+    if T >= 3:
+        out.add((3, cut_bits(T - 3)))
+    return sorted(out)
+
+
 def compare_multi(acs, spec, words, err, rng, key="traceback_k1_multi"):
     """`traceback_batch_multi` against its plain version on one batch of
     words: NW = 1, 2, 8 and NS random start states per channel, live steps
-    0, S, T - 1 and T, windows from step 0 and from step TB_WINDOW to the
-    end, bits and bytes; the largest difference goes to err[key]."""
+    0, S, T - 1 and T, the windows of `multi_windows`, bits and bytes, each
+    call one launch counted; the largest difference goes to err[key].  The
+    plain walks of a live count run once, all NW sets at once from step 0:
+    a window's bits are the steps' bits of the walk from T - 1, which does
+    not depend on where it stops.  Returns the cases."""
     import numpy as np
     import torch
     B, T, _ = words.shape
     NS = spec.num_states
-    for nw in sorted({1, 2, 8, NS}):
-        starts = torch.from_numpy(rng.integers(0, NS, (B, nw)).astype(
-            np.int32)).to(words.device)
-        for live in sorted({0, min(spec.S, T), max(T - 1, 0), T}):
-            for start in sorted({0, min(TB_WINDOW, T)}):
+    nws = sorted({1, 2, 8, NS} & set(range(1, NS + 1)))
+    starts = [torch.from_numpy(rng.integers(0, NS, (B, nw)).astype(
+        np.int32)).to(words.device) for nw in nws]
+    every = torch.cat(starts, 1)
+    cases = 0
+    for live in sorted({0, min(spec.S, T), max(T - 1, 0), T}):
+        whole = acs.traceback_batch_multi_plain(spec, words, every, live, 0,
+                                                T, "bits")
+        # The plain version called with one window, against the slice.
+        w0 = min(TB_WINDOW, T)
+        require(torch.equal(whole[:, :, w0:], acs.traceback_batch_multi_plain(
+            spec, words, every, live, w0, T - w0, "bits")),
+                f"{spec} multi plain window at {w0}")
+        at = 0
+        for nw, st in zip(nws, starts):
+            rows = whole[:, at:at + nw]
+            at += nw
+            for start, steps in multi_windows(T):
+                bits = rows[:, :, start:start + steps]
                 for out in ("bits", "bytes"):
-                    args = (spec, words, starts, live, start, T - start, out)
-                    got = acs.traceback_batch_multi(*args)
-                    want = acs.traceback_batch_multi_plain(*args)
+                    want = bits if out == "bits" else acs.pad_and_pack(bits)
+                    case = (f"{spec} {key} B={B} T={T} NW={nw} live={live} "
+                            f"window=({start}, {steps}) {out}")
+                    before = acs.LAUNCHES[key]
+                    got = acs.traceback_batch_multi(spec, words, st, live,
+                                                    start, steps, out)
+                    require(acs.LAUNCHES[key] == before + (B > 0),
+                            f"{case}: a launch counted")
                     require(torch.equal(got, want),
-                            f"{spec} multi NW={nw} live={live} "
-                            f"start={start} {out}")
+                            f"{case}: equal to the plain version")
                     err[key] = max(err[key], max_abs_diff(got, want))
+                    cases += 1
+    return cases
 
 
 def tb_inputs(fec, rng, spec, B, L, dev):
@@ -1464,8 +1515,9 @@ def phase_compare_tailbiting(fec, acs, dev, err):
             words, _ = acs.acs_forward_batch(spec, seg, zeros)
             compare_multi(acs, spec, words, err, rng)
         print(f"[compare] {name:12s} multi B={SMALL_B} T={seg.shape[1]}: "
-              "NW 1/2/8/NS, live 0/S/T-1/T, windows at 0 and "
-              f"{TB_WINDOW}, bits and bytes equal to the plain version")
+              "NW 1/2/8/NS, live 0/S/T-1/T, windows from 0, 3, "
+              f"{TB_WINDOW}, T - 56, T - 1 (from 3 also cut), bits and "
+              "bytes equal to the plain version")
     spec = fec.NASA_K7
     for B, T in ((1, 5), (3, 1), (0, 40), (SMALL_B, 1)):
         seg = torch.from_numpy(rng.integers(0, 4, (B, T)).astype(
@@ -3532,12 +3584,26 @@ def narrow_walk_lines(source=None):
             if int(ns) == 1 << int(log)]
 
 
+def narrow_multi_lines(source=None):
+    """[(NS, G, warm-up steps)] of each line of the list walk's dispatch
+    switch (`launch_multi_walk` in csrc/traceback_k1.cu, or in `source`):
+    the narrow walk's multi mode, segments of G steps, a lane's guess a
+    warm-up of that many steps."""
+    import re
+    src = Path(source or ROOT / SOURCES["traceback_k1_multi"][0]).read_text()
+    return [(int(ns), 1 << int(lg), int(wu))
+            for ns, log, lg, wu in re.findall(
+                r"case (\d+): return launch_multi<(\d+), (\d+), (\d+)>"
+                r"\(a, s\);", src)
+            if int(ns) == 1 << int(log)]
+
+
 def narrow_walk_smem(NS, G, source=None):
     """(pitch in words, shared bytes a block) of the narrow walk at NS with
     segments of G steps, from the pad and the window count of `NarrowShape`
     in csrc/traceback_k1.cu (or `source`): NB windows of 32 segments at a
     pitch of G W + pad words, a window's output bytes and their states, NB
-    mbarriers, rounded up to 16 bytes."""
+    mbarriers, rounded up to 16 bytes (the list walk stages fewer rows)."""
     import re
     src = Path(source or ROOT / SOURCES["traceback_k1"][0]).read_text()
     pad = int(re.search(r"int P = SEGW \+ (\d+);", src).group(1))
@@ -3889,13 +3955,14 @@ SOFT_FORWARD_CONDITIONS = ((QMAX, True, False), (QMAX, True, True),
 
 
 def soft_forward_lines(source=None):
-    """[(NS, butterflies a lane)] of the narrow soft forward's NS switch
-    (`acs_soft_k1_forward` in csrc/acs_soft_k1.cu, or in `source`); each
-    line launches one template for n <= 4 and one for n = 5..8."""
+    """[(NS, butterflies a lane)] of the narrow forward's NS switch
+    (`launch_forward` in csrc/acs_soft_k1.cu, or in `source`), which both
+    `acs_soft_k1_forward` and `acs_k1_forward` take; each line launches one
+    template for n <= 4 and one for n = 5..8."""
     import re
     src = Path(source or ROOT / SOURCES["acs_soft_k1_forward"][0]).read_text()
     return [(int(ns), int(bpl)) for ns, bpl in re.findall(
-        r"case (\d+): ok = launch_n<(\d+)>\(a, s\);", src)]
+        r"case (\d+): ok = launch_n<(\d+), kHard>\(a, s\);", src)]
 
 
 def compare_soft_forward(acs, spec, q, qclip, floor, init, err, what):
@@ -4062,6 +4129,113 @@ def phase_compare_small_forward(fec, acs, dev, err):
               "127 / -128 route, default metrics and carried ones at n = "
               f"{small_forward_carried_n(i)}: words and final metrics equal "
               "to the plain versions")
+    return cases
+
+
+#: The hard narrow forward's checks (K1, `acs_k1_forward` at NS = 64, 128,
+#: 256, csrc/acs_soft_k1.cu): B = NARROW_B (no multiple of the 4 warps a
+#: block) at each T (no step, one, a 32-step block less one and a block and
+#: one from the default start and from carried metrics; (a)'s T at the n of
+#: HARD_FORWARD_LONG_N, one a template, from both), and B = 1 at T = 33.
+HARD_FORWARD_T = (0, 1, 31, 33, 2054)
+HARD_FORWARD_LONG_N = (2, 6)
+
+
+def compare_hard_forward(acs, spec, seg, init, err, what):
+    """`acs_forward_batch` on one batch against its plain version: words
+    and final metrics, one launch counted."""
+    import torch
+    key = "acs_k1_forward"
+    before = acs.LAUNCHES[key]
+    got = acs.acs_forward_batch(spec, seg, init)
+    want = acs.acs_forward_batch_plain(spec, seg, init)
+    case = f"{spec} {key} {what} init={init is not None}"
+    require(acs.LAUNCHES[key] == before + (seg.shape[0] > 0),
+            f"{case}: a launch counted")
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"{case}: words and final metrics equal to the plain version")
+    err[key] = max(err[key], *map(max_abs_diff, got, want))
+
+
+def phase_compare_hard_forward(fec, acs, dev, err):
+    """The hard narrow forward against its plain version on the card at
+    every line of its dispatch: NS = 64, 128, 256, each n = 1 ... 8 (one
+    and two packed registers), a random code, uniform segments of n bits,
+    B = NARROW_B at every HARD_FORWARD_T (T = 2054 at HARD_FORWARD_LONG_N
+    only) and B = 1 at T = 33, from the default start and from carried
+    metrics."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2071)
+    cases = 0
+    for NS, _ in soft_forward_lines():
+        for n in range(1, 9):
+            spec = bfly_spec(fec, rng, NS, n)
+            shapes = [(NARROW_B, T) for T in HARD_FORWARD_T
+                      if T != HARD_FORWARD_T[-1] or n in HARD_FORWARD_LONG_N]
+            for B, T in shapes + [(1, 33)]:
+                seg = torch.from_numpy(rng.integers(0, 1 << n, (B, T)).astype(
+                    np.uint8)).to(dev)
+                init = torch.from_numpy(rng.integers(0, 6000, (B, NS)).astype(
+                    np.int32)).to(dev)
+                for given in (None, init):
+                    compare_hard_forward(acs, spec, seg, given, err,
+                                         f"B={B} T={T}")
+                    cases += 1
+        print(f"[compare] hard narrow forward NS={NS}: n = 1..8, B = "
+              f"{NARROW_B} at T = {', '.join(map(str, HARD_FORWARD_T))} (T = "
+              f"{HARD_FORWARD_T[-1]} at n = {HARD_FORWARD_LONG_N}) and B = 1, "
+              "default and carried metrics: words and final metrics equal to "
+              "the plain version")
+    return cases
+
+
+def multi_walk_batches(fec, acs, spec, rng, dev, G):
+    """The batches of decision words on which the list walk at `spec`'s NS
+    (segments of G steps) is held: yields (what, words).  B = NARROW_B at
+    the tail-biting DCI trellis's 144 steps (noisy and garbage words) and
+    at S + 5 steps; B = 3 over two windows (32 G + 45 steps) of words that
+    send guesses wrong (`narrow_walk_words`' catastrophic ones); B = 1; at
+    NS >= 64 a base 4 bytes past a 16-byte line (a word a step)."""
+    import torch
+    W = max(spec.num_states // 32, 1)
+
+    def words(kind, B, T):
+        return narrow_walk_words(fec, acs, spec, rng, dev, kind, B, T)
+
+    for kind in ("noisy", "garbage"):
+        yield kind, words(kind, NARROW_B, 144)
+    yield "garbage", words("garbage", NARROW_B, spec.S + 5)
+    yield "catastrophic", words("catastrophic", 3, 32 * G + 45)
+    yield "noisy", words("noisy", 1, 57)
+    if spec.num_states >= 64:
+        T = 3 * G + 5
+        big = words("noisy", 5, T)
+        flat = torch.empty(5 * T * W + 1, dtype=torch.int32, device=dev)
+        flat[1:] = big.reshape(-1)
+        yield "4-byte base", flat[1:].view(5, T, W)
+
+
+def phase_compare_list_walk(fec, acs, dev, err):
+    """The list walk (`traceback_k1_multi`, the narrow walk's multi mode)
+    against its plain version on the card at every line of its dispatch
+    switch (NS = 2 ... 256): a random rate-1/4 code's `multi_walk_batches`,
+    each at every case of `compare_multi` (NW = 1, 2, 8, NS; live 0, S,
+    T - 1, T; `multi_windows`; bits and bytes).  Returns the cases."""
+    import numpy as np
+    rng = np.random.default_rng(2073)
+    cases = 0
+    for NS, G, WU in narrow_multi_lines():
+        spec = bfly_spec(fec, rng, NS, 4)
+        n, shapes = 0, []
+        for what, words in multi_walk_batches(fec, acs, spec, rng, dev, G):
+            n += compare_multi(acs, spec, words, err, rng)
+            shapes.append(f"{what} B={words.shape[0]} T={words.shape[1]}")
+        cases += n
+        print(f"[compare] list walk NS={NS}: G {G}, warm-up {WU}; {n} cases "
+              f"({'; '.join(shapes)}: NW 1/2/8/NS, live 0/S/T-1/T, windows "
+              "from 0, 3, 48, T - 56, T - 1 (from 3 also cut), bits and "
+              "bytes) equal to the plain version")
     return cases
 
 
@@ -4701,6 +4875,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = phase_compare_small_forward(fec, acs, dev, err)
     print(f"[compare] small forward: {cases} cases "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases = phase_compare_hard_forward(fec, acs, dev, err)
+    print(f"[compare] hard narrow forward: {cases} cases "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases = phase_compare_list_walk(fec, acs, dev, err)
+    print(f"[compare] list walk: {cases} cases "
           f"{time.perf_counter() - t0:.1f} s")
     small_summary["walk_kernels"] = small_walk_kernels(fec, small_in)
 

@@ -5,19 +5,19 @@
 // Replaces the TPU kernels `acs_forward_batch_fused` (convolutionalencdec_tpu/
 // kernels/acs_pallas.py, pallas_call at :1004, body `_fwd_kernel_fused`) and
 // `acs_forward_batch_fused_soft` (pallas_call at :1134) where NS > 256 or
-// n > 8 (the port's acs_k1.cu and acs_soft_k1.cu compute their function at
+// n > 8 (the port's acs_soft_k1.cu computes their function at
 // NS 64-256, n <= 8), and the SWAR kernels `acs_forward_batch_swar`
 // (acs_swar.py:847) and `acs_forward_batch_swar_soft` (:1262), which the
 // JAX package runs at any NS >= 64 with n <= 4.  It computes what they
 // compute, not how: no 3-stage relabelling, no MXU edge metrics, no
 // channels packed into fields, no renormalisation.
 //
-// Semantics: bit for bit those of acs_k1.cu (hard) and acs_soft_k1.cu
+// Semantics: bit for bit those of acs_soft_k1.cu's hard and soft entries
 // (soft, LLRs conditioned as clamp(q, qlo, qclip)): ties keep the low
 // source, int32 metrics, never renormalised (the wrappers check T against
 // overflow).
 //
-// Layouts: as acs_k1.cu:
+// Layouts: as acs_soft_k1.cu:
 //   in             uint8 [B, T] segments, or int8 [B, T, n] LLRs
 //   cb             int32 [NS/2]      coded segment of edge (src b, input 0)
 //   init           int32 [B, NS]     optional (nullptr: 0 at state 0,
@@ -30,7 +30,7 @@
 // What bounds it on this card: NS/2 butterflies per step (6 int32
 // operations each, and the edge metric), NS/8 bytes of decisions written
 // per step: at NS = 16384, 8192 butterflies and 2 KB per step and channel.
-// Operations bound it: a warp-per-channel register design (acs_k1.cu) would
+// Operations bound it: a warp-per-channel register design (acs_soft_k1.cu) would
 // need 256 metrics per lane.
 //
 // The hard forward (`acs_round_kernel`): R trellis steps a round in

@@ -10,7 +10,7 @@
 // padding, no phase axis in the grid; the decisions live in shared memory
 // between the two phases of one block.
 //
-// Semantics (bit for bit those of acs_k1.cu / acs_soft_k1.cu / acs_wide.cu
+// Semantics (bit for bit those of acs_soft_k1.cu (hard and soft) / acs_wide.cu
 // followed by traceback_k1.cu's terminated walk, i.e. of
 // ops/viterbi.viterbi_decode and ops/metrics.viterbi_decode_soft):
 //   ties keep the low source; state 0 starts at 0, every other state at
@@ -31,7 +31,7 @@
 //   shared memory per channel: T * NS/8 bytes of decision words, then 64
 //   words of the walk's scratch (NS 64-256: first the forward's staged
 //   inputs) and its decoded bits, ceil(T / 32) words (`channel_bytes`).
-//   Rows, the layout of acs_k1.cu: W = NS/32 words per step, the decision
+//   Rows, the layout of acs_soft_k1.cu: W = NS/32 words per step, the decision
 //   of state s = 2b + p at step t bit i % 32 of word t W + i / 32,
 //   i = p*NS/2 + b.  NS 64-256 keeps its steps below T - T % 32 as
 //   columns instead, NS words per block of 32 steps: the decision of

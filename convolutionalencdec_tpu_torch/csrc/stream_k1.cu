@@ -9,7 +9,7 @@
 // B to 256 or of T to 48.
 //
 // Semantics (bit for bit those of ops/viterbi.stream_scan on k=1 codes):
-//   the ACS of acs_k1.cu (hard) or acs_soft_k1.cu (soft, each LLR floored
+//   the ACS of acs_soft_k1.cu, hard or soft (soft: each LLR floored
 //   at -127 and not clipped): butterfly b has sources b and b + NS/2 and
 //   destinations 2b and 2b+1, the high source wins only when strictly
 //   a0 > a1 (b0 > b1);
@@ -58,7 +58,7 @@
 //   - Each step's decisions are two ballots a butterfly group, which lane 0
 //     stores to a ring of kRing steps in shared memory; after the block
 //     lane s turns step s's ballots into the decision words of
-//     acs_k1.cu's layout in place (bit p NS/2 + b for state 2b + p).
+//     acs_soft_k1.cu's layout in place (bit p NS/2 + b for state 2b + p).
 //   - The argmin: each lane packs each of its states as (metric - lb) << 8
 //     | state, the difference clamped below 2^22, and keeps the least; every
 //     8 steps the warp reduces the 8 steps' candidates, one

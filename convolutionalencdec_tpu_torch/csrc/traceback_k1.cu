@@ -30,12 +30,12 @@
 // for NS >= 512 are the segment walks of traceback_wide.cu.
 //
 // Two kernels:
-//   narrow_walk_kernel   the terminated walk at every NS <= 256 and the
-//                        masked and ragged walks at NS = 64, 128 and 256:
-//                        staged segment walks, a lane a segment (below);
-//   traceback_k1_kernel  a thread a channel (or a (channel, walk) pair):
-//                        the list walk at every NS <= 256, and the masked
-//                        and ragged walks at NS <= 32.
+//   narrow_walk_kernel   the terminated and list walks at every NS <= 256
+//                        and the masked and ragged walks at NS = 64, 128
+//                        and 256: staged segment walks, a lane a segment
+//                        (below);
+//   traceback_k1_kernel  a thread a channel: the masked and ragged walks at
+//                        NS <= 32.
 //
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
@@ -85,7 +85,8 @@
 // (`traceback_k1_kernel`) loads 128 bytes of rows at a time and walks them
 // in registers: 2048 channels are 64 warps, so most of the card's 132 SMs
 // sit idle, and each thread's chain holds T W / 32 dependent DRAM round
-// trips and T serial steps (19x the bound at the main-path size).  At
+// trips and T serial steps (19x the bound at the main-path size; the list
+// walk, a thread a walk, 23x at the tail-biting DCI size, PERF.md §6).  At
 // NS <= 32 a step is one word: NS/8 bytes of decision bits (the bound's),
 // 4 bytes as stored, 16.8 MB at the main-path size of the K = 5 code
 // (2048 channels of 2052 steps), 0.0050 ms at 3.35 TB/s for any walk that
@@ -138,6 +139,31 @@
 //     emits nothing (t_b <= S) reads nothing, and the warp writes zeros
 //     past each channel's bits.  The same G and warm-ups as the
 //     terminated walk.
+//   * The list walk (multi) is the masked walk of B NW rows on the
+//     decisions from step out_start up: row b NW + w walks channel b's
+//     decisions from starts[b, w], over T - out_start steps, the live ones
+//     below live - out_start, and its windows, segments and output bytes
+//     count from out_start (as traceback_wide.cu's: out_start need not be a
+//     multiple of 8).  The lanes are (walk, segment) pairs, C a walk and
+//     32 / C walks a warp, C from the window's steps; the lanes of the
+//     first of a channel's walks in the warp stage its windows, C rows for
+//     each channel of the warp's rows (the launch sizes shared memory for
+//     the most channels a warp's rows span), and its other walks read them
+//     there.  Where a window holds whole rows of bits, a lane turns a
+//     staged byte into 8 output bytes by one 8-byte store.  Its own
+//     dispatch switch (`launch_multi_walk`): G 64 at NS 64-256, so that
+//     the tail-biting DCI walk (56 steps of 8 walks at NS 64) is one lane
+//     a walk from a known start, 32 walks (4 channels) a warp, no guess.
+//     At that size (scripts/torch_narrow_walk.py, in turns, PERF.md §6):
+//     a thread a walk 0.099 ms; the segment walk at G 16 with 32 staged
+//     rows a warp and a byte store a bit 0.0295, G 8 / 32 / 64 0.0383 /
+//     0.0325 / 0.0440; one staged window 0.0274; 2-8 warps a block
+//     0.0285-0.0289; staging the warp's channels only 0.0277, with the
+//     8-byte stores 0.0218; G 32 0.0184, G 64 0.0121 (one window or two, one
+//     warp a block or two: within 2%); at NS 128 / 256 G 64 0.0152 /
+//     0.0230 (G 8, 16, 32: 0.0373 / 0.0474, 0.0238 / 0.0302, 0.0196 /
+//     0.0271).  NS 2-32 take the terminated walk's G (no list walk there
+//     is timed: the tail-biting kernel entries take NS >= 64).
 //   * Masked steps load nothing: the steps at or beyond `live` shift the
 //     start right one bit a step, so the walk starts at step live - 1 from
 //     starts[b] >> (T - live) (0 from S masked steps on), and the bits of
@@ -177,6 +203,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 
@@ -215,58 +243,17 @@ struct NarrowShape {
 
 struct NarrowArgs {
   const int32_t* decs;
-  const int32_t* starts;   // masked: [B]; else null (state 0)
+  const int32_t* starts;   // masked: [B]; multi: [B / nw]; else null (0)
   const int32_t* lengths;  // ragged: [B]; else null
   uint8_t* out;
+  // B: the rows (multi: walks, nw a channel); T_stride: a channel's steps;
   // t_top: the walk's top step + 1 (t_actual, or live; ragged: T, each
   // channel's own from its length); T: the step below which the start
-  // state stands (T, or t_actual); msg: the row's bits.
-  int B, T_stride, t_top, T, msg, emit_bytes;
+  // state stands (T, or t_actual); msg: the row's bits.  Multi: steps
+  // count from `base`, the row's first step (out_start); `rows` the rows
+  // of a staged window (set by the launch).
+  int B, T_stride, t_top, T, msg, emit_bytes, nw, base, rows;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// that completes on the mbarrier at `bar`, whose phase this lane's arrival
-// also expects them.
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Wait for the mbarrier's phase of parity `parity` to complete; a copy that
-// never lands stops the kernel with an error rather than spinning forever.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  for (long long tries = 0;; ++tries) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1ll << 28)) __trap();
-  }
-}
 
 // The bit of masked step t (>= live) of a walk from state s0 at step T - 1:
 // each masked step shifts the state right by one.
@@ -275,6 +262,12 @@ __device__ __forceinline__ unsigned masked_bit(unsigned s0, int T, int t) {
   const int k = T - 1 - t;
   return (k >= 0 && k < S) ? (s0 >> k) & 1u : 0u;
 }
+
+// The walks of `narrow_walk_kernel`: terminated or masked (a row a
+// channel), ragged (each channel from its own top), multi (nw rows a
+// channel, from step `base` up).
+enum Mode { kPlain, kRagged, kMulti };
+
 
 // How a step reads its words from the staged window: the one word its
 // state needs (kWord), or its whole row as 8- or 16-byte vector loads whose
@@ -451,24 +444,40 @@ struct NarrowWalker {
 // S, 0), msg) (0 bits: it walks nothing); the warp runs the windows of its
 // longest channel, a window wholly above a channel's top is nothing to
 // that channel, and the bytes (bits) of a row past msg_b are written 0.
-template <int LOGNS, int LOGG, int WU, int LD, bool RAGGED>
+// Multi: row r is walk r % nw of channel r / nw, from starts[r], on the
+// channel's decisions from step `base` on (steps, windows and the byte grid
+// count from there); the lanes of the first of a channel's walks in the
+// warp stage its windows and its other walks there read them.
+template <int LOGNS, int LOGG, int WU, int LD, int MODE>
 __global__ void __launch_bounds__(32)
 narrow_walk_kernel(const NarrowArgs a, const int logc) {
+  constexpr bool RAGGED = MODE == kRagged, MULTI = MODE == kMulti;
   using Sh = NarrowShape<LOGNS, LOGG>;
   constexpr int S = Sh::S, W = Sh::W, G = Sh::G, GB = Sh::GB, P = Sh::P;
   constexpr int NB = Sh::NB;
   static_assert(WU % 8 == 0, "whole blocks of warm-up");
   extern __shared__ __align__(16) int32_t wsm[];
-  uint8_t* const st_all = reinterpret_cast<uint8_t*>(wsm + NB * 32 * P);
+  // The rows of a staged window: a lane's segment each, or (multi) C for
+  // each channel of the warp's rows.
+  const int R = MULTI ? a.rows : 32;
+  const int wid = blockIdx.x;  // the warp's index in the grid
+  uint8_t* const st_all = reinterpret_cast<uint8_t*>(wsm + NB * R * P);
   uint8_t* const ck_all = st_all + Sh::STAGE;
   uint64_t* const bars = reinterpret_cast<uint64_t*>(ck_all + Sh::STAGE);
   if (a.msg <= 0) return;  // rows of no bits
   const int lane = threadIdx.x;
   const int C = 1 << logc, CPW = 32 >> logc;
-  const int c = lane >> logc;  // the lane's channel in the warp
+  const int c = lane >> logc;  // the lane's row in the warp
   const int l = lane & (C - 1);
-  const int ch = blockIdx.x * CPW + c;
+  const int ch = wid * CPW + c;  // its row
   const bool live = ch < a.B;
+  // Multi: the row's channel, and the warp's first row of that channel,
+  // whose lanes stage the windows; the first staged row of the lane's
+  // channel (multi: C a channel of the warp's, in order) and the lane's.
+  const int chan = MULTI ? ch / a.nw : ch;
+  const int c0 = MULTI ? max(chan * a.nw, wid * CPW) - wid * CPW : c;
+  const int slot = MULTI ? (chan - wid * CPW / a.nw) << logc : c << logc;
+  const int srow = MULTI ? slot + l : lane;
   int t_top = a.t_top, msg = a.msg;  // the lane's channel's
   if constexpr (RAGGED) {
     const int len = live ? min(max(a.lengths[ch], 0), a.T_stride) : 0;
@@ -476,7 +485,7 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
     t_top = msg > 0 ? len : 0;
     // The row past the channel's bits: zeros, each channel's by the warp.
     for (int cc = 0; cc < CPW; ++cc) {
-      const int chn = blockIdx.x * CPW + cc;
+      const int chn = wid * CPW + cc;
       if (chn >= a.B) break;
       const int m_c = __shfl_sync(kFullMask, msg, cc << logc);
       const int row_len = a.emit_bytes ? (a.msg + 7) >> 3 : a.msg;
@@ -492,7 +501,7 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
   // The masked steps' bits: the row's bytes (bits) from step top8 on.
   if (a.starts != nullptr && top8 < a.msg) {
     for (int cc = 0; cc < CPW; ++cc) {
-      const int chn = blockIdx.x * CPW + cc;
+      const int chn = wid * CPW + cc;
       if (chn >= a.B) break;
       const unsigned s0 = (unsigned)a.starts[chn] & (Sh::NS - 1);
       if (a.emit_bytes) {
@@ -528,7 +537,9 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
     head |= masked_bit<S>(s0, a.T, t) << (7 - (t & 7));
   }
   const size_t chan_words = (size_t)a.T_stride * W;
-  const int32_t* const chb = a.decs + (size_t)(live ? ch : 0) * chan_words;
+  const int32_t* const chb =
+      a.decs + (size_t)(live ? chan : 0) * chan_words +
+      (MULTI ? (size_t)a.base * W : 0);
   // The word phase of the channel's rows: every segment starts a multiple
   // of 4 words (G W) from the channel's first word, so at this phase.
   const int ph = (int)((reinterpret_cast<uintptr_t>(chb) >> 2) & 3);
@@ -541,7 +552,7 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
   auto fetch = [&](int j, int buf) {
     const int sa = j * WS + l * G;
     const int hi = min(j * WS + WS, t_top);
-    if (j >= 0 && live && sa < hi) {
+    if (j >= 0 && live && sa < hi && c0 == c) {
       const uintptr_t g0 = reinterpret_cast<uintptr_t>(chb + (size_t)sa * W);
       const uintptr_t g1 =
           reinterpret_cast<uintptr_t>(chb + (size_t)min(sa + G, hi) * W);
@@ -549,7 +560,7 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
       // The buffer's earlier reads (generic proxy) before the copy's
       // writes (async proxy).
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bulk_copy(wsm + (buf * 32 + lane) * P,
+      bulk_copy(wsm + (buf * R + srow) * P,
                 reinterpret_cast<const void*>(src),
                 (unsigned)(((g1 + 15) & ~uintptr_t(15)) - src), bars + buf);
     } else {
@@ -579,7 +590,7 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
     const int lo = j * WS;
     const int hi = min(lo + WS, t_top);
     const NarrowWalker<LOGNS, LOGG, LD> wk{
-        wsm + (buf * 32 + (c << logc)) * P + ph, lo};
+        wsm + (buf * R + slot) * P + ph, lo};
     uint8_t* const st = st_all + (c << logc) * GB;
     uint8_t* const ck = ck_all + (c << logc) * GB;
     const int sa = lo + l * G;
@@ -613,29 +624,49 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
     // The window's bits, each channel's part written by the whole warp; the
     // top window's byte that holds step t_top - 1 carries the masked bits.
     const int bit_hi = min(hi == t_top ? top8 : hi, msg);
-    for (int cc = 0; cc < CPW; ++cc) {
-      const int chn = blockIdx.x * CPW + cc;
-      if (chn >= a.B) break;
-      const int bh =
-          RAGGED ? __shfl_sync(kFullMask, bit_hi, cc << logc) : bit_hi;
-      if (bh <= lo) {  // the channel's bits end below the window
-        if (RAGGED) continue;
-        break;
+    if (MULTI && !a.emit_bytes && lo == 0 && bit_hi == a.msg &&
+        (a.msg & 7) == 0 && (reinterpret_cast<uintptr_t>(a.out) & 7) == 0) {
+      // The window holds the warp's whole rows of bits (as bytes), one run
+      // of memory: a lane a staged byte, its 8 bits MSb first as 8 bytes of
+      // 0 or 1, one 8-byte store.
+      const int bpr = a.msg >> 3;  // staged bytes a row
+      const int n = min(CPW, a.B - wid * CPW) * bpr;
+      uint2* const o =
+          reinterpret_cast<uint2*>(a.out) + (size_t)wid * CPW * bpr;
+      for (int k = lane; k < n; k += 32) {
+        const int r = k / bpr;
+        const unsigned v = st_all[(r << logc) * GB + (k - r * bpr)];
+        // Bit i of a nibble, reversed, to byte i: the four shifted copies
+        // of the nibble never overlap.
+        o[k] = make_uint2(
+            ((__brev(v) >> 24) & 15u) * 0x00204081u & 0x01010101u,
+            (__brev(v) >> 28) * 0x00204081u & 0x01010101u);
       }
-      const uint8_t* sc = st_all + (cc << logc) * GB;
-      if (a.emit_bytes) {
-        uint8_t* orow = a.out + (size_t)chn * ((a.msg + 7) >> 3);
-        const int byte_lo = lo >> 3;
-        for (int m = byte_lo + lane; m * 8 < bh; m += 32) {
-          unsigned v = sc[m - byte_lo];
-          const int rem = bh - m * 8;  // bits of the byte kept
-          if (rem < 8) v &= 0xffu << (8 - rem);
-          orow[m] = (uint8_t)v;
+    } else {
+      for (int cc = 0; cc < CPW; ++cc) {
+        const int chn = wid * CPW + cc;
+        if (chn >= a.B) break;
+        const int bh =
+            RAGGED ? __shfl_sync(kFullMask, bit_hi, cc << logc) : bit_hi;
+        if (bh <= lo) {  // the channel's bits end below the window
+          if (RAGGED) continue;
+          break;
         }
-      } else {
-        uint8_t* orow = a.out + (size_t)chn * a.msg;
-        for (int p = lo + lane; p < bh; p += 32) {
-          orow[p] = (uint8_t)((sc[(p - lo) >> 3] >> (7 - (p & 7))) & 1u);
+        const uint8_t* sc = st_all + (cc << logc) * GB;
+        if (a.emit_bytes) {
+          uint8_t* orow = a.out + (size_t)chn * ((a.msg + 7) >> 3);
+          const int byte_lo = lo >> 3;
+          for (int m = byte_lo + lane; m * 8 < bh; m += 32) {
+            unsigned v = sc[m - byte_lo];
+            const int rem = bh - m * 8;  // bits of the byte kept
+            if (rem < 8) v &= 0xffu << (8 - rem);
+            orow[m] = (uint8_t)v;
+          }
+        } else {
+          uint8_t* orow = a.out + (size_t)chn * a.msg;
+          for (int p = lo + lane; p < bh; p += 32) {
+            orow[p] = (uint8_t)((sc[(p - lo) >> 3] >> (7 - (p & 7))) & 1u);
+          }
         }
       }
     }
@@ -643,11 +674,11 @@ narrow_walk_kernel(const NarrowArgs a, const int logc) {
   }
 }
 
-template <int LOGNS, int LOGG, int WU, int LD, bool RAGGED>
+template <int LOGNS, int LOGG, int WU, int LD, int MODE>
 int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
   using Sh = NarrowShape<LOGNS, LOGG>;
-  auto* kernel = narrow_walk_kernel<LOGNS, LOGG, WU, LD, RAGGED>;
-  if constexpr (Sh::kSmem > 48 * 1024) {
+  auto* kernel = narrow_walk_kernel<LOGNS, LOGG, WU, LD, MODE>;
+  if constexpr (Sh::kSmem > 48 * 1024) {  // at most
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -658,36 +689,55 @@ int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
   int logc = 0;
   while (logc < 5 && (1 << logc) < segs) ++logc;
   const int cpw = 32 >> logc;
-  kernel<<<(a.B + cpw - 1) / cpw, 32, Sh::kSmem, s>>>(a, logc);
+  NarrowArgs b = a;
+  size_t smem = Sh::kSmem;
+  if constexpr (MODE == kMulti) {
+    // The channels a warp's cpw rows span, nw rows a channel, at most.
+    const int K = min(cpw, (cpw + a.nw - 2) / a.nw + 1);
+    b.rows = K << logc;
+    // Those rows only: each row's P words are whole 16-byte chunks.
+    smem -= (size_t)Sh::NB * (32 - b.rows) * Sh::P * sizeof(int32_t);
+  }
+  kernel<<<(a.B + cpw - 1) / cpw, 32, smem, s>>>(b, logc);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The walk at one NS: with row loads where the decisions' base is aligned
 // to a step's row (8 bytes at W = 2, 16 at W = 4 and 8; every channel's
-// rows then are too), else a word a step; the ragged walk as its own
-// instantiation, so that the others compile as they would without it.
-template <int LOGNS, int LOGG, int WU, int LD>
+// rows, and a list walk's rows from any step, then are too), else a word a
+// step; the ragged and list walks as instantiations of their own, so that
+// the others compile as they would without them.
+template <int LOGNS, int LOGG, int WU, int LD, bool MULTI>
 int launch_narrow_mode(const NarrowArgs& a, cudaStream_t s) {
-  if (a.lengths != nullptr) {
-    if constexpr (LOGNS >= 6) {
-      return launch_narrow_kernel<LOGNS, LOGG, WU, LD, true>(a, s);
+  if constexpr (MULTI) {
+    return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kMulti>(a, s);
+  } else {
+    if (a.lengths != nullptr) {
+      if constexpr (LOGNS >= 6) {
+        return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kRagged>(a, s);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);  // NS <= 32: not here
     }
-    return static_cast<int>(cudaErrorInvalidValue);  // NS <= 32: not here
+    return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kPlain>(a, s);
   }
-  return launch_narrow_kernel<LOGNS, LOGG, WU, LD, false>(a, s);
 }
 
-template <int LOGNS, int LOGG, int WU>
+template <int LOGNS, int LOGG, int WU, bool MULTI = false>
 int launch_narrow(const NarrowArgs& a, cudaStream_t s) {
   if (a.B == 0) return static_cast<int>(cudaSuccess);
   const uintptr_t base = reinterpret_cast<uintptr_t>(a.decs);
   if (base % NarrowShape<LOGNS, LOGG>::ROW_ALIGN == 0) {
-    return launch_narrow_mode<LOGNS, LOGG, WU, kRow>(a, s);
+    return launch_narrow_mode<LOGNS, LOGG, WU, kRow, MULTI>(a, s);
   }
   if constexpr (LOGNS >= 6) {
-    return launch_narrow_mode<LOGNS, LOGG, WU, kWord>(a, s);
+    return launch_narrow_mode<LOGNS, LOGG, WU, kWord, MULTI>(a, s);
   }
   return static_cast<int>(cudaErrorMisalignedAddress);  // int32 words
+}
+
+template <int LOGNS, int LOGG, int WU>
+int launch_multi(const NarrowArgs& a, cudaStream_t s) {
+  return launch_narrow<LOGNS, LOGG, WU, true>(a, s);
 }
 
 // The narrow walk at each NS: launch_narrow<log2 NS, log2 steps a segment,
@@ -708,32 +758,46 @@ int launch_narrow_walk(const NarrowArgs& a, int NS, cudaStream_t s) {
   }
 }
 
-// ---- The thread-a-channel walk: ragged and list walks, and NS <= 32 ----
+// The list walk at each NS: launch_multi<log2 NS, log2 steps a segment,
+// warm-up steps>, as measured fastest (PERF.md §6).
+// tests/test_torch_narrow_walk.py, chip_smoke.py and
+// scripts/torch_narrow_walk.py read this switch.
+int launch_multi_walk(const NarrowArgs& a, int NS, cudaStream_t s) {
+  switch (NS) {
+    case 2: return launch_multi<1, 6, 16>(a, s);
+    case 4: return launch_multi<2, 5, 16>(a, s);
+    case 8: return launch_multi<3, 5, 16>(a, s);
+    case 16: return launch_multi<4, 5, 16>(a, s);
+    case 32: return launch_multi<5, 5, 16>(a, s);
+    case 64: return launch_multi<6, 6, 16>(a, s);
+    case 128: return launch_multi<7, 6, 16>(a, s);
+    case 256: return launch_multi<8, 6, 16>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---- The thread-a-channel walk: ragged and masked walks at NS <= 32 ----
 
 constexpr int kThreads = 32;
 
-enum class Walk { kRagged, kMasked, kMulti };
+enum class Walk { kRagged, kMasked };
 
-template <int W, Walk MODE>  // W: decision words per step, ceil(NS/32)
+// One word a step (NS <= 32).
+template <Walk MODE>
 __global__ void __launch_bounds__(kThreads)
 traceback_k1_kernel(const int32_t* __restrict__ decs,
                     const int32_t* __restrict__ lengths,
                     const int32_t* __restrict__ starts,
                     uint8_t* __restrict__ out,
                     int B, int T_stride, int t_actual, int S,
-                    int message_bits, int emit_bytes, int live, int nw,
-                    int out_start) {
-  // One thread per channel, or (Multi) per (channel, walk): walk index g,
-  // channel g / nw, output row g.
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g >= B * nw) return;
-  const int ch = (MODE == Walk::kMulti) ? g / nw : g;
-  // Multi: the walk stops at out_start and emits step t as bit t - t_lo.
-  const int t_lo = (MODE == Walk::kMulti) ? out_start : 0;
+                    int message_bits, int emit_bytes, int live) {
+  // One thread per channel.
+  const int ch = blockIdx.x * kThreads + threadIdx.x;
+  if (ch >= B) return;
 
-  const int32_t* row = decs + (size_t)ch * T_stride * W;
+  const int32_t* row = decs + (size_t)ch * T_stride;
   const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
-  uint8_t* out_row = out + (size_t)g * row_len;
+  uint8_t* out_row = out + (size_t)ch * row_len;
   int t_start = t_actual;
   int msg = message_bits;
   if (MODE == Walk::kRagged) {
@@ -745,81 +809,56 @@ traceback_k1_kernel(const int32_t* __restrict__ decs,
     }
   }
   const int top = S - 1;
-  unsigned cur = (MODE == Walk::kMasked || MODE == Walk::kMulti)
-                     ? (unsigned)starts[g] : 0u;
+  unsigned cur = MODE == Walk::kMasked ? (unsigned)starts[ch] : 0u;
   unsigned acc = 0;
   // Step t with decision word `word` of the current state's index i.
   auto step = [&](int t, unsigned i, unsigned word) {
     unsigned d = (word >> (i & 31u)) & 1u;
-    if ((MODE == Walk::kMasked || MODE == Walk::kMulti) && t >= live) d = 0u;
-    const int e = t - t_lo;  // the step's place in the row
-    if (e < msg) {
+    if (MODE == Walk::kMasked && t >= live) d = 0u;
+    if (t < msg) {
       const unsigned bit = cur & 1u;
       if (emit_bytes) {
-        acc |= bit << (7 - (e & 7));
-        if ((e & 7) == 0) {
-          out_row[e >> 3] = (uint8_t)acc;
+        acc |= bit << (7 - (t & 7));
+        if ((t & 7) == 0) {
+          out_row[t >> 3] = (uint8_t)acc;
           acc = 0;
         }
       } else {
-        out_row[e] = (uint8_t)bit;
+        out_row[t] = (uint8_t)bit;
       }
     }
     cur = (cur >> 1) | (d << top);
   };
 
-  constexpr int C = 32 / W;  // steps per register chunk
-  for (int t_hi = t_start - 1; t_hi >= t_lo; t_hi -= C) {
-    int32_t r[C][W];
+  constexpr int C = 32;  // steps per register chunk
+  for (int t_hi = t_start - 1; t_hi >= 0; t_hi -= C) {
+    int32_t r[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int t = t_hi - k;
-#pragma unroll
-      for (int w = 0; w < W; ++w) r[k][w] = (t >= t_lo) ? row[(size_t)t * W + w] : 0;
+      r[k] = (t >= 0) ? row[t] : 0;
     }
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int t = t_hi - k;
-      if (t < t_lo) break;
+      if (t < 0) break;
       const unsigned i = (cur >> 1) | ((cur & 1u) << top);
-      const unsigned wi = i >> 5;
-      unsigned word = (unsigned)r[k][0];
-#pragma unroll
-      for (int w = 1; w < W; ++w) word = (wi == (unsigned)w) ? (unsigned)r[k][w] : word;
-      step(t, i, word);
+      step(t, i, (unsigned)r[k]);
     }
   }
 }
 
-// The register-chunk walk of NS's words: every mode at NS <= 32 (one word
-// a step), the list walk at 64, 128 and 256.
+// The register-chunk walk of the one-word modes at NS <= 32.
 template <Walk MODE>
 int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
            uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
-           int message_bits, int emit_bytes, int live, int nw, int out_start,
-           cudaStream_t s) {
-  constexpr bool kWide = MODE == Walk::kMulti;
+           int message_bits, int emit_bytes, int live, cudaStream_t s) {
+  if (NS > 32) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kThreads);
-  const dim3 grid((B * nw + kThreads - 1) / kThreads);
-#define TB_LAUNCH(W)                                                    \
-  traceback_k1_kernel<W, MODE><<<grid, block, 0, s>>>(                  \
-      d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,    \
-      emit_bytes, live, nw, out_start)
-  switch (NS) {
-    case 2: case 4: case 8: case 16: case 32: TB_LAUNCH(1); break;
-    default:
-      if constexpr (kWide) {
-        switch (NS) {
-          case 64: TB_LAUNCH(2); break;
-          case 128: TB_LAUNCH(4); break;
-          case 256: TB_LAUNCH(8); break;
-          default: return static_cast<int>(cudaErrorInvalidValue);
-        }
-        break;
-      }
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef TB_LAUNCH
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  traceback_k1_kernel<MODE><<<grid, block, 0, s>>>(
+      d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
+      emit_bytes, live);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,7 +868,7 @@ int terminated(const void* decs, void* out, int B, int T_stride,
                void* stream) {
   const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr, nullptr,
                      static_cast<uint8_t*>(out), B, T_stride, t_actual,
-                     t_actual, message_bits, emit_bytes};
+                     t_actual, message_bits, emit_bytes, 1, 0};
   return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
 }
 
@@ -840,13 +879,13 @@ int ragged(const void* decs, const void* lengths, void* out, int B, int T,
     const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr,
                        static_cast<const int32_t*>(lengths),
                        static_cast<uint8_t*>(out), B, T, T, T,
-                       message_bits_max, emit_bytes};
+                       message_bits_max, emit_bytes, 1, 0};
     return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
   }
   return launch<Walk::kRagged>(
       static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
       nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
-      emit_bytes, 0, 1, 0, static_cast<cudaStream_t>(stream));
+      emit_bytes, 0, static_cast<cudaStream_t>(stream));
 }
 
 int masked(const void* decs, const void* starts, void* out, int B, int T,
@@ -856,24 +895,29 @@ int masked(const void* decs, const void* starts, void* out, int B, int T,
     const NarrowArgs a{static_cast<const int32_t*>(decs),
                        static_cast<const int32_t*>(starts), nullptr,
                        static_cast<uint8_t*>(out), B, T, live, T, out_steps,
-                       emit_bytes};
+                       emit_bytes, 1, 0};
     return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
   }
   return launch<Walk::kMasked>(
       static_cast<const int32_t*>(decs), nullptr,
       static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live, 1, 0,
+      T, NS, S, out_steps, emit_bytes, live,
       static_cast<cudaStream_t>(stream));
 }
 
+// The list walk: the masked walk of B NW rows on the decisions from step
+// out_start up (T - out_start steps, the live ones below live), row b NW + w
+// from starts[b, w] on channel b's decisions.
 int multi(const void* decs, const void* starts, void* out, int B, int T,
-          int NS, int S, int NW, int live, int out_start, int out_steps,
+          int NS, int NW, int live, int out_start, int out_steps,
           int emit_bytes, void* stream) {
-  return launch<Walk::kMulti>(
-      static_cast<const int32_t*>(decs), nullptr,
-      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live, NW, out_start,
-      static_cast<cudaStream_t>(stream));
+  const int steps = T - out_start;
+  const NarrowArgs a{static_cast<const int32_t*>(decs),
+                     static_cast<const int32_t*>(starts), nullptr,
+                     static_cast<uint8_t*>(out), B * NW, T,
+                     min(max(live - out_start, 0), steps), steps, out_steps,
+                     emit_bytes, NW, out_start};
+  return launch_multi_walk(a, NS, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -914,6 +958,7 @@ extern "C" int traceback_k1_multi(const void* decs, const void* starts,
                                   int NW, int live, int out_start,
                                   int out_steps, int emit_bytes,
                                   void* stream) {
-  return multi(decs, starts, out, B, T, NS, S, NW, live, out_start,
-               out_steps, emit_bytes, stream);
+  (void)S;  // the walk's NS says it
+  return multi(decs, starts, out, B, T, NS, NW, live, out_start, out_steps,
+               emit_bytes, stream);
 }

@@ -123,6 +123,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -170,9 +172,6 @@ struct Args {
   int B, L;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 // A copy of 16 (or 4) bytes into shared memory, zero-filled when !ok.
 __device__ __forceinline__ void copy16(int32_t* dst, const int32_t* src,
                                        bool ok) {

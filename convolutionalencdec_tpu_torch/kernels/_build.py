@@ -4,9 +4,9 @@ At first use, each `csrc/*.cu` is compiled by its own `nvcc` for Hopper
 (`sm_90a`), all of them at once, and the objects are linked into one
 shared library with a plain C interface under
 `convolutionalencdec_tpu_torch/build/` (git-ignored), loaded with
-`ctypes`.  A library newer than every source is reused.  Importing this
-module builds and loads nothing, so the package imports on a machine with
-no CUDA toolkit.
+`ctypes`.  A library newer than every source and header (`csrc/*.cuh`)
+is reused.  Importing this module builds and loads nothing, so the package
+imports on a machine with no CUDA toolkit.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
@@ -28,8 +28,10 @@ BUILD_DIR = PACKAGE_DIR / "build"
 LIBRARY = BUILD_DIR / "libconvenc_kernels.so"
 BUILD_LOG = BUILD_DIR / "build.log"
 
+# -I csrc: a copy of a source built elsewhere (a variants script's) finds
+# the package's headers.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC_DIR)]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _HARD_FORWARD = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -98,12 +100,14 @@ def find_nvcc() -> str:
 
 
 def build() -> float:
-    """Compile csrc/*.cu into LIBRARY unless it is newer than every source:
-    one nvcc per source, all started together, then one link.  Returns the
-    seconds spent (0.0 when the library was reused).  The compilers' output
-    (with `-Xptxas -v` register and spill counts) is kept in BUILD_LOG."""
+    """Compile csrc/*.cu into LIBRARY unless it is newer than every source
+    and header (csrc/*.cuh): one nvcc per source, all started together,
+    then one link.  Returns the seconds spent (0.0 when the library was
+    reused).  The compilers' output (with `-Xptxas -v` register and spill
+    counts) is kept in BUILD_LOG."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    newest = max(p.stat().st_mtime for p in sources)
+    newest = max(p.stat().st_mtime
+                 for p in [*sources, *CSRC_DIR.glob("*.cuh")])
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

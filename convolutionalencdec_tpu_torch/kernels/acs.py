@@ -4,8 +4,9 @@ Six wrappers, each with its plain PyTorch version beside it, each launching
 the kernel of its code's size (TPU kernels named by their function in
 convolutionalencdec_tpu/kernels/acs_swar.py and acs_pallas.py):
 
-  * `acs_forward_batch` (hard decisions) launches `csrc/acs_k1.cu` at
-    NS = 64..256 (replaces `acs_forward_batch_swar`), `acs_small_forward`
+  * `acs_forward_batch` (hard decisions) launches `acs_k1_forward` of
+    `csrc/acs_soft_k1.cu` at NS = 64..256 (replaces
+    `acs_forward_batch_swar`), `acs_small_forward`
     of `csrc/acs_small.cu` at NS = 2..32 (replaces acs_pallas's
     `acs_forward_batch`, K12) and `acs_wide_forward` of `csrc/acs_wide.cu`
     at NS = 512..16384 (replaces `acs_forward_batch_fused`, K11, and the

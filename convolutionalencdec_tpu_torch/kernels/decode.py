@@ -47,7 +47,7 @@ from .single_pass import block_decode_1p, use_single_pass
 
 #: Route names of `select_kernel`.  The butterfly routes launch the kernel
 #: of the code's size (kernels/acs.py): csrc/acs_small.cu at NS <= 32,
-#: csrc/acs_k1.cu / acs_soft_k1.cu at 64..256, csrc/acs_wide.cu at
+#: csrc/acs_soft_k1.cu (hard and soft) at 64..256, csrc/acs_wide.cu at
 #: 512..16384, then csrc/traceback_k1.cu.
 BUTTERFLY = "butterfly"  # hard
 SOFT8 = "soft8"          # soft, LLRs clipped to +-qmax

@@ -52,7 +52,8 @@ class StreamState(NamedTuple):
 
 def _stream_code(spec: CodeSpec) -> bool:
     """The codes `stream_k1_decode` takes: k = 1 poly-symmetric,
-    64 <= NS <= 256, n <= 8 (acs_k1.cu's warp-per-channel instantiations)."""
+    64 <= NS <= 256, n <= 8 (acs_soft_k1.cu's warp-per-channel
+    instantiations)."""
     return (spec.k == 1 and spec.has_poly_symmetry
             and spec.num_states in (64, 128, 256) and spec.n <= 8)
 

@@ -72,7 +72,8 @@ REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "block_decode_1p", "traceback_k1", "traceback_k1_masked",
               "acs_soft_k1_forward", "traceback_k1_ragged", "maxlogmap_k1",
               "traceback_k1 w1", "acs_small_forward",
-              "acs_soft_small_forward", "stream_k1_decode"}
+              "acs_soft_small_forward", "stream_k1_decode",
+              "acs_k1_forward", "traceback_k1_multi"}
 
 
 def terms(row):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Build-time variants of the narrow walk (`traceback_k1` at NS = 2 ...
-256, `traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and
-256: `narrow_walk_kernel` in csrc/traceback_k1.cu) against a reference
-build of the same C entries, on one GPU.
+"""Build-time variants of the narrow walk (`traceback_k1` and
+`traceback_k1_multi` at NS = 2 ... 256, `traceback_k1_masked` and
+`traceback_k1_ragged` at NS = 64, 128 and 256: `narrow_walk_kernel` in
+csrc/traceback_k1.cu) against a reference build of the same C entries, on
+one GPU.
 
     python3 scripts/torch_narrow_walk.py --ref PARENT.cu \\
         [--variant NAME=SOURCE.cu ...] [--lines NAME=NS:G:WU,... ...] \\
@@ -12,7 +13,8 @@ build of the same C entries, on one GPU.
 Builds csrc/traceback_k1.cu (as "change"), each variant (a hand-edited copy
 of it, `NAME=SOURCE.cu`) and each `--lines` copy (csrc/traceback_k1.cu
 with the dispatch lines of the given NS rewritten: G steps a segment, WU
-warm-up steps, e.g. `--lines g32=64:32:32`),
+warm-up steps, e.g. `--lines g32=64:32:32`; an item `mNS:G:WU` rewrites
+the list walk's line, e.g. `--lines m8=m64:8:16`),
 and the reference (`--ref`, e.g. the parent tree's traceback_k1.cu: get it
 with `git show HEAD:convolutionalencdec_tpu_torch/csrc/traceback_k1.cu >
 _checkout/parent_traceback_k1.cu`); one nvcc each, all at once, with
@@ -29,7 +31,10 @@ rows of T - S bits and a cut one, bits and bytes) and on 2048 channels
 at 2054 steps, every byte of the rows (both builds write into rows
 filled with 0xA5); its wrong
 first-pass guesses on the garbage and catastrophic words (below 64 states
-`rotating_words`) are counted.
+`rotating_words`) are counted; and at each NS of the list walk's switch
+(or of `--ns`) the list walk on chip_smoke.py's `multi_walk_batches` at
+NW = 1, 2, 8 and NS, live 0, S, T - 1 and T, each of `multi_windows`,
+bits and bytes.
 Then each build is timed in turns with the reference (CUDA events after a sleep that queues the launch, median of
 `--calls`, two inputs alternately; `--timed` keeps the named ones,
 `--no-time` none):
@@ -43,6 +48,10 @@ Then each build is timed in turns with the reference (CUDA events after a sleep 
               steps from the argmin state): the masked walk, 240 bits out;
   (f)         LTE_TBCC_K7, 16384 DCI blocks of 56 bits at 2 dB: the soft
               wrap decode's masked walk over 192 steps, 104 bits out;
+  (f) list    the same blocks: the soft list decode's walk of its 8
+              candidates over the last 56 of 144 steps (out_start 88),
+              56 bits out each; `(f) list NS=128` and `NS=256` the same
+              walk on the forward's words of noisy packets of those codes;
   NS=128      a K = 8 code, and NS=256 K9_561_753, at (a)'s size, hard;
   (k) hard    K5_23_35 (NS = 16, T = 2052) at (a)'s size: the forward's words
               of 3%-corrupted segments, the terminated walk into bytes (the
@@ -80,7 +89,8 @@ import _torch_variants  # noqa: E402
 
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "traceback_k1.cu"
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "narrow_walk"
-WALKS = ("traceback_k1", "traceback_k1_masked", "traceback_k1_ragged")
+WALKS = ("traceback_k1", "traceback_k1_masked", "traceback_k1_ragged",
+         "traceback_k1_multi")
 SLEEP_CYCLES = 10_000_000
 # The timed code at NS = 128 (no common factor: a catastrophic code's
 # survivors never merge, so every warm-up guess would be wrong); NS = 256
@@ -94,19 +104,21 @@ ONE_WORD_CODES = {2: (0o3, 0o3), 4: (0o7, 0o5), 8: (0o17, 0o15),
 
 def with_lines(name: str, spec: str, out: Path) -> Path:
     """A copy of csrc/traceback_k1.cu whose dispatch lines `spec`
-    (NS:G:WU, comma separated) rewrites, written to out/NAME.cu."""
+    (NS:G:WU, comma separated; mNS:G:WU the list walk's) rewrites, written
+    to out/NAME.cu."""
     src = SOURCE.read_text()
     for item in spec.split(","):
+        fn = "launch_multi" if item.startswith("m") else "launch_narrow"
         try:
-            ns, g, wu = (int(x) for x in item.split(":"))
+            ns, g, wu = (int(x) for x in item.removeprefix("m").split(":"))
         except ValueError:
-            raise SystemExit(f"--lines {name}: items are NS:G:WU")
+            raise SystemExit(f"--lines {name}: items are [m]NS:G:WU")
         log_ns, log_g = ns.bit_length() - 1, g.bit_length() - 1
         if 1 << log_ns != ns or 1 << log_g != g:
             raise SystemExit(f"--lines {name}: NS and G are powers of two")
         src, count = re.subn(
-            rf"case {ns}: return launch_narrow<\d+, \d+, \d+>",
-            f"case {ns}: return launch_narrow<{log_ns}, {log_g}, {wu}>", src)
+            rf"case {ns}: return {fn}<\d+, \d+, \d+>",
+            f"case {ns}: return {fn}<{log_ns}, {log_g}, {wu}>", src)
         if count != 1:
             raise SystemExit(f"--lines {name}: no line for NS = {ns}")
     out.mkdir(parents=True, exist_ok=True)
@@ -208,7 +220,9 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(2063)
     lines = {ns: rest for ns, *rest in cs.narrow_walk_lines(source)}
-    result = {"lib": Path(lib_path).stem, "lines": lines, "checked": {},
+    multi_lines = {ns: rest for ns, *rest in cs.narrow_multi_lines(source)}
+    result = {"lib": Path(lib_path).stem, "lines": lines,
+              "multi_lines": multi_lines, "checked": {}, "multi_checked": {},
               "wrong_guesses": {}, "ms": {}, "ref_ms": {}, "generic_ms": {}}
     bad = []
 
@@ -244,6 +258,18 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
         return launched(WALKS[2], lib[WALKS[2]](
             words.data_ptr(), lens.data_ptr(), res.data_ptr(), B, T,
             spec.num_states, spec.S, L, int(out == "bytes"), stream), res)
+
+    def multi(lib, spec, words, starts, live, start, steps, out, res=None):
+        B, T = words.shape[:2]
+        NW = starts.shape[1]
+        if res is None:
+            res = torch.full((B, NW, (steps + 7) // 8 if out == "bytes"
+                              else steps), 0xA5, dtype=torch.uint8,
+                             device=dev)
+        return launched(WALKS[3], lib[WALKS[3]](
+            words.data_ptr(), starts.data_ptr(), res.data_ptr(), B, T,
+            spec.num_states, spec.S, NW, live, start, steps,
+            int(out == "bytes"), stream), res)
 
     def same(walk, *args, what):
         got, want = walk(fns, *args), walk(refs, *args)
@@ -302,6 +328,28 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
               f"{n} cases against the reference, "
               f"{' / '.join(map(str, wrong))} wrong guesses on garbage / "
               "catastrophic words", flush=True)
+    for NS in () if diagnostic else sorted(
+            x for x in multi_lines if ns is None or x in ns):
+        spec = cs.bfly_spec(fec, rng, NS, 4)
+        n = 0
+        for what, words in cs.multi_walk_batches(fec, acs, spec, rng, dev,
+                                                 multi_lines[NS][0]):
+            B, T = words.shape[:2]
+            for nw in sorted({1, 2, 8, NS} & set(range(1, NS + 1))):
+                starts = torch.from_numpy(rng.integers(
+                    0, NS, (B, nw)).astype(np.int32)).to(dev)
+                for live in sorted({0, min(spec.S, T), max(T - 1, 0), T}):
+                    for start, steps in cs.multi_windows(T):
+                        for out in ("bits", "bytes"):
+                            n += same(multi, spec, words, starts, live, start,
+                                      steps, out,
+                                      what=f"NS={NS} {what} multi T={T} "
+                                      f"NW={nw} live={live} window=({start}"
+                                      f", {steps}) {out}")
+        result["multi_checked"][NS] = n
+        print(f"[narrow-walk] {result['lib']} list walk NS={NS} (G "
+              f"{multi_lines[NS][0]}, warm-up {multi_lines[NS][1]}): {n} "
+              "cases against the reference", flush=True)
     if bad:
         result["differs"] = bad
         print(json.dumps(result))
@@ -331,17 +379,26 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
     pend = [cs.interior_buffer(acs, spec, s) for s in segs]
     lte = fec.LTE_TBCC_K7
     D = cs.DCI_PAYLOAD + 16
-    tb = []
+    tb, tb_list = [], []
     for _ in range(2):
         blocks = torch.from_numpy(rng.integers(
             0, 2, (cs.DCI_B, D), dtype=np.uint8)).to(dev)
         q, _ = cs.dci_channel(fec, lte, blocks, dev)
-        tb.append(cs.tb_kernel_inputs(fec, ktb, acs, lte, q)[0])
+        wrap_in, list_in = cs.tb_kernel_inputs(fec, ktb, acs, lte, q)
+        tb.append(wrap_in)
+        tb_list.append(list_in)
     wide = {}
     for NS, code in ((128, fec.CodeSpec(K=8, g=TIMED_K8)),
                      (256, fec.K9_561_753)):
         wide[NS] = (code, [noisy_words(code, B, code.S + L) for _ in
                            range(2)])
+    # (f)'s list walk at NS = 128 and 256: the forward's words of noisy
+    # packets of its 144 steps, 8 random starts a channel.
+    Tl = tb_list[0][0].shape[1]
+    lists = {NS: (code, [(noisy_words(code, cs.DCI_B, Tl), torch.from_numpy(
+        rng.integers(0, NS, (cs.DCI_B, cs.DCI_LIST)).astype(np.int32)).to(
+            dev), Tl, tb_list[0][3], tb_list[0][4]) for _ in range(2)])
+        for NS, (code, _) in wide.items()}
     small = fec.PRESETS[cs.SMALL_MAIN]
     Tk = L + small.S
     k_hard, k_soft = [], []
@@ -364,7 +421,9 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
     res = {"bytes": torch.empty((B, L // 8), dtype=torch.uint8, device=dev),
            "bits240": torch.empty((B, 240), dtype=torch.uint8, device=dev),
            "f": torch.empty((cs.DCI_B, tb[0][3]), dtype=torch.uint8,
-                            device=dev)}
+                            device=dev),
+           "f list": torch.empty((cs.DCI_B, cs.DCI_LIST, tb_list[0][4]),
+                                 dtype=torch.uint8, device=dev)}
     cases = {
         "(a) hard": lambda lib, d: terminated(lib, spec, hard[d], T, L,
                                               "bytes", res["bytes"]),
@@ -376,6 +435,12 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
                                            288, 240, "bits", res["bits240"]),
         "(f)": lambda lib, d: masked(lib, lte, tb[d][0], tb[d][1], tb[d][2],
                                      tb[d][3], "bits", res["f"]),
+        "(f) list": lambda lib, d: multi(lib, lte, *tb_list[d], "bits",
+                                         res["f list"]),
+        "(f) list NS=128": lambda lib, d: multi(
+            lib, lists[128][0], *lists[128][1][d], "bits", res["f list"]),
+        "(f) list NS=256": lambda lib, d: multi(
+            lib, lists[256][0], *lists[256][1][d], "bits", res["f list"]),
         "NS=128": lambda lib, d: terminated(lib, wide[128][0], wide[128][1][d],
                                             T + 1, L, "bytes", res["bytes"]),
         "NS=256": lambda lib, d: terminated(lib, wide[256][0], wide[256][1][d],
@@ -434,11 +499,11 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ref", type=Path,
-                    help="the reference source of the two C entries")
+                    help="the reference source of the four C entries")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=SOURCE.cu, a copy of csrc/traceback_k1.cu")
     ap.add_argument("--lines", action="append", default=[],
-                    help="NAME=NS:G:WU,..., dispatch lines rewritten")
+                    help="NAME=[m]NS:G:WU,..., dispatch lines rewritten")
     ap.add_argument("--calls", type=int, default=15)
     ap.add_argument("--out", type=Path, default=LIBS)
     ap.add_argument("--trace", action="store_true",

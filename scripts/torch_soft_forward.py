@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Build-time variants of the narrow soft forward (`acs_soft_k1_forward` at
-NS = 64, 128 and 256, csrc/acs_soft_k1.cu) against a reference build of the
-same C entry, on one GPU.
+"""Build-time variants of the narrow forward (`acs_soft_k1_forward` and,
+`--hard`, `acs_k1_forward` at NS = 64, 128 and 256: one template in
+csrc/acs_soft_k1.cu) against a reference build of the same C entry, on one
+GPU.
 
-    python3 scripts/torch_soft_forward.py --ref PARENT.cu \\
+    python3 scripts/torch_soft_forward.py [--hard] --ref PARENT.cu \\
         [--variant NAME=SOURCE.cu ...] [--calls 15] [--out DIR]
     python3 scripts/torch_soft_forward.py --decodes TREE
 
@@ -36,6 +37,23 @@ alternately; the launch alone, its outputs allocated beforehand):
 Prints one JSON line per build and the card's name and power limit.  Exits
 non-zero if a build fails or differs.
 
+`--hard` does the same for the hard entry `acs_k1_forward` (the reference
+e.g. the parent tree's csrc/acs_k1.cu: `git show
+HEAD:convolutionalencdec_tpu_torch/csrc/acs_k1.cu >
+_checkout/parent_acs_k1.cu`): the SASS a step of the hard kernels, then
+each build bit for bit against the reference, words and final metrics, at
+every line and n = 1 ... 8 on chip_smoke.py's cases of the hard forward
+(B = 37 at `HARD_FORWARD_T`, every n at 2054 steps, B = 1; uniform
+segments of n bits and of 8 bits, from the default start and from carried
+metrics) and on the timed inputs, timed in turns with the reference:
+  (a) hard    NASA_K7, B = 2048, T = 2054: bench.py's messages, 3% of the
+              segments hit (the hard decode's and the hard ragged decode's
+              forward);
+  NS=128      a K = 8 code, and NS=256 K9_561_753, at (a)'s size;
+  n=6         the rate-1/6 K = 7 code of main path (m) at (a)'s size (two
+              packed registers a step);
+  (a) B=...   (a) hard's first rows, or two inputs' rows, at `SWEEP_B`.
+
 `--decodes TREE` times the decodes that run the kernel, with the package
 of TREE (this tree, or e.g. the parent unpacked by `git archive HEAD | tar
 -x -C _checkout/parent`) and this tree's chip_smoke.py: its phases 4-6
@@ -63,7 +81,22 @@ from _torch_variants import BRANCH, sass_functions  # noqa: E402
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "acs_soft_k1.cu"
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "soft_forward"
 ENTRY = "acs_soft_k1_forward"
-KERNEL = "acs_soft_k1_forward_kernel"
+HARD_ENTRY = "acs_k1_forward"
+# The kernels whose SASS is counted: the template's hard (Lb1E) or soft
+# (Lb0E) instantiations, or a reference's kernel of one entry.
+KERNEL = re.compile(r"acs_(soft_)?k1_forward_kernel")
+# The hard timed code at NS = 128 (no common factor), as the narrow walk's.
+TIMED_K8 = (0o247, 0o371)
+
+
+def wanted(fn: str, hard: bool) -> bool:
+    """Whether SASS function `fn` is a kernel of the hard (or soft) entry."""
+    m = KERNEL.search(fn)
+    if not m:
+        return False
+    if "ELb1E" in fn or "ELb0E" in fn:
+        return ("ELb1E" in fn) == hard
+    return (m.group(1) is None) == hard
 SLEEP_CYCLES = 10_000_000
 #: Batch sizes of (a) soft's sweep: one warp an SM, half of (a), twice (a).
 SWEEP_B = (132, 1024, 4096)
@@ -112,14 +145,14 @@ def per_step(body: list, bpl: int) -> dict:
     return out
 
 
-def report(out: Path, sass: dict):
+def report(out: Path, sass: dict, hard: bool = False):
     """A build's report for _torch_variants.build_all: the registers of
-    each kernel, its SASS kept in `out`, and the instructions a step of
-    each takes."""
+    each kernel of the entry, its SASS kept in `out`, and the instructions
+    a step of each takes."""
     def each(name: str, lib: Path, output: str) -> None:
         lines = output.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and KERNEL in line:
+            if "Compiling entry function" in line and wanted(line, hard):
                 regs = next((x for x in lines[i + 1:i + 4]
                              if "registers" in x), "").strip()
                 fn = line.split("'")[1] if "'" in line else line
@@ -131,7 +164,7 @@ def report(out: Path, sass: dict):
         (out / f"{name}.sass").write_text(text)
         sass[name] = {}
         for fn, body in sass_functions(text).items():
-            if KERNEL not in fn:
+            if not wanted(fn, hard):
                 continue
             stats = per_step(body, int(re.search(r"kernelILi(\d+)E",
                                                  fn).group(1)))
@@ -140,13 +173,114 @@ def report(out: Path, sass: dict):
     return each
 
 
-def load(path: Path):
+def load(path: Path, entry: str = ENTRY):
     from convolutionalencdec_tpu_torch.kernels import _build
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, ENTRY)
-    fn.argtypes = _build.SIGNATURES[ENTRY]
+    fn = getattr(lib, entry)
+    fn.argtypes = _build.SIGNATURES[entry]
     fn.restype = ctypes.c_int
     return fn
+
+
+def run_hard(lib_path: str, ref_path: str, calls: int) -> int:
+    """One build's hard entry against the reference: the checks, then the
+    times in turns; prints its JSON line."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import convolutionalencdec_tpu_torch as fec
+    from convolutionalencdec_tpu_torch.kernels import acs
+    from convolutionalencdec_tpu_torch.ops.viterbi import init_metric_value
+    dev = torch.device("cuda", 0)
+    fns = {"var": load(Path(lib_path), HARD_ENTRY),
+           "ref": load(Path(ref_path), HARD_ENTRY)}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(2079)
+
+    def launcher(spec, seg, init):
+        """fn -> (words, final metrics) of seg: the table and the outputs
+        allocated here, so that a timed call is the launch alone."""
+        B, T = seg.shape
+        NS = spec.num_states
+        cb = acs._butterfly_table(spec, dev)
+        words = torch.full((B, T, NS // 32), 0x5A5A5A5A, dtype=torch.int32,
+                           device=dev)
+        fm = torch.full((B, NS), -7, dtype=torch.int32, device=dev)
+
+        def launch(fn):
+            code = fn(seg.data_ptr(), cb.data_ptr(),
+                      None if init is None else init.data_ptr(),
+                      words.data_ptr(), fm.data_ptr(), B, T, NS, spec.n,
+                      init_metric_value(spec), stream)
+            if code:
+                raise RuntimeError(f"launch failed: CUDA error {code}")
+            return words, fm
+        return launch
+
+    def same(spec, seg, init):
+        got = [x.clone() for x in launcher(spec, seg, init)(fns["var"])]
+        want = launcher(spec, seg, init)(fns["ref"])
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    bad, cases = [], 0
+    for NS, _ in cs.soft_forward_lines():
+        for n in range(1, 9):
+            spec = cs.bfly_spec(fec, rng, NS, n)
+            for B, T in ([(cs.NARROW_B, T) for T in cs.HARD_FORWARD_T]
+                         + [(1, 33)]):
+                for top in (1 << n, 256):  # n bits, and bits above n set
+                    seg = torch.from_numpy(rng.integers(
+                        0, top, (B, T)).astype(np.uint8)).to(dev)
+                    init = torch.from_numpy(rng.integers(
+                        0, 6000, (B, NS)).astype(np.int32)).to(dev)
+                    for given in (None, init):
+                        cases += 1
+                        if not same(spec, seg, given):
+                            bad.append(f"NS={NS} n={n} B={B} T={T} top={top}"
+                                       f" init={given is not None}")
+                            print(f"[hard-forward] differs: {bad[-1]}",
+                                  flush=True)
+    print(f"[hard-forward] {Path(lib_path).stem}: {cases} cases against "
+          f"the reference, {len(bad)} differ", flush=True)
+
+    # The timed inputs, two of each.
+    B, L = cs.MAIN_B, cs.MAIN_L
+    codes = {"(a) hard": fec.NASA_K7,
+             "NS=128": fec.CodeSpec(K=8, g=TIMED_K8),
+             "NS=256": fec.K9_561_753, "n=6": fec.CodeSpec(**cs.SP_MAIN)}
+    timed = {}
+    for key, spec in codes.items():
+        timed[key] = []
+        for _ in range(2):
+            msgs = rng.integers(0, 2, (B, L), dtype=np.uint8)
+            seg = cs.corrupt(rng, cs.encode_reference_np(spec, msgs),
+                             cs.MAIN_NOISE, spec.n)
+            timed[key].append((spec, torch.from_numpy(seg).to(dev), None))
+    a0, a1 = (x[1] for x in timed["(a) hard"])
+    for B_sweep in SWEEP_B:
+        pair = ((a0, a1) if B_sweep <= B else
+                (torch.cat([a0, a1]), torch.cat([a1, a0])))
+        timed[f"(a) B={B_sweep}"] = [
+            (fec.NASA_K7, x[:B_sweep].contiguous(), None) for x in pair]
+    result = {"lib": Path(lib_path).stem, "cases": cases, "ms": {},
+              "ref_ms": {}}
+    for key, inputs in timed.items():
+        for args in inputs:
+            if not same(*args):
+                bad.append(f"timed input {key}")
+        launches = [launcher(*args) for args in inputs]
+        ms = _torch_variants.in_turns(
+            lambda name, k: launches[k % 2](fns[name]), calls, SLEEP_CYCLES)
+        result["ms"][key], result["ref_ms"][key] = ms["var"], ms["ref"]
+        x = inputs[0][1]
+        print(f"[hard-forward] {result['lib']} {key:9s} B={x.shape[0]} "
+              f"T={x.shape[1]} n={inputs[0][0].n}: {ms['var']:.4f} ms, "
+              f"reference {ms['ref']:.4f} ms", flush=True)
+    result["differs"] = bad
+    print(json.dumps(result))
+    return 1 if bad else 0
 
 
 def run(lib_path: str, ref_path: str, calls: int) -> int:
@@ -329,11 +463,14 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=LIBS)
     ap.add_argument("--decodes", type=Path,
                     help="time the decodes with the package of this tree")
+    ap.add_argument("--hard", action="store_true",
+                    help="the hard entry acs_k1_forward")
     ap.add_argument("--run", help=argparse.SUPPRESS)
     ap.add_argument("--ref-lib", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.run:
-        return run(args.run, args.ref_lib, args.calls)
+        return (run_hard if args.hard else run)(args.run, args.ref_lib,
+                                                args.calls)
     import torch
     if not torch.cuda.is_available():
         print("torch_soft_forward: no CUDA device", file=sys.stderr)
@@ -351,7 +488,7 @@ def main() -> int:
     sass = {}
     libs, failed = _torch_variants.build_all(builds, LIBS, out,
                                              "soft-forward",
-                                             report(out, sass))
+                                             report(out, sass, args.hard))
     print(json.dumps({"sass": sass}))
     for line in subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -365,7 +502,8 @@ def main() -> int:
     for name, lib in libs.items():
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--run", str(lib),
-             "--ref-lib", str(ref_lib), "--calls", str(args.calls)], cwd=ROOT)
+             "--ref-lib", str(ref_lib), "--calls", str(args.calls)]
+            + ["--hard"] * args.hard, cwd=ROOT)
         if proc.returncode:
             print(f"[soft-forward] {name}: exit {proc.returncode}",
                   file=sys.stderr)

@@ -1,18 +1,21 @@
 """The narrow walk's schedule (csrc/traceback_k1.cu, `narrow_walk_kernel`:
 the terminated, masked and ragged walks of `traceback_k1`,
 `traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and 256,
-TPU kernels K2, K2m, K2r and K11's walk, and the terminated walk of
-`traceback_k1` at NS = 2 ... 32, one word a step, TPU kernel K12's walk),
-modelled in numpy, against the port's plain walks; the plain walks against
-the JAX package's traceback and ragged epilogue on the same words; and the
-walk's dispatch lines.
+TPU kernels K2, K2m, K2r and K11's walk, the terminated walk of
+`traceback_k1` at NS = 2 ... 32, one word a step, TPU kernel K12's walk,
+and the list walk of `traceback_k1_multi` at NS = 2 ... 256, TPU kernel
+K6), modelled in numpy, against the port's plain walks; the plain walks
+against the JAX package's traceback and ragged epilogue on the same words;
+and the walk's dispatch lines.
 
 The kernel runs only on the card, where chip_smoke.py holds it to the plain
 walks; here a model done the way the kernel does it (windows, a segment a
 lane, warm-up guesses, the top-down check and its walks again, the masked
 steps' shifted bits, each ragged channel from its own top with its row
-past its bits zeroed, each lane's whole output bytes) is held bit for bit
-to them.  The walk's constants are read from the source by chip_smoke.py's
+past its bits zeroed, each lane's whole output bytes; the list walk's rows
+on the decisions from step out_start up, read from the windows that the
+first row of their channel in the warp stages) is held bit for bit to
+them.  The walk's constants are read from the source by chip_smoke.py's
 helpers, never copied here.
 """
 
@@ -53,6 +56,8 @@ _LINES = {ns: rest for ns, *rest in _SMOKE.narrow_walk_lines()}
 #: (the terminated walk only).
 _WIDE = sorted(ns for ns in _LINES if ns >= 64)
 _ONE_WORD = sorted(ns for ns in _LINES if ns < 64)
+#: NS -> (G, warm-up steps) of the list walk's lines.
+_MULTI_LINES = {ns: rest for ns, *rest in _SMOKE.narrow_multi_lines()}
 
 
 def _t(x):
@@ -297,6 +302,111 @@ def _ragged(NS, words, lengths, rng, wu=None):
     return rewalks
 
 
+def _multi(NS, words, starts, live, out_start, widths, rng, spec=None):
+    """The model's list walk against `traceback_batch_multi_plain`: row
+    b NW + w the masked walk from starts[b, w] on channel b's words from
+    step out_start up (T - out_start steps, the live ones below live -
+    out_start), at the list walk's line, the row reading the windows that
+    the first row of its channel in the warp stages (the kernel's c0:
+    asserted to be of the same channel and warp, its slot within the
+    channels the launch sizes the warp's shared memory for); rows of each
+    width in
+    `widths`.  Returns (segments walked again, the plain walk's bits
+    [B, NW, max(widths)])."""
+    G, WU = _MULTI_LINES[NS]
+    spec = spec or _spec(NS, rng)
+    B, T = words.shape[:2]
+    NW = starts.shape[1]
+    steps = T - out_start
+    t_top = min(max(live - out_start, 0), steps)
+    CPW = 32 // _SMOKE.narrow_walk_lanes(t_top, G)
+    rows = np.arange(B * NW)
+    chan = rows // NW
+    stager = np.maximum(chan * NW, rows // CPW * CPW)
+    assert np.all((stager // NW == chan) & (stager // CPW == rows // CPW)
+                  & (stager <= rows))
+    # Each channel's staged rows: its slot among the warp's channels, fewer
+    # than the K the launch sizes a warp's shared memory for.
+    slot = chan - rows // CPW * CPW // NW
+    assert np.all(slot < min(CPW, (CPW + NW - 2) // NW + 1))
+    outs, rewalks = _narrow_walk_model(
+        NS, G, WU, words[stager // NW, out_start:], t_top, steps,
+        starts.reshape(-1), widths, rng)
+    want = acs.traceback_batch_multi_plain(
+        spec, _t(words), _t(starts.astype(np.int32)), live, out_start,
+        max(widths), "bits")
+    _assert_rows(outs, want.reshape(B * NW, -1))
+    return rewalks, want.numpy()
+
+
+def _jax_multi(NS, spec, words, starts, live, out_start, steps):
+    """The JAX package's traceback of each (channel, walk): decisions past
+    `live` zeroed, from starts[b, w] at step T - 1 with no padding, sliced
+    to the window [out_start, out_start + steps) as its list epilogue
+    (ops/tailbiting.py `_list_from_forward`) slices it."""
+    rspec = ref.CodeSpec(K=spec.K, g=spec.g)
+    dec = acs.unpack_decisions(spec, _t(words)).numpy()
+    dec[:, live:] = 0
+
+    def one(d, s):
+        bits = ref_viterbi.traceback_terminated(rspec, d, num_pad=0,
+                                                start_state=s)
+        return jax.lax.slice_in_dim(bits, out_start, out_start + steps)
+
+    return np.asarray(jax.vmap(lambda d, ss: jax.vmap(
+        lambda s: one(d, s))(ss))(jnp.asarray(dec),
+                                  jnp.asarray(starts.astype(np.int32))))
+
+
+# At each NS of the list walk's switch: "windows" a code's noisy words over
+# four segments a walk from out_start 3 (min(8, NS) walks, live T - 5, the
+# rows whole and cut) and, over two windows, words that send guesses wrong
+# (garbage; rotating words below 64 states) with min(NS, 16) walks from
+# out_start 48 (walks again asserted); "edges" the tail-biting DCI shape (144 steps, out_start 88,
+# min(8, NS) walks; the JAX traceback too), every step masked (live below
+# out_start), a window of one step (out_start T - 1) and T = 1.
+_MULTI_CASES = [(NS, which) for NS in sorted(_MULTI_LINES)
+                for which in ("windows", "edges")]
+
+
+@pytest.mark.parametrize("NS,which", _MULTI_CASES,
+                         ids=[f"NS{ns}-{w}" for ns, w in _MULTI_CASES])
+def test_list_walk_schedule_model_matches_plain_and_jax(NS, which):
+    """The list walk's schedule (a masked walk a row on the decisions from
+    step out_start up, the byte grid from out_start, a channel's windows
+    staged once for its walks in the warp), modelled in numpy at its
+    line's G and warm-up, gives the plain list walk's bits and bytes bit
+    for bit; at the tail-biting DCI shape the plain walk gives the JAX
+    traceback's window."""
+    G, _ = _MULTI_LINES[NS]
+    rng = np.random.default_rng(NS + 17 * len(which))
+    S = NS.bit_length() - 1
+    nw = min(8, NS)
+    if which == "windows":
+        spec = _spec(NS, rng, 3)
+        T = 3 * G + 21
+        words = _noisy(rng, spec, 2, T)
+        _multi(NS, words, rng.integers(0, NS, (2, nw)), T - 5, 3,
+               sorted({T - 3, _SMOKE.cut_bits(T - 3)}), rng, spec)
+        T = 32 * G + 45
+        words = (_garbage(rng, 2, T, NS) if NS >= 64
+                 else _SMOKE.rotating_words(rng, 2, T, NS))
+        rewalks, _ = _multi(NS, words, rng.integers(0, NS, (2, min(NS, 16))),
+                            T, 48, [T - 48], rng)
+        assert rewalks > 0
+    else:
+        spec = _spec(NS, rng, 3)
+        T = 144
+        words = _noisy(rng, spec, 3, T)
+        starts = rng.integers(0, NS, (3, nw))
+        _, bits = _multi(NS, words, starts, T, 88, [56], rng, spec)
+        np.testing.assert_array_equal(
+            bits, _jax_multi(NS, spec, words, starts, T, 88, 56))
+        _multi(NS, words, starts, 50, 88, [56, 19], rng)
+        _multi(NS, words, starts, T - 2, T - 1, [1], rng)
+        _multi(NS, words[:1, :1], starts[:1], 1, 0, [1], rng)
+
+
 # At each NS of the dispatch switch, at its line's G and warm-up:
 # "noisy" the forward's words of noisy packets over two windows, the walk
 # from t_actual two below the rows' length, and with no warm-up (every
@@ -457,10 +567,21 @@ def test_narrow_walk_dispatch_covers_64_to_256():
     their states (as the source sizes them) within a block's shared memory
     on the card (227 KiB); the terminated walk takes it at every NS, the
     masked and ragged walks at NS >= 64, the ragged one with its lengths
-    and the launch's T for its lanes a channel; and the list walk, and the
-    masked and ragged walks at NS <= 32, stay on `traceback_k1_kernel`."""
+    and the launch's T for its lanes a channel; the list walk at every NS
+    through its own switch (one line an NS, the same rules; the
+    tail-biting DCI walk of 56 steps in one window), on the decisions from
+    out_start up; and only the masked and ragged walks at NS <= 32 stay on
+    `traceback_k1_kernel`, which has no list walk left."""
     lines = _SMOKE.narrow_walk_lines()
+    multi = _SMOKE.narrow_multi_lines()
     assert [ns for ns, *_ in lines] == [2, 4, 8, 16, 32, 64, 128, 256]
+    assert [ns for ns, *_ in multi] == [2, 4, 8, 16, 32, 64, 128, 256]
+    for NS, G, WU in multi:
+        assert G % 8 == 0 and WU % 8 == 0 and WU >= 0
+        pitch, smem = _SMOKE.narrow_walk_smem(NS, G)
+        assert pitch % 4 == 0 and (pitch // 4) % 2 == 1
+        assert smem <= 227 * 1024
+        assert _SMOKE.narrow_walk_lanes(56, G) * G >= 56
     for NS, G, WU in lines:
         assert G % 8 == 0 and WU % 8 == 0 and WU >= 0
         pitch, smem = _SMOKE.narrow_walk_smem(NS, G)
@@ -488,17 +609,17 @@ def test_narrow_walk_dispatch_covers_64_to_256():
     # The ragged launch's t_top and T are the rows' T: C comes from T.
     assert "B, T, T, T," in ragged
     assert "launch<Walk::kRagged>" in ragged  # NS <= 32
-    assert "launch<Walk::kMulti>" in body("multi")
-    launch = src[src.index("int launch(const int32_t* d"):]
-    launch = launch[:launch.index("\n}\n")]
-    wide = launch[launch.index("if constexpr (kWide)"):]
-    assert "kWide = MODE == Walk::kMulti;" in launch
-    for w, ns in ((2, 64), (4, 128), (8, 256)):
-        assert f"case {ns}: TB_LAUNCH({w})" in wide
-        assert f"TB_LAUNCH({w})" not in launch[:launch.index(
-            "if constexpr (kWide)")]
-    assert "case 2: case 4: case 8: case 16: case 32: TB_LAUNCH(1)" in launch
+    text = body("multi")
+    assert "launch_multi_walk(a, NS," in text and "launch<" not in text
+    # Rows B NW, T_stride T, t_top and T from out_start, nw and the base.
+    assert "B * NW, T," in text and "NW, out_start};" in text
+    assert "min(max(live - out_start, 0), steps), steps, out_steps" in text
+    assert "kMulti" not in src[src.index("// ---- The thread-a-channel walk"):]
+    assert "kWide" not in src and "TB_LAUNCH" not in src
+    assert "if (NS > 32) return static_cast<int>(cudaErrorInvalidValue);" \
+        in src
     # The wrappers' kernel names are those of the C entries.
     assert acs._walk_kernel(port.NASA_K7) == "traceback_k1"
     assert acs._walk_kernel(port.NASA_K7, "_masked") == "traceback_k1_masked"
     assert acs._walk_kernel(port.NASA_K7, "_ragged") == "traceback_k1_ragged"
+    assert acs._walk_kernel(port.NASA_K7, "_multi") == "traceback_k1_multi"

@@ -1,8 +1,9 @@
-"""The narrow soft forward's schedule (csrc/acs_soft_k1.cu,
-`acs_soft_k1_forward` at NS = 64, 128 and 256, n = 1..8: TPU kernels
-`acs_forward_batch_swar_soft` and `_soft8`, K4 and K3), modelled in numpy
-as the kernel is built, against the port's plain soft forward and the JAX
-package's soft butterfly scan.
+"""The narrow forward's schedule (csrc/acs_soft_k1.cu, one template for
+`acs_soft_k1_forward` and `acs_k1_forward` at NS = 64, 128 and 256, n =
+1..8: TPU kernels `acs_forward_batch_swar_soft` and `_soft8`, K4 and K3,
+and `acs_forward_batch_swar`, K1), modelled in numpy as the kernel is
+built, against the port's plain soft and hard forwards and the JAX
+package's soft and hard butterfly scans.
 
 The kernel runs only on the card, where chip_smoke.py holds it to the plain
 version; here a model done the way the kernel does it is held bit for bit
@@ -17,7 +18,10 @@ product and emc the step's sum less em, with em and emc fixed per lane
 step's sum(relu(-q)), which the staging lanes add up and the warp adds back
 to the final metrics; two shuffles a butterfly; each destination's
 decisions of a step one ballot, kept in the warp's row buffer and put into
-the row layout by lane s after the block.
+the row layout by lane s after the block.  Hard: each staging lane's
+segment byte (stale past T, at random) becomes the bytes of the LLRs
+1 - 2 bit (0x01 or 0xFF) for its n bits, their sum n - 2 popcount, and
+the popcount is the dropped sum; the step is the soft one.
 """
 
 import importlib.util
@@ -32,6 +36,7 @@ import jax.numpy as jnp
 
 import convolutionalencdec_tpu as ref
 from convolutionalencdec_tpu.ops import metrics as ref_metrics
+from convolutionalencdec_tpu.ops import viterbi as ref_viterbi
 
 import convolutionalencdec_tpu_torch as port
 from convolutionalencdec_tpu_torch.kernels import acs
@@ -85,13 +90,14 @@ def _rows(d1, d2):
                            (d2 & lo16) | (d1 & hi16)], -1)
 
 
-def _model_soft_forward(spec, q, qlo, qclip, init, rng):
-    """The kernel's schedule on every channel of int8 LLRs q [B, T, n]:
-    (decision words uint32 [B, T, W], final metrics int64 [B, NS])."""
+def _model_forward(spec, inp, qlo, qclip, init, rng, hard=False):
+    """The kernel's schedule on every channel of int8 LLRs inp [B, T, n]
+    or, `hard`, uint8 segments inp [B, T]: (decision words uint32
+    [B, T, W], final metrics int64 [B, NS])."""
     NS, n = spec.num_states, spec.n
     BPL, W = NS // 64, NS // 32
     NP = 1 if n <= 4 else 2
-    B, T = q.shape[:2]
+    B, T = inp.shape[:2]
     upper = LANE >= 16
     odd = (LANE & 1).astype(bool)
     cb = butterfly_coded_bits(spec).astype(np.uint32)
@@ -114,16 +120,29 @@ def _model_soft_forward(spec, q, qlo, qclip, init, rng):
     src2 = src1 ^ 16
     words = np.zeros((B, T, W), np.uint32)
     drop = np.zeros((B, 32), np.int64)
-    # A lane past T keeps the raw LLRs of an earlier block.
-    raw = rng.integers(-128, 128, (B, 32, 4 * NP))
+    # A lane past T keeps the raw inputs of an earlier block.
+    used = np.arange(4 * NP) < n
+    if hard:
+        raw = rng.integers(0, 256, (B, 32))
+    else:
+        raw = rng.integers(-128, 128, (B, 32, 4 * NP))
     for t0 in range(0, T, 32):
         steps = min(32, T - t0)
-        raw[:, :steps, :n] = q[:, t0:t0 + steps]
-        used = np.arange(4 * NP) < n
-        qc = np.where(used, np.clip(raw, qlo, qclip), 0)       # [B, 32, 4NP]
+        if hard:   # bit i of the segment as the LLR 1 - 2 bit
+            raw[:, :steps] = inp[:, t0:t0 + steps]
+            r = raw & ((1 << n) - 1)
+            bits = (r[..., None] >> np.arange(4 * NP)) & 1
+            qc = np.where(used, 1 - 2 * bits, 0)               # [B, 32, 4NP]
+            neg = ((r[..., None] >> np.arange(8)) & 1).sum(-1)  # popcount
+        else:
+            raw[:, :steps, :n] = inp[:, t0:t0 + steps]
+            qc = np.where(used, np.clip(raw, qlo, qclip), 0)   # [B, 32, 4NP]
+            neg = np.maximum(-qc, 0).sum(-1)
         packed = qc.astype(np.int8)                            # the bytes
         total = qc.sum(-1)
-        drop += np.where(LANE < steps, np.maximum(-qc, 0).sum(-1), 0)
+        if hard:
+            np.testing.assert_array_equal(total, n - 2 * neg)
+        drop += np.where(LANE < steps, neg, 0)
         rowbuf = rng.integers(0, 2 ** 32, (B, 32, 2, BPL)).astype(np.uint32)
         for s in range(steps):
             x = packed[:, s].astype(np.int64)[:, None, None, :]
@@ -190,7 +209,7 @@ def test_soft_forward_schedule_model_matches_plain_and_jax(NS, n):
             init = None
             if given:
                 init = rng.integers(0, 6000, (B, NS)).astype(np.int32)
-            words, final = _model_soft_forward(spec, q, qlo, qclip, init, rng)
+            words, final = _model_forward(spec, q, qlo, qclip, init, rng)
             want_w, want_m = acs.acs_forward_batch_soft_plain(
                 spec, _t(q), qclip, None if init is None else _t(init),
                 floor)
@@ -204,6 +223,60 @@ def test_soft_forward_schedule_model_matches_plain_and_jax(NS, n):
             qc = np.clip(q.astype(np.int32), qlo, qclip)
             dec, fm = jax.vmap(lambda x: ref_metrics.viterbi_forward_butterfly_soft(
                 rspec, x))(jnp.asarray(qc))
+            np.testing.assert_array_equal(
+                words, acs.pack_decisions(spec, _t(np.asarray(dec)))
+                .numpy().view(np.uint32), err_msg=what + " JAX")
+            np.testing.assert_array_equal(final, np.asarray(fm),
+                                          err_msg=what + " JAX")
+
+
+#: The hard template's cases: each NS, one and two packed registers.
+HARD_CASES = [(64, 2), (64, 6), (128, 3), (256, 8)]
+HARD_T = (0, 1, 31, 33, 70)
+
+
+@pytest.mark.parametrize("NS,n", HARD_CASES,
+                         ids=[f"NS{ns}-n{n}" for ns, n in HARD_CASES])
+def test_hard_forward_schedule_model_matches_plain_and_jax(NS, n):
+    """The model of the kernel's schedule on hard segments (each bit as the
+    LLR 1 - 2 bit, the segment's popcount dropped a step and restored in
+    the final metrics, the soft step) gives the plain hard forward's words
+    and final metrics at T = 0, 1, 31, 33, 70 from the default start and
+    from carried metrics, segments with bits above n set; and the JAX
+    hard butterfly scan's at T = 33 from the default start (at NS = 128
+    also from carried metrics)."""
+    rng = np.random.default_rng(NS * 100 + n)
+    spec = _spec(NS, n, rng)
+    rspec = ref.CodeSpec(K=spec.K, g=spec.g)
+    B = 3
+    for T in HARD_T:
+        seg = rng.integers(0, 256, (B, T)).astype(np.uint8)
+        for given in (False, True):
+            init = None
+            if given:
+                init = rng.integers(0, 6000, (B, NS)).astype(np.int32)
+            words, final = _model_forward(spec, seg, 0, 0, init, rng,
+                                          hard=True)
+            # The plain forward and the JAX scan index their tables by
+            # the segment: its n bits.
+            clean = seg & ((1 << n) - 1)
+            want_w, want_m = acs.acs_forward_batch_plain(
+                spec, _t(clean), None if init is None else _t(init))
+            what = f"T={T} init={given}"
+            np.testing.assert_array_equal(
+                words, want_w.numpy().view(np.uint32), err_msg=what)
+            np.testing.assert_array_equal(final, want_m.numpy(),
+                                          err_msg=what)
+            if T != 33 or (given and NS != 128):
+                continue
+            if given:
+                dec, fm = jax.vmap(
+                    lambda x, m: ref_viterbi.viterbi_forward_butterfly(
+                        rspec, x, m))(jnp.asarray(clean), jnp.asarray(init))
+            else:
+                dec, fm = jax.vmap(
+                    lambda x: ref_viterbi.viterbi_forward_butterfly(
+                        rspec, x))(jnp.asarray(clean))
             np.testing.assert_array_equal(
                 words, acs.pack_decisions(spec, _t(np.asarray(dec)))
                 .numpy().view(np.uint32), err_msg=what + " JAX")
@@ -234,8 +307,11 @@ def test_soft_forward_source_matches_the_model():
     """The facts the model takes from csrc/acs_soft_k1.cu: the candidates
     as __dp4a onto the source metrics (n <= 4), the ballots kept by lane 0
     and put into rows by the byte permute, one template a packed-register
-    count (n <= 4 and n = 5..8) at each of NS = 64, 128, 256, and the final
-    metrics stored with the dropped sums added back."""
+    count (n <= 4 and n = 5..8) at each of NS = 64, 128, 256 for each of
+    the hard and soft entries, a hard segment's bits as the bytes of 1 - 2
+    bit and its popcount dropped, and the final metrics stored with the
+    dropped sums added back; the hard forward's old loop (csrc/acs_k1.cu)
+    is gone."""
     src = SOURCE.read_text()
     for cand in ("u1 = __dp4a(in.x, (int)m1[j], lo[j])",
                  "w1 = __dp4a(in.x, (int)m2[j], hi[j])",
@@ -246,7 +322,15 @@ def test_soft_forward_source_matches_the_model():
     assert "wd[j] = __byte_perm(d1s[j], d2s[j], 0x7610)" in src
     assert "wd[BPL + j] = __byte_perm(d2s[j], d1s[j], 0x7610)" in src
     assert "if (lane == 0) {" in src and "d1s[j] = rowbuf[lane][j]" in src
-    assert "launch<BPL, 1>(a, s)" in src and "launch<BPL, 2>(a, s)" in src
+    assert "launch<BPL, kHard, 1>(a, s)" in src
+    assert "launch<BPL, kHard, 2>(a, s)" in src
     assert _SMOKE.soft_forward_lines() == [(64, 1), (128, 2), (256, 4)]
+    assert "return launch_forward<true>(NS, a," in src
+    assert "return launch_forward<false>(NS, a," in src
+    assert "const unsigned q = 1u + 0xFEu * ((r >> i) & 1u);" in src
+    assert "neg = __popc(r);" in src and "sum = n - 2 * neg;" in src
+    assert not (SOURCE.parent / "acs_k1.cu").exists()
+    assert _SMOKE.SOURCES["acs_k1_forward"][0].endswith("csrc/acs_soft_k1.cu")
     assert "lo[j] + dropped" in src and "hi[j] + dropped" in src
     assert acs._forward_kernel(port.NASA_K7, True) == "acs_soft_k1_forward"
+    assert acs._forward_kernel(port.NASA_K7, False) == "acs_k1_forward"
