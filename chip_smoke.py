@@ -163,8 +163,8 @@ Phases (any failure exits non-zero and prints no result line):
      equal to its plain route on the card, launches of the small kernels
      and the one-word walks > 0; at the end of the run (after the timing
      phases) the CUDA kernels of one call of each under torch.profiler:
-     the hard and soft decodes' walk is `narrow_walk_kernel`, the ragged
-     one's `traceback_k1_kernel`;
+     the hard, soft and ragged decodes' walk and a masked walk on (k)'s
+     forward words are `narrow_walk_kernel`;
  18. wide main path (l): the K=15 rate-1/4 Galileo code (NS = 16384) at the
      same size: hard bytes (BER < 2e-3), soft bytes at 3 dB, the K11 names
      (hard forward + `traceback_batch_fused`, soft forward +
@@ -178,9 +178,12 @@ Phases (any failure exits non-zero and prints no result line):
      (20 calls) and (l) (5 calls);
  19. the single-pass block decode (`block_decode_1p`, csrc/block_1p.cu)
      against its plain version on the card: random poly-symmetric codes at
-     NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
-     NS = 512, 1024, 4096 (n = 5..8) at their longest single-pass T and at
-     T = 1, S, S + 1; at NS = 64, 128, 256 also the warp kernel's edges:
+     NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9); the wide
+     template's rounds at every line of its switch (NS = 512, 1024, 2048,
+     4096): n = 1 ... 8 hard and soft at T = 1 ... 2R (every T mod R,
+     T < R), S, S + 1 and the longest single-pass T, soft n = 9 (the
+     barrier-a-step template) at R + 1 and the longest T; at NS = 64, 128,
+     256 also the warp kernel's edges:
      T = 20, 31, 32, 33, 97 at B = 37 and 6, and the longest single-pass
      T (4080, 2016, 1008) with garbage segments of a random and of a
      catastrophic code (the walk's guesses wrong, counted); noisy and
@@ -201,10 +204,9 @@ Phases (any failure exits non-zero and prints no result line):
      berTestK7's acceptance run (`run_reference_ber_test`, NASA_K7, 65,536
      packets a point) within its 10% gate at all three points; one
      `bench_decode` tick; `kernel_traffic` at (a) and (m).
- 22. the narrow walk (`traceback_k1` at NS = 2 ... 256 and
-     `traceback_k1_masked` at NS = 64, 128, 256: `narrow_walk_kernel`)
-     against the plain walks on the card at every line of its dispatch
-     switch (below 64 states the terminated walk): the forward's
+ 22. the narrow walk (`traceback_k1` and `traceback_k1_masked` at
+     NS = 2 ... 256: `narrow_walk_kernel`) against the plain walks on the
+     card at every line of its dispatch switch: the forward's
      words of a random code's noisy packets, garbage words and a
      catastrophic code's words (below 64 states words whose decisions
      rotate the state, 10% of the steps garbage; its guesses wrong,
@@ -214,9 +216,12 @@ Phases (any failure exits non-zero and prints no result line):
      T - 1, T, random starts), whole and cut rows, bits and bytes, each
      launch counted;
      slices of a batch (odd and even T) and a base 4 bytes past a 16-byte
-     line; the K11 names against their plain routes; at NS >= 64 the
+     line; at NS >= 64 the K11 names against their plain routes; the
      ragged walk (`traceback_k1_ragged`, the same kernel, each channel from
-     its own top) on the same batches where T >= S, lengths 0, 1, S,
+     its own top) on the same batches where T >= S (below 64 states the
+     masked and ragged walks skip the noisy and garbage batches of four
+     windows, whose plain walks took most of the phase's time), lengths
+     0, 1, S,
      S + 1, T - 1, T, past T and negative, then random, rows of T - S
      bits and a cut one, bits and bytes, by the wrapper and by the C
      entry into rows first filled with 0xA5;
@@ -252,7 +257,17 @@ Phases (any failure exits non-zero and prints no result line):
      (B = 3), B = 1, and at NS >= 64 a base 4 bytes past a 16-byte line;
      NW = 1, 2, 8, NS; live 0, S, T - 1, T; windows from step 0, 3, 48,
      T - 56 and T - 1 to the end, and from 3 cut; bits and bytes; each
-     launch counted.
+     launch counted;
+ 27. single-pass wide main path (o) (run after phase 20's times): the
+     rate-1/5 K = 10 code of tests/test_torch_wide.py (NS = 512) at
+     B = 2048 and its longest single-pass T, 480 steps (L = 471), 3%
+     segment corruption and AWGN at 3 dB (qmax 7), through
+     `viterbi_decode_batch_bytes` and `viterbi_decode_batch_soft_bytes`;
+     each equal to its plain route and to `block_decode_1p_plain` on the
+     card, K13 launched and the two-pass wide kernels not; hard BER
+     < 2e-3, soft below the hard decisions of the same values; times of
+     each decode and of K13's wide template alone, hard and soft, in turns
+     with the two-pass wide kernels called directly on the same input.
 
 The line before the last is one JSON object {"kernels": [...]}; the one
 before it is the card's name and power limit; the last is {"ok": true,
@@ -298,12 +313,15 @@ KERNELS = ("acs_k1_forward", "traceback_k1", "acs_soft_k1_forward",
            "traceback_k1_ragged w1", "acs_wide_forward",
            "acs_soft_wide_forward", "traceback_wide", "traceback_wide_ragged",
            "traceback_wide_masked", "traceback_wide_multi",
-           "block_decode_1p")
-# Rows of the kernels line that are one-word (NS <= 32) instantiations of
-# a walk: their launches are the walk's at (k), whose code has 16 states;
-# the walk's own row counts the other paths.
-W1_ROWS = {"traceback_k1 w1": "traceback_k1",
-           "traceback_k1_ragged w1": "traceback_k1_ragged"}
+           "block_decode_1p", "block_decode_1p wide")
+# Rows of the kernels line that count one template of a C entry on the
+# paths of one main path: row -> (the entry's launch key, the paths' prefix).
+# The one-word (NS <= 32) walks' launches are the walk's at (k), whose code
+# has 16 states; K13's wide template's are K13's at (o); the entry's own
+# row counts the other paths.
+SPLIT_ROWS = {"traceback_k1 w1": ("traceback_k1", "small "),
+              "traceback_k1_ragged w1": ("traceback_k1_ragged", "small "),
+              "block_decode_1p wide": ("block_decode_1p", "(o) ")}
 SOURCES = {
     "acs_k1_forward": ("convolutionalencdec_tpu_torch/csrc/acs_soft_k1.cu",
                        "convolutionalencdec_tpu/kernels/acs_swar.py:847"),
@@ -381,6 +399,10 @@ SOURCES = {
     "block_decode_1p": (
         "convolutionalencdec_tpu_torch/csrc/block_1p.cu",
         "convolutionalencdec_tpu/kernels/acs_pallas.py:2174"),
+    "block_decode_1p wide": (
+        "convolutionalencdec_tpu_torch/csrc/block_1p.cu",
+        "convolutionalencdec_tpu/kernels/acs_pallas.py:2174 (the wide "
+        "template, NS 512-4096)"),
 }
 # Streaming: the comparison phase's presets and windows, the main path's
 # window and feed (8 calls of 256 steps, then the 6 termination steps).
@@ -535,11 +557,17 @@ FUSED_WRAPPERS = ("acs_forward_batch", "acs_forward_batch_soft",
 # same values below that hard one.  The curve (n) prints bound_curve's
 # 40-distance bounds beside each point.
 SP_MID_NS = (64, 128, 256)
-SP_WIDE_NS = (512, 1024, 4096)
 SP_MAIN = dict(K=7, g=(0o133, 0o171, 0o165, 0o117, 0o127, 0o155))
 SP_MAIN_N = len(SP_MAIN["g"])
 SP_DMAX = 40
 SP_GATE_DMAX = 60
+# (o): K13's wide template at its first main-path size: the rate-1/5
+# K = 10 code of tests/test_torch_wide.py (NS = 512, n = 5: not a SWAR
+# code, so the JAX package sends its short packets to K13) at B = 2048 and
+# the longest single-pass T at NS = 512, 480 steps (L = 471); the same
+# seed, channels and gates as (m).
+SP_WIDE_MAIN = dict(K=10, g=(0o1167, 0o1545, 0o1337, 0o1071, 0o1423))
+SP_WIDE_T = 480
 # (n): the curve's points and size, and berTestK7's acceptance run: 2x the
 # 30k packets the -3 dB point needs (RESULTS.md:12-21) at every point.
 CURVE_POINTS = (0.0, 1.0, 2.0, 3.0)
@@ -3175,6 +3203,17 @@ def phase_small(fec, acs, dev, err):
                                    max_abs_diff(fm, fm_p))
     err["traceback_k1 w1"] = max(err["traceback_k1 w1"],
                                  max_abs_diff(out, tb_p))
+    # The masked walk at NS = 16 on the forward's words: random starts,
+    # the last 9 steps masked, every step's bit out.
+    starts = torch.from_numpy(rng.integers(0, spec.num_states, MAIN_B).astype(
+        np.int32)).to(dev)
+    got = acs.traceback_batch_masked(spec, words, starts, T - 9, T, "bits")
+    tb_p, plain_ms["traceback_k1_masked (k)"] = time_once(
+        lambda: acs.traceback_batch_masked_plain(spec, words_p, starts, T - 9,
+                                                 T, "bits"))
+    require(torch.equal(got, tb_p), "(k) masked walk equal to the plain walk")
+    err["traceback_k1_masked"] = max(err["traceback_k1_masked"],
+                                     max_abs_diff(got, tb_p))
     del words_p, fm_p
 
     gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
@@ -3243,22 +3282,30 @@ def phase_small(fec, acs, dev, err):
     return (spec, seg, q, seg_r, lens), launches, plain_ms, summary
 
 
-def small_walk_kernels(fec, small_in) -> dict:
+def small_walk_kernels(fec, acs, small_in) -> dict:
     """(k)'s walks by CUDA kernel, from one call of each decode under
     torch.profiler (after the timing phases, which it would disturb): the
-    hard and soft decodes' terminated walk is `narrow_walk_kernel`, the
-    ragged decode's walk `traceback_k1_kernel`.  Returns path -> the walk
-    kernels' names."""
+    hard, soft and ragged decodes' walk and the masked walk at NS = 16 on
+    (k)'s forward words (from random starts, live T - 9) are all
+    `narrow_walk_kernel`.  Returns path -> the walk kernels' names."""
     import re
+    import numpy as np
+    import torch
     spec, seg, q, seg_r, lens = small_in
+    words = acs.acs_forward_batch(spec, seg)[0]
+    T = words.shape[1]
+    starts = torch.from_numpy(np.random.default_rng(MAIN_SEED).integers(
+        0, spec.num_states, MAIN_B).astype(np.int32)).to(seg.device)
     walks = {}
-    for path, call, kernel in (
-            ("small hard", lambda: fec.viterbi_decode_batch_bytes(spec, seg),
-             "narrow_walk_kernel"),
+    for path, call in (
+            ("small hard", lambda: fec.viterbi_decode_batch_bytes(spec, seg)),
             ("small soft", lambda: fec.viterbi_decode_batch_soft_bytes(
-                spec, q, qmax=QMAX), "narrow_walk_kernel"),
+                spec, q, qmax=QMAX)),
             ("small ragged", lambda: fec.viterbi_decode_batch_bytes_ragged(
-                spec, seg_r, lens), "traceback_k1_kernel")):
+                spec, seg_r, lens)),
+            ("small masked", lambda: acs.traceback_batch_masked(
+                spec, words, starts, T - 9, T, "bits"))):
+        kernel = "narrow_walk_kernel"
         names = cuda_kernel_names(call)
         walks[path] = sorted({m.group(0) for m in (
             re.search(r"\w*(?:walk|traceback)\w*<[^>]*>", n) for n in names)
@@ -3482,6 +3529,7 @@ def butterfly_times(fec, acs, small_in, wide_in):
     TIMED_CALLS calls on row rotations at (k), WIDE_TIMED_CALLS at (l) (its
     forward takes tens of ms), the wide walks alternating between two
     forwards' decisions (8.65 GB each)."""
+    import numpy as np
     import torch
     runs = {}
     spec, seg, q, seg_r, lens = small_in
@@ -3496,6 +3544,12 @@ def butterfly_times(fec, acs, small_in, wide_in):
     runs["traceback_k1_ragged w1"] = device_times(
         lambda p: acs.traceback_batch_ragged(spec, p[0], p[1], MAIN_L,
                                              "bytes"), list(zip(decs, lens_r)))
+    starts = torch.from_numpy(np.random.default_rng(MAIN_SEED).integers(
+        0, spec.num_states, (TIMED_CALLS, seg.shape[0])).astype(np.int32)).to(
+            seg.device)
+    runs["traceback_k1_masked (k)"] = device_times(
+        lambda p: acs.traceback_batch_masked(spec, p[0], p[1], T - 9, T,
+                                             "bits"), list(zip(decs, starts)))
     del decs
     runs["small hard"] = device_times(
         lambda s: fec.viterbi_decode_batch_bytes(spec, s), bufs)
@@ -3561,9 +3615,9 @@ def butterfly_times(fec, acs, small_in, wide_in):
 
 
 # ---------------------------------------------------------------------------
-# The narrow walk: the terminated walk at NS = 2 ... 256 and the masked and
-# ragged walks at NS = 64, 128 and 256 (TPU kernels K2, K12's walk, K2m, K2r
-# and K11's walk), `narrow_walk_kernel` in csrc/traceback_k1.cu.
+# The narrow walk: the terminated, masked and ragged walks at NS = 2 ... 256
+# (TPU kernels K2, K12's walks, K2m, K2r and K11's walk),
+# `narrow_walk_kernel` in csrc/traceback_k1.cu.
 
 #: The narrow walk's checks: the batch, not a multiple of any channel count
 #: a warp holds.
@@ -3766,13 +3820,13 @@ def narrow_walk_batches(fec, acs, spec, rng, dev, G):
             yield what, x, False
 
 
-def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
+def compare_narrow_walk(fec, acs, spec, words, err, rng, what,
+                        masked=True) -> int:
     """`traceback_batch` and `traceback_batch_masked` on one batch of
     decision words at NS 2-256 against their plain versions at each of
-    `narrow_walk_cases` (below 64 states the terminated ones: the masked
-    walk there is phase 16's), masked from random starts; each call one
-    launch counted, each difference under its row of the kernels line
-    (`walk_key`).  Returns the cases."""
+    `narrow_walk_cases` (`masked`: the masked ones too), masked from random
+    starts; each call one launch counted, each difference under its row of
+    the kernels line (`walk_key`).  Returns the cases."""
     import numpy as np
     import torch
     pad_and_pack = fec.ops.viterbi.pad_and_pack
@@ -3781,7 +3835,7 @@ def compare_narrow_walk(fec, acs, spec, words, err, rng, what) -> int:
         np.int32)).to(words.device)
     plain, cases = {}, 0
     for mode, t, L, out in narrow_walk_cases(spec.S, T):
-        if mode == "masked" and spec.num_states < 64:
+        if mode == "masked" and not masked:
             continue
         if (mode, t) not in plain:
             plain[mode, t] = (
@@ -3820,11 +3874,13 @@ def narrow_ragged_lengths(rng, B, T, S):
 
 
 def compare_narrow_ragged(fec, acs, spec, words, err, rng, what) -> int:
-    """`traceback_batch_ragged` on one batch of decision words at NS 64-256
+    """`traceback_batch_ragged` on one batch of decision words at NS 2-256
     against its plain version: `narrow_ragged_lengths`, rows of T - S bits
     and a cut one, bits and bytes, each call one launch counted; and the
     same walks by the C entry into rows first filled with 0xA5, so that a
-    byte the walk leaves unwritten shows.  Returns the cases."""
+    byte the walk leaves unwritten shows; each difference under its row of
+    the kernels line (`walk_key`: the one-word row below 64 states).
+    Returns the cases."""
     import torch
     from convolutionalencdec_tpu_torch.kernels import _build
     B, T = words.shape[:2]
@@ -3835,6 +3891,7 @@ def compare_narrow_ragged(fec, acs, spec, words, err, rng, what) -> int:
         words.device)
     stream = torch.cuda.current_stream(words.device).cuda_stream
     key, cases = "traceback_k1_ragged", 0
+    row = walk_key(acs, spec, "_ragged")
     full = T - S
     for L in sorted({full, cut_bits(full)}):
         want_bits = acs.traceback_batch_ragged_plain(spec, words, lens, L,
@@ -3854,21 +3911,25 @@ def compare_narrow_ragged(fec, acs, spec, words, err, rng, what) -> int:
                 NS, S, L, int(out == "bytes"), stream))
             require(torch.equal(filled, ref),
                     f"{case}: every byte of 0xA5-filled rows written")
-            err[key] = max(err[key], max_abs_diff(got, ref),
+            err[row] = max(err[row], max_abs_diff(got, ref),
                            max_abs_diff(filled, ref))
             cases += 1
     return cases
 
 
 def phase_compare_narrow_walks(fec, acs, dev, err):
-    """The narrow walk (`traceback_k1` at NS = 2 ... 256,
-    `traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128, 256)
-    against the plain walks on the card, at every line of its dispatch
-    switch: a random rate-1/4 code's batches of `narrow_walk_batches`
-    (noisy, garbage and catastrophic-code words, one to four windows,
-    B = 1, the offset bases), each at every case of `compare_narrow_walk`
-    (below 64 states the terminated ones) and, at
-    NS >= 64 where T >= S, of `compare_narrow_ragged`, the wrong first-pass
+    """The narrow walk (`traceback_k1`, `traceback_k1_masked` and
+    `traceback_k1_ragged` at NS = 2 ... 256) against the plain walks on the
+    card, at every line of its dispatch switch: a random rate-1/4 code's
+    batches of `narrow_walk_batches` (noisy, garbage and catastrophic-code
+    words, one to four windows, B = 1, the offset bases), each at every
+    case of `compare_narrow_walk` and, where T >= S, of
+    `compare_narrow_ragged` (below 64 states the masked and ragged walks
+    on every batch but the garbage ones of four windows and the noisy one
+    of 96 G + 38 steps, whose plain walks at G 32 and 64 made most of the
+    phase's time: the noisy words of 96 G + 37 steps and the garbage and
+    rotating words of 96 G + 38 hold them at four windows), the wrong
+    first-pass
     guesses counted on the garbage and catastrophic words (required on
     both at NS >= 64, on the rotating words below: garbage words merge a
     small state's survivors within a few steps); at NS >= 64 the K11 names
@@ -3884,9 +3945,11 @@ def phase_compare_narrow_walks(fec, acs, dev, err):
         cases, ragged, wrong = 0, 0, []
         for what, words, guessed in narrow_walk_batches(fec, acs, spec, rng,
                                                         dev, G):
+            deep = (NS >= 64 or guessed or words.shape[1] <= 32 * G + 2
+                    or (what == "noisy" and words.shape[1] == 96 * G + 37))
             cases += compare_narrow_walk(fec, acs, spec, words, err, rng,
-                                         what)
-            if NS >= 64:
+                                         what, deep)
+            if deep:
                 ragged += compare_narrow_ragged(fec, acs, spec, words, err,
                                                 rng, what)
             if guessed:
@@ -3903,8 +3966,10 @@ def phase_compare_narrow_walks(fec, acs, dev, err):
                   f"{', '.join(map(str, lengths))}, noisy and garbage words; "
                   f"T={lengths[-1]} garbage and rotating words: "
                   f"{' / '.join(map(str, wrong))} wrong first-pass guesses; "
-                  "B=1; slice and 4-byte bases; terminated, whole and cut "
-                  "rows, bits and bytes) equal to the plain walk")
+                  "B=1; slice and 4-byte bases; terminated and masked, "
+                  f"whole and cut rows, bits and bytes) and {ragged} ragged "
+                  "cases (the edge lengths, also into 0xA5 rows) equal to "
+                  "the plain walks")
             continue
         # The K11 names at T a multiple of 8, over two windows.
         T = 32 * G + 8
@@ -4244,22 +4309,24 @@ def phase_compare_list_walk(fec, acs, dev, err):
 # main path (m) and the harness path (n).
 
 
-def compare_single_pass(fec, sp, spec, x, soft, err, T=None):
+def compare_single_pass(fec, sp, spec, x, soft, err, T=None, routed=True):
     """`block_decode_1p` against its plain version on the card at T steps
     (default all of x's): bits and MSb-first bytes, each of the whole
     message and of a cut one (the plain version packs and cuts its bits,
     so one plain run serves all four); the route says SINGLE_PASS wherever
-    `use_single_pass` holds, and each launch counts.  Returns the plain
-    version's bits."""
+    `use_single_pass` holds (`routed`: a code the SWAR rules leave to it),
+    and each launch counts.  Returns the plain version's bits."""
     import torch
     T = x.shape[1] if T is None else T
     B = x.shape[0]
     mode = "soft" if soft else "hard"
-    if sp.use_single_pass(spec, T):
+    if routed and sp.use_single_pass(spec, T):
         require(fec.select_kernel(spec, mode, T=T) == fec.kernels.SINGLE_PASS,
                 f"{spec} {mode} T={T} on the SINGLE_PASS route")
     full = max(T - spec.S, 0)
     cut = cut_bits(full)
+    row = "block_decode_1p wide" if spec.num_states >= 512 else \
+        "block_decode_1p"
     want = sp.block_decode_1p_plain(spec, x, T, soft)
     pack = fec.ops.viterbi.pad_and_pack
     for out, L, expect in (("bits", full, want),
@@ -4273,8 +4340,7 @@ def compare_single_pass(fec, sp, spec, x, soft, err, T=None):
                 f"{spec} {mode} T={T} B={B}: one launch counted")
         require(torch.equal(got, expect), f"{spec} {mode} T={T} B={B} {out} "
                 f"L={L} equal to the plain version")
-        err["block_decode_1p"] = max(err["block_decode_1p"],
-                                     max_abs_diff(got, expect))
+        err[row] = max(err[row], max_abs_diff(got, expect))
     return want
 
 
@@ -4365,13 +4431,69 @@ def compare_single_pass_edges(fec, sp, err, rng, segments, llrs):
               "counted")
 
 
+def single_pass_round_steps(source=None):
+    """NS -> the steps a round R at which the dispatch switch of
+    csrc/block_1p.cu (or of `source`, a copy of it) launches K13's wide
+    template (hard and soft n <= 8), a block of NS >> R threads."""
+    return wide_round_steps(source or ROOT / SOURCES["block_decode_1p"][0])
+
+
+def compare_single_pass_rounds(fec, sp, err, rng, segments, llrs):
+    """K13's wide template (the wide forward's rounds) at every line of its
+    dispatch switch (`single_pass_round_steps`: NS = 512 ... 4096) against
+    the plain version: random codes at n = 1 ... 8, hard and soft, at
+    T = 1 ... 2R (every T mod R, T < R, whole rounds) and the longest
+    single-pass T (and S, S + 1), B = SMALL_B; noisy and garbage segments
+    and the four LLR draws (-128 among them) in turn; where the route is
+    SINGLE_PASS (n >= 5) and T > S, `viterbi_decode_batch` and
+    `viterbi_decode_batch_soft_bytes` on the same inputs equal to the plain
+    bits and bytes; and soft n = 9, still on the barrier-a-step template,
+    at R + 1 and the longest T.  Returns the cases."""
+    import torch
+    pack = fec.ops.viterbi.pad_and_pack
+    cases = 0
+    for NS, R in sorted(single_pass_round_steps().items()):
+        top = 32768 * 8 // NS // 48 * 48
+        lengths = sorted(set(range(1, 2 * R + 1)) | {NS.bit_length() - 1,
+                                                      NS.bit_length(), top})
+        for n in range(1, 9):
+            spec = bfly_spec(fec, rng, NS, n)
+            for T in lengths:
+                kind = ("noisy", "garbage")[(n + T) % 2]
+                seg = segments(spec, SMALL_B, T, kind)
+                want = compare_single_pass(fec, sp, spec, seg, False, err,
+                                           routed=n >= 5)
+                q = llrs(spec, SMALL_B, T, n + T)
+                want_q = compare_single_pass(fec, sp, spec, q, True, err,
+                                             routed=n >= 5)
+                cases += 2
+                if n >= 5 and T > spec.S:
+                    require(torch.equal(fec.viterbi_decode_batch(spec, seg),
+                                        want),
+                            f"{spec} viterbi_decode_batch T={T}")
+                    require(torch.equal(fec.viterbi_decode_batch_soft_bytes(
+                        spec, q), pack(want_q)),
+                        f"{spec} viterbi_decode_batch_soft_bytes T={T}")
+        spec = bfly_spec(fec, rng, NS, 9)
+        for T in (R + 1, top):
+            compare_single_pass(fec, sp, spec, llrs(spec, SMALL_B, T, T),
+                                True, err)
+            cases += 1
+        print(f"[compare] K13 wide NS={NS:5d} R={R}: n = 1 ... 8 hard and "
+              f"soft at T = {lengths}, soft n = 9 at T = {R + 1}, {top}: "
+              "whole and cut bits and bytes equal, each launch counted; "
+              "n = 5 ... 8 at T > S through viterbi_decode_batch and "
+              "viterbi_decode_batch_soft_bytes equal")
+    return cases
+
+
 def phase_compare_single_pass(fec, dev, err):
     """K13 against its plain version on the card: random poly-symmetric
-    codes at NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) and at
-    NS = 512, 1024, 4096 (n = 5..8) at their longest single-pass T and at
-    T = 1, S, S + 1; noisy and garbage segments, four LLR draws; the warp
-    kernel's edges (`compare_single_pass_edges`); B = 1, 0; each decode
-    entry on those inputs equal to the plain version."""
+    codes at NS = 64, 128, 256 (n = 5..8 hard and soft, soft n = 9) at
+    L = SMALL_L; noisy and garbage segments, four LLR draws; the warp
+    kernel's edges (`compare_single_pass_edges`); the wide template's rounds
+    (`compare_single_pass_rounds`); B = 1, 0; each decode entry on those
+    inputs equal to the plain version."""
     import numpy as np
     import torch
     from convolutionalencdec_tpu_torch.kernels import single_pass as sp
@@ -4393,12 +4515,9 @@ def phase_compare_single_pass(fec, dev, err):
         return torch.from_numpy(draw.astype(np.int8)).to(dev)
 
     cases = [(NS, n) for NS in SP_MID_NS for n in range(5, 10)]
-    cases += [(NS, n) for NS in SP_WIDE_NS for n in range(5, 9)]
     for i, (NS, n) in enumerate(cases):
         spec = bfly_spec(fec, rng, NS, n)
-        top = 32768 * 8 // NS // 48 * 48
-        lengths = ((SMALL_L + spec.S,) if NS < 512
-                   else (top, 1, spec.S, spec.S + 1))
+        lengths = (SMALL_L + spec.S,)
         for T in lengths:
             if n <= 8:
                 kind = ("noisy", "garbage")[i % 2]
@@ -4418,6 +4537,7 @@ def phase_compare_single_pass(fec, dev, err):
               f"T={lengths}: {'hard and ' if n <= 8 else ''}soft bits and "
               "bytes equal, routes SINGLE_PASS")
     compare_single_pass_edges(fec, sp, err, rng, segments, llrs)
+    compare_single_pass_rounds(fec, sp, err, rng, segments, llrs)
     # Edge batches, and one input padded past t_actual.
     for NS in (64, 512):
         spec = bfly_spec(fec, rng, NS, 6)
@@ -4576,6 +4696,138 @@ def single_pass_times(fec, spec_in, seg_a):
     return runs
 
 
+def phase_single_pass_wide(fec, acs, dev, err):
+    """(o): SP_WIDE_MAIN at B = MAIN_B, T = SP_WIDE_T through
+    `viterbi_decode_batch_bytes` (3% segment corruption) and
+    `viterbi_decode_batch_soft_bytes` (AWGN at 3 dB, qmax 7), each equal to
+    its plain route on the card and to `block_decode_1p_plain`; K13
+    launched and the two-pass wide kernels not; hard BER < BER_LIMIT, the
+    soft BER below the hard decisions' of the same values.  Returns (inputs
+    for timing, launches by path, plain ms, summary)."""
+    import numpy as np
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import single_pass as sp
+    from convolutionalencdec_tpu_torch.ops.viterbi import viterbi_decode_bytes
+    spec = fec.CodeSpec(**SP_WIDE_MAIN)
+    L = SP_WIDE_T - spec.S
+    rng = np.random.default_rng(MAIN_SEED)
+    msgs = rng.integers(0, 2, (MAIN_B, L), dtype=np.uint8)
+    seg, _ = fec.encode_bits(spec, torch.from_numpy(msgs).to(dev))
+    require(np.array_equal(seg.cpu().numpy(), encode_reference_np(spec, msgs)),
+            "(o) encode on the card equals the trellis walk")
+    seg = torch.from_numpy(
+        corrupt(rng, seg.cpu().numpy(), MAIN_NOISE, spec.n)).to(dev)
+    T = seg.shape[1]
+    require(T == SP_WIDE_T and sp.use_single_pass(spec, T)
+            and not sp.use_single_pass(spec, T + 1),
+            f"(o) T = {T} is the longest single-pass T")
+    require(fec.select_kernel(spec, T=T) == fec.kernels.SINGLE_PASS
+            and fec.select_kernel(spec, "soft", QMAX, T) ==
+            fec.kernels.SINGLE_PASS, "(o) hard and soft on SINGLE_PASS")
+    launches, plain_ms = {}, {}
+    pack = fec.ops.viterbi.pad_and_pack
+
+    out, launches["(o) hard"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_bytes(spec, seg))
+    want, plain_ms["(o) hard"] = time_once(
+        lambda: viterbi_decode_bytes(spec, seg))
+    require(torch.equal(out, want), "(o) hard bytes equal to the plain "
+            "decode on the card")
+    bits, plain_ms["block_decode_1p wide"] = time_once(
+        lambda: sp.block_decode_1p_plain(spec, seg, T, False))
+    require(torch.equal(pack(bits), out),
+            "(o) hard bytes equal to block_decode_1p_plain")
+    err["block_decode_1p wide"] = max(err["block_decode_1p wide"],
+                                      max_abs_diff(out, want))
+    hard_ber = ber_of_bytes(out, msgs)
+    require(hard_ber < BER_LIMIT, f"(o) hard BER {hard_ber} < {BER_LIMIT}")
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
+    _, llr = soft_channel(fec, spec, torch.from_numpy(msgs).to(dev), gen,
+                          spec.rate)
+    q = fec.quantize_llrs(llr, qmax=QMAX).reshape(MAIN_B, T, spec.n).to(
+        torch.int8)
+    out_s, launches["(o) soft"] = drive(
+        acs, lambda: fec.viterbi_decode_batch_soft_bytes(spec, q, qmax=QMAX))
+    qc = acs.condition_qllrs(q, 127)
+    want_s, plain_ms["(o) soft"] = time_once(
+        lambda: fec.viterbi_decode_soft(spec, qc))
+    require(torch.equal(out_s, pack(want_s)),
+            "(o) soft bytes equal to the plain soft decode on the card")
+    bits_s, plain_ms["block_decode_1p wide soft"] = time_once(
+        lambda: sp.block_decode_1p_plain(spec, q, T, True))
+    require(torch.equal(pack(bits_s), out_s),
+            "(o) soft bytes equal to block_decode_1p_plain")
+    err["block_decode_1p wide"] = max(err["block_decode_1p wide"],
+                                      max_abs_diff(out_s, pack(want_s)))
+    soft_ber = ber_of_bytes(out_s, msgs)
+    hard_seg = fec.bits_to_segments(fec.hard_decision(llr), spec.n)
+    awgn_hard_ber = ber_of_bytes(fec.viterbi_decode_batch_bytes(spec,
+                                                                hard_seg),
+                                 msgs)
+    del llr, hard_seg
+    require(soft_ber < awgn_hard_ber, f"(o) soft BER {soft_ber} below the "
+            f"hard BER of the same received values {awgn_hard_ber}")
+    for path, used in launches.items():
+        require(used["block_decode_1p"] > 0 and not used["acs_wide_forward"]
+                and not used["acs_soft_wide_forward"]
+                and not used["traceback_wide"],
+                f"{path}: K13 launched, the two-pass wide kernels not: "
+                f"{nonzero({path: used})}")
+    summary = {"spec": str(spec), "T": T, "L": L,
+               "decision_kb_per_channel": T * spec.num_states / 8 / 1024,
+               "round_steps": single_pass_round_steps()[spec.num_states],
+               "hard_ber": hard_ber, "soft_ber": soft_ber,
+               "awgn_hard_ber": awgn_hard_ber}
+    print(f"[single pass] (o) {spec} B={MAIN_B} L={L} T={T}: hard BER at "
+          f"{MAIN_NOISE} segment corruption {hard_ber:.4e} (< {BER_LIMIT}); "
+          f"at {EBN0_DB} dB: hard decisions {awgn_hard_ber:.4e}, soft "
+          f"{soft_ber:.4e}; each equal to its plain route on the card; "
+          f"launches {nonzero(launches)}")
+    return (spec, seg, q), launches, plain_ms, summary
+
+
+def single_pass_wide_times(fec, acs, spec_in):
+    """Device ms at (o): each decode, and K13 alone, hard and soft, in turns
+    with the two-pass wide kernels called directly on the same input (the
+    forward, then the terminated walk: `acs_wide_forward` or
+    `acs_soft_wide_forward`, then `traceback_wide`), their bytes equal to
+    K13's."""
+    import torch
+    from convolutionalencdec_tpu_torch.kernels import single_pass as sp
+    spec, seg, q = spec_in
+    T = seg.shape[1]
+    L = T - spec.S
+    runs = {}
+    bufs = [torch.roll(seg, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    qbufs = [torch.roll(q, r + 1, dims=0) for r in range(TIMED_CALLS)]
+    runs["(o) hard"] = device_times(
+        lambda s: fec.viterbi_decode_batch_bytes(spec, s), bufs)
+    runs["(o) soft"] = device_times(
+        lambda x: fec.viterbi_decode_batch_soft_bytes(spec, x, qmax=QMAX),
+        qbufs)
+
+    def two_pass(x, soft):
+        words = (acs.acs_forward_batch_soft(spec, x, 127) if soft
+                 else acs.acs_forward_batch(spec, x))[0]
+        return acs.traceback_batch(spec, words, T, L, "bytes")
+
+    for soft, xs in ((False, bufs), (True, qbufs)):
+        tag = " soft" if soft else ""
+        require(torch.equal(two_pass(xs[0], soft), sp.block_decode_1p(
+            spec, xs[0], T, soft, "bytes", L)),
+            f"(o){tag}: the two-pass kernels' bytes equal K13's")
+        for turn in ("1", "2"):
+            runs[f"two-pass{tag} at (o) {turn}"] = device_times(
+                lambda x: two_pass(x, soft), xs)
+            runs[f"block_decode_1p wide{tag} {turn}"] = device_times(
+                lambda x: sp.block_decode_1p(spec, x, T, soft, "bytes", L),
+                xs)
+        for key in (f"two-pass{tag} at (o)", f"block_decode_1p wide{tag}"):
+            runs[key] = runs.pop(f"{key} 1") + runs.pop(f"{key} 2")
+    return runs
+
+
 def phase_harness(fec, acs, dev, seg_a):
     """(n): `run_curve` on SP_MAIN at CURVE_POINTS (K13 in its hard and its
     soft calls) beside `bound_curve`; berTestK7's acceptance run on NASA_K7
@@ -4683,6 +4935,10 @@ def bounds(lens_sum: int, generic_shapes, bfly_shapes):
                                B * T * TRACEBACK_OPS)
         work[walk + "_ragged" + suffix] = (
             lens * per_step + 4 * B + B * L // 8, lens * TRACEBACK_OPS)
+    # (k)'s masked walk: all T steps from random starts, one bit per step
+    # out.
+    work["traceback_k1_masked (k)"] = (
+        B * sT * sspec.num_states // 8 + 4 * B + B * sT, B * sT * TRACEBACK_OPS)
     # (l)'s K11 masked walk: all T steps from state 0, one bit per step out;
     # its list: `lwalks` walks of each of `lB` packets over `lsteps` steps.
     work["traceback_wide_masked"] = (B * wT * 32 + 4 * B + B * wT,
@@ -4698,6 +4954,13 @@ def bounds(lens_sum: int, generic_shapes, bfly_shapes):
     work["block_decode_1p"] = (B * T + sp_out, sp_ops)
     work["block_decode_1p at (a)"] = work["block_decode_1p"]
     work["block_decode_1p soft"] = (B * T * SP_MAIN_N + sp_out, sp_ops)
+    # K13's wide template at (o): the same count at NS = 512, T = 480.
+    NS_o, n_o, T_o = 1 << (SP_WIDE_MAIN["K"] - 1), len(SP_WIDE_MAIN["g"]), \
+        SP_WIDE_T
+    o_ops = B * T_o * NS_o // 2 * ACS_OPS
+    o_out = B * ((T_o - SP_WIDE_MAIN["K"] + 1 + 7) // 8)
+    work["block_decode_1p wide"] = (B * T_o + o_out, o_ops)
+    work["block_decode_1p wide soft"] = (B * T_o * n_o + o_out, o_ops)
     for name, spec, T, L in generic_shapes:
         # Segments in, one decision bit per state, step and input bit and
         # the final metrics out (the kernels' int32 words hold 32 - NS
@@ -4863,6 +5126,13 @@ def main() -> int:
     runs.update(single_pass_times(fec, sp_in, seg))
     print(f"[time] single pass {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    spw_in, spw_launches, spw_plain, spw_summary = phase_single_pass_wide(
+        fec, acs, dev, err)
+    plain_ms.update(spw_plain)
+    runs.update(single_pass_wide_times(fec, acs, spw_in))
+    print(f"[single pass] (o) main path and times "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     harness_launches, harness_summary = phase_harness(fec, acs, dev, seg)
     print(f"[harness] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4884,33 +5154,40 @@ def main() -> int:
     cases = phase_compare_list_walk(fec, acs, dev, err)
     print(f"[compare] list walk: {cases} cases "
           f"{time.perf_counter() - t0:.1f} s")
-    small_summary["walk_kernels"] = small_walk_kernels(fec, small_in)
+    small_summary["walk_kernels"] = small_walk_kernels(fec, acs, small_in)
 
     # Launch counts: the sum over the main-path runs, each read just after.
     # A one-word row counts its walk's launches at (k) only.
     by_path = {"hard": hard_launches, "soft": soft_launches, **rp_launches,
                **stream_launches, **tb_launches, "maxlogmap": map_launches,
                **turbo_launches, **gen_launches, **small_launches,
-               **wide_launches, **sp_launches, **harness_launches}
+               **wide_launches, **sp_launches, **spw_launches,
+               **harness_launches}
 
     def path_launches(name):
-        """A walk's launches split between its row (not at (k)) and its
-        one-word row (at (k))."""
-        one_word = name in W1_ROWS
-        split = one_word or name in W1_ROWS.values()
-        return {p: c[W1_ROWS.get(name, name)] for p, c in by_path.items()
-                if not split or p.startswith("small ") == one_word}
+        """A row's launches: a split row's on its main path's paths, the
+        entry's own row's on the others."""
+        if name in SPLIT_ROWS:
+            key, prefix = SPLIT_ROWS[name]
+            return {p: c[key] for p, c in by_path.items()
+                    if p.startswith(prefix)}
+        other = tuple(prefix for key, prefix in SPLIT_ROWS.values()
+                      if key == name)
+        return {p: c[name] for p, c in by_path.items()
+                if not (other and p.startswith(other))}
 
     launches = {k: sum(path_launches(k).values()) for k in KERNELS}
     bits_per_call = MAIN_B * MAIN_L
     dci_bits = DCI_B * (DCI_PAYLOAD + 16)
     turbo_bits = TURBO_B * TURBO_L
     generic_bits = {name: MAIN_B * L for name, _, _, L in gen_in}
+    o_bits = MAIN_B * (SP_WIDE_T - spw_in[0].S)
     med = {key: statistics.median(ms) for key, ms in runs.items()}
     for key, ms in med.items():
         plain = plain_ms.get(key.removesuffix(" wall").removesuffix(" host"))
         code = key.rsplit(" ", 1)[-1]
         bits = (generic_bits[code] if code in generic_bits
+                else o_bits if "(o)" in key or "1p wide" in key
                 else WIDE_LIST_B * MAIN_L
                 if key in ("traceback_wide_multi", "wide list")
                 else dci_bits if "tailbiting c" in key or "rate-matched" in key
@@ -5005,7 +5282,22 @@ def main() -> int:
         ("ms", statistics.median), ("min_ms", min))})
     k13.update(soft_bound_ms=bound["block_decode_1p soft"][0],
                soft_bound_by=bound["block_decode_1p soft"][1])
-    single_pass = {"m": dict(sp_summary), "n": harness_summary}
+    k13w = kernels[KERNELS.index("block_decode_1p wide")]
+    k13w.update({f"{what}_{stat}": f(runs[key]) for what, key in (
+        ("soft", "block_decode_1p wide soft"),
+        ("two_pass", "two-pass at (o)"),
+        ("two_pass_soft", "two-pass soft at (o)")) for stat, f in (
+        ("ms", statistics.median), ("min_ms", min))})
+    k13w.update(soft_plain_ms=plain_ms["block_decode_1p wide soft"],
+                soft_bound_ms=bound["block_decode_1p wide soft"][0],
+                soft_bound_by=bound["block_decode_1p wide soft"][1],
+                round_steps=spw_summary["round_steps"])
+    single_pass = {"m": dict(sp_summary), "n": harness_summary,
+                   "o": dict(spw_summary)}
+    for path in ("(o) hard", "(o) soft"):
+        single_pass["o"][path] = {
+            "ms": med[path], "min_ms": min(runs[path]),
+            "plain_ms": plain_ms.get(path), "mbps": o_bits / (med[path] * 1e3)}
     for path, bits in (("single pass hard", bits_per_call),
                        ("single pass bits", bits_per_call),
                        ("single pass soft", bits_per_call)):
@@ -5026,6 +5318,11 @@ def main() -> int:
         f_ms=med[f_soft], f_min_ms=min(runs[f_soft]),
         f_plain_ms=plain_ms[f_soft], f_bound_ms=bound[f_soft][0],
         f_bound_by=bound[f_soft][1])
+    k_masked = "traceback_k1_masked (k)"
+    kernels[KERNELS.index("traceback_k1_masked")].update(
+        k_ms=med[k_masked], k_min_ms=min(runs[k_masked]),
+        k_plain_ms=plain_ms[k_masked], k_bound_ms=bound[k_masked][0],
+        k_bound_by=bound[k_masked][1])
     tb_masked = "traceback_k1_masked tailbiting"
     kernels[KERNELS.index("traceback_k1_masked")].update(
         tailbiting_ms=med[tb_masked], tailbiting_min_ms=min(runs[tb_masked]),

@@ -67,6 +67,10 @@
 // took ~45% of the time, the exchange and barrier ~18%, the
 // add-compare-selects the rest.
 //
+// The round (`Round`: its hard and soft steps, the exchange; the soft
+// tables) lives in acs_round.cuh, which block_1p.cu's wide template
+// shares.
+//
 // The soft forward at NS = 512 ... 16384, n <= 8 (`acs_soft_round_kernel`):
 // the same rounds, groups, exchange and decision words, with R in its own
 // dispatch switch: 4 up to NS = 8192 and 5 at 16384, as measured (PERF.md
@@ -102,160 +106,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "acs_round.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kChunk = 64;  // steps of soft inputs staged at a time
-constexpr unsigned kFullMask = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// The hard forward: R steps a round in registers.
-
-template <int LOGNS, int R>
-struct Round {
-  static constexpr int NS = 1 << LOGNS;
-  static constexpr int H = NS / 2;
-  static constexpr int W = NS / 32;
-  static constexpr int G = NS >> R;      // groups = threads of the block
-  static constexpr int M = 1 << R;       // metrics a thread holds
-  static constexpr int HALF = M / 2;     // butterflies a thread runs a step
-  static constexpr int CBW = (HALF + 3) / 4;  // packed cb registers a step
-  static constexpr int Q = M / 4;        // int4 stores of a round
-  static constexpr int SH = 5 - R;       // swizzle key: bits SH.. of owner
-  static_assert(R >= 2 && R <= 5 && G >= 32 && G <= kMaxThreads, "shape");
-
-  // Shared-memory word of state s after a round (its owner o = s >> R
-  // stored it as quad (s >> 2) & (Q - 1), swizzled).
-  static __device__ __forceinline__ int phys(int s) {
-    if constexpr (Q == 1) {
-      return s;
-    } else {
-      const int o = s >> R;
-      return (o << R) | ((((s >> 2) & (Q - 1)) ^ ((o >> SH) & (Q - 1))) << 2) |
-             (s & 3);
-    }
-  }
-  // phys(c + m*G) == phys(c) + m*G: m*G moves the owner by a multiple of
-  // the swizzle key's period.
-  static constexpr bool kShiftInvariant =
-      Q == 1 || ((G >> R) % (Q << SH)) == 0;
-
-  // Step J of a round: the 2^(R-1) butterflies of the thread's group on
-  // metrics m (order idx = k*2^J + u), their decisions into row `dec`
-  // (the step's W words).  em_of(i) is the edge metric of butterfly pair
-  // i's (src b, input 0) edge, total - em_of(i) its complement's.
-  template <int J, class EdgeMetric>
-  static __device__ __forceinline__ void step(int (&m)[M], EdgeMetric em_of,
-                                              int total, int32_t* dec,
-                                              int warp, int lane) {
-    constexpr int GROUPS = HALF >> J;      // k values
-    constexpr int DJ = NS >> (R - J);      // k stride in butterflies
-    int nm[M];
-    // Steps 1..3: bit u of group g = 2k + p in field 8 * (g % 4) of
-    // pk[g / 4]; step 4 (R = 5): in nib[k][p].  (One form for both, with
-    // 16-bit fields at step 4, measured ~4% slower at NS = 16384.)
-    constexpr int NPK = (2 * GROUPS + 3) / 4;
-    uint32_t pk[NPK];
-#pragma unroll
-    for (int w = 0; w < NPK; ++w) pk[w] = 0;
-    uint32_t nib[GROUPS][2];
-#pragma unroll
-    for (int g = 0; g < GROUPS; ++g) nib[g][0] = nib[g][1] = 0;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const int em = em_of(i);
-      const int lo = m[i], hi = m[i + HALF];
-      const int emc = total - em;
-      const int a0 = lo + em, a1 = hi + emc;
-      const int b0 = lo + emc, b1 = hi + em;
-      nm[2 * i] = min(a0, a1);
-      nm[2 * i + 1] = min(b0, b1);
-      // The decisions: the high source strictly better.
-      const bool da = a0 > a1, db = b0 > b1;
-      const int k = i >> J, u = i & ((1 << J) - 1);
-      if constexpr (J == 0) {
-        const unsigned wa = __ballot_sync(kFullMask, da);
-        const unsigned wb = __ballot_sync(kFullMask, db);
-        if (lane == 0) {
-          dec[k * (DJ / 32) + warp] = (int)wa;
-          dec[H / 32 + k * (DJ / 32) + warp] = (int)wb;
-        }
-      } else if constexpr (J <= 3) {
-        pk[(2 * k) >> 2] |= da ? (1u << (8 * ((2 * k) & 3) + u)) : 0u;
-        pk[(2 * k + 1) >> 2] |= db ? (1u << (8 * ((2 * k + 1) & 3) + u)) : 0u;
-      } else {
-        nib[k][0] |= (uint32_t)da << u;
-        nib[k][1] |= (uint32_t)db << u;
-      }
-    }
-    if constexpr (J >= 1 && J <= 3) {
-      // Join 8 >> J lanes' fields into whole bytes; lanes owning a byte
-      // store each group's.
-#pragma unroll
-      for (int w = 0; w < NPK; ++w) {
-#pragma unroll
-        for (int s = 1; (s << J) < 8; s <<= 1) {
-          pk[w] |= __shfl_down_sync(kFullMask, pk[w], s) << (s << J);
-        }
-      }
-      if ((lane & ((8 >> J) - 1)) == 0) {
-        const int byte = (lane << J) >> 3;
-#pragma unroll
-        for (int g = 0; g < 2 * GROUPS; ++g) {
-          uint8_t* base = reinterpret_cast<uint8_t*>(
-              dec + (g & 1) * (H / 32) + (g >> 1) * (DJ / 32) + (warp << J));
-          base[byte] = (uint8_t)(pk[g >> 2] >> (8 * (g & 3)));
-        }
-      }
-    }
-    if constexpr (J == 4) {
-      // 16 bits a lane and group: each lane stores a half word.
-#pragma unroll
-      for (int g = 0; g < 2 * GROUPS; ++g) {
-        reinterpret_cast<uint16_t*>(
-            dec + (g & 1) * (H / 32) + (g >> 1) * (DJ / 32) + (warp << J))
-            [lane] = (uint16_t)nib[g >> 1][g & 1];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) m[i] = nm[i];
-  }
-
-  // Steps 0..R-1 of a round (all of them when steps >= R).
-  template <bool GUARD>
-  static __device__ __forceinline__ void round(int (&m)[M],
-                                               const uint32_t (&cbp)[R][CBW],
-                                               const uint8_t* seg, int steps,
-                                               int n, int nmask, int32_t* dec,
-                                               int warp, int lane) {
-    uint32_t r[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) r[j] = (!GUARD || j < steps) ? __ldg(seg + j) : 0;
-    // The Hamming distance of the step's segment to the pair's coded
-    // segment (byte i % 4 of cbp[J][i / 4]).
-#define ACS_WIDE_STEP(J)                                                   \
-    if constexpr (J < R) {                                                 \
-      if (!GUARD || J < steps) {                                           \
-        const uint32_t r4 = r[J] * 0x01010101u;                            \
-        step<J>(                                                           \
-            m,                                                             \
-            [&](int i) {                                                   \
-              return __popc((r4 ^ cbp[J][i >> 2]) &                        \
-                            ((uint32_t)nmask << (8 * (i & 3))));           \
-            },                                                             \
-            n, dec + (size_t)(J) * W, warp, lane);                         \
-      }                                                                    \
-    }
-    ACS_WIDE_STEP(0)
-    ACS_WIDE_STEP(1)
-    ACS_WIDE_STEP(2)
-    ACS_WIDE_STEP(3)
-    ACS_WIDE_STEP(4)
-#undef ACS_WIDE_STEP
-  }
-};
+// The hard forward: R steps a round in registers (`Round`, acs_round.cuh).
 
 // words int32 of src to dst, int2 at a time (words even, both 8-aligned),
 // by the G threads of the block.
@@ -276,7 +135,7 @@ acs_round_kernel(const uint8_t* __restrict__ in,
                  int32_t* __restrict__ final_metrics, int T, int n,
                  int init_value) {
   using Rd = Round<LOGNS, R>;
-  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M, HALF = Rd::HALF;
+  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M;
   // Two buffers of NS metrics, then two of a round's R * W decision words.
   extern __shared__ int4 smem4[];
   int* const buf0 = reinterpret_cast<int*>(smem4);
@@ -291,16 +150,7 @@ acs_round_kernel(const uint8_t* __restrict__ in,
   // Coded segments of the group's butterflies, byte i % 4 of cbp[j][i / 4]
   // for butterfly pair i = k*2^j + u of step j.
   uint32_t cbp[R][Rd::CBW];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-#pragma unroll
-    for (int w = 0; w < Rd::CBW; ++w) cbp[j][w] = 0;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const int b = (c << j) + (i & ((1 << j) - 1)) + (i >> j) * (NS >> (R - j));
-      cbp[j][i >> 2] |= ((uint32_t)__ldg(cb + b) & 0xffu) << (8 * (i & 3));
-    }
-  }
+  Rd::template load_cb<false>(cbp, cb, c);
   int m[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
@@ -318,17 +168,9 @@ acs_round_kernel(const uint8_t* __restrict__ in,
   for (; t + R <= T; t += R) {
     Rd::template round<false>(m, cbp, row + t, R, n, nmask, sd, warp, lane);
     // Destinations c*2^R + u, u = idx: Q int4 stores, swizzled.
-#pragma unroll
-    for (int q = 0; q < Rd::Q; ++q) {
-      const int qs = q ^ ((c >> Rd::SH) & (Rd::Q - 1));
-      reinterpret_cast<int4*>(wb)[c * Rd::Q + qs] =
-          make_int4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
-    }
+    Rd::scatter(m, wb, c);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      m[i] = wb[Rd::kShiftInvariant ? rd_base + i * G : Rd::phys(c + i * G)];
-    }
+    Rd::gather(m, wb, c, rd_base);
     // The round's R steps of words are contiguous in `decs`.  The next
     // round writes the other buffers; these are written again only after
     // the next barrier, which every thread reaches after its reads.
@@ -379,52 +221,6 @@ int launch_round(const Args& a, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 // The soft forward at NS >= 512, n <= 8: R steps a round in registers.
 
-// Words of one step's edge-metric table: 16 entries of the low four coded
-// bits (with the step's base), 16 of bits 4..7, then Q.
-constexpr int kTabStep = 33;
-constexpr int kTabQ = 32;
-
-// int8 LLR as the route uses it: clamp(q, qlo, qclip).
-__device__ __forceinline__ int condition(int8_t q, int qlo, int qclip) {
-  return min(max((int)q, qlo), qclip);
-}
-
-// The edge-metric tables of a round's R steps from its conditioned LLRs
-// `sq` (R * n, step-major), by threads c < 8R: thread c builds entries s
-// and s + 8 (s = c % 8) of step c / 8 of each table, and Q.  With q_i the
-// step's LLRs, base = sum_i relu(-q_i): entry p of the low table is base +
-// the q_i of the set bits i < 4 of p, of the high one the q_i of the set
-// bits i - 4 >= 0 of p, so that em = lo[p & 15] + hi[p >> 4] =
-// sum_i cost(bit i of p, q_i) (ops/metrics.py), and Q = sum_i |q_i|.
-template <int R, bool HI>
-__device__ __forceinline__ void build_tables(int* tab, const int* sq, int c,
-                                             int n) {
-  if (c >= 8 * R) return;
-  const int j = c >> 3, s = c & 7;
-  const int* q = sq + j * n;
-  int base = 0, Q = 0, lo0 = 0, lo1 = 0, hi0 = 0, hi1 = 0;
-  for (int i = 0; i < n; ++i) {
-    const int qi = q[i];
-    base += max(-qi, 0);
-    Q += abs(qi);
-    if (i < 4) {
-      lo0 += ((s >> i) & 1) ? qi : 0;
-      lo1 += (((s + 8) >> i) & 1) ? qi : 0;
-    } else if (HI) {
-      hi0 += ((s >> (i - 4)) & 1) ? qi : 0;
-      hi1 += (((s + 8) >> (i - 4)) & 1) ? qi : 0;
-    }
-  }
-  int* t = tab + j * kTabStep;
-  t[s] = base + lo0;
-  t[s + 8] = base + lo1;
-  if (HI) {
-    t[16 + s] = hi0;
-    t[24 + s] = hi1;
-  }
-  if (s == 0) t[kTabQ] = Q;
-}
-
 template <int LOGNS, int R, bool HI>  // HI: n > 4
 __global__ void __launch_bounds__((1 << LOGNS) >> R, 1)
 acs_soft_round_kernel(const int8_t* __restrict__ in,
@@ -434,7 +230,7 @@ acs_soft_round_kernel(const int8_t* __restrict__ in,
                       int32_t* __restrict__ final_metrics, int T, int n,
                       int qlo, int qclip, int init_value) {
   using Rd = Round<LOGNS, R>;
-  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M, HALF = Rd::HALF;
+  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M;
   constexpr int W = Rd::W;
   static_assert(G >= 8 * R, "8R table threads, R * 8 LLR loaders");
   // Two buffers each of NS metrics, of a round's R * W decision words, of
@@ -456,17 +252,7 @@ acs_soft_round_kernel(const int8_t* __restrict__ in,
   // for pair i = k*2^j + u of step j: n <= 4, the byte offset of its entry
   // in the low table; n > 4, the segment.
   uint32_t cbp[R][Rd::CBW];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-#pragma unroll
-    for (int w = 0; w < Rd::CBW; ++w) cbp[j][w] = 0;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const int b = (c << j) + (i & ((1 << j) - 1)) + (i >> j) * (NS >> (R - j));
-      const uint32_t p = (uint32_t)__ldg(cb + b) & 0xffu;
-      cbp[j][i >> 2] |= (HI ? p : p << 2) << (8 * (i & 3));
-    }
-  }
+  Rd::template load_cb<!HI>(cbp, cb, c);
   int m[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
@@ -495,54 +281,17 @@ acs_soft_round_kernel(const int8_t* __restrict__ in,
   int32_t* sd = stage0;
   const int* tab = tab0;
   int* sq = sq0;
-  // Step J of a round from its table: em = lo[p & 15] (+ hi[p >> 4]).
-#define ACS_SOFT_STEP(J)                                                   \
-  if constexpr (J < R) {                                                   \
-    if (!GUARD || J < steps) {                                             \
-      const int* tj = tab + (J) * kTabStep;                                \
-      Rd::template step<J>(                                                \
-          m,                                                               \
-          [&](int i) {                                                     \
-            const uint32_t x =                                             \
-                __byte_perm(cbp[J][i >> 2], 0, 0x4440 | (i & 3));          \
-            if constexpr (HI) {                                            \
-              return tj[x & 15] + tj[16 + (x >> 4)];                       \
-            } else {                                                       \
-              return *reinterpret_cast<const int*>(                        \
-                  reinterpret_cast<const char*>(tj) + x);                  \
-            }                                                              \
-          },                                                               \
-          tj[kTabQ], sd + (J) * W, warp, lane);                            \
-    }                                                                      \
-  }
-  auto soft_round = [&](auto guard, int steps) {
-    constexpr bool GUARD = decltype(guard)::value;
-    ACS_SOFT_STEP(0)
-    ACS_SOFT_STEP(1)
-    ACS_SOFT_STEP(2)
-    ACS_SOFT_STEP(3)
-    ACS_SOFT_STEP(4)
-  };
-#undef ACS_SOFT_STEP
   int t = 0;
   for (; t + R <= T; t += R) {
     const int ahead = (t + 2 * R) * n + c;
     const int8_t q_ahead = (c < rn && ahead < tn) ? row[ahead] : 0;
-    soft_round(std::false_type{}, R);
-#pragma unroll
-    for (int q = 0; q < Rd::Q; ++q) {
-      const int qs = q ^ ((c >> Rd::SH) & (Rd::Q - 1));
-      reinterpret_cast<int4*>(wb)[c * Rd::Q + qs] =
-          make_int4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
-    }
+    Rd::template soft_round<false, HI>(m, cbp, tab, R, sd, warp, lane);
+    Rd::scatter(m, wb, c);
     int* const sq_next = (sq == sq0) ? sq1 : sq0;
     if (c < rn) sq[c] = condition(q_ahead, qlo, qclip);
     build_tables<R, HI>(tab == tab0 ? tab1 : tab0, sq_next, c, n);
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      m[i] = wb[Rd::kShiftInvariant ? rd_base + i * G : Rd::phys(c + i * G)];
-    }
+    Rd::gather(m, wb, c, rd_base);
     copy_words<G>(sd, dec_row + (size_t)t * W, R * W, c);
     wb = (wb == buf0) ? buf1 : buf0;
     sd = (sd == stage0) ? stage1 : stage0;
@@ -551,7 +300,7 @@ acs_soft_round_kernel(const int8_t* __restrict__ in,
   }
   const int J = T - t;
   if (J > 0) {
-    soft_round(std::true_type{}, J);
+    Rd::template soft_round<true, HI>(m, cbp, tab, J, sd, warp, lane);
     __syncthreads();
     copy_words<G>(sd, dec_row + (size_t)t * W, J * W, c);
   }

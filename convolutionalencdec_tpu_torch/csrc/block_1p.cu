@@ -48,7 +48,9 @@
 // T * NS/8 bytes (16.4 KB at NS = 64, T = 2054), so an SM holds 12
 // channels (a block also takes 1 KB of the SM's 228 KB) where the two-pass
 // forward holds 16 or more: at B = 2048 the batch runs in two waves, the
-// second too short of warps to hide the step's dependent chain.
+// second too short of warps to hide the step's dependent chain.  At
+// NS = 512 and T = 480 (30 KB of decisions and 4 KB of metrics) an SM
+// holds 6 channels, and 2048 channels run in 2.6 waves.
 //
 // What the design does about that:
 //   NS 64-256 (`block_1p_warp`): one warp per channel, metrics in
@@ -78,11 +80,30 @@
 //   Four warps per block while a channel's decisions take at most 4 KB,
 //   else one, so that blocks pack the SM's 227 KB as finely as its
 //   decisions allow; each channel's region starts on 16 bytes.
-//   NS 512-4096 (`block_1p_wide`): one block per channel, acs_wide.cu's
-//   forward (NS/2 butterflies over min(NS/2, 1024) threads, metrics
-//   double-buffered in shared memory, one __syncthreads per step), each
-//   step's per-step sums staged 64 steps at a time, the decision words
-//   beside the metrics.
+//   NS 512-4096, hard and soft n <= 8 (`block_1p_wide`): one block per
+//   channel on acs_wide.cu's rounds (acs_round.cuh): R trellis steps a
+//   round in registers, G = NS >> R threads a channel, each owning one
+//   closed group of butterflies, one __syncthreads a round (the metrics'
+//   exchange, double-buffered), the decision words of step j of a round
+//   packed as acs_round_kernel packs them and stored straight into the
+//   channel's rows in shared memory (no staging copy: the region is the
+//   stage).  Soft: the round's per-step edge-metric tables, built from its
+//   LLRs conditioned as max(q, -127) two rounds ahead
+//   (acs_soft_round_kernel's pipeline), in the walk's scratch until the
+//   walk.  R by NS in `launch_wide`, as measured (PERF.md section 6).
+//   The soft round's table threads run their loop over the LLRs unrolled
+//   to 8 (their loads issue together: at NS 4096 the soft kernel also
+//   drops from 144 to 120 registers, two channels an SM where it held
+//   one), and the channel's inputs are prefetched into L2 as the kernel
+//   starts; together 0.3108 -> 0.2246 ms at NS 4096, 0.4004 -> 0.3796 at
+//   NS 512.  The last, part-full wave: nothing is done about it.  At NS
+//   512 and T = 480 a channel takes 35 KB of shared memory, 6 an SM, so
+//   2048 channels run in 2.6 waves, the third 59% full; the barrier-a-
+//   step template it replaced had the same occupancy by shared memory.
+//   Soft n > 8 stays on the barrier-a-step template
+//   (`block_1p_wide_steps`: acs_wide.cu's acs_soft_wide_kernel, NS/2
+//   butterflies over min(NS/2, 1024) threads, metrics double-buffered in
+//   shared memory, each step's sums staged 64 steps at a time).
 //   Both: after the last step one warp walks the words back from state 0,
 //   exactly, its 32 lanes on 32 segments of the packet at once (`walk`: a
 //   guessed start per segment, walked again where it differs from the
@@ -95,9 +116,10 @@
 
 #include <type_traits>
 
+#include "acs_round.cuh"
+
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxSmem = 232448;       // 227 KB: a block's most
 constexpr int kSmallChannel = 4096;    // bytes; up to this, 4 warps a block
 constexpr int kWideThreads = 1024;
@@ -455,13 +477,124 @@ block_1p_warp(const uint8_t* __restrict__ in, const int32_t* __restrict__ cb,
   emit(bits, out + (size_t)ch * row_len, message_bits, emit_bytes, lane, 32);
 }
 
-template <int BPT, int NQ, bool SOFT>  // NQ = min(n, 8), soft
-__global__ void __launch_bounds__(kWideThreads)
+// NS 512-4096, hard and soft n <= 8: the wide forward's rounds
+// (acs_round.cuh, acs_wide.cu's header), R steps a round in registers, one
+// barrier a round, each round's decision words stored by `Round::step`
+// straight into the channel's rows (the region is the stage), then the
+// walk.  Shared memory: the two metric buffers, the rows, then the walk's
+// scratch and bits, which hold the soft forward's round tables and LLRs
+// until the walk (`wide_smem`).
+template <int LOGNS, int R, bool SOFT, bool HI>  // HI: soft n > 4
+__global__ void __launch_bounds__((1 << LOGNS) >> R, 1)
 block_1p_wide(const uint8_t* __restrict__ in, const int32_t* __restrict__ cb,
-              uint8_t* __restrict__ out, int T, int NS, int n, int S,
+              uint8_t* __restrict__ out, int T, int n, int S,
               int message_bits, int emit_bytes, int init_value) {
+  using Rd = Round<LOGNS, R>;
+  constexpr int NS = Rd::NS, G = Rd::G, M = Rd::M, W = Rd::W;
+  static_assert(!SOFT || G >= 8 * R, "8R table threads, R * 8 LLR loaders");
+  extern __shared__ int4 smem4[];
+  int* const buf0 = reinterpret_cast<int*>(smem4);
+  int* const buf1 = buf0 + NS;
+  int32_t* const dec = buf1 + NS;
+  uint32_t* const xy = reinterpret_cast<uint32_t*>(dec + (size_t)T * W);
+  uint8_t* const bits = reinterpret_cast<uint8_t*>(xy + 64);
+  int* const tab0 = reinterpret_cast<int*>(xy);
+  int* const tab1 = tab0 + R * kTabStep;
+  int* const sq0 = tab1 + R * kTabStep;
+  int* const sq1 = sq0 + R * 8;
+  const int c = threadIdx.x;
+  const int lane = c & 31, warp = c >> 5;
+  const int ch = blockIdx.x;
+
+  uint32_t cbp[R][Rd::CBW];
+  Rd::template load_cb<SOFT && !HI>(cbp, cb, c);
+  int m[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) m[i] = (c + i * G == 0) ? 0 : init_value;
+  const int rd_base = Rd::phys(c);
+  int* wb = buf0;
+  int t = 0;
+  // The channel's inputs into L2 at the start, a 128-byte line a thread,
+  // so that the rounds' loads do not wait on device memory.
+  const int row_bytes = T * (SOFT ? n : 1);
+  const char* const row0 =
+      reinterpret_cast<const char*>(in) + (size_t)ch * row_bytes;
+  for (int i = c * 128; i < row_bytes; i += G * 128) {
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row0 + i));
+  }
+  if constexpr (SOFT) {
+    // As acs_soft_round_kernel: the LLRs of round r + 2 loaded as round r
+    // starts, stored conditioned (the -127 floor) as it ends, when the
+    // table threads build round r + 1's tables from that round's.
+    const int8_t* row = reinterpret_cast<const int8_t*>(row0);
+    const int tn = T * n, rn = R * n;
+    if (c < rn) {
+      sq0[c] = c < tn ? condition(row[c], -127, 127) : 0;
+      sq1[c] = rn + c < tn ? condition(row[rn + c], -127, 127) : 0;
+    }
+    __syncthreads();
+    build_tables<R, HI, 8>(tab0, sq0, c, n);
+    __syncthreads();
+    const int* tab = tab0;
+    int* sq = sq0;
+    for (; t + R <= T; t += R) {
+      const int ahead = (t + 2 * R) * n + c;
+      const int8_t q_ahead = (c < rn && ahead < tn) ? row[ahead] : 0;
+      Rd::template soft_round<false, HI>(m, cbp, tab, R, dec + (size_t)t * W,
+                                         warp, lane);
+      Rd::scatter(m, wb, c);
+      int* const sq_next = (sq == sq0) ? sq1 : sq0;
+      if (c < rn) sq[c] = condition(q_ahead, -127, 127);
+      build_tables<R, HI, 8>(tab == tab0 ? tab1 : tab0, sq_next, c, n);
+      __syncthreads();
+      Rd::gather(m, wb, c, rd_base);
+      wb = (wb == buf0) ? buf1 : buf0;
+      tab = (tab == tab0) ? tab1 : tab0;
+      sq = sq_next;
+    }
+    if (T > t) {
+      Rd::template soft_round<true, HI>(m, cbp, tab, T - t,
+                                        dec + (size_t)t * W, warp, lane);
+    }
+  } else {
+    const uint8_t* row = reinterpret_cast<const uint8_t*>(row0);
+    const int nmask = (1 << n) - 1;
+    for (; t + R <= T; t += R) {
+      Rd::template round<false>(m, cbp, row + t, R, n, nmask,
+                                dec + (size_t)t * W, warp, lane);
+      Rd::scatter(m, wb, c);
+      __syncthreads();
+      Rd::gather(m, wb, c, rd_base);
+      wb = (wb == buf0) ? buf1 : buf0;
+    }
+    if (T > t) {
+      Rd::template round<true>(m, cbp, row + t, T - t, n, nmask,
+                               dec + (size_t)t * W, warp, lane);
+    }
+  }
+  __syncthreads();  // every row written, every table read
+  if (c < 32) {
+    walk<false>(reinterpret_cast<const uint32_t*>(dec), bits, xy, T, W, S,
+                message_bits, lane, 0);
+  }
+  __syncthreads();
+  const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
+  emit(bits, out + (size_t)ch * row_len, message_bits, emit_bytes, c, G);
+}
+
+// NS 512-4096, soft n > 8 (`block_1p_wide_steps`): one block per channel,
+// acs_wide.cu's barrier-a-step forward (NS/2 butterflies over min(NS/2,
+// 1024) threads, metrics double-buffered in shared memory, one
+// __syncthreads per step), each step's sums staged kChunk steps at a time,
+// the decision words beside the metrics.
+template <int BPT>
+__global__ void __launch_bounds__(kWideThreads)
+block_1p_wide_steps(const int8_t* __restrict__ in,
+                    const int32_t* __restrict__ cb, uint8_t* __restrict__ out,
+                    int T, int NS, int n, int S, int message_bits,
+                    int emit_bytes, int init_value) {
   extern __shared__ int4 smem4[];  // 16-byte aligned
-  int4* stage = smem4;             // kChunk steps: {seg or base, Q, q0-3, q4-7}
+  int4* stage = smem4;             // kChunk steps: {base, Q, q0-3, q4-7}
   int* m_cur = reinterpret_cast<int*>(smem4 + kChunk);
   int* m_nxt = m_cur + NS;
   uint32_t* dec = reinterpret_cast<uint32_t*>(m_nxt + NS);
@@ -473,14 +606,13 @@ block_1p_wide(const uint8_t* __restrict__ in, const int32_t* __restrict__ cb,
   const int threads = blockDim.x;
   const int lane = tid & 31;
   const int ch = blockIdx.x;
-  const int nmask = (1 << min(n, 8)) - 1;
 
   for (int s = tid; s < NS; s += threads) m_cur[s] = (s == 0) ? 0 : init_value;
   int cbl[BPT];
 #pragma unroll
   for (int j = 0; j < BPT; ++j) cbl[j] = cb[j * threads + tid];
 
-  const uint8_t* row = in + (size_t)ch * T * (SOFT ? n : 1);
+  const int8_t* row = in + (size_t)ch * T * n;
   for (int t = 0; t < T; ++t) {
     const int k = t % kChunk;
     if (k == 0) {
@@ -488,51 +620,38 @@ block_1p_wide(const uint8_t* __restrict__ in, const int32_t* __restrict__ cb,
       // __syncthreads (or, at t = 0, nothing was staged).
       for (int c = tid; c < min(kChunk, T - t); c += threads) {
         int4 v = make_int4(0, 0, 0, 0);
-        if constexpr (SOFT) {
-          const int8_t* src =
-              reinterpret_cast<const int8_t*>(row) + (size_t)(t + c) * n;
-          unsigned pa = 0u, pb = 0u;
-          for (int i = 0; i < n; ++i) {
-            const int q = max((int)src[i], -127);
-            v.x += max(-q, 0);
-            v.y += abs(q);
-            if (i < 4) {
-              pa |= ((unsigned)q & 0xffu) << (8 * i);
-            } else if (i < 8) {
-              pb |= ((unsigned)q & 0xffu) << (8 * (i - 4));
-            }
+        const int8_t* src = row + (size_t)(t + c) * n;
+        unsigned pa = 0u, pb = 0u;
+        for (int i = 0; i < n; ++i) {
+          const int q = max((int)src[i], -127);
+          v.x += max(-q, 0);
+          v.y += abs(q);
+          if (i < 4) {
+            pa |= ((unsigned)q & 0xffu) << (8 * i);
+          } else if (i < 8) {
+            pb |= ((unsigned)q & 0xffu) << (8 * (i - 4));
           }
-          v.z = (int)pa;
-          v.w = (int)pb;
-        } else {
-          v.x = row[t + c];
         }
+        v.z = (int)pa;
+        v.w = (int)pb;
         stage[c] = v;
       }
       __syncthreads();
     }
     const int4 v = stage[k];
-    int q[SOFT ? NQ : 1];
-    if constexpr (SOFT) {
+    int q[8];
 #pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        const unsigned w = (i < 4) ? (unsigned)v.z : (unsigned)v.w;
-        q[i] = (int)(w << (24 - 8 * (i & 3))) >> 24;
-      }
+    for (int i = 0; i < 8; ++i) {
+      const unsigned w = (i < 4) ? (unsigned)v.z : (unsigned)v.w;
+      q[i] = (int)(w << (24 - 8 * (i & 3))) >> 24;
     }
 #pragma unroll
     for (int j = 0; j < BPT; ++j) {
       const int b = j * threads + tid;
-      int em, emc;
-      if constexpr (SOFT) {
-        em = v.x;
+      int em = v.x;
 #pragma unroll
-        for (int i = 0; i < NQ; ++i) em += q[i] & -((cbl[j] >> i) & 1);
-        emc = v.y - em;
-      } else {
-        em = __popc((v.x ^ cbl[j]) & nmask);
-        emc = n - em;
-      }
+      for (int i = 0; i < 8; ++i) em += q[i] & -((cbl[j] >> i) & 1);
+      const int emc = v.y - em;
       const int lo = m_cur[b], hi = m_cur[b + H];
       const int a0 = lo + em, a1 = hi + emc;
       const int b0 = lo + emc, b1 = hi + em;
@@ -596,31 +715,90 @@ int launch_warp(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BPT, int NQ, bool SOFT>
-int launch_wide(const Args& a, cudaStream_t s) {
+// Bytes of shared memory of the wide template at T steps: the two metric
+// buffers, the rows, then the larger of the walk's scratch and bits and
+// (soft) the forward's two tables and two LLR buffers of a round.  Every T
+// that kernels/single_pass.py admits (`smem_bytes`: channel_bytes + 1 KB
+// + 2 x 4 x NS within 227 KB) fits: at R <= 4 the soft round's 1312 bytes
+// fit the 1 KB beside the walk's 256 + 4 ceil(T / 32) bytes once T > 224,
+// and below that T the whole is far under 227 KB.
+template <int R>
+size_t wide_smem(int T, int NS, bool soft) {
+  const size_t walk = 4 * 64 + 4 * (size_t)((T + 31) / 32);
+  const size_t tables = (2 * R * kTabStep + 2 * R * 8) * sizeof(int);
+  return (size_t)2 * NS * sizeof(int) + (size_t)T * (NS / 8) +
+         (soft && tables > walk ? tables : walk);
+}
+
+template <int LOGNS, int R>
+int launch_round(const Args& a, bool soft, cudaStream_t s) {
+  constexpr int NS = 1 << LOGNS;
+  const size_t smem = wide_smem<R>(a.T, NS, soft);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = !soft ? block_1p_wide<LOGNS, R, false, false>
+                      : a.n > 4 ? block_1p_wide<LOGNS, R, true, true>
+                                : block_1p_wide<LOGNS, R, true, false>;
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<a.B, NS >> R, smem, s>>>(a.in, a.cb, a.out, a.T, a.n, a.S,
+                                    a.message_bits, a.emit_bytes,
+                                    a.init_value);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide template at each NS, hard and soft n <= 8:
+// launch_round<log2 NS, steps a round>, as measured (PERF.md section 6;
+// scripts/torch_single_pass.py --lines, in turns): at B = 2048 and each
+// NS's longest single-pass T (480, 240, 96, 48; rate-1/5 codes), hard /
+// soft ms, NS 512: R 3 0.2212 / 0.4004, R 4 0.2605 / 0.4102, R 2 0.2542
+// / 0.4336 (the barrier-a-step template 0.4724 / 0.6692); NS 1024: R 3
+// 0.2127 / 0.3052, R 4 0.2188 / 0.3228, R 5 0.2143 / 0.3075; NS 2048:
+// R 4 0.1636 / 0.2254, R 3 0.1727 / 0.2375, R 5 0.1830 / 0.2775; NS
+// 4096: R 4 0.1787 / 0.3108, R 3 0.2076 / 0.3179, R 5 0.2007 / 0.2889
+// (soft before the table loop was unrolled and the inputs prefetched,
+// which took it to 0.3796, 0.2949, 0.2097 and 0.2246 at the lines
+// below).  At NS 512 R 3 runs two warps a channel where R 4 runs one,
+// twice the warps an SM at the same 6 channels (shared memory).
+// tests/test_torch_single_pass.py, chip_smoke.py and
+// scripts/torch_single_pass.py read this switch.
+int launch_wide(const Args& a, bool soft, cudaStream_t s) {
+  switch (a.NS) {
+    case 512: return launch_round<9, 3>(a, soft, s);
+    case 1024: return launch_round<10, 3>(a, soft, s);
+    case 2048: return launch_round<11, 4>(a, soft, s);
+    case 4096: return launch_round<12, 4>(a, soft, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Soft n > 8 at NS 512-4096: the barrier-a-step template, NS/2 butterflies
+// over min(NS/2, 1024) threads.
+int launch_wide_steps(const Args& a, cudaStream_t s) {
+  if (a.NS != 512 && a.NS != 1024 && a.NS != 2048 && a.NS != 4096) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int threads = min(a.NS / 2, kWideThreads);
   const size_t smem = (size_t)kChunk * sizeof(int4) +
                       (size_t)2 * a.NS * sizeof(int) +
                       channel_bytes(a.T, a.NS);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int e = allow_smem(block_1p_wide<BPT, NQ, SOFT>, smem);
+  const auto kernel = a.NS == 4096 ? block_1p_wide_steps<2>
+                                   : block_1p_wide_steps<1>;
+  const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
-  block_1p_wide<BPT, NQ, SOFT><<<a.B, threads, smem, s>>>(
-      a.in, a.cb, a.out, a.T, a.NS, a.n, a.S, a.message_bits, a.emit_bytes,
-      a.init_value);
+  kernel<<<a.B, threads, smem, s>>>(
+      reinterpret_cast<const int8_t*>(a.in), a.cb, a.out, a.T, a.NS, a.n,
+      a.S, a.message_bits, a.emit_bytes, a.init_value);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of `a.NS` (64 ... 4096, a power of two) at NQ; REST:
-// soft with n > 8.
+// The warp template at `a.NS` (64, 128, 256) at NQ; REST: soft with n > 8.
 template <int NQ, bool SOFT, bool REST = false>
 int launch_ns(const Args& a, cudaStream_t s) {
   switch (a.NS) {
     case 64: return launch_warp<1, NQ, SOFT, REST>(a, s);
     case 128: return launch_warp<2, NQ, SOFT, REST>(a, s);
     case 256: return launch_warp<4, NQ, SOFT, REST>(a, s);
-    case 512: case 1024: case 2048: return launch_wide<1, NQ, SOFT>(a, s);
-    case 4096: return launch_wide<2, NQ, SOFT>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -642,6 +820,9 @@ extern "C" int block_decode_1p(const void* in, int soft, const void* cb,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NS >= 512) {
+    return soft && n > 8 ? launch_wide_steps(a, s) : launch_wide(a, soft, s);
+  }
   if (!soft) return launch_ns<1, false>(a, s);
   switch (min(n, 8)) {
     case 1: return launch_ns<1, true>(a, s);

@@ -29,14 +29,9 @@
 // `_tb_kernel`), the JAX package's traceback for NS < 64.  The four walks
 // for NS >= 512 are the segment walks of traceback_wide.cu.
 //
-// Two kernels:
-//   narrow_walk_kernel   the terminated and list walks at every NS <= 256
-//                        and the masked and ragged walks at NS = 64, 128
-//                        and 256: staged segment walks, a lane a segment
-//                        (below);
-//   traceback_k1_kernel  a thread a channel: the masked and ragged walks at
-//                        NS <= 32.
-//
+// One kernel, `narrow_walk_kernel`: every walk at every NS <= 256, a staged
+// segment walk, a lane a segment (below).
+
 // Semantics (bit for bit those of ops/viterbi.traceback_terminated plus the
 // byte epilogue): walk backward from terminal state 0 at step t_actual - 1;
 // at step t read decision d of the current state, emit bit (cur & 1) when
@@ -81,16 +76,16 @@
 // channel (2048 * 2054 * 8 B = 33.7 MB at the main-path size, 0.0102 ms at
 // 3.35 TB/s: the same bytes the forward kernel wrote).  At NS <= 256 a
 // step's row is 8-32 bytes, within one 32-byte sector, so reading whole
-// rows moves no byte the walk does not need.  A thread a channel
-// (`traceback_k1_kernel`) loads 128 bytes of rows at a time and walks them
-// in registers: 2048 channels are 64 warps, so most of the card's 132 SMs
-// sit idle, and each thread's chain holds T W / 32 dependent DRAM round
-// trips and T serial steps (19x the bound at the main-path size; the list
-// walk, a thread a walk, 23x at the tail-biting DCI size, PERF.md §6).  At
-// NS <= 32 a step is one word: NS/8 bytes of decision bits (the bound's),
-// 4 bytes as stored, 16.8 MB at the main-path size of the K = 5 code
-// (2048 channels of 2052 steps), 0.0050 ms at 3.35 TB/s for any walk that
-// reads them; the thread-a-channel walk took 0.1692 ms there (PERF.md §6).
+// rows moves no byte the walk does not need.  The walk this file first
+// held, a thread a channel walking 128 bytes of rows at a time in
+// registers, left most of the card's 132 SMs idle (2048 channels are 64
+// warps) and held T W / 32 dependent DRAM round trips and T serial steps
+// in each thread's chain: 19x the bound at the main-path size (PERF.md
+// §6).  At NS <= 32 a step is one word: NS/8 bytes of decision bits (the
+// bound's), 4 bytes as stored, 16.8 MB at the main-path size of the K = 5
+// code (2048 channels of 2052 steps), 0.0050 ms at 3.35 TB/s for any walk
+// that reads them; the thread-a-channel walk took 0.1692 ms there for the
+// terminated walk and 0.1852 ms for the ragged one (PERF.md §6).
 //
 // What the narrow walk does about that (`narrow_walk_kernel`, one warp a
 // block; the generic walk of acs_generic.cu applied to the butterfly
@@ -176,12 +171,18 @@
 //     writes each channel's part of the window with consecutive lanes on
 //     consecutive bytes (bits: a byte a bit), the bits past the row's
 //     length masked.
-//   * One word a step (NS = 2 ... 32, the terminated walk): state s's bit is
-//     bit (s >> 1) | ((s & 1) << (S - 1)) of the step's word; every base is
+//   * One word a step (NS = 2 ... 32, every walk): state s's bit is bit
+//     (s >> 1) | ((s & 1) << (S - 1)) of the step's word; every base is
 //     4-byte aligned, so a step's row is its word, loaded whole.  The rest
 //     is the walk above, the top-down check included, which keeps it exact
 //     at NS = 2 and 4 (S = 1, 2), where survivors merge within a few steps
-//     and a guess is most often right, on any input.
+//     and a guess is most often right, on any input.  The ragged and
+//     masked walks there take the terminated walk's lines: at the
+//     main-path size of the K = 5 code (lengths uniform in [S + 1, T];
+//     random starts, every step's bit out) G 32 / WU 16 read 0.0129 ms
+//     ragged and 0.0166 masked, G 16 0.0168 / 0.0198, G 64 0.0134 /
+//     0.0181, G 32 / WU 8 0.0128 / 0.0164 (within 1%), the
+//     thread-a-channel walk 0.1648 / 0.1401.
 //   * G and WU are template arguments, one dispatch line an
 //     NS (`launch_narrow_walk`): G 64 / WU 16 at NS 2, G 32 / WU 16 at NS
 //     4 ... 32, G 16 / WU 32 at NS 64, G 8 / WU 16 at 128, G 16 / WU 16
@@ -208,7 +209,7 @@
 namespace {
 
 
-// ---- The narrow segment walk: terminated and masked, NS = 64 ... 256 ----
+// ---- The narrow segment walk: every walk at NS = 2 ... 256 ----
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -704,19 +705,17 @@ int launch_narrow_kernel(const NarrowArgs& a, cudaStream_t s) {
 
 // The walk at one NS: with row loads where the decisions' base is aligned
 // to a step's row (8 bytes at W = 2, 16 at W = 4 and 8; every channel's
-// rows, and a list walk's rows from any step, then are too), else a word a
-// step; the ragged and list walks as instantiations of their own, so that
-// the others compile as they would without them.
+// rows, and a list walk's rows from any step, then are too; at W = 1 every
+// base, a word), else a word a step; the ragged and list walks as
+// instantiations of their own, so that the others compile as they would
+// without them.
 template <int LOGNS, int LOGG, int WU, int LD, bool MULTI>
 int launch_narrow_mode(const NarrowArgs& a, cudaStream_t s) {
   if constexpr (MULTI) {
     return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kMulti>(a, s);
   } else {
     if (a.lengths != nullptr) {
-      if constexpr (LOGNS >= 6) {
-        return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kRagged>(a, s);
-      }
-      return static_cast<int>(cudaErrorInvalidValue);  // NS <= 32: not here
+      return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kRagged>(a, s);
     }
     return launch_narrow_kernel<LOGNS, LOGG, WU, LD, kPlain>(a, s);
   }
@@ -776,92 +775,6 @@ int launch_multi_walk(const NarrowArgs& a, int NS, cudaStream_t s) {
   }
 }
 
-// ---- The thread-a-channel walk: ragged and masked walks at NS <= 32 ----
-
-constexpr int kThreads = 32;
-
-enum class Walk { kRagged, kMasked };
-
-// One word a step (NS <= 32).
-template <Walk MODE>
-__global__ void __launch_bounds__(kThreads)
-traceback_k1_kernel(const int32_t* __restrict__ decs,
-                    const int32_t* __restrict__ lengths,
-                    const int32_t* __restrict__ starts,
-                    uint8_t* __restrict__ out,
-                    int B, int T_stride, int t_actual, int S,
-                    int message_bits, int emit_bytes, int live) {
-  // One thread per channel.
-  const int ch = blockIdx.x * kThreads + threadIdx.x;
-  if (ch >= B) return;
-
-  const int32_t* row = decs + (size_t)ch * T_stride;
-  const int row_len = emit_bytes ? (message_bits + 7) / 8 : message_bits;
-  uint8_t* out_row = out + (size_t)ch * row_len;
-  int t_start = t_actual;
-  int msg = message_bits;
-  if (MODE == Walk::kRagged) {
-    t_start = min(max(lengths[ch], 0), T_stride);
-    msg = min(max(t_start - S, 0), message_bits);
-    // The walk writes every byte (bit) below msg; zero the rest of the row.
-    for (int i = emit_bytes ? (msg + 7) / 8 : msg; i < row_len; ++i) {
-      out_row[i] = 0;
-    }
-  }
-  const int top = S - 1;
-  unsigned cur = MODE == Walk::kMasked ? (unsigned)starts[ch] : 0u;
-  unsigned acc = 0;
-  // Step t with decision word `word` of the current state's index i.
-  auto step = [&](int t, unsigned i, unsigned word) {
-    unsigned d = (word >> (i & 31u)) & 1u;
-    if (MODE == Walk::kMasked && t >= live) d = 0u;
-    if (t < msg) {
-      const unsigned bit = cur & 1u;
-      if (emit_bytes) {
-        acc |= bit << (7 - (t & 7));
-        if ((t & 7) == 0) {
-          out_row[t >> 3] = (uint8_t)acc;
-          acc = 0;
-        }
-      } else {
-        out_row[t] = (uint8_t)bit;
-      }
-    }
-    cur = (cur >> 1) | (d << top);
-  };
-
-  constexpr int C = 32;  // steps per register chunk
-  for (int t_hi = t_start - 1; t_hi >= 0; t_hi -= C) {
-    int32_t r[C];
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int t = t_hi - k;
-      r[k] = (t >= 0) ? row[t] : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int t = t_hi - k;
-      if (t < 0) break;
-      const unsigned i = (cur >> 1) | ((cur & 1u) << top);
-      step(t, i, (unsigned)r[k]);
-    }
-  }
-}
-
-// The register-chunk walk of the one-word modes at NS <= 32.
-template <Walk MODE>
-int launch(const int32_t* d, const int32_t* lengths, const int32_t* starts,
-           uint8_t* o, int B, int T_stride, int t_actual, int NS, int S,
-           int message_bits, int emit_bytes, int live, cudaStream_t s) {
-  if (NS > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kThreads);
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  traceback_k1_kernel<MODE><<<grid, block, 0, s>>>(
-      d, lengths, starts, o, B, T_stride, t_actual, S, message_bits,
-      emit_bytes, live);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The entry points of one walk mode.
 int terminated(const void* decs, void* out, int B, int T_stride,
                int t_actual, int NS, int message_bits, int emit_bytes,
@@ -872,37 +785,26 @@ int terminated(const void* decs, void* out, int B, int T_stride,
   return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
 }
 
+// The ragged walk: each channel from its own top; the launch's t_top and
+// T are the rows' T, so its lanes a channel come from T.
 int ragged(const void* decs, const void* lengths, void* out, int B, int T,
-           int NS, int S, int message_bits_max, int emit_bytes,
-           void* stream) {
-  if (NS >= 64) {
-    const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr,
-                       static_cast<const int32_t*>(lengths),
-                       static_cast<uint8_t*>(out), B, T, T, T,
-                       message_bits_max, emit_bytes, 1, 0};
-    return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
-  }
-  return launch<Walk::kRagged>(
-      static_cast<const int32_t*>(decs), static_cast<const int32_t*>(lengths),
-      nullptr, static_cast<uint8_t*>(out), B, T, T, NS, S, message_bits_max,
-      emit_bytes, 0, static_cast<cudaStream_t>(stream));
+           int NS, int message_bits_max, int emit_bytes, void* stream) {
+  const NarrowArgs a{static_cast<const int32_t*>(decs), nullptr,
+                     static_cast<const int32_t*>(lengths),
+                     static_cast<uint8_t*>(out), B, T, T, T,
+                     message_bits_max, emit_bytes, 1, 0};
+  return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
 }
 
+// The masked walk: from starts[b] at step T - 1, the walk proper from
+// step live - 1.
 int masked(const void* decs, const void* starts, void* out, int B, int T,
-           int NS, int S, int live, int out_steps, int emit_bytes,
-           void* stream) {
-  if (NS >= 64) {
-    const NarrowArgs a{static_cast<const int32_t*>(decs),
-                       static_cast<const int32_t*>(starts), nullptr,
-                       static_cast<uint8_t*>(out), B, T, live, T, out_steps,
-                       emit_bytes, 1, 0};
-    return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
-  }
-  return launch<Walk::kMasked>(
-      static_cast<const int32_t*>(decs), nullptr,
-      static_cast<const int32_t*>(starts), static_cast<uint8_t*>(out), B, T,
-      T, NS, S, out_steps, emit_bytes, live,
-      static_cast<cudaStream_t>(stream));
+           int NS, int live, int out_steps, int emit_bytes, void* stream) {
+  const NarrowArgs a{static_cast<const int32_t*>(decs),
+                     static_cast<const int32_t*>(starts), nullptr,
+                     static_cast<uint8_t*>(out), B, T, live, T, out_steps,
+                     emit_bytes, 1, 0};
+  return launch_narrow_walk(a, NS, static_cast<cudaStream_t>(stream));
 }
 
 // The list walk: the masked walk of B NW rows on the decisions from step
@@ -936,8 +838,9 @@ extern "C" int traceback_k1_ragged(const void* decs, const void* lengths,
                                    void* out, int B, int T, int NS, int S,
                                    int message_bits_max, int emit_bytes,
                                    void* stream) {
-  return ragged(decs, lengths, out, B, T, NS, S, message_bits_max,
-                emit_bytes, stream);
+  (void)S;  // the walk's NS says it
+  return ragged(decs, lengths, out, B, T, NS, message_bits_max, emit_bytes,
+                stream);
 }
 
 // Walk from starts[b] at step T - 1, decision 0 at steps >= live; row width
@@ -946,7 +849,8 @@ extern "C" int traceback_k1_masked(const void* decs, const void* starts,
                                    void* out, int B, int T, int NS, int S,
                                    int live, int out_steps, int emit_bytes,
                                    void* stream) {
-  return masked(decs, starts, out, B, T, NS, S, live, out_steps, emit_bytes,
+  (void)S;  // the walk's NS says it
+  return masked(decs, starts, out, B, T, NS, live, out_steps, emit_bytes,
                 stream);
 }
 

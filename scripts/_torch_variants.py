@@ -219,13 +219,16 @@ def variants_main(doc: str, source: Path, libs_dir: Path, tag: str,
     ap.add_argument("--calls", type=int, default=15)
     ap.add_argument("--no-time", action="store_true",
                     help="the checks only")
+    ap.add_argument("--no-change", action="store_true",
+                    help="only the variants, not the tree's source (e.g. "
+                         "the reference timed against a copy of itself)")
     ap.add_argument("--out", type=Path, default=libs_dir)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print(f"{script.stem}: no CUDA device", file=sys.stderr)
         return 1
-    builds = {"change": source}
+    builds = {} if args.no_change else {"change": source}
     for item in args.variant:
         name, _, src = item.partition("=")
         builds[name] = Path(src).resolve()

@@ -11,7 +11,8 @@ each launch, and RULES below names the paths timed at each size.  The
 launches at other sizes (the harness paths, the streaming chunks where no
 time at their size exists, the tail-biting extensions) are listed as left
 out.  The generic-k rows count each main-path code at its own time and
-bound (`by_code`).  Rows of kernels already redesigned are marked.
+bound (`by_code`).  Rows of kernels already redesigned are marked (since
+the wide template of K13 and the one-word ragged walk were, every row).
 """
 
 from __future__ import annotations
@@ -57,6 +58,9 @@ RULES = {
     "block_decode_1p": [
         ("(m)", ("single pass hard", "single pass bits"), "ms", "bound_ms"),
         ("(m) soft", ("single pass soft",), "soft_ms", "soft_bound_ms")],
+    "block_decode_1p wide": [
+        ("(o)", ("(o) hard",), "ms", "bound_ms"),
+        ("(o) soft", ("(o) soft",), "soft_ms", "soft_bound_ms")],
 }
 WIDE = ("acs_wide_forward", "acs_soft_wide_forward", "traceback_wide",
         "traceback_wide_ragged", "traceback_wide_masked",
@@ -73,7 +77,8 @@ REDESIGNED = {"acs_wide_forward", "acs_soft_wide_forward",
               "acs_soft_k1_forward", "traceback_k1_ragged", "maxlogmap_k1",
               "traceback_k1 w1", "acs_small_forward",
               "acs_soft_small_forward", "stream_k1_decode",
-              "acs_k1_forward", "traceback_k1_multi"}
+              "acs_k1_forward", "traceback_k1_multi",
+              "traceback_k1_ragged w1", "block_decode_1p wide"}
 
 
 def terms(row):

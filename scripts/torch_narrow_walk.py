@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Build-time variants of the narrow walk (`traceback_k1` and
-`traceback_k1_multi` at NS = 2 ... 256, `traceback_k1_masked` and
-`traceback_k1_ragged` at NS = 64, 128 and 256: `narrow_walk_kernel` in
-csrc/traceback_k1.cu) against a reference build of the same C entries, on
-one GPU.
+"""Build-time variants of the narrow walk (`traceback_k1`,
+`traceback_k1_masked`, `traceback_k1_ragged` and `traceback_k1_multi` at
+NS = 2 ... 256: `narrow_walk_kernel` in csrc/traceback_k1.cu) against a
+reference build of the same C entries, on one GPU.
 
     python3 scripts/torch_narrow_walk.py --ref PARENT.cu \\
         [--variant NAME=SOURCE.cu ...] [--lines NAME=NS:G:WU,... ...] \\
@@ -26,7 +25,7 @@ and cases of the narrow walk (`narrow_walk_batches` at its own G:
 noisy, garbage and catastrophic-code words over one to four windows,
 B = 1, a slice of a batch and a base 4 bytes past a 16-byte line; each
 at every `narrow_walk_cases`: terminated and masked, whole and cut rows,
-bits and bytes; and, at NS >= 64 where T >= S, ragged at `narrow_ragged_lengths`,
+bits and bytes; and, where T >= S, ragged at `narrow_ragged_lengths`,
 rows of T - S bits and a cut one, bits and bytes) and on 2048 channels
 at 2054 steps, every byte of the rows (both builds write into rows
 filled with 0xA5); its wrong
@@ -58,6 +57,11 @@ Then each build is timed in turns with the reference (CUDA events after a sleep 
               one-word walk);
   (k) soft    the same messages over AWGN at 3 dB, quantized to 7: the soft
               forward's words, the same walk;
+  (k) ragged  the ragged walk over (k) hard's words, lengths uniform in
+              [S + 1, T], bytes of L bits (the one-word ragged walk);
+  (k) masked  the masked walk over (k) hard's words from random starts,
+              every step live, T bits out; `(k) masked live-9` with the
+              last 9 steps masked;
   (k) NS=...  the terminated walk at (k)'s size at the other one-word NS
               (`ONE_WORD_CODES`), hard;
 and beside (a) hard the generic walk of csrc/acs_generic.cu
@@ -299,7 +303,7 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
             else:
                 n += same(masked, spec, words, starts, t, L, out,
                           what=f"{what} masked T={T} live={t} L={L} {out}")
-        if T >= spec.S and spec.num_states >= 64:
+        if T >= spec.S:
             lens = torch.from_numpy(cs.narrow_ragged_lengths(
                 rng, B, T, spec.S)).to(dev)
             full = T - spec.S
@@ -411,6 +415,10 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
         q = fec.quantize_llrs(llr, qmax=cs.QMAX).reshape(B, Tk, small.n)
         k_soft.append(acs.acs_forward_batch_soft(small, q.to(torch.int8),
                                                  127)[0])
+    lens_k = [torch.from_numpy(rng.integers(small.S + 1, Tk + 1, B).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    starts_k = [torch.from_numpy(rng.integers(0, small.num_states, B).astype(
+        np.int32)).to(dev) for _ in range(2)]
     one_word = {}
     for NS, g in ONE_WORD_CODES.items():
         code = fec.CodeSpec(K=NS.bit_length(), g=g)
@@ -423,7 +431,8 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
            "f": torch.empty((cs.DCI_B, tb[0][3]), dtype=torch.uint8,
                             device=dev),
            "f list": torch.empty((cs.DCI_B, cs.DCI_LIST, tb_list[0][4]),
-                                 dtype=torch.uint8, device=dev)}
+                                 dtype=torch.uint8, device=dev),
+           "bits k": torch.empty((B, Tk), dtype=torch.uint8, device=dev)}
     cases = {
         "(a) hard": lambda lib, d: terminated(lib, spec, hard[d], T, L,
                                               "bytes", res["bytes"]),
@@ -448,7 +457,15 @@ def run(lib_path: str, source: str, ref_path: str, calls: int,
         "(k) hard": lambda lib, d: terminated(lib, small, k_hard[d], Tk, L,
                                               "bytes", res["bytes"]),
         "(k) soft": lambda lib, d: terminated(lib, small, k_soft[d], Tk, L,
-                                              "bytes", res["bytes"])}
+                                              "bytes", res["bytes"]),
+        "(k) ragged": lambda lib, d: ragged(lib, small, k_hard[d], lens_k[d],
+                                           L, "bytes", res["bytes"]),
+        "(k) masked": lambda lib, d: masked(lib, small, k_hard[d],
+                                            starts_k[d], Tk, Tk, "bits",
+                                            res["bits k"]),
+        "(k) masked live-9": lambda lib, d: masked(
+            lib, small, k_hard[d], starts_k[d], Tk - 9, Tk, "bits",
+            res["bits k"])}
     for NS, (code, words) in one_word.items():
         cases[f"(k) NS={NS}"] = (
             lambda lib, d, code=code, words=words: terminated(

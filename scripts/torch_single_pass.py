@@ -4,57 +4,80 @@ the single-pass block decode (`block_decode_1p`, csrc/block_1p.cu) against
 a reference build of the same C entry, on one GPU.
 
     python3 scripts/torch_single_pass.py
-    python3 scripts/torch_single_pass.py --ref PATH.cu \\
-        [--variant NAME[=SOURCE.cu] ...] [--sass] [--out DIR]
+    python3 scripts/torch_single_pass.py --ref PARENT.cu \\
+        [--variant NAME=SOURCE.cu ...] [--lines NAME=NS:R,... ...] \\
+        [--calls 9] [--no-time] [--out DIR]
 
 With no `--ref`: builds the kernels, then runs chip_smoke.py's phases
-19-21: the single-pass block decode against its plain version, the main
-path (m) (the rate-1/6 K = 7 code at bench.py's working set), its times
-and K13's beside the two-pass decode at (a)'s input (NASA_K7, B = 2048 x
-L = 2048), and the harness path (n) (`run_curve`, berTestK7's acceptance
-run, a `bench_decode` tick, the traffic model); then the batch sweep of
+19-21 and 27: the single-pass block decode against its plain version, the
+main path (m) (the rate-1/6 K = 7 code at bench.py's working set), its
+times and K13's beside the two-pass decode at (a)'s input (NASA_K7,
+B = 2048 x L = 2048), the harness path (n) (`run_curve`, berTestK7's
+acceptance run, a `bench_decode` tick, the traffic model) and the wide
+main path (o) (the rate-1/5 K = 10 code, NS = 512, B = 2048, T = 480)
+with its times beside the two-pass wide kernels; then the batch sweep of
 K13, K1 and K2; prints each time's median beside its plain version's and
 its bound, and the card's name and power limit.  Exits non-zero if a
 check fails or there is no CUDA device.
 
-With `--ref`: builds each variant, csrc/block_1p.cu (the default, named
-"shipped") or a modified copy of it (`--variant NAME=SOURCE.cu`), and
-the reference, another source of the same C entry (an earlier tree's
-block_1p.cu, from `git show REV:PATH`); one nvcc each, all at once, with
-`-Xptxas -v`, into the package's build directory (the logs there too, or
-in `--out`; with `--sass` the NS = 64 hard and n = 6 soft kernels' SASS
-beside them).  Relative paths are read from the caller's directory.  Each variant then runs in its own process (a kernel fault
+With `--ref`: builds csrc/block_1p.cu (as "change"), each variant (a
+hand-edited copy of it, `NAME=SOURCE.cu`), each `--lines` copy
+(csrc/block_1p.cu with the wide template's dispatch lines rewritten: R
+steps a round at NS, e.g. `--lines r3=512:3,4096:3`) and the reference (an
+earlier tree's block_1p.cu: get it with `git show
+HEAD:convolutionalencdec_tpu_torch/csrc/block_1p.cu >
+_checkout/parent_block_1p.cu`); one nvcc each, all at once, with
+`-Xptxas -v` (the logs and each build's SASS in `--out`; relative paths
+are read from the caller's directory), printing the registers of the
+warp kernels at NS = 64 and of the wide template's kernels at NS = 512
+and 4096.  Each build then runs in its own process (a kernel fault
 poisons the CUDA context): it is held bit for bit against the reference
 build at NS = 64, 128, 256 (hard n = 2, 6, 8; soft n = 1, 4, 6, 8, 9, 11,
 LLRs over the whole int8 range) at T = 1, S, S + 1, 31, 32, 33, 63, 64,
 65, 203 + S and the longest single-pass T (4080, 2016, 1008), B = 1 and
 37, noisy and garbage segments and a catastrophic code (its survivors
 never merge, so the walk's guesses are wrong), bits and bytes, whole and
-cut messages; against the plain version on 2 rows; then timed in turns
-with the reference (CUDA events after a 0.1 s sleep, median of CALLS;
-each call on another row rotation of the input, 128 MB of them, so that
-it reads its input from device memory as chip_smoke.py's calls do) at
-(m) hard and soft, at (a)'s input, and at each B of the batch sweep
-(`SWEEP_B`, (m)'s hard input).  Prints one JSON line per variant and the
-card's name and power limit.  Exits non-zero if a build fails or a
-variant differs.
+cut messages; at NS = 512, 1024, 2048, 4096 (the wide template, hard
+n = 1 ... 8, soft n = 1 ... 9: n = 9 on the barrier-a-step template) at
+T = 1 ... 8 (every T mod R for R <= 4), S, S + 1 and the longest
+single-pass T (480, 240, 96, 48), B = 1 and 37, the same inputs; against
+the plain version on 2 rows.  Then (unless `--no-time`) it is timed in
+turns with the reference (CUDA events after a 0.1 s sleep, median of
+`--calls`; each call on another row rotation of the input, 128 MB of
+them, so that it reads its input from device memory as chip_smoke.py's
+calls do):
+  (m) hard, (m) soft   the rate-1/6 K = 7 code at bench.py's working set;
+  (a) hard             NASA_K7 at (a)'s input;
+  sweep B=...          (m) hard's first rows at each B of `SWEEP_B`;
+  (o) hard, (o) soft   the rate-1/5 K = 10 code (NS = 512, chip_smoke.py's
+                       (o)): B = 2048, T = 480, 3% segment corruption and
+                       AWGN at 3 dB quantized to 7; beside them the
+                       two-pass wide kernels (the package's
+                       `acs_wide_forward` or `acs_soft_wide_forward`, then
+                       `traceback_wide`) on the same input;
+  NS=1024 T=240, NS=2048 T=96, NS=4096 T=48 (hard and soft)
+                       random rate-1/5 codes at B = 2048 and their longest
+                       single-pass T.
+Prints one JSON line per build and the card's name and power limit.
+Exits non-zero if a build fails or differs.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
+import re
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import _torch_variants
-
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "scripts"))
+import _torch_variants  # noqa: E402
+from _torch_variants import load, variants_main  # noqa: E402
+
 SOURCE = ROOT / "convolutionalencdec_tpu_torch" / "csrc" / "block_1p.cu"
 LIBS = ROOT / "convolutionalencdec_tpu_torch" / "build" / "single_pass_variants"
 #: The checks' codes: (NS, soft, n); their lengths besides the longest
@@ -63,11 +86,13 @@ CHECK_CODES = [(NS, False, n) for NS in (64, 128, 256) for n in (2, 6, 8)] + [
     (NS, True, n) for NS in (64, 128, 256) for n in (1, 4, 6, 8, 9, 11)]
 CHECK_T = (31, 32, 33, 63, 64, 65)
 CHECK_B = (1, 37)
+#: The wide template's checks: (NS, soft, n), every n at each wide NS.
+WIDE_CODES = [(NS, soft, n) for NS in (512, 1024, 2048, 4096)
+              for soft in (False, True) for n in range(1, 9 + soft)]
+WIDE_T = tuple(range(1, 9))
 #: Bytes of input copies a timed key rotates over: more than the card's
 #: 50 MB L2.
 COLD_BYTES = 128 << 20
-#: Timed calls of each build, in turns; a time is their median.
-CALLS = 9
 
 
 #: Batch sizes of the sweep: one channel per SM; 13 per SM (the blocks of
@@ -99,56 +124,41 @@ def batch_sweep(cs, acs, sp_in):
     return runs
 
 
-def report(sass: bool, out: Path):
-    """A build's report for _torch_variants.build_all: the registers of the
-    hard NS = 64 kernel and the soft n = 6 one at each NS; with `sass`, the
-    SASS of the NS = 64 ones in `out`."""
-    def each(name: str, lib: Path, output: str) -> None:
-        lines = output.splitlines()
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line and (
-                    "block_1p_warpILi1ELi1ELb0E" in line or
-                    "block_1p_warp" in line and "ELi6ELb1E" in line):
-                regs = next((x for x in lines[i + 1:i + 4]
-                             if "registers" in x), "").strip()
-                fn = line.split("'")[1] if "'" in line else line
-                print(f"[sp-variants] {name} {fn}: {regs}")
-        if sass:
-            from convolutionalencdec_tpu_torch.kernels import _build
-            cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
-            proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                                  capture_output=True, text=True)
-            parts = proc.stdout.split("Function : ")
-            keep = [x for x in parts[1:] if "block_1p_warp" in x[:120]
-                    and ("ILi1ELi1ELb0E" in x[:120] or "ILi1ELi6ELb1E" in
-                         x[:120])]
-            (out / f"{name}.sass").write_text(
-                "".join("Function : " + x for x in keep))
-    return each
+def with_lines(name: str, spec: str, out: Path) -> Path:
+    """A copy of csrc/block_1p.cu whose wide dispatch lines `spec` (NS:R,
+    comma separated) rewrites, written to out/NAME.cu."""
+    src = SOURCE.read_text()
+    for item in spec.split(","):
+        try:
+            ns, r = (int(x) for x in item.split(":"))
+        except ValueError:
+            raise SystemExit(f"--lines {name}: items are NS:R")
+        src, count = re.subn(
+            rf"case {ns}: return launch_round<(\d+), \d+>",
+            rf"case {ns}: return launch_round<\g<1>, {r}>", src)
+        if count != 1:
+            raise SystemExit(f"--lines {name}: no line for NS = {ns}")
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{name}.cu"
+    path.write_text(src)
+    return path
 
 
-def load(path: Path):
-    lib = ctypes.CDLL(str(path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = lib.block_decode_1p
-    fn.argtypes = [P, I, P, P, I, I, I, I, I, I, I, I, P]
-    fn.restype = I
-    return fn
-
-
-def run_variant(lib_path: str, ref_path: str) -> int:
-    """One variant against the reference build: the checks, then the
-    times in turns; prints its JSON line."""
+def run(lib_path: str, ref_path: str, calls: int, timed: bool) -> int:
+    """One build against the reference build: the checks, then the times
+    in turns; prints its JSON line."""
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import convolutionalencdec_tpu_torch as fec
+    from convolutionalencdec_tpu_torch.kernels import acs
     from convolutionalencdec_tpu_torch.kernels import single_pass as sp
     from convolutionalencdec_tpu_torch.ops.trellis import butterfly_coded_bits
     from convolutionalencdec_tpu_torch.ops.viterbi import init_metric_value
     dev = torch.device("cuda", 0)
-    fns = {"var": load(Path(lib_path)), "ref": load(Path(ref_path))}
+    fns = {"var": load(Path(lib_path), "block_decode_1p"),
+           "ref": load(Path(ref_path), "block_decode_1p")}
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(2043)
 
@@ -187,6 +197,37 @@ def run_variant(lib_path: str, ref_path: str) -> int:
             coded.astype(np.uint8))).to(dev)
 
     bad, cases = [], 0
+
+    def check(spec, T, soft, n, plain_at):
+        """Both builds on B = 1 and 37 rows at T, noisy and garbage
+        segments (soft: one draw over the whole int8 range), whole and cut
+        messages, bits and bytes; at T = plain_at against the plain version
+        on 2 rows."""
+        nonlocal cases
+        for B in CHECK_B:
+            for kind in ("noisy", "garbage"):
+                x = inputs(spec, B, T, soft, kind)
+                full = max(T - spec.S, 0)
+                for L, eb in ((full, 0), (full, 1), (cs.cut_bits(full), 0),
+                              (cs.cut_bits(full), 1)):
+                    got = decode(fns["var"], spec, x, soft, L, eb)
+                    want = decode(fns["ref"], spec, x, soft, L, eb)
+                    cases += 1
+                    if not torch.equal(got, want):
+                        bad.append(f"NS={spec.num_states} soft={soft} n={n} "
+                                   f"g={spec.g} T={T} B={B} {kind} L={L} "
+                                   f"bytes={eb}")
+                        print(f"[sp-variants] differs: {bad[-1]}", flush=True)
+                if T == plain_at and B > 1:
+                    want = sp.block_decode_1p_plain(spec, x[:2], T, soft)
+                    got = decode(fns["var"], spec, x[:2].contiguous(), soft,
+                                 full, 0)
+                    if not torch.equal(got, want):
+                        bad.append(f"NS={spec.num_states} soft={soft} n={n} "
+                                   f"g={spec.g} {kind} plain")
+                if soft:
+                    break  # one LLR draw, over the whole int8 range
+
     for NS, soft, n in CHECK_CODES:
         specs = [cs.bfly_spec(fec, rng, NS, n)]
         if n == 6:
@@ -196,37 +237,25 @@ def run_variant(lib_path: str, ref_path: str) -> int:
             top = 32768 * 8 // NS // 48 * 48
             for T in (1, spec.S, spec.S + 1, *CHECK_T, cs.SMALL_L + spec.S,
                       top):
-                for B in CHECK_B:
-                    for kind in ("noisy", "garbage"):
-                        x = inputs(spec, B, T, soft, kind)
-                        full = max(T - spec.S, 0)
-                        for L, eb in ((full, 0), (full, 1),
-                                      (cs.cut_bits(full), 0),
-                                      (cs.cut_bits(full), 1)):
-                            got = decode(fns["var"], spec, x, soft, L, eb)
-                            want = decode(fns["ref"], spec, x, soft, L, eb)
-                            cases += 1
-                            if not torch.equal(got, want):
-                                bad.append(f"NS={NS} soft={soft} n={n} "
-                                           f"g={spec.g} T={T} B={B} {kind} "
-                                           f"L={L} bytes={eb}")
-                                print(f"[sp-variants] differs: {bad[-1]}",
-                                      flush=True)
-                        if T == cs.SMALL_L + spec.S and B > 1:
-                            want = sp.block_decode_1p_plain(spec, x[:2], T,
-                                                            soft)
-                            got = decode(fns["var"], spec,
-                                         x[:2].contiguous(), soft, full, 0)
-                            if not torch.equal(got, want):
-                                bad.append(f"NS={NS} soft={soft} n={n} "
-                                           f"g={spec.g} {kind} plain")
-                        if soft:
-                            break  # one LLR draw, over the whole int8 range
+                check(spec, T, soft, n, cs.SMALL_L + spec.S)
+        torch.cuda.synchronize()
+    for NS, soft, n in WIDE_CODES:
+        spec = cs.bfly_spec(fec, rng, NS, n)
+        top = 32768 * 8 // NS // 48 * 48
+        for T in sorted({*WIDE_T, spec.S, spec.S + 1, top}):
+            check(spec, T, soft, n, top)
         torch.cuda.synchronize()
     print(f"[sp-variants] {Path(lib_path).stem}: {cases} cases against the "
           f"reference, {len(bad)} differ", flush=True)
+    result = {"lib": Path(lib_path).stem, "cases": cases, "ms": {},
+              "ref_ms": {}, "two_pass_ms": {}}
+    if not timed or bad:
+        result["differs"] = bad
+        print(json.dumps(result))
+        return 1 if bad else 0
 
-    # The timed inputs: (m) hard and soft, (a)'s hard.
+    # The timed inputs: (m) hard and soft, (a)'s hard, the sweep, (o) hard
+    # and soft, and the wide template at NS = 1024, 2048 and 4096.
     spec = fec.CodeSpec(**cs.SP_MAIN)
     rng_m = np.random.default_rng(cs.MAIN_SEED)
     msgs = rng_m.integers(0, 2, (cs.MAIN_B, cs.MAIN_L), dtype=np.uint8)
@@ -234,23 +263,36 @@ def run_variant(lib_path: str, ref_path: str) -> int:
         rng_m, cs.encode_reference_np(spec, msgs), cs.MAIN_NOISE,
         spec.n)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(cs.MAIN_SEED)
-    _, llr = cs.soft_channel(fec, spec, torch.from_numpy(msgs).to(dev), gen,
-                             spec.rate)
-    q = fec.quantize_llrs(llr, qmax=cs.QMAX).reshape(
-        cs.MAIN_B, seg.shape[1], spec.n).to(torch.int8)
-    del llr
+
+    def awgn(code, m):
+        _, llr = cs.soft_channel(fec, code, torch.from_numpy(m).to(dev), gen,
+                                 code.rate)
+        return fec.quantize_llrs(llr, qmax=cs.QMAX).reshape(
+            m.shape[0], -1, code.n).to(torch.int8)
+
+    q = awgn(spec, msgs)
     nasa = fec.NASA_K7
     seg_a = torch.from_numpy(cs.corrupt(
         rng_m, cs.encode_reference_np(nasa, msgs), cs.MAIN_NOISE,
         nasa.n)).to(dev)
-    timed = {"(m) hard": (spec, seg, False), "(m) soft": (spec, q, True),
-             "(a) hard": (nasa, seg_a, False)}
+    timed_in = {"(m) hard": (spec, seg, False), "(m) soft": (spec, q, True),
+                "(a) hard": (nasa, seg_a, False)}
     for B in SWEEP_B:
-        timed[f"sweep B={B}"] = (spec, seg[:B].contiguous(), False)
-    result = {"lib": Path(lib_path).stem, "cases": cases, "ms": {},
-              "ref_ms": {}}
-    for key, (sp_spec, x, soft) in timed.items():
-        L = x.shape[1] - sp_spec.S
+        timed_in[f"sweep B={B}"] = (spec, seg[:B].contiguous(), False)
+    wide = [("(o)", fec.CodeSpec(**cs.SP_WIDE_MAIN))]
+    wide += [(f"NS={NS} T={32768 * 8 // NS // 48 * 48}",
+              cs.bfly_spec(fec, rng, NS, 5)) for NS in (1024, 2048, 4096)]
+    for name, code in wide:
+        T = 32768 * 8 // code.num_states // 48 * 48
+        m = rng_m.integers(0, 2, (cs.MAIN_B, T - code.S), dtype=np.uint8)
+        x = torch.from_numpy(cs.corrupt(
+            rng_m, cs.encode_reference_np(code, m), cs.MAIN_NOISE,
+            code.n)).to(dev)
+        timed_in[f"{name} hard"] = (code, x, False)
+        timed_in[f"{name} soft"] = (code, awgn(code, m), True)
+    for key, (sp_spec, x, soft) in timed_in.items():
+        T = x.shape[1]
+        L = T - sp_spec.S
         same = torch.equal(decode(fns["var"], sp_spec, x, soft, L, 1),
                            decode(fns["ref"], sp_spec, x, soft, L, 1))
         if not same:
@@ -258,50 +300,35 @@ def run_variant(lib_path: str, ref_path: str) -> int:
         # Row rotations of the input, at least COLD_BYTES of them, so that
         # every call reads its input from device memory, as in chip_smoke.
         copies = -(-COLD_BYTES // (x.numel() * x.element_size()))
-        launches = [launcher(sp_spec, torch.roll(x, r + 1, dims=0), soft, L,
-                             1) for r in range(copies)]
-        ms = _torch_variants.in_turns(
-            lambda name, k: launches[k % copies](fns[name]), CALLS,
-            cs.QUEUE_SLEEP_CYCLES)
-        del launches
+        rolled = [torch.roll(x, r + 1, dims=0) for r in range(copies)]
+        launches = [launcher(sp_spec, r, soft, L, 1) for r in rolled]
+        launch = {name: (lambda k, name=name: launches[k % copies](fns[name]))
+                  for name in ("var", "ref")}
+        names = ("var", "ref")
+        if key.startswith("(o)"):
+            # The two-pass wide kernels of the package on the same input.
+            def two_pass(k, sp_spec=sp_spec, soft=soft, T=T, L=L):
+                xk = rolled[k % copies]
+                words = (acs.acs_forward_batch_soft(sp_spec, xk, 127) if soft
+                         else acs.acs_forward_batch(sp_spec, xk))[0]
+                return acs.traceback_batch(sp_spec, words, T, L, "bytes")
+            if not torch.equal(two_pass(0), launch["var"](0)):
+                bad.append(f"two-pass bytes at {key}")
+            launch["two-pass"] = two_pass
+            names += ("two-pass",)
+        ms = _torch_variants.in_turns(lambda name, k: launch[name](k), calls,
+                                      cs.QUEUE_SLEEP_CYCLES, names)
+        del launches, rolled
         result["ms"][key], result["ref_ms"][key] = ms["var"], ms["ref"]
-        print(f"[sp-variants] {result['lib']} {key:14s} B={x.shape[0]} "
-              f"T={x.shape[1]}: {result['ms'][key]:.4f} ms, reference "
-              f"{result['ref_ms'][key]:.4f} ms", flush=True)
+        line = (f"[sp-variants] {result['lib']} {key:16s} B={x.shape[0]} "
+                f"T={T}: {ms['var']:.4f} ms, reference {ms['ref']:.4f} ms")
+        if "two-pass" in ms:
+            result["two_pass_ms"][key] = ms["two-pass"]
+            line += f", two-pass kernels {ms['two-pass']:.4f} ms"
+        print(line, flush=True)
     result["differs"] = bad
     print(json.dumps(result))
     return 1 if bad else 0
-
-
-def variants(args) -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("torch_single_pass: no CUDA device", file=sys.stderr)
-        return 1
-    builds = {}
-    for item in args.variant or ["shipped"]:
-        name, _, src = item.partition("=")
-        builds[name] = Path(src).resolve() if src else SOURCE
-    builds["reference"] = args.ref.resolve()
-    out = args.out.resolve()
-    libs, failed = _torch_variants.build_all(builds, LIBS, out, "sp-variants",
-                                             report(args.sass, out))
-    if "reference" in failed:
-        return 1
-    ref_lib = libs.pop("reference")
-    status = 1 if failed else 0
-    for name, lib in libs.items():
-        code = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--run", str(lib),
-             "--ref-lib", str(ref_lib)], cwd=ROOT).returncode
-        if code:
-            print(f"[sp-variants] {name}: exit {code}", file=sys.stderr)
-            status = 1
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip())
-    return status
 
 
 def phases() -> int:
@@ -329,6 +356,10 @@ def phases() -> int:
     seg_a = torch.from_numpy(cs.corrupt(rng, seg_a.cpu().numpy(),
                                         cs.MAIN_NOISE, 2)).to(dev)
     runs = cs.single_pass_times(fec, sp_in, seg_a)
+    spw_in, _, plain_o, summary_o = cs.phase_single_pass_wide(fec, acs, dev,
+                                                              err)
+    plain.update(plain_o)
+    runs.update(cs.single_pass_wide_times(fec, acs, spw_in))
     _, harness = cs.phase_harness(fec, acs, dev, seg_a)
     runs.update(batch_sweep(cs, acs, sp_in))
     bound = cs.bounds(0, [], (
@@ -341,9 +372,10 @@ def phases() -> int:
               f"{min(runs[key]):.4f} ms; plain "
               f"{plain.get(key, float('nan')):.1f} ms; bound "
               f"{'-' if b is None else f'{b[0]:.4f} ms ({b[1]})'}")
-    print(json.dumps({"max_abs_err": err["block_decode_1p"], "m": summary,
-                      "n": harness}))
-    if err["block_decode_1p"]:
+    wrong = max(err["block_decode_1p"], err["block_decode_1p wide"])
+    print(json.dumps({"max_abs_err": wrong, "m": summary, "n": harness,
+                      "o": summary_o}))
+    if wrong:
         print("torch_single_pass: K13 differs from its plain version",
               file=sys.stderr)
         return 1
@@ -353,24 +385,34 @@ def phases() -> int:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ref", type=Path,
-                    help="the reference's source: an earlier block_1p.cu")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="NAME[=SOURCE.cu] (repeatable)")
-    ap.add_argument("--sass", action="store_true",
-                    help="keep the SASS of two kernels beside the logs")
-    ap.add_argument("--out", type=Path, default=LIBS,
-                    help="directory of the build logs and SASS")
-    ap.add_argument("--run", help=argparse.SUPPRESS)
-    ap.add_argument("--ref-lib", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.run:
-        return run_variant(args.run, args.ref_lib)
-    if args.ref:
-        return variants(args)
-    os.chdir(ROOT)
-    return phases()
+    if "--run" in sys.argv:
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--run")
+        ap.add_argument("--ref-lib")
+        ap.add_argument("--calls", type=int, default=9)
+        ap.add_argument("--untimed", action="store_true")
+        a = ap.parse_args()
+        return run(a.run, a.ref_lib, a.calls, not a.untimed)
+    if "--ref" not in sys.argv:
+        os.chdir(ROOT)
+        return phases()
+    # `--lines NAME=SPEC`: a rewritten copy, built as a variant.
+    argv, out, i = [sys.argv[0]], LIBS, 1
+    if "--out" in sys.argv:
+        out = Path(sys.argv[sys.argv.index("--out") + 1]).resolve()
+    while i < len(sys.argv):
+        if sys.argv[i] == "--lines":
+            name, _, spec = sys.argv[i + 1].partition("=")
+            argv += ["--variant", f"{name}={with_lines(name, spec, out)}"]
+            i += 2
+        else:
+            argv.append(sys.argv[i])
+            i += 1
+    sys.argv = argv
+    return variants_main(__doc__, SOURCE, LIBS, "sp-variants",
+                         r"block_1p_warpILi1ELi(1ELb0|6ELb1)E|"
+                         r"block_1p_wideILi(9|12)E",
+                         lambda fn: (0, None), Path(__file__).resolve())
 
 
 if __name__ == "__main__":

@@ -147,10 +147,15 @@ def build_all(builds: dict[str, Path | list[Path]], out: Path):
 
 def dump_sass(libs: dict[str, Path], out: Path) -> None:
     """The SASS (cuobjdump -sass) of each library's round kernels at
-    NS = 16384 into out/NAME.sass."""
+    NS = 16384 into out/NAME.sass; and whether each build's whole SASS is
+    the reference's instruction for instruction (every function's
+    instructions, addresses aside), printed."""
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from _torch_variants import sass_functions
     from convolutionalencdec_tpu_torch.kernels import _build
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    funcs = {}
     for name, lib in libs.items():
         proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                               capture_output=True, text=True)
@@ -159,6 +164,23 @@ def dump_sass(libs: dict[str, Path], out: Path) -> None:
                 or "acs_soft_round_kernelILi14" in p[:200]]
         (out / f"{name}.sass").write_text(
             "".join("Function : " + p for p in keep) + proc.stderr)
+        # A function's name without its anonymous namespace's tag, which
+        # names the source file.
+        funcs[name] = {re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                              fn): [t for a, t in body if a != "label"]
+                       for fn, body in sass_functions(proc.stdout).items()}
+    ref = funcs.get("reference")
+    for name, f in funcs.items():
+        if ref is None or name == "reference":
+            continue
+        differ = sorted(fn for fn in set(f) | set(ref)
+                        if f.get(fn) != ref.get(fn))
+        print(f"[variants] {name}: SASS of {len(f)} functions, "
+              f"{sum(map(len, f.values()))} instructions (reference "
+              f"{len(ref)}, {sum(map(len, ref.values()))}); instruction for "
+              f"instruction the reference's: {'yes' if not differ else 'no'}"
+              + (f"; {len(differ)} differ, e.g. {differ[:4]}" if differ
+                 else ""), flush=True)
 
 
 def load(path: Path, soft: bool):

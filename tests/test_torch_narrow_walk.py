@@ -1,12 +1,11 @@
 """The narrow walk's schedule (csrc/traceback_k1.cu, `narrow_walk_kernel`:
 the terminated, masked and ragged walks of `traceback_k1`,
-`traceback_k1_masked` and `traceback_k1_ragged` at NS = 64, 128 and 256,
-TPU kernels K2, K2m, K2r and K11's walk, the terminated walk of
-`traceback_k1` at NS = 2 ... 32, one word a step, TPU kernel K12's walk,
-and the list walk of `traceback_k1_multi` at NS = 2 ... 256, TPU kernel
-K6), modelled in numpy, against the port's plain walks; the plain walks
-against the JAX package's traceback and ragged epilogue on the same words;
-and the walk's dispatch lines.
+`traceback_k1_masked` and `traceback_k1_ragged` at NS = 2 ... 256, TPU
+kernels K2, K2m, K2r and K11's walk, one word a step at NS = 2 ... 32, TPU
+kernel K12's walks, and the list walk of `traceback_k1_multi` at NS = 2
+... 256, TPU kernel K6), modelled in numpy, against the port's plain walks;
+the plain walks against the JAX package's traceback and ragged epilogue on
+the same words; and the walk's dispatch lines.
 
 The kernel runs only on the card, where chip_smoke.py holds it to the plain
 walks; here a model done the way the kernel does it (windows, a segment a
@@ -52,8 +51,7 @@ def _smoke():
 _SMOKE = _smoke()
 #: NS -> (G, warm-up steps), as chip_smoke.py reads them.
 _LINES = {ns: rest for ns, *rest in _SMOKE.narrow_walk_lines()}
-#: The lines of several words a step (every walk) and of one word a step
-#: (the terminated walk only).
+#: The lines of several words a step and of one word a step.
 _WIDE = sorted(ns for ns in _LINES if ns >= 64)
 _ONE_WORD = sorted(ns for ns in _LINES if ns < 64)
 #: NS -> (G, warm-up steps) of the list walk's lines.
@@ -496,6 +494,57 @@ def test_narrow_walk_one_word_model_matches_plain_walk(NS, which):
         assert _terminated(NS, words, T - 3, rng) > 0
 
 
+# At each NS of one word a step, the masked and the ragged walk: "masked"
+# T = 1, 5 and 9 at every live, uniform words over a window and a step at
+# live 0, S, T - 1 and T, and over four windows words whose decisions
+# rotate the state, from live T and from a live a window below T with no
+# warm-up (walks again asserted on both); "ragged" the edge lengths and
+# random ones over one window of uniform words (a short walk packs
+# channels into a warp) and over four windows of the forward's words,
+# also with no warm-up, and of rotating words (walks again asserted).
+_ONE_WORD_MODE_CASES = [(NS, which) for NS in _ONE_WORD
+                        for which in ("masked", "ragged")]
+
+
+@pytest.mark.parametrize("NS,which", _ONE_WORD_MODE_CASES,
+                         ids=[f"NS{ns}-{w}" for ns, w in _ONE_WORD_MODE_CASES])
+def test_narrow_walk_one_word_masked_and_ragged_match_plain_walks(NS, which):
+    """The narrow walk's masked and ragged modes at one decision word a step
+    (S = 1 ... 5), modelled in numpy at the dispatch line's G and warm-up
+    (each channel from its own top or from its shifted start, the masked
+    steps' bits written without a walk, a ragged row past its bits written
+    0), give the plain masked and ragged walks' bits and bytes bit for bit
+    into rows first filled with 0xA5."""
+    G, WU = _LINES[NS]
+    rng = np.random.default_rng(NS + 13 * len(which))
+    S = NS.bit_length() - 1
+    if which == "masked":
+        for T in (1, 5, 9):
+            words = _garbage(rng, 3, T, NS)
+            for live in sorted({0, min(S, T), T - 1, T}):
+                _masked(NS, words, rng.integers(0, NS, 3), live, rng)
+        T = 32 * G + 1
+        words = _garbage(rng, 2, T, NS)
+        for live in (0, S, T - 1, T):
+            _masked(NS, words, rng.integers(0, NS, 2), live, rng)
+        T = 96 * G + 37
+        words = _SMOKE.rotating_words(rng, 2, T, NS)
+        assert _masked(NS, words, rng.integers(0, NS, 2), T, rng) > 0
+        assert _masked(NS, words, rng.integers(0, NS, 2), T - 32 * G, rng,
+                       wu=0) > 0
+    else:
+        T = S + 5
+        _ragged(NS, _garbage(rng, 9, T, NS),
+                _SMOKE.narrow_ragged_lengths(rng, 9, T, S), rng)
+        T = 96 * G + 37
+        words = _noisy(rng, _spec(NS, rng, 3), 12, T)
+        _ragged(NS, words, _SMOKE.narrow_ragged_lengths(rng, 12, T, S), rng)
+        lens = _SMOKE.narrow_ragged_lengths(rng, 12, T, S)
+        assert _ragged(NS, words, lens, rng, wu=0) > 0
+        words = _SMOKE.rotating_words(rng, 12, T, NS)
+        assert _ragged(NS, words, lens, rng) > 0
+
+
 @pytest.mark.parametrize("NS", _WIDE)
 def test_narrow_walk_ragged_model_matches_plain_walk(NS):
     """The ragged walk's schedule (each channel from its own top on the
@@ -521,12 +570,13 @@ def test_narrow_walk_ragged_model_matches_plain_walk(NS):
     assert _ragged(NS, words, lens, rng) > 0
 
 
-@pytest.mark.parametrize("NS", _WIDE)
+@pytest.mark.parametrize("NS", sorted(_LINES))
 def test_narrow_walk_plain_walks_match_the_jax_traceback(NS):
     """The plain walks the model is held to give the JAX package's
-    traceback on the same words (unpacked to decisions): terminated from
-    state 0, and masked (decisions past `live` zeroed, no padding dropped)
-    from random starts."""
+    traceback on the same words (unpacked to decisions), at several words
+    a step and at one: terminated from state 0, masked (decisions past
+    `live` zeroed, no padding dropped) from random starts, and ragged at
+    the edge lengths through the JAX ragged epilogue."""
     rng = np.random.default_rng(NS + 99)
     G = _LINES[NS][0]
     spec = _spec(NS, rng, 4)
@@ -565,13 +615,12 @@ def test_narrow_walk_dispatch_covers_64_to_256():
     blocks of warm-up; each segment's staged rows at a pitch of an odd
     number of 16-byte chunks; the staged windows, the output bytes and
     their states (as the source sizes them) within a block's shared memory
-    on the card (227 KiB); the terminated walk takes it at every NS, the
-    masked and ragged walks at NS >= 64, the ragged one with its lengths
-    and the launch's T for its lanes a channel; the list walk at every NS
-    through its own switch (one line an NS, the same rules; the
-    tail-biting DCI walk of 56 steps in one window), on the decisions from
-    out_start up; and only the masked and ragged walks at NS <= 32 stay on
-    `traceback_k1_kernel`, which has no list walk left."""
+    on the card (227 KiB); the terminated, masked and ragged walks take it
+    at every NS, the ragged one with its lengths and the launch's T for its
+    lanes a channel; the list walk at every NS through its own switch (one
+    line an NS, the same rules; the tail-biting DCI walk of 56 steps in one
+    window), on the decisions from out_start up; and no other walk is left
+    in the file (the thread-a-channel `traceback_k1_kernel` is gone)."""
     lines = _SMOKE.narrow_walk_lines()
     multi = _SMOKE.narrow_multi_lines()
     assert [ns for ns, *_ in lines] == [2, 4, 8, 16, 32, 64, 128, 256]
@@ -598,26 +647,29 @@ def test_narrow_walk_dispatch_covers_64_to_256():
         start = src.index(f"\nint {name}(")
         return src[start:src.index("\n}\n", start)]
 
-    for name in ("masked", "ragged"):
+    for name in ("terminated", "masked", "ragged"):
         text = body(name)
-        assert "if (NS >= 64)" in text and "launch_narrow_walk(" in text
-    text = body("terminated")
-    assert "launch_narrow_walk(" in text and "launch<" not in text
-    assert "launch<Walk::kMasked>" in body("masked")  # NS <= 32
+        assert "return launch_narrow_walk(a, NS," in text
+        assert "if (" not in text and "launch<" not in text
     ragged = body("ragged")
     assert "static_cast<const int32_t*>(lengths)" in ragged
     # The ragged launch's t_top and T are the rows' T: C comes from T.
     assert "B, T, T, T," in ragged
-    assert "launch<Walk::kRagged>" in ragged  # NS <= 32
+    # The masked launch's t_top is `live`, its T the rows' T.
+    assert "B, T, live, T, out_steps," in body("masked")
+    # Every NS instantiates the ragged mode: no guard on the state count.
+    mode = src[src.index("int launch_narrow_mode("):]
+    mode = mode[:mode.index("\n}\n")]
+    assert "kRagged>(a, s);" in mode and "if constexpr (LOGNS" not in mode
     text = body("multi")
     assert "launch_multi_walk(a, NS," in text and "launch<" not in text
     # Rows B NW, T_stride T, t_top and T from out_start, nw and the base.
     assert "B * NW, T," in text and "NW, out_start};" in text
     assert "min(max(live - out_start, 0), steps), steps, out_steps" in text
-    assert "kMulti" not in src[src.index("// ---- The thread-a-channel walk"):]
-    assert "kWide" not in src and "TB_LAUNCH" not in src
-    assert "if (NS > 32) return static_cast<int>(cudaErrorInvalidValue);" \
-        in src
+    for gone in ("traceback_k1_kernel", "enum class Walk", "kThreads",
+                 "kWide", "TB_LAUNCH"):
+        assert gone not in src, gone
+    assert src.count("__global__") == 1
     # The wrappers' kernel names are those of the C entries.
     assert acs._walk_kernel(port.NASA_K7) == "traceback_k1"
     assert acs._walk_kernel(port.NASA_K7, "_masked") == "traceback_k1_masked"

@@ -12,8 +12,15 @@ and branch choice on every preset, on test_torch_wide.py's codes and at the
 32 KiB boundary.  A numpy model of the CUDA warp kernel's schedule (NS 64
 ... 256: lanes, shuffles, decision columns and rows, the shared-memory
 layout the walk reads) is held against the plain forward's words and
-`block_decode_1p_plain`.
+`block_decode_1p_plain`; so is the wide template's (NS 512 ... 4096: the
+wide forward's rounds, test_torch_wide.py's model, at the R its dispatch
+switch launches, writing the region's rows), whose shared memory fits
+wherever the wrapper admits a T.
 """
+
+import importlib.util
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -341,8 +348,9 @@ def _model_block_1p(spec, x, T, soft):
 
 def _decision(spec, region, T, t, state, per_channel):
     """Decisions at step t as `walk_step` reads them (columns below
-    T - T % 32, rows from there): per_channel, of state[c] on channel c
-    ([B]); else of each state on every channel ([B, len(state)])."""
+    T - T % 32, rows from there; T = 0: rows only): per_channel, of
+    state[c] on channel c ([B]); else of each state on every channel
+    ([B, len(state)])."""
     NS, W, top = spec.num_states, spec.num_states // 32, spec.S - 1
     b, p = state >> 1, state & 1
     if t < T & ~31:
@@ -357,16 +365,17 @@ def _decision(spec, region, T, t, state, per_channel):
     return (region[:, idx] >> shift) & 1
 
 
-def _walk_region(spec, region, T, L):
+def _walk_region(spec, region, T, L, cols=True):
     """The terminated walk from state 0 at step T - 1 over the region:
-    bits [B, L]."""
+    bits [B, L].  `cols`: the warp kernel's region (columns below
+    T - T % 32); else every step a row (the wide template's)."""
     top = spec.S - 1
     cur = np.zeros(region.shape[0], np.int64)
     out = np.zeros((region.shape[0], L), np.uint8)
     for t in range(T - 1, -1, -1):
         if t < L:
             out[:, t] = cur & 1
-        d = _decision(spec, region, T, t, cur, True)
+        d = _decision(spec, region, T if cols else 0, t, cur, True)
         cur = (cur >> 1) | (d.astype(np.int64) << top)
     return out
 
@@ -447,3 +456,100 @@ def test_channel_regions_fit_as_before():
             stride = _channel_region(T, NS)[0]
             fits = single_pass.smem_bytes(spec, T) <= single_pass.SMEM_BYTES
             assert (stride <= single_pass.SMEM_BYTES) == fits, (NS, T)
+
+
+# ---------------------------------------------------------------------------
+# The wide template (`block_1p_wide`, NS 512 ... 4096): the wide forward's
+# rounds (csrc/acs_round.cuh) writing each step's words into the channel's
+# rows, then the warp's walk over rows.
+
+_CSRC = Path(kernels.__file__).resolve().parent.parent / "csrc"
+
+
+def _wide():
+    """tests/test_torch_wide.py, whose numpy model of the wide forward's
+    rounds (`_round_model`) the wide template's test shares."""
+    path = Path(__file__).resolve().parent / "test_torch_wide.py"
+    spec = importlib.util.spec_from_file_location("_torch_wide_model", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_ROUND_MODEL = _wide()._round_model
+
+
+def _wide_template_steps():
+    """NS -> the steps a round R at which csrc/block_1p.cu's dispatch
+    switch (`launch_wide`) launches the wide template."""
+    src = (_CSRC / "block_1p.cu").read_text()
+    return {int(ns): int(r) for ns, _, r in re.findall(
+        r"case (\d+): return launch_round<(\d+), (\d+)>", src)}
+
+
+_WIDE_STEPS = _wide_template_steps()
+WIDE_CASES = [(NS, mode, n) for NS in (512, 1024) for mode in ("hard", "soft")
+              for n in range(1, 9)]
+
+
+@pytest.mark.parametrize("NS,mode,n", WIDE_CASES,
+                         ids=[f"NS{c[0]}_{c[1]}_n{c[2]}" for c in WIDE_CASES])
+def test_wide_template_round_model(NS, mode, n):
+    """The wide template's rounds at the R its switch launches, modelled by
+    test_torch_wide.py's model of the two-pass wide forward (closed groups,
+    the swizzled exchange, ballots, packed fields joined by shuffles; soft:
+    the round's tables from the LLRs floored at -127), write into the
+    region's rows exactly the plain forward's words, at every T mod R, T <
+    R, whole rounds and the longest single-pass T; the warp's walk over
+    those rows gives `block_decode_1p_plain`'s bits, whole and cut."""
+    R = _WIDE_STEPS[NS]
+    assert NS >> R >= 32
+    soft = mode == "soft"
+    rng = np.random.default_rng(NS + 16 * n + len(mode))
+    spec = _bfly_code(rng, NS.bit_length(), n)
+    cb = np.asarray(port.ops.trellis.butterfly_coded_bits(spec), np.int64)
+    iv = port.ops.viterbi.init_metric_value(spec)
+    top = 32768 * 8 // NS // 48 * 48
+    assert single_pass.use_single_pass(spec, top)
+    assert not single_pass.use_single_pass(spec, top + 1)
+    for T in sorted(set(range(1, 2 * R + 1)) | {top}):
+        B = 2
+        if soft:
+            x = rng.integers(-128, 128, (B, T, n)).astype(np.int8)
+            words, _ = kernels.acs.acs_forward_batch_soft_plain(spec, _t(x),
+                                                                127)
+        else:
+            x = rng.integers(0, 1 << n, (B, T)).astype(np.uint8)
+            words, _ = kernels.acs.acs_forward_batch_plain(spec, _t(x))
+        rows, _ = _ROUND_MODEL(NS, n, cb, x, None, iv, R,
+                               (-127, 127) if soft else None)
+        np.testing.assert_array_equal(rows, words.numpy(), err_msg=f"T={T}")
+        region = rows.view(np.uint32).reshape(B, -1)
+        for L in sorted({max(T - spec.S, 0), max(T - spec.S - 5, 0)}):
+            got = _walk_region(spec, region, T, L, cols=False)
+            want = single_pass.block_decode_1p_plain(spec, _t(x), T, soft,
+                                                     "bits", L)
+            np.testing.assert_array_equal(got, want.numpy(),
+                                          err_msg=f"T={T} L={L}")
+
+
+def test_wide_template_shared_memory_fits_what_the_wrapper_admits():
+    """The wide template's dispatch covers NS = 512 ... 4096 at R with
+    blocks of NS >> R >= 8R threads (the soft round's table threads), and
+    its shared memory (`wide_smem`: the metric buffers, the rows, then the
+    larger of the walk's scratch and the soft round's tables and LLRs, as
+    acs_round.cuh sizes them) fits the card's 227 KB at every T that
+    `smem_bytes` admits."""
+    assert sorted(_WIDE_STEPS) == [512, 1024, 2048, 4096]
+    header = (_CSRC / "acs_round.cuh").read_text()
+    tab_step = int(re.search(r"constexpr int kTabStep = (\d+);",
+                             header).group(1))
+    for NS, R in _WIDE_STEPS.items():
+        assert NS >> R >= max(32, 8 * R)
+        spec = port.CodeSpec(K=NS.bit_length(), g=(1 | NS,) * 5)
+        tables = 4 * (2 * R * tab_step + 2 * R * 8)
+        for T in range(1, 232448 * 8 // NS + 64, 3):
+            walk = 4 * 64 + 4 * -(-T // 32)
+            kernel = 8 * NS + T * NS // 8 + max(walk, tables)
+            if single_pass.smem_bytes(spec, T) <= single_pass.SMEM_BYTES:
+                assert kernel <= single_pass.SMEM_BYTES, (NS, T)
